@@ -22,6 +22,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written kernels); "
+                   "skips without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
