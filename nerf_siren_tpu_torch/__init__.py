@@ -6,6 +6,7 @@ Plain tensor code is PyTorch; the TPU Pallas kernels on the ported paths are
 kernels written by hand for Hopper under `csrc/`, each with a plain PyTorch
 version beside its wrapper (`ops/kernels/`).
 
-Only `nerf_siren_tpu.config` (framework-free dataclasses) is imported from the
-reference package at module level, through `nerf_siren_tpu_torch.config`.
+The port imports nothing of the JAX package, not even its framework-free
+modules: it keeps its own copies (`config.py`, `datasets/`, `opt.py`,
+`utils/data.py`). `tests/test_torch_no_jax_imports.py` holds it to that.
 """

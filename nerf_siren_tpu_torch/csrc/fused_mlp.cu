@@ -31,27 +31,16 @@
 // TMA, wgmma and warp specialisation are left for later work.
 //
 // Plain C interface, loaded with ctypes; the launcher returns
-// cudaGetLastError() so the caller can raise on a refused launch.
+// cudaGetLastError() so the caller can raise on a refused launch. The tile
+// shape, the layer product and the embedding are in nerf_field_common.cuh,
+// shared with the training kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "nerf_field_common.cuh"
 
 namespace {
 
-constexpr int W = 256;            // trunk width
-constexpr int WD = W / 2;         // direction-branch width
-constexpr int TP = 128;           // points per CTA
-constexpr int THREADS = 256;      // 8 warps: 2 (rows of 64 points) x 4 (column slices)
-constexpr int EMB_X = 64;         // 63 xyz-embedding channels + 1 zero column
-constexpr int EMB_D = 32;         // 27 direction-embedding channels + 5 zero columns
-constexpr int PAD = 8;            // bf16 row padding against shared-memory bank conflicts
-constexpr int LDH = W + PAD;
-constexpr int LDX = EMB_X + PAD;
-constexpr int LDD = EMB_D + PAD;
+using namespace nerf_field;
+
 constexpr int MAX_DEPTH = 16;
 
 constexpr size_t SMEM_H = size_t(TP) * LDH * 2;
@@ -75,39 +64,6 @@ struct FieldParams {
   int depth;
 };
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[i][j] += A[m0+16i.., k] * Wt[k, n0+16j..] over k < K, where A is a
-// (TP, K) row-major bf16 tile in shared memory and Wt(k, n) = w[n * ldw + k]
-// is a torch-layout (out, in) weight in global memory (col-major B).
-template <int FN>
-__device__ __forceinline__ void mma_segment(FragC (&acc)[4][FN], const __nv_bfloat16* a,
-                                            int lda, const __nv_bfloat16* w, int ldw, int K,
-                                            int m0, int n0) {
-  for (int k = 0; k < K; k += 16) {
-    FragA fa[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(fa[i], a + (m0 + 16 * i) * lda + k, lda);
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, w + size_t(n0 + 16 * j) * ldw + k, ldw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-    }
-  }
-}
-
-template <int FN>
-__device__ __forceinline__ void zero(FragC (&acc)[4][FN]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
 // out[m, n] = bf16(relu(acc[m, n] + bias[n])) for the warp's (64, 16*FN)
 // block, through a per-warp 16x16 float staging tile (the accumulator's
 // register layout is opaque to wmma).
@@ -130,25 +86,6 @@ __device__ __forceinline__ void store_relu(FragC (&acc)[4][FN], float* stage,
         dst[e] = __float2bfloat16_rn(fmaxf(stage[r * 16 + c0 + e] + bias[col + e], 0.0f));
       __syncwarp();
     }
-  }
-}
-
-// Reference-order embedding [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...] of
-// `pts` (TP, 3) into a bf16 (TP, cols) tile, zero past 3 * (2 * n_freqs + 1).
-__device__ __forceinline__ void embed(const float* pts, int n_freqs, __nv_bfloat16* out,
-                                      int ld, int cols) {
-  const int used = 3 * (2 * n_freqs + 1);
-  for (int idx = threadIdx.x; idx < TP * cols; idx += THREADS) {
-    const int p = idx / cols, j = idx % cols;
-    float v = 0.0f;
-    if (j < 3) {
-      v = pts[p * 3 + j];
-    } else if (j < used) {
-      const int q = j - 3, k = q / 6, r = q % 6;
-      const float a = pts[p * 3 + r % 3] * float(1 << k);  // exact power-of-two scale
-      v = r < 3 ? sinf(a) : cosf(a);
-    }
-    out[p * ld + j] = __float2bfloat16_rn(v);
   }
 }
 
@@ -190,8 +127,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     FragC acc[4][FN];
     for (int l = 0; l < prm.depth; ++l) {
       zero(acc);
-      if (prm.w_h[l]) mma_segment(acc, sh, LDH, prm.w_h[l], W, W, m0, n0);
-      if (prm.w_e[l]) mma_segment(acc, sx, LDX, prm.w_e[l], EMB_X, EMB_X, m0, n0);
+      if (prm.w_h[l]) mma_segment<FN, false>(acc, sh, LDH, prm.w_h[l], W, W, m0, n0);
+      if (prm.w_e[l]) mma_segment<FN, false>(acc, sx, LDX, prm.w_e[l], EMB_X, EMB_X, m0, n0);
       __syncthreads();  // every warp has read `sh` before it is overwritten
       store_relu(acc, stage, prm.b[l], sh, LDH, m0, n0, lane);
       __syncthreads();
@@ -220,8 +157,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int n0 = (warp & 3) * (WD / 4);
     FragC acc[4][FN];
     zero(acc);
-    mma_segment(acc, sh, LDH, prm.w_comb, W, W, m0, n0);
-    mma_segment(acc, sd, LDD, prm.w_dir, EMB_D, EMB_D, m0, n0);
+    mma_segment<FN, false>(acc, sh, LDH, prm.w_comb, W, W, m0, n0);
+    mma_segment<FN, false>(acc, sd, LDD, prm.w_dir, EMB_D, EMB_D, m0, n0);
     __syncthreads();
     store_relu(acc, stage, prm.b_comb, sh, LDH, m0, n0, lane);
     __syncthreads();

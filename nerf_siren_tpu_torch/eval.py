@@ -4,9 +4,11 @@ The `--renderer exact|fused` subset of the JAX package's `eval.py`: loads
 nerf_coarse / nerf_fine from a (JAX-written) msgpack checkpoint, renders
 every item of the split with the sigma-only coarse pass, and writes PNG
 frames, an animated GIF, optional depth dumps and the mean PSNR when ground
-truth exists. `fused` runs both field passes on the hand-written CUDA
-kernel (on a CUDA device) or its plain version (on the CPU); `exact` runs
-the plain `render_rays` at `--compute_dtype`.
+truth exists. It runs on `--device` (default `cuda`, which fails when no
+card is visible; the tests pass `--device cpu`). `fused` runs both field
+passes on the hand-written CUDA kernel (on a CUDA device) or its plain
+version (on the CPU); `exact` runs the plain `render_rays` at
+`--compute_dtype`.
 
 `make_renderer` holds the ray tiling and the render call, so every caller
 (this CLI, `chip_smoke.py`) drives the same code. Datasets (PIL, cv2) and
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig
+from nerf_siren_tpu_torch.datasets import dataset_name
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import pack_model_params
 from nerf_siren_tpu_torch.render.fused import render_rays_fused
@@ -31,9 +34,8 @@ from nerf_siren_tpu_torch.render.rendering import map_chunks, render_rays_chunke
 def get_opts(args=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--root_dir', type=str, required=True)
-    parser.add_argument('--dataset_name', type=str, default='blender',
-                        choices=['blender', 'blender_cls_ib', 'llff',
-                                 'llff_cls', 'llff_cls_ib', 'replica'])
+    parser.add_argument('--dataset_name', type=dataset_name, default='blender',
+                        help="a ported loader: 'blender' or 'llff'")
     parser.add_argument('--scene_name', type=str, default='test',
                         help='scene name, used as output folder name')
     parser.add_argument('--split', type=str, default='test')
@@ -56,7 +58,20 @@ def get_opts(args=None):
                         help="'fused' runs the exact coarse+fine math with both "
                              "field passes on the fused CUDA kernel; 'exact' "
                              "runs the plain PyTorch render_rays")
+    parser.add_argument('--device', type=str, default='cuda',
+                        help="'cuda' (default; fails when no card is visible) "
+                             "or 'cpu'")
     return parser.parse_args(args)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point asked for. A request for a card fails when
+    none is visible instead of running elsewhere."""
+    device = torch.device(name)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is visible "
+                         f"(pass --device cpu to run on the CPU)")
+    return device
 
 
 def make_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, *, renderer: str,
@@ -85,11 +100,12 @@ def make_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, *, renderer
 def main(hparams):
     import imageio
 
-    from nerf_siren_tpu.datasets import dataset_dict
-    from nerf_siren_tpu.datasets.depth_utils import save_pfm
+    from nerf_siren_tpu_torch.datasets import dataset_dict
+    from nerf_siren_tpu_torch.datasets.depth_utils import save_pfm
     from nerf_siren_tpu_torch.training.checkpoints import load_ckpt
     from nerf_siren_tpu_torch.training.metrics import psnr as psnr_fn
 
+    device = resolve_device(hparams.device)
     w, h = hparams.img_wh
     kwargs = dict(root_dir=hparams.root_dir, split=hparams.split,
                   img_wh=tuple(hparams.img_wh))
@@ -97,7 +113,6 @@ def main(hparams):
         kwargs['spheric_poses'] = hparams.spheric_poses
     dataset = dataset_dict[hparams.dataset_name](**kwargs)
 
-    device = torch.device('cuda' if torch.cuda.is_available() else 'cpu')
     nerf_cfg = NeRFConfig()
     render_cfg = RenderConfig(
         n_samples=hparams.N_samples, n_importance=hparams.N_importance,

@@ -3,8 +3,9 @@
 Each `csrc/*.cu` file is compiled by `nvcc` into a shared library with a
 plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). Libraries go to `nerf_siren_tpu_torch/_build/`, named by a
-hash of the source and the flags, so an edited source or flag rebuilds and
-an unchanged one is loaded as it is. Nothing is built at import time.
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source, header or flag rebuilds and an unchanged one is loaded as it
+is. Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -43,7 +44,10 @@ def build(name: str) -> Path:
     the library path. `nvcc -Xptxas -v` output (registers, shared memory,
     spills) is kept beside it as `<lib>.log`."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared device code
+        h.update(header.name.encode() + header.read_bytes())
+    digest = hashlib.sha256(h.digest() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib

@@ -105,6 +105,7 @@ def render_rays(
     generator: Optional[torch.Generator] = None,
     *,
     compute_dtype: Optional[torch.dtype] = None,
+    field_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render (R, 8) rays = [origin(3), direction(3), near, far].
 
@@ -112,7 +113,16 @@ def render_rays(
     whose configs fix the encodings' frequencies. Returns
     rgb/depth/opacity_{coarse,fine} (+ cls_* with a semantic head);
     `test_time` drops the coarse rgb pass and keeps only opacity_coarse.
+    `field_fn` overrides the field evaluation, with the signature
+    (model, xyz (R, S, 3), dir_emb (R, Cd) or None) -> raw (R, S, 1) sigma
+    or (R, S, 4+) [rgb, sigma(, cls)]; the `fused` training backend passes
+    one backed by K2. The fine depths are detached: only the fields'
+    parameters get gradients through the sample positions' values.
     """
+    if field_fn is None:
+        def field_fn(model, xyz, d_emb):
+            return _field(model, xyz, d_emb, compute_dtype)
+
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     dir_norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
@@ -124,12 +134,12 @@ def render_rays(
 
     result: Dict[str, torch.Tensor] = {}
     if cfg.test_time:
-        sigmas = _field(models["coarse"], xyz_coarse, None, compute_dtype)[..., 0]
+        sigmas = field_fn(models["coarse"], xyz_coarse, None)[..., 0]
         comp = composite(sigmas, z_vals, dir_norm, noise_std=cfg.noise_std,
                          generator=generator)
         result["opacity_coarse"] = comp["opacity"]
     else:
-        raw = _field(models["coarse"], xyz_coarse, dir_emb, compute_dtype)
+        raw = field_fn(models["coarse"], xyz_coarse, dir_emb)
         comp = composite(raw[..., 3], z_vals, dir_norm, raw[..., :3],
                          noise_std=cfg.noise_std, generator=generator,
                          white_back=cfg.white_back)
@@ -147,7 +157,7 @@ def render_rays(
         z_all, _ = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1)
         xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
 
-        raw = _field(models["fine"], xyz_fine, dir_emb, compute_dtype)
+        raw = field_fn(models["fine"], xyz_fine, dir_emb)
         comp = composite(raw[..., 3], z_all, dir_norm, raw[..., :3],
                          noise_std=cfg.noise_std, generator=generator,
                          white_back=cfg.white_back)

@@ -109,7 +109,8 @@ def test_eval_cli_matches_jax(tmp_path, scene_and_ckpt, jax_dtype, port_renderer
     jax_psnr = _run(jax_main, jax_opts, tmp_path / "jax",
                     common + ["--renderer", "exact", "--compute_dtype", jax_dtype])
     port_psnr = _run(main, get_opts, tmp_path / "port",
-                     common + ["--renderer", port_renderer, "--compute_dtype", jax_dtype])
+                     common + ["--renderer", port_renderer, "--compute_dtype", jax_dtype,
+                               "--device", "cpu"])
     assert np.isfinite(port_psnr) and abs(port_psnr - jax_psnr) < 0.1
 
     jax_dir = tmp_path / "jax" / "results" / "blender" / "sphere"
