@@ -35,14 +35,48 @@ Run from the repository root. Phases, each printing a line:
      every loss finite, the mean of the last 10 below the mean of the first
      10, each K2 kernel launched at least twice per step; ms per step, and
      the `jnp` backend's ms per step on the same batches.
-  With `--profile`, one more frame and one more training step under
-  `torch.profiler`: device time per kernel, the device's idle share and the
-  peak device memory.
-Then one JSON line of kernels, the nvidia-smi line, and the JSON result as
-the last line. Any failure exits non-zero before the result is printed.
-Bounds: the larger of the operations over the bf16 dense tensor-core peak
-and the bytes (inputs read once, outputs written once) over the memory
-rate of an H100 SXM (989 TFLOP/s, 3.35 TB/s).
+  7. a field with empty space: an 8x256 pair whose weights draw a ball
+     (density 15 (1 - |x| / 0.6) inside radius 0.6, about one colour; every weight
+     with Gaussian noise from a numpy seed, `ball_nerf_params`). Its exact
+     frames (the fused renderer, 64 + 128) must hold rays of opacity
+     < 0.01. Then the eval
+     CLI's `setup_fast_proxy` at its defaults: the proxy distilled (500
+     steps, batch 65,536, hidden 96) and the scene box, written to the
+     `<ckpt>.proxy.msgpack` cache and read back (seconds of each printed).
+  8. fast-path kernels vs plain at the path's shapes: K3 over the 640,000
+     rays of a frame clipped to the box (select at C 32, K 16: depths within
+     median |d| < 0.005 and 99th percentile < 0.05 of far - near; opacity
+     prepass at C 16: median < 2e-3, max < 0.05); K4 at N = 1,000,003 and
+     at one chunk's survivors (32768 rays x 16, one direction per ray) and
+     coarse points (x 64): rgb atol 2e-2, sigma atol 5e-2 + rtol 2e-2; K6
+     at 65,536 rays, C 64, K 16: per-ray set equality of depths, atol 1e-5.
+     Each timed beside its plain version.
+  9. fast frames: 3 frames through the CLI's fast renderer at its defaults
+     (C 32, K 16, pdf, mid, delta): finite, rgb in [0, 1 + 1e-3], K3 select
+     and K1 full launched at least once per chunk per frame; 2048 rays of
+     frame 0 against a CPU re-render on the plain versions (per output
+     median |d| < 2e-3 and 99th percentile < 0.05 of max(1, max |ref|));
+     latency, rays/s and the PSNR agreement with the exact frames (a
+     reading, not a bar).
+ 10. `--fast_cull auto`: 5 frames; every ray equals the fast frame's value
+     (atol 1e-6: the same kernels on the same rays) or is background (a
+     culled block); the active fraction, the bypass and eps per frame.
+ 11. `--fast_field_dtype int8` on the fast and the fused renderer, one frame
+     each: finite, K4 launched, rgb within 0.15 of the bf16 frame.
+ 12. `--fast_edge_refine 0.04`: one frame, finite; the refined-ray count.
+ 13. K6, which has no CLI caller: `proxy_select` over one frame's rays at C
+     64, K 16 with the distilled proxy, every depth finite and in its ray's
+     [near, far].
+  With `--profile`, one more exact frame, one more training step and one
+  more fast frame under `torch.profiler`: device time per kernel, the
+  device's idle share and the peak device memory.
+Then one JSON line of kernels (launches counted over the one path that
+runs each: K1 phase 4, K2 phase 6, K3 select phase 9, K3 opacity phase 10,
+K4 phase 11, K6 phase 13), the nvidia-smi line, and the JSON result as the
+last line. Any failure exits non-zero before the result is printed.
+Bounds: the larger of the operations over the dense tensor-core peak of
+their type (bf16 989 TFLOP/s, int8 1,979 TOP/s) and the bytes (inputs read
+once, outputs written once) over the memory rate of an H100 SXM (3.35 TB/s).
 """
 import argparse
 import concurrent.futures
@@ -67,15 +101,27 @@ CHECK_RAYS = slice(400 * W, 400 * W + 2048)   # rays through the image centre ro
 TRAIN_RAYS, TRAIN_STEPS, TRAIN_WARMUP, JNP_STEPS, LR = 1024, 60, 10, 12, 5e-4
 TRAIN_LOSS_RTOL = 2e-2
 GRAD_REL_L2, GRAD_ELEM = 1e-2, 5e-2
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12   # H100 SXM: dense bf16, HBM3
-SOURCES = ("fused_mlp", "fused_mlp_train")
-KERNELS = {   # wrapper name -> (launch counter key, source, TPU kernel it replaces)
-    "fused_nerf_sigma": ("sigma", "fused_mlp", "nerf_siren_tpu/ops/pallas/fused_mlp.py:262"),
-    "fused_nerf_full": ("full", "fused_mlp", "nerf_siren_tpu/ops/pallas/fused_mlp.py:272"),
-    "fused_train_fwd": ("fwd", "fused_mlp_train",
-                        "nerf_siren_tpu/ops/pallas/fused_mlp_train.py:255"),
-    "fused_train_bwd": ("bwd", "fused_mlp_train",
-                        "nerf_siren_tpu/ops/pallas/fused_mlp_train.py:266"),
+FIELD_SEED, FIELD_NOISE = SEED + 20, 0.05
+BALL_R, BALL_SIGMA, BALL_RGB = 0.6, 15.0, (0.8, 0.35, 0.2)
+FAST_C, FAST_K, PREPASS_C, N_AUTO, EDGE_CAP = 32, 16, 16, 5, 0.04
+K6_RAYS, K6_C, K6_K = 65_536, 64, 16
+DEPTH_BARS = (5e-3, 5e-2)    # median, 99th percentile of |dz| / (far - near)
+OPACITY_BARS = (2e-3, 5e-2)  # median, max
+FAST_BARS = (2e-3, 5e-2)     # median, 99th percentile of |d| / max(1, max|ref|)
+INT8_RGB_ATOL, INT8_SIGMA_TOL, INT8_VS_BF16 = 2e-2, (5e-2, 2e-2), 0.15
+PEAK_FLOPS, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM dense; HBM3
+SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select")
+PALLAS = "nerf_siren_tpu/ops/pallas"
+KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kernel it replaces)
+    "fused_nerf_sigma": ("fused_mlp", "sigma", f"{PALLAS}/fused_mlp.py:262"),
+    "fused_nerf_full": ("fused_mlp", "full", f"{PALLAS}/fused_mlp.py:272"),
+    "fused_train_fwd": ("fused_mlp_train", "fwd", f"{PALLAS}/fused_mlp_train.py:255"),
+    "fused_train_bwd": ("fused_mlp_train", "bwd", f"{PALLAS}/fused_mlp_train.py:266"),
+    "proxy_opacity": ("proxy_march", "opacity", f"{PALLAS}/proxy_march.py:161"),
+    "proxy_march_select": ("proxy_march", "select", f"{PALLAS}/proxy_march.py:172"),
+    "fused_nerf_full_int8": ("fused_mlp_int8", "full", f"{PALLAS}/fused_mlp_int8.py:253"),
+    "fused_nerf_sigma_int8": ("fused_mlp_int8", "sigma", f"{PALLAS}/fused_mlp_int8.py:279"),
+    "proxy_select": ("proxy_select", "select", f"{PALLAS}/proxy_select.py:55"),
 }
 
 
@@ -141,7 +187,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, ref, where, phase="3/6"):
+def compare(name, got, ref, where, phase="3/13"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -162,24 +208,26 @@ def compare(name, got, ref, where, phase="3/6"):
     return err
 
 
-def bound(flops, n_bytes):
-    """(bound_ms, bound_by): the least time the card could take for the work."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+def bound(flops, n_bytes, int8_ops=0.0):
+    """(bound_ms, bound_by): the least time the card could take for the work:
+    bf16 `flops` and `int8_ops` each at their peak, or `n_bytes` moved."""
+    t_ops = (flops / PEAK_FLOPS + int8_ops / PEAK_INT8) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def timed_pair(kern, plain, reps=5):
+def timed_pair(kern, plain, reps=5, plain_reps=3):
     """(kernel ms, plain ms, the four runs), in turns: plain, kernel, kernel,
     plain. `kern` and `plain` are lists of callables run back to back."""
     def run_all(fns):
         return lambda: [f() for f in fns]
 
-    p1, k1, k2, p2 = (cuda_ms(run_all(plain), 3), cuda_ms(run_all(kern), reps),
-                      cuda_ms(run_all(kern), reps), cuda_ms(run_all(plain), 3))
+    p1, k1, k2, p2 = (cuda_ms(run_all(plain), plain_reps), cuda_ms(run_all(kern), reps),
+                      cuda_ms(run_all(kern), reps), cuda_ms(run_all(plain), plain_reps))
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
-def check_kernels(packed, device):
+def check_kernels(packed, device, card):
     """Phase 3: each K1 kernel against its plain version at N_CHECK points
     and at the eval path's shapes, then both timed at the latter."""
     import torch
@@ -221,9 +269,9 @@ def check_kernels(packed, device):
         flops = n_pts * _flop_per_point(packed, name == "fused_nerf_full")
         n_bytes += sum(t.numel() * t.element_size() for t in packed.values())
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[3/6] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/13] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain {plain_ms:.3f} ms "
-              f"({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+              f"({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}); {card}", flush=True)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     return results
@@ -273,7 +321,7 @@ def grad_errors(got, ref):
     return worst, max_abs, max_elem, worst_key
 
 
-def check_train_kernels(model, frame_rays, device):
+def check_train_kernels(model, frame_rays, device, card):
     """Phase 5: K2's forward and backward against their plain versions at
     the training step's shapes, then each timed (coarse + fine shapes)."""
     import torch
@@ -299,12 +347,12 @@ def check_train_kernels(model, frame_rays, device):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/6"))
+                                       "5/13"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/6] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/13] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
@@ -328,17 +376,17 @@ def check_train_kernels(model, frame_rays, device):
              2 * bwd_macs * n_pts, in_bytes + n_pts * 16 + len(shapes) * g_bytes)):
         ms, plain_ms, (p1, k1, k2_, p2) = timed_pair(kern, plain)
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[5/6] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
+        print(f"[5/13] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
               f"({k1:.3f}, {k2_:.3f}; {flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}, "
-              f"{flops * 1e-12:.3f} TFLOP)", flush=True)
+              f"{flops * 1e-12:.3f} TFLOP); {card}", flush=True)
         results[name] = {"max_abs_err": fwd_err if name == "fused_train_fwd" else bwd_err,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
     return results
 
 
-def numpy_models(seed, device):
+def numpy_models(seed, device, params_fn=numpy_nerf_params):
     """Coarse and fine full-width `NeRF`s with weights from a numpy seed."""
     from nerf_siren_tpu_torch.config import NeRFConfig
     from nerf_siren_tpu_torch.convert import nerf_from_jax
@@ -348,7 +396,7 @@ def numpy_models(seed, device):
     models = {}
     for name in ("coarse", "fine"):
         model = NeRF(NeRFConfig())
-        model.load_state_dict(nerf_from_jax(numpy_nerf_params(rng, model.cfg)))
+        model.load_state_dict(nerf_from_jax(params_fn(rng, model.cfg)))
         models[name] = model.to(device)
     return models
 
@@ -387,7 +435,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/6] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/13] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -409,7 +457,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/6] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/13] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -431,13 +479,471 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/6] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/13] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
     return launches, ms, (system, state, batches[-1])
 
 
-def profile(label, fn):
+# ---- the fast path (phases 7-13) --------------------------------------------
+
+def kernel_module(name):
+    import importlib
+
+    return importlib.import_module(f"nerf_siren_tpu_torch.ops.kernels.{KERNELS[name][0]}")
+
+
+def reset_counts(names):
+    for name in names:
+        kernel_module(name).LAUNCHES[KERNELS[name][1]] = 0
+
+
+def read_counts(names):
+    return {name: kernel_module(name).LAUNCHES[KERNELS[name][1]] for name in names}
+
+
+def percentile(x, q):
+    """The q-quantile of a tensor's values (the lower of the two nearest)."""
+    v = x.flatten().float().sort().values
+    return float(v[int(q * (v.numel() - 1))])
+
+
+def ball_nerf_params(rng, cfg):
+    """A JAX-layout NeRF tree whose density is a ball: sigma = BALL_SIGMA
+    (1 - |x| / BALL_R), zero outside it, colour about BALL_RGB. Layer 0
+    holds relu(+-n_j . x) for half-width quasi-uniform unit directions n_j
+    (the sum of |n_j . x| over them is ~ width |x| / 4), the other trunk
+    layers pass it on (identity; the skip layer's embedding columns zero),
+    the sigma head subtracts the sum from BALL_SIGMA; every weight carries
+    Gaussian noise of std FIELD_NOISE / sqrt(fan-in), so no product is
+    trivial."""
+    w, emb, half = cfg.width, cfg.in_channels_xyz, cfg.width // 2
+
+    def noisy(i, o):
+        return rng.normal(0.0, FIELD_NOISE / math.sqrt(i), (i, o))
+
+    def lin(kernel, bias):
+        return {"kernel": kernel.astype(np.float32), "bias": np.asarray(bias, np.float32)}
+
+    j = np.arange(half) + 0.5                      # a Fibonacci sphere
+    polar, azim = np.arccos(1 - 2 * j / half), math.pi * (1 + 5 ** 0.5) * j
+    n = np.stack([np.cos(azim) * np.sin(polar), np.sin(azim) * np.sin(polar), np.cos(polar)])
+    k0 = noisy(emb, w)
+    k0[:3, :half] += n
+    k0[:3, half:] -= n
+    layers = [lin(k0, np.zeros(w))]
+    for i in range(1, cfg.depth):
+        k = noisy(w + emb if i in cfg.skips else w, w)
+        k[-w:] += np.eye(w)
+        layers.append(lin(k, np.zeros(w)))
+    rgb = np.asarray(BALL_RGB)
+    return {"xyz_layers": layers,
+            "xyz_final": lin(noisy(w, w), np.zeros(w)),
+            "sigma": lin(noisy(w, 1) - BALL_SIGMA / (BALL_R * w / 4), [BALL_SIGMA]),
+            "dir_layer": lin(noisy(w + cfg.in_channels_dir, half), np.ones(half)),
+            "rgb": lin(noisy(half, 3), np.log(rgb / (1 - rgb)))}
+
+
+def check_outputs(outs, what):
+    """Every output of a whole frame finite, rgb in [0, 1 + 1e-3]."""
+    import torch
+
+    for out in outs:
+        for k, v in out.items():
+            if v.shape[0] != H * W or not torch.isfinite(v).all():
+                fail(f"{what} {k}: shape {tuple(v.shape)} or non-finite values")
+        rgb = out["rgb_fine"]
+        if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
+            fail(f"{what} rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
+
+
+def psnr_vs(out, ref):
+    """PSNR of one frame's rgb against another's (agreement, in dB)."""
+    mse = float(((out["rgb_fine"] - ref["rgb_fine"]) ** 2).mean())
+    return -10.0 * math.log10(max(mse, 1e-20))
+
+
+def render_frames(render, frames_rays):
+    """(outputs, host seconds per frame), each frame ending in a sync."""
+    import torch
+
+    outs, lat = [], []
+    with torch.no_grad():
+        for rays in frames_rays:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(render(rays))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    return outs, lat
+
+
+def clipped_rays(rays, aabb):
+    """(R, 8) rays with [near, far] tightened to the scene box, as the fast
+    renderer hands them to K3."""
+    import torch
+    from nerf_siren_tpu_torch.render.fast import _clip_to_aabb
+
+    near, far = _clip_to_aabb(rays[:, :3], rays[:, 3:6], rays[:, 6:7], rays[:, 7:8], aabb)
+    return torch.cat([rays[:, :6], near, far], 1).contiguous()
+
+
+def proxy_flop_per_candidate(packed_proxy):
+    """Multiply-adds x 2 of the proxy at one point, from its pack."""
+    return 2 * (packed_proxy["w1"].numel() + packed_proxy["w2"].numel())
+
+
+def int8_work_per_point(packed, full):
+    """(bf16 FLOP, int8 operations) of the int8 field at one point: the
+    trunk's real int8 columns (no padding) and the bf16 heads."""
+    trunk = sum(t.numel() for k, t in packed.items() if k[0] == "q")
+    trunk -= sum(t.shape[0] * (t.shape[1] - 60) for k, t in packed.items()
+                 if k[0] == "q" and k.endswith("s"))
+    heads = packed["w_sigma"].numel()
+    if full:
+        heads += packed["w_comb"].numel() + packed["w_dir"].numel() + packed["w_rgb"].numel()
+    return 2 * heads, 2 * trunk
+
+
+def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0.0,
+                 plain_reps=3):
+    ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
+    bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
+    print(f"[8/13] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+          f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
+          f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_fast_kernels(fast, p8, frame_rays, device, card):
+    """Phase 8: K3 (both wrappers), K4 (both) and K6 against their plain
+    versions at the fast path's shapes, each timed beside its plain version."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    pp = fast.packed_proxy
+    w_bytes = sum(t.numel() * t.element_size() for t in pp.values())
+    rays8 = clipped_rays(frame_rays, fast.aabb)
+    r = rays8.shape[0]
+    span = (rays8[:, 7] - rays8[:, 6]).clamp_min(1e-12)
+    results = {}
+
+    # K3 select: C 32, K 16 over a whole frame
+    z, xyz = k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True)
+    rz, rxyz = k3.proxy_march_select_ref(pp, rays8, FAST_C, FAST_K, midpoint=True)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(z).all() and torch.isfinite(xyz).all()):
+        fail("proxy_march_select: non-finite output")
+    dz = (z - rz).abs() / span[:, None]
+    med, p99 = float(dz.median()), percentile(dz, 0.99)
+    err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
+    print(f"[8/13] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+          f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
+          f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
+    if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
+        fail("proxy_march_select disagrees with its plain version")
+    results["proxy_march_select"] = timed_result(
+        f"at {r} rays", "proxy_march_select",
+        lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True),
+        lambda: k3.proxy_march_select_ref(pp, rays8, FAST_C, FAST_K, midpoint=True),
+        r * FAST_C * proxy_flop_per_candidate(pp), r * (32 + 16 * FAST_K) + w_bytes, err, card,
+        plain_reps=1)
+    del z, xyz, rz, rxyz, dz
+
+    # K3 opacity prepass: C 16 over a whole frame
+    op = k3.proxy_opacity(pp, rays8, PREPASS_C)
+    rop = k3.proxy_opacity_ref(pp, rays8, PREPASS_C)
+    torch.cuda.synchronize()
+    d = (op - rop).abs()
+    err = float(d.max())
+    print(f"[8/13] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+          f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
+          f"{int((op != rop).sum())} of {r} differ", flush=True)
+    if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
+                                            and err < OPACITY_BARS[1]):
+        fail("proxy_opacity disagrees with its plain version")
+    results["proxy_opacity"] = timed_result(
+        f"at {r} rays", "proxy_opacity", lambda: k3.proxy_opacity(pp, rays8, PREPASS_C),
+        lambda: k3.proxy_opacity_ref(pp, rays8, PREPASS_C),
+        r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + w_bytes, err, card,
+        plain_reps=1)
+
+    # K4 at N_CHECK random points, then at one chunk's survivors and coarse points
+    p8_bytes = sum(t.numel() * t.element_size() for t in p8.values())
+    rng = np.random.default_rng(SEED + 4)
+    pts = torch.tensor(rng.uniform(-4.0, 4.0, (N_CHECK, 3)), dtype=torch.float32, device=device)
+    dirs = torch.tensor(rng.normal(size=(N_CHECK, 3)), dtype=torch.float32, device=device)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    pick = torch.as_tensor(rng.permutation(r)[:CHUNK], device=device)
+    sel = rays8[pick]
+    zs = k3.proxy_march_select(pp, sel, FAST_C, FAST_K, midpoint=True)[0]
+    surv = (sel[:, None, :3] + sel[:, None, 3:6] * zs[..., None]).reshape(-1, 3).contiguous()
+    sel_dirs = sel[:, 3:6].contiguous()
+    zc = torch.linspace(NEAR, FAR, N_SAMPLES, device=device)
+    coarse = (frame_rays[pick][:, None, :3] + frame_rays[pick][:, None, 3:6] * zc[:, None]
+              ).reshape(-1, 3).contiguous()
+    def full_surv():
+        return k4.fused_nerf_full_int8(p8, surv, sel_dirs, FAST_K)
+
+    def full_surv_ref():
+        return k4.fused_full_int8_ref(p8, surv, sel_dirs, FAST_K)
+
+    def sigma_coarse():
+        return k4.fused_nerf_sigma_int8(p8, coarse)
+
+    def sigma_coarse_ref():
+        return k4.fused_sigma_int8_ref(p8, coarse)
+
+    errs = {"fused_nerf_full_int8": 0.0, "fused_nerf_sigma_int8": 0.0}
+    for name, where, kern, plain in (
+            ("fused_nerf_full_int8", f"at N={N_CHECK}",
+             lambda: k4.fused_nerf_full_int8(p8, pts, dirs),
+             lambda: k4.fused_full_int8_ref(p8, pts, dirs)),
+            ("fused_nerf_sigma_int8", f"at N={N_CHECK}",
+             lambda: k4.fused_nerf_sigma_int8(p8, pts), lambda: k4.fused_sigma_int8_ref(p8, pts)),
+            ("fused_nerf_full_int8", f"at {CHUNK} rays x {FAST_K} survivors, samples_per_dir "
+             f"{FAST_K}", full_surv, full_surv_ref),
+            ("fused_nerf_sigma_int8", f"at {CHUNK} rays x {N_SAMPLES} coarse points",
+             sigma_coarse, sigma_coarse_ref)):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name} {where}: shape {tuple(got.shape)} or non-finite output")
+        d = (got - ref).abs()
+        sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
+        rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
+        errs[name] = max(errs[name], float(d.max()))
+        print(f"[8/13] {name} vs plain {where}: max|d| per column "
+              f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
+              f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
+              f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
+        if sig_bad or rgb_bad:
+            fail(f"{name} disagrees with its plain version {where}")
+    n_flip = 65536
+    flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
+    print(f"[8/13] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+          f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
+    del pts, dirs, flips
+    for name, n, full, kern, plain in (
+            ("fused_nerf_full_int8", surv.shape[0], True, full_surv, full_surv_ref),
+            ("fused_nerf_sigma_int8", coarse.shape[0], False, sigma_coarse, sigma_coarse_ref)):
+        f_bf16, i8 = int8_work_per_point(p8, full)
+        n_bytes = n * (12 + (16 if full else 4)) + (sel_dirs.numel() * 4 if full else 0) + p8_bytes
+        results[name] = timed_result(f"at {n} points", name, kern, plain, n * f_bf16, n_bytes,
+                                     errs[name], card, int8_ops=n * i8)
+
+    # K6: 65,536 rays of the frame, C 64, K 16
+    rays6 = rays8[torch.as_tensor(rng.permutation(r)[:K6_RAYS], device=device)]
+    got = k6.proxy_select(pp, rays6, K6_C, K6_K)
+    ref = k6.proxy_select_ref(pp, rays6, K6_C, K6_K)
+    torch.cuda.synchronize()
+    d = (got.sort(1).values - ref.sort(1).values).abs()
+    err = float(d.max())
+    print(f"[8/13] proxy_select vs plain at {K6_RAYS} rays, C {K6_C}, K {K6_K}: per-ray sorted "
+          f"depths max|d| {err:.3e} (atol 1e-5); {int((d > 1e-5).any(1).sum())} rays differ",
+          flush=True)
+    if not torch.isfinite(got).all() or err > 1e-5:
+        fail("proxy_select disagrees with its plain version")
+    results["proxy_select"] = timed_result(
+        f"at {K6_RAYS} rays", "proxy_select", lambda: k6.proxy_select(pp, rays6, K6_C, K6_K),
+        lambda: k6.proxy_select_ref(pp, rays6, K6_C, K6_K),
+        K6_RAYS * K6_C * proxy_flop_per_candidate(pp), K6_RAYS * (32 + 4 * K6_K) + w_bytes, err,
+        card)
+    return results
+
+
+def fast_phases(frames_rays, device, card, args):
+    """Phases 7-13. Returns (results, launches) of K3, K4 and K6."""
+    import os
+    from pathlib import Path
+
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.eval import (field_sigma_fn, get_opts, make_renderer,
+                                           setup_fast_proxy)
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+    from nerf_siren_tpu_torch.ops.kernels.fused_mlp_int8 import pack_model_params_int8
+    from nerf_siren_tpu_torch.render.fast import estimate_scene_aabb, render_rays_fast
+    from nerf_siren_tpu_torch.convert import nerf_to_jax
+    from nerf_siren_tpu_torch.training.checkpoints import save_checkpoint
+
+    # ---- 7. a field with empty space, its exact frames, the proxy and box ----
+    models = numpy_models(FIELD_SEED, device, ball_nerf_params)
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
+    check_outputs(exact, "exact frame")
+    empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
+    print(f"[7/13] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+          f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
+          f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
+          f"per frame {[round(e, 4) for e in empty]}", flush=True)
+    if min(empty) <= 0.0:
+        fail("the ball field has no empty rays: nothing could be culled")
+
+    ckpt_dir = Path("ckpts") / "chip_smoke"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = str(ckpt_dir / "ball.msgpack")
+    save_checkpoint(ckpt, {"params": {f"nerf_{k}": nerf_to_jax(m.state_dict())
+                                      for k, m in models.items()}})
+    if os.path.exists(ckpt + ".proxy.msgpack"):
+        os.remove(ckpt + ".proxy.msgpack")      # distil afresh every run
+
+    def opts(*extra):
+        return get_opts(["--root_dir", str(ckpt_dir), "--ckpt_path", ckpt, "--renderer", "fast",
+                         "--chunk", str(CHUNK), *extra])
+
+    bounds = np.array([NEAR, FAR], np.float32)
+    hp = opts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast = setup_fast_proxy(models, hp, bounds)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    half = float(np.max(np.abs(bounds))) * 0.5
+    t0 = time.perf_counter()
+    box = estimate_scene_aabb(field_sigma_fn(models)[1], [-half] * 3, [half] * 3)
+    t_box = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cached = setup_fast_proxy(models, hp, bounds)
+    t_cached = time.perf_counter() - t0
+    print(f"[7/13] proxy distilled ({hp.fast_distill_steps} steps, batch "
+          f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
+          f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
+          f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
+          f"back from the cache in {t_cached:.3f} s", flush=True)
+    if not all(np.array_equal(a, b) for a, b in zip(box, fast.aabb)) or not all(
+            np.array_equal(a, b) for a, b in zip(cached.aabb, fast.aabb)):
+        fail("the scene box differs between its estimate, the setup and the cache")
+    if not all(torch.equal(cached.packed_proxy[k], fast.packed_proxy[k])
+               for k in fast.packed_proxy):
+        fail("the cached proxy differs from the distilled one")
+    results = check_fast_kernels(fast, pack_model_params_int8(models)[fast.model_key],
+                                 frames_rays[0], device, card)
+    launches = {}
+
+    # ---- 9. fast frames through the CLI's renderer ----------------------------
+    render = make_renderer(models, cfg, renderer="fast", fast=fast, hparams=hp, img_hw=(H, W))
+    names = ["proxy_march_select", "fused_nerf_full"]
+    reset_counts(names)
+    outs, lat = render_frames(render, frames_rays)
+    counts = read_counts(names)
+    launches["proxy_march_select"] = counts["proxy_march_select"]
+    n_chunks = -(-H * W // CHUNK)
+    print(f"[9/13] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+          f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
+          f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
+          f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
+          f"{[round(psnr_vs(o, e), 2) for o, e in zip(outs, exact)]} dB", flush=True)
+    for name in names:
+        if counts[name] < n_chunks * N_FRAMES:
+            fail(f"{name} launched {counts[name]} times, expected >= {n_chunks * N_FRAMES}")
+    check_outputs(outs, "fast frame")
+    cpu_pack = fm.pack_model_params({k: copy.deepcopy(m).cpu() for k, m in models.items()},
+                                    "cpu")
+    with torch.no_grad():
+        ref = render_rays_fast(None, None, frames_rays[0][CHECK_RAYS].cpu(),
+                               n_candidates=FAST_C, n_keep=FAST_K, model=fast.model_key,
+                               white_back=True, scene_aabb=fast.aabb, select="pdf",
+                               packed_params=cpu_pack,
+                               packed_proxy={k: v.cpu() for k, v in fast.packed_proxy.items()})
+    errs = {}
+    for k, v in ref.items():
+        d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
+        errs[k] = (float(d.median()), percentile(d, 0.99))
+    print(f"[9/13] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+          f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
+          flush=True)
+    if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
+        fail("the fast frame disagrees with its plain re-render")
+    if args.profile:
+        with torch.no_grad():
+            profile("fast frame", lambda: render(frames_rays[1]), card)
+
+    # ---- 10. --fast_cull auto -------------------------------------------------
+    auto = make_renderer(models, cfg, renderer="fast", fast=fast,
+                         hparams=opts("--fast_cull", "auto"), img_hw=(H, W))
+    reset_counts(["proxy_opacity"])
+    key = fast.model_key
+    with torch.no_grad():
+        for i in range(N_AUTO):
+            k = i % N_FRAMES
+            (out,), (sec,) = render_frames(auto, [frames_rays[k]])
+            ref = outs[k]
+            same = ((out[f"rgb_{key}"] - ref[f"rgb_{key}"]).abs().amax(-1) <= 1e-6)
+            for name in ("depth", "opacity"):
+                same &= (out[f"{name}_{key}"] - ref[f"{name}_{key}"]).abs() <= 1e-6
+            bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
+                  & (out[f"opacity_{key}"] == 0))
+            lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
+            print(f"[10/13] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+                  f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
+                  f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
+                  f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
+                  f"in the fast frame); PSNR vs the exact frame {psnr_vs(out, exact[k]):.2f} dB",
+                  flush=True)
+            check_outputs([out], "auto-cull frame")
+            if not bool((same | bg).all()):
+                fail("an auto-cull ray is neither the fast frame's value nor background")
+    launches.update(read_counts(["proxy_opacity"]))
+    if launches["proxy_opacity"] < 1:
+        fail("the auto-cull run never launched the opacity prepass")
+
+    # ---- 11. int8 field on the fast and the fused renderer ----------------------
+    hp8 = opts("--fast_field_dtype", "int8")
+    fast8 = setup_fast_proxy(models, hp8, bounds)
+    names = ["fused_nerf_full_int8", "fused_nerf_sigma_int8"]
+    reset_counts(names)
+    (out_f8,), (sec_f8,) = render_frames(
+        make_renderer(models, cfg, renderer="fast", fast=fast8, hparams=hp8, img_hw=(H, W)),
+        [frames_rays[0]])
+    (out_x8,), (sec_x8,) = render_frames(
+        make_renderer(models, cfg, renderer="fused", field_dtype="int8"), [frames_rays[0]])
+    launches.update(read_counts(names))
+    check_outputs([out_f8, out_x8], "int8 frame")
+    d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
+    d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
+    print(f"[11/13] int8 frames: fast {sec_f8:.4f} s (rgb max|d| vs the bf16 fast frame "
+          f"{d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused {sec_x8:.4f} s "
+          f"(rgb max|d| vs the bf16 exact frame {d_fused:.4f}, PSNR {psnr_vs(out_x8, exact[0]):.2f} "
+          f"dB); bar {INT8_VS_BF16}; launches {read_counts(names)} ({card})", flush=True)
+    if min(launches[n] for n in names) < 1 or max(d_fast, d_fused) >= INT8_VS_BF16:
+        fail("the int8 frames did not run on K4 or moved from the bf16 frames")
+
+    # ---- 12. edge refinement ------------------------------------------------------
+    edge = make_renderer(models, cfg, renderer="fast", fast=fast,
+                         hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
+    (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
+    check_outputs([out_e], "edge-refined frame")
+    print(f"[12/13] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+          f"({card}); "
+          f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
+          f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
+
+    # ---- 13. K6 over one frame -------------------------------------------------------
+    rays8 = clipped_rays(frames_rays[0], fast.aabb)
+    reset_counts(["proxy_select"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z6 = k6.proxy_select(fast.packed_proxy, rays8, K6_C, K6_K)
+    torch.cuda.synchronize()
+    sec6 = time.perf_counter() - t0
+    launches.update(read_counts(["proxy_select"]))
+    inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
+    print(f"[13/13] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+          f"({card}); "
+          f"launches {launches['proxy_select']}", flush=True)
+    if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
+        fail("proxy_select's depths are not finite or leave their rays' [near, far]")
+    return results, launches
+
+
+def profile(label, fn, card):
     """Device time per kernel over one call of `fn`, the device's idle
     share of its host wall time, and the peak device memory."""
     import torch
@@ -469,7 +975,7 @@ def profile(label, fn):
               flush=True)
     print(f"[profile {label}] device kernels {total:.3f} ms (busy {busy_ms:.3f} ms) in "
           f"{wall_ms:.3f} ms of host time: idle {100 * (1 - busy_ms / wall_ms):.2f}%; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {card}",
           flush=True)
 
 
@@ -478,7 +984,7 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one more frame and one more training step")
+                        help="profile one more exact frame, training step and fast frame")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------
@@ -491,7 +997,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/6] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/13] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -506,13 +1012,13 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/6] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/13] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
     models = numpy_models(SEED, device)
     packed = fm.pack_model_params(models)
-    results = check_kernels(packed["fine"], device)
+    results = check_kernels(packed["fine"], device, smi)
     torch.cuda.empty_cache()
 
     # ---- 4. eval path: 3 frames through the eval renderer --------------------
@@ -521,7 +1027,8 @@ def main():
     render = make_renderer(models, cfg, renderer="fused")
     frames_rays = [lego_rays(k, device) for k in range(N_FRAMES)]
     torch.cuda.synchronize()
-    fm.LAUNCHES.update(sigma=0, full=0)
+    k1_names = ["fused_nerf_sigma", "fused_nerf_full"]
+    reset_counts(k1_names)
     outs, lat = [], []
     with torch.no_grad():
         for rays in frames_rays:
@@ -529,15 +1036,15 @@ def main():
             outs.append(render(rays))
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
-    launches = dict(fm.LAUNCHES)
+    launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/6] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/13] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
-    for key in ("sigma", "full"):
-        if launches[key] < n_chunks * N_FRAMES:
-            fail(f"K1 {key} launched {launches[key]} times, expected >= {n_chunks * N_FRAMES}")
+    for name in k1_names:
+        if launches[name] < n_chunks * N_FRAMES:
+            fail(f"{name} launched {launches[name]} times, expected >= {n_chunks * N_FRAMES}")
     for out in outs:
         for k, v in out.items():
             if v.shape[0] != H * W or not torch.isfinite(v).all():
@@ -545,7 +1052,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/6] outputs finite; opacity_fine mean per frame "
+    print(f"[4/13] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -554,16 +1061,16 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/6] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/13] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
     if args.profile:
         with torch.no_grad():
-            profile("eval frame", lambda: render(frames_rays[1]))
+            profile("eval frame", lambda: render(frames_rays[1]), smi)
 
     # ---- 5. K2 vs plain at the training shapes -------------------------------
-    results.update(check_train_kernels(models["fine"], frames_rays[0], device))
+    results.update(check_train_kernels(models["fine"], frames_rays[0], device, smi))
     torch.cuda.empty_cache()
 
     # ---- 6. training path: the teacher's frames are the targets ---------------
@@ -571,14 +1078,22 @@ def main():
     pool_rgbs = torch.cat([o["rgb_fine"] for o in outs])
     del outs
     train_launches, step_ms, (system, state, last) = train_phase(pool_rays, pool_rgbs, device, smi)
-    launches.update(train_launches)
+    launches.update(fused_train_fwd=train_launches["fwd"], fused_train_bwd=train_launches["bwd"])
     if args.profile:
-        profile("train step", lambda: system.train_step(state, last, seed=SEED + 1))
+        profile("train step", lambda: system.train_step(state, last, seed=SEED + 1), smi)
+
+    del system, state, last, pool_rays, pool_rgbs
+    torch.cuda.empty_cache()
+
+    # ---- 7-13. the fast renderer's path ---------------------------------------
+    fast_results, fast_launches = fast_phases(frames_rays, device, smi, args)
+    results.update(fast_results)
+    launches.update(fast_launches)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"nerf_siren_tpu_torch/csrc/{src}.cu",
-         "replaces": replaces, "launches": launches[key], **results[name]}
-        for name, (key, src, replaces) in KERNELS.items()]}), flush=True)
+         "replaces": replaces, "launches": launches[name], **results[name]}
+        for name, (src, _, replaces) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

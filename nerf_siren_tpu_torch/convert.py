@@ -1,11 +1,14 @@
-"""Carry NeRF weights between the JAX param tree and a torch state_dict.
+"""Carry NeRF and density-proxy weights between JAX param trees and torch state_dicts.
 
 The JAX tree (`nerf_siren_tpu.models.nerf.init_nerf`) holds numpy-convertible
 arrays under ``{'xyz_layers': [...], 'xyz_final', 'sigma', 'dir_layer',
 'rgb', 'parse': [...]}``, each a ``{'kernel': (in, out), 'bias': (out,)}``.
 The torch `NeRF` stores `nn.Linear` weights as `(out, in)`, so kernels are
 transposed on the way across. Lists restored from msgpack may arrive as
-``{"0": ..., "1": ...}`` dicts; both forms are accepted.
+``{"0": ..., "1": ...}`` dicts; both forms are accepted. The fast
+renderer's density proxy (`nerf_siren_tpu.render.fast.init_proxy`) is
+``{'l1': {kernel, bias}, 'l2': {kernel, bias}}``, the port's
+`render.fast.Proxy`.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 _SINGLE = ("xyz_final", "sigma", "dir_layer", "rgb")
 _LISTS = ("xyz_layers", "parse")
+_PROXY = ("l1", "l2")
 
 
 def _as_list(node: Any) -> List[Any]:
@@ -24,13 +28,23 @@ def _as_list(node: Any) -> List[Any]:
     return list(node)
 
 
+def _put(out: Dict[str, torch.Tensor], prefix: str, lin: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = torch.from_numpy(np.array(lin["kernel"], np.float32).T.copy())
+    out[f"{prefix}.bias"] = torch.from_numpy(np.array(lin["bias"], np.float32))
+
+
+def _get(state_dict: Dict[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    w = state_dict[f"{prefix}.weight"].detach().cpu().float().numpy()
+    b = state_dict[f"{prefix}.bias"].detach().cpu().float().numpy()
+    return {"kernel": np.ascontiguousarray(w.T), "bias": b.copy()}
+
+
 def nerf_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX NeRF param tree -> `NeRF` state_dict (float32 CPU tensors)."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(prefix: str, lin: Dict[str, Any]) -> None:
-        out[f"{prefix}.weight"] = torch.from_numpy(np.array(lin["kernel"], np.float32).T.copy())
-        out[f"{prefix}.bias"] = torch.from_numpy(np.array(lin["bias"], np.float32))
+        _put(out, prefix, lin)
 
     for name in _LISTS:
         if name in params:
@@ -45,9 +59,7 @@ def nerf_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def nerf_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """`NeRF` state_dict -> JAX NeRF param tree of float32 numpy arrays."""
     def get(prefix: str) -> Dict[str, np.ndarray]:
-        w = state_dict[f"{prefix}.weight"].detach().cpu().float().numpy()
-        b = state_dict[f"{prefix}.bias"].detach().cpu().float().numpy()
-        return {"kernel": np.ascontiguousarray(w.T), "bias": b.copy()}
+        return _get(state_dict, prefix)
 
     tree: Dict[str, Any] = {}
     for name in _LISTS:
@@ -57,3 +69,16 @@ def nerf_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     for name in _SINGLE:
         tree[name] = get(name)
     return tree
+
+
+def proxy_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX proxy tree -> `render.fast.Proxy` state_dict (float32 CPU tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in _PROXY:
+        _put(out, name, params[name])
+    return out
+
+
+def proxy_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """`render.fast.Proxy` state_dict -> JAX proxy tree of float32 numpy arrays."""
+    return {name: _get(state_dict, name) for name in _PROXY}

@@ -33,7 +33,8 @@
 // Plain C interface, loaded with ctypes; the launcher returns
 // cudaGetLastError() so the caller can raise on a refused launch. The tile
 // shape, the layer product and the embedding are in nerf_field_common.cuh,
-// shared with the training kernels.
+// shared with the training kernels; the heads too, shared with the int8
+// field (fused_mlp_int8.cu).
 
 #include "nerf_field_common.cuh"
 
@@ -54,40 +55,9 @@ struct FieldParams {
   const __nv_bfloat16* w_h[MAX_DEPTH];  // (W, W) hidden-input columns; null for layer 0
   const __nv_bfloat16* w_e[MAX_DEPTH];  // (W, EMB_X) embedding-input columns; null if none
   const float* b[MAX_DEPTH];            // (W,)
-  const __nv_bfloat16* w_sigma;         // (W,)
-  const float* b_sigma;                 // (1,)
-  const __nv_bfloat16* w_comb;          // (WD, W) xyz_final folded into dir_layer
-  const __nv_bfloat16* w_dir;           // (WD, EMB_D)
-  const float* b_comb;                  // (WD,)
-  const __nv_bfloat16* w_rgb;           // (3, WD)
-  const float* b_rgb;                   // (3,)
+  HeadParams heads;
   int depth;
 };
-
-// out[m, n] = bf16(relu(acc[m, n] + bias[n])) for the warp's (64, 16*FN)
-// block, through a per-warp 16x16 float staging tile (the accumulator's
-// register layout is opaque to wmma).
-template <int FN>
-__device__ __forceinline__ void store_relu(FragC (&acc)[4][FN], float* stage,
-                                           const float* __restrict__ bias,
-                                           __nv_bfloat16* out, int ldo, int m0, int n0,
-                                           int lane) {
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int col = n0 + 16 * j + c0;
-      __nv_bfloat16* dst = out + (m0 + 16 * i + r) * ldo + col;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = __float2bfloat16_rn(fmaxf(stage[r * 16 + c0 + e] + bias[col + e], 0.0f));
-      __syncwarp();
-    }
-  }
-}
 
 template <bool FULL>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -135,54 +105,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
 
-  // sigma head: two threads per point, each over half of the width
-  const int p = tid >> 1, half = tid & 1;
-  {
-    const __nv_bfloat16* hp = sh + p * LDH + half * (W / 2);
-    const __nv_bfloat16* wp = prm.w_sigma + half * (W / 2);
-    float s = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < W / 2; ++k) s += __bfloat162float(hp[k]) * __bfloat162float(wp[k]);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += prm.b_sigma[0];
-    if (!FULL) {
-      if (half == 0 && p0 + p < n_points) out[p0 + p] = s;
-      return;
-    }
-    if (half == 0) sig[p] = s;
-  }
-
-  {  // direction branch: relu(W_comb h + W_dir demb + b_comb) -> sh[:, :WD]
-    constexpr int FN = WD / 64;
-    const int n0 = (warp & 3) * (WD / 4);
-    FragC acc[4][FN];
-    zero(acc);
-    mma_segment<FN, false>(acc, sh, LDH, prm.w_comb, W, W, m0, n0);
-    mma_segment<FN, false>(acc, sd, LDD, prm.w_dir, EMB_D, EMB_D, m0, n0);
-    __syncthreads();
-    store_relu(acc, stage, prm.b_comb, sh, LDH, m0, n0, lane);
-    __syncthreads();
-  }
-
-  {  // rgb head: two threads per point, 3 sums each over half of WD
-    const __nv_bfloat16* hp = sh + p * LDH + half * (WD / 2);
-    float c[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int k = 0; k < WD / 2; ++k) {
-      const float h = __bfloat162float(hp[k]);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-        c[ch] += h * __bfloat162float(prm.w_rgb[ch * WD + half * (WD / 2) + k]);
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) c[ch] += __shfl_xor_sync(0xffffffffu, c[ch], 1);
-    if (half == 0 && p0 + p < n_points) {
-      float* o = out + (p0 + p) * 4;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) o[ch] = 1.0f / (1.0f + expf(-(c[ch] + prm.b_rgb[ch])));
-      o[3] = sig[p];
-    }
-  }
+  eval_heads<FULL>(prm.heads, sh, sd, stage, sig, out, p0, n_points);
 }
 
 }  // namespace
@@ -206,14 +129,7 @@ int nerf_field_forward(const void* const* ptrs, int depth, int width, const floa
     prm.w_e[l] = static_cast<const __nv_bfloat16*>(ptrs[depth + l]);
     prm.b[l] = static_cast<const float*>(ptrs[2 * depth + l]);
   }
-  const void* const* heads = ptrs + 3 * depth;
-  prm.w_sigma = static_cast<const __nv_bfloat16*>(heads[0]);
-  prm.b_sigma = static_cast<const float*>(heads[1]);
-  prm.w_comb = static_cast<const __nv_bfloat16*>(heads[2]);
-  prm.w_dir = static_cast<const __nv_bfloat16*>(heads[3]);
-  prm.b_comb = static_cast<const float*>(heads[4]);
-  prm.w_rgb = static_cast<const __nv_bfloat16*>(heads[5]);
-  prm.b_rgb = static_cast<const float*>(heads[6]);
+  prm.heads = head_params(ptrs + 3 * depth);
   prm.depth = depth;
   if (prm.w_e[0] == nullptr || prm.w_h[0] != nullptr) return int(cudaErrorInvalidValue);
   if (n_points == 0) return int(cudaSuccess);

@@ -112,13 +112,14 @@ def _trunk_ref(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _sigma_head(packed: Packed, h: torch.Tensor) -> torch.Tensor:
+def sigma_head_ref(packed: Packed, h: torch.Tensor) -> torch.Tensor:
+    """(N, 1) sigma from the final bf16-valued trunk activations h (N, W)."""
     return h @ packed["w_sigma"].float()[:, None] + packed["b_sigma"]
 
 
 def fused_sigma_ref(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     """Plain version of the sigma pass: (N, 3) f32 -> (N, 1) f32."""
-    return _sigma_head(packed, _trunk_ref(packed, xyz))
+    return sigma_head_ref(packed, _trunk_ref(packed, xyz))
 
 
 def fused_full_ref(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
@@ -126,13 +127,19 @@ def fused_full_ref(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
     """Plain version of the full pass: (N, 3) points and (N / samples_per_dir,
     3) directions (point p uses direction p // samples_per_dir) -> (N, 4)
     f32 [r, g, b, sigma]."""
-    h = _trunk_ref(packed, xyz)
-    d = dirs.repeat_interleave(samples_per_dir, dim=0)[: xyz.shape[0]]
+    return full_heads_ref(packed, _trunk_ref(packed, xyz), dirs, samples_per_dir)
+
+
+def full_heads_ref(packed: Packed, h: torch.Tensor, dirs: torch.Tensor,
+                   samples_per_dir: int = 1) -> torch.Tensor:
+    """(N, 4) [r, g, b, sigma] from the final bf16-valued trunk activations
+    h (N, W) and one direction per `samples_per_dir` points."""
+    d = dirs.repeat_interleave(samples_per_dir, dim=0)[: h.shape[0]]
     y = (packed["b_comb"] + h @ packed["w_comb"].float().t()
          + _embed(d, 4, EMB_D) @ packed["w_dir"].float().t())
     hd = _bf16(torch.relu(y))
     rgb = torch.sigmoid(hd @ packed["w_rgb"].float().t() + packed["b_rgb"])
-    return torch.cat([rgb, _sigma_head(packed, h)], dim=-1)
+    return torch.cat([rgb, sigma_head_ref(packed, h)], dim=-1)
 
 
 # ---- CUDA kernel ------------------------------------------------------------
@@ -157,20 +164,38 @@ def _check(t: torch.Tensor, name: str, device, dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous and 32-byte aligned")
 
 
-def _pointer_table(packed: Packed, device) -> list:
-    """Validate the pack against the kernel and list its device pointers in
-    the order `nerf_field_forward` reads them."""
-    depth = _depth(packed)
+HEAD_KEYS = ("w_sigma", "b_sigma", "w_comb", "w_dir", "b_comb", "w_rgb", "b_rgb")
+
+
+def _width(packed: Packed, what: str) -> int:
+    depth, width = _depth(packed), packed["w_sigma"].shape[0]
     if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"fused kernel takes depth 1..{MAX_DEPTH}, got {depth}")
-    width = packed["w_sigma"].shape[0]
+        raise ValueError(f"{what} takes depth 1..{MAX_DEPTH}, got {depth}")
     if width != KERNEL_WIDTH:
-        raise ValueError(f"fused kernel is built for width {KERNEL_WIDTH}, got {width}")
+        raise ValueError(f"{what} is built for width {KERNEL_WIDTH}, got {width}")
+    return width
+
+
+def head_pointers(packed: Packed, device) -> list:
+    """Validate the bf16 heads of a pack and list their device pointers in
+    the order the eval kernels read them (`HEAD_KEYS`)."""
+    width = packed["w_sigma"].shape[0]
     bf, f32 = torch.bfloat16, torch.float32
-    shapes = {"w0e": (bf, (width, EMB_X)), "w_sigma": (bf, (width,)), "b_sigma": (f32, (1,)),
+    shapes = {"w_sigma": (bf, (width,)), "b_sigma": (f32, (1,)),
               "w_comb": (bf, (width // 2, width)), "w_dir": (bf, (width // 2, EMB_D)),
               "b_comb": (f32, (width // 2,)), "w_rgb": (bf, (3, width // 2)),
               "b_rgb": (f32, (3,))}
+    for k in HEAD_KEYS:
+        _check(packed[k], k, device, *shapes[k])
+    return [packed[k].data_ptr() for k in HEAD_KEYS]
+
+
+def _pointer_table(packed: Packed, device) -> list:
+    """Validate the pack against the kernel and list its device pointers in
+    the order `nerf_field_forward` reads them."""
+    depth, width = _depth(packed), _width(packed, "fused kernel")
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = {"w0e": (bf, (width, EMB_X))}
     for i in range(depth):
         shapes[f"b{i}"] = (f32, (width,))
         if i > 0:
@@ -186,8 +211,7 @@ def _pointer_table(packed: Packed, device) -> list:
     return ([ptr(f"w{i}") if i else 0 for i in range(depth)]
             + [ptr(f"w{i}e") for i in range(depth)]
             + [ptr(f"b{i}") for i in range(depth)]
-            + [ptr(k) for k in ("w_sigma", "b_sigma", "w_comb", "w_dir", "b_comb",
-                                "w_rgb", "b_rgb")])
+            + head_pointers(packed, device))
 
 
 def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],

@@ -1,0 +1,241 @@
+"""int8 NeRF field (K4): pack, plain PyTorch version, and the CUDA kernel's wrappers.
+
+Counterpart of `nerf_siren_tpu/ops/pallas/fused_mlp_int8.py` (the TPU
+kernels `_full_kernel_int8` / `_sigma_kernel_int8`). The kernel is
+`csrc/fused_mlp_int8.cu`; this module owns everything around it:
+
+- `pack_nerf_params_int8` / `pack_model_params_int8`: K1's field with the
+  8x256 trunk in int8 and no calibration input. Each trunk weight is int8
+  per output row, q = clip(round(w / s), +-127), s = max(max |w_row| / 127,
+  1e-12). Layer 0 and the skip layer split their embedding columns into
+  the 3 coordinates (``q{i}x`` (W, 3), scales ``f{i}x``) and the 60 sin/cos
+  columns (``q{i}s`` (W, 64), reference order, zero-padded; scales
+  ``f{i}s`` times the sin/cos operand's fixed 1/127); hidden columns are
+  ``q{i}`` / ``f{i}``. Biases and the bf16 heads are K1's pack
+  (`fused_mlp.pack_nerf_params`), the W_comb fold included. The key ``q0x``
+  marks an int8 pack (`render.fused.field_kernels` dispatches on it).
+- `fused_sigma_int8_ref` / `fused_full_int8_ref`: the plain version. Per
+  point, coordinates and hidden activations are quantised at a dynamic
+  scale s = max(absmax, 1e-9) * (1/127), q = clip(round(v / s), +-127); the
+  sin/cos at the fixed scale, clip(round(127 e)). Every product is a sum of
+  integers (exact in float32: |sum| < 2^24, TF32 off), then
+  (sum * row scale) * point scale, combined in the TPU kernel's order.
+- `fused_nerf_sigma_int8` / `fused_nerf_full_int8`: the public wrappers. A
+  CPU tensor goes to the plain version; a CUDA tensor launches the kernel
+  or raises. `LAUNCHES` counts kernel launches per wrapper.
+- `int8_trunk_inputs`: every layer's int8 input (the kernel's, on the card),
+  to count the entries where the kernel and the plain version round apart.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from nerf_siren_tpu_torch.models.embedding import positional_encoding
+from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.ops.kernels import fused_mlp
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTH, Packed, _bf16,
+                                                        _check, _depth, _width,
+                                                        full_heads_ref, head_pointers,
+                                                        sigma_head_ref)
+
+EMB_Q = 64        # 60 sin/cos columns + 4 zero columns (the mma k-step of 32)
+INV127 = 1.0 / 127.0
+
+LAUNCHES = {"sigma": 0, "full": 0}
+
+
+def _quant_rows(w: torch.Tensor):
+    """Per-output-row symmetric int8 of a (out, in) float32 weight."""
+    s = torch.clamp_min(w.abs().amax(dim=1) / 127.0, 1e-12)
+    return torch.round(w / s[:, None]).clamp(-127, 127).to(torch.int8), s
+
+
+def pack_nerf_params_int8(model: NeRF, device=None) -> Packed:
+    """One `NeRF` -> the int8 kernel's weight dict."""
+    cfg = model.cfg
+    base = fused_mlp.pack_nerf_params(model, device)
+    device = base["w_sigma"].device
+    emb = cfg.in_channels_xyz
+    out = {k: base[k] for k in HEAD_KEYS}
+    q: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(model.xyz_layers):
+        k = layer.weight.detach().to("cpu", torch.float32)
+        if i == 0 or i in cfg.skips:                     # input is [emb, h]
+            q[f"q{i}x"], q[f"f{i}x"] = _quant_rows(k[:, :3])
+            qs, ss = _quant_rows(k[:, 3:emb])
+            q[f"q{i}s"], q[f"f{i}s"] = F.pad(qs, (0, EMB_Q - (emb - 3))), ss * INV127
+            if i:
+                q[f"q{i}"], q[f"f{i}"] = _quant_rows(k[:, emb:])
+        else:
+            q[f"q{i}"], q[f"f{i}"] = _quant_rows(k)
+        out[f"b{i}"] = base[f"b{i}"]
+    out.update({k: v.to(device).contiguous() for k, v in q.items()})
+    return out
+
+
+def pack_model_params_int8(models: Dict[str, NeRF], device=None) -> Dict[str, Packed]:
+    """Pack each field of a {'coarse': NeRF, 'fine': NeRF} dict for K4."""
+    return {k: pack_nerf_params_int8(m, device) for k, m in models.items()}
+
+
+# ---- plain PyTorch version --------------------------------------------------
+
+def _quant_dyn(v: torch.Tensor):
+    """Per-point (per-row) int8 at a dynamic scale: (integer-valued float32, scale (N, 1))."""
+    s = torch.clamp_min(v.abs().amax(dim=-1, keepdim=True), 1e-9) * INV127
+    return torch.round(v / s).clamp(-127, 127), s
+
+
+def _product(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8-valued float32 activations and an int8 weight."""
+    return q @ w.float().t()
+
+
+def _trunk_int8_ref(packed: Packed, xyz: torch.Tensor, inputs: Optional[list] = None):
+    """The final trunk activations, bf16-valued float32 (N, W). With a list
+    `inputs`, every layer's int8 input is appended to it (as int8)."""
+    xq, sx = _quant_dyn(xyz)
+    e = positional_encoding(xyz, 10)[:, 3:]
+    eq = torch.round(e * 127.0).clamp(-127, 127)
+    if inputs is not None:
+        width = packed["w_sigma"].shape[0]
+        inputs.append(F.pad(torch.cat([xq, eq], 1), (0, width - 63)).to(torch.int8))
+    hq = sa = h = None
+    depth = _depth(packed)
+    for i in range(depth):
+        y = None
+        if f"q{i}" in packed:
+            y = _product(hq, packed[f"q{i}"]) * packed[f"f{i}"] * sa
+        if f"q{i}x" in packed:
+            tx = _product(xq, packed[f"q{i}x"]) * packed[f"f{i}x"] * sx
+            y = tx if y is None else y + tx
+            y = y + _product(eq, packed[f"q{i}s"][:, :60]) * packed[f"f{i}s"]
+        h = torch.relu(y + packed[f"b{i}"])
+        if i + 1 < depth:
+            hq, sa = _quant_dyn(h)
+            if inputs is not None:
+                inputs.append(hq.to(torch.int8))
+    return _bf16(h)
+
+
+def fused_sigma_int8_ref(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int8 sigma pass: (N, 3) f32 -> (N, 1) f32."""
+    return sigma_head_ref(packed, _trunk_int8_ref(packed, xyz))
+
+
+def fused_full_int8_ref(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
+                        samples_per_dir: int = 1) -> torch.Tensor:
+    """Plain version of the int8 full pass: (N, 4) f32 [r, g, b, sigma]."""
+    return full_heads_ref(packed, _trunk_int8_ref(packed, xyz), dirs, samples_per_dir)
+
+
+# ---- CUDA kernel ------------------------------------------------------------
+
+def _kernel_fn():
+    """`nerf_field_int8_forward` from the built library (built at first use)."""
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    fn = _build.load("fused_mlp_int8").nerf_field_int8_forward
+    p = ctypes.c_void_p
+    fn.argtypes = [ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p, ctypes.c_longlong,
+                   p, ctypes.c_longlong, ctypes.c_int, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _pointer_table(packed: Packed, device) -> list:
+    """Validate the pack against the kernel and list its device pointers in
+    the order `nerf_field_int8_forward` reads them."""
+    depth, width = _depth(packed), _width(packed, "int8 kernel")
+    i8, f32 = torch.int8, torch.float32
+    shapes = {"q0x": (i8, (width, 3))}
+    for i in range(depth):
+        shapes[f"b{i}"] = (f32, (width,))
+        if i:
+            shapes[f"q{i}"] = (i8, (width, width))
+        if f"q{i}x" in packed:
+            shapes[f"q{i}x"], shapes[f"q{i}s"] = (i8, (width, 3)), (i8, (width, EMB_Q))
+        for g in ("", "x", "s"):
+            if f"q{i}{g}" in shapes:
+                shapes[f"f{i}{g}"] = (f32, (width,))
+    for k, (dtype, shape) in shapes.items():
+        _check(packed[k], k, device, dtype, shape)
+
+    def ptr(k):
+        return packed[k].data_ptr() if k in packed else 0
+
+    table = []
+    for i in range(depth):
+        table += [ptr(f"q{i}"), ptr(f"f{i}"), ptr(f"q{i}x"), ptr(f"f{i}x"), ptr(f"q{i}s"),
+                  ptr(f"f{i}s"), ptr(f"b{i}")]
+    return table + head_pointers(packed, device)
+
+
+def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
+            samples_per_dir: int, dump: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if xyz.device.type != "cuda":
+        raise ValueError(f"int8 NeRF field: unsupported device {xyz.device}")
+    n = xyz.shape[0]
+    full = dirs is not None
+    _check(xyz, "xyz", xyz.device, torch.float32, (n, 3))
+    if full:
+        if samples_per_dir < 1:
+            raise ValueError(f"samples_per_dir must be >= 1, got {samples_per_dir}")
+        _check(dirs, "dirs", xyz.device, torch.float32, (-(-n // samples_per_dir), 3))
+    table = _pointer_table(packed, xyz.device)
+    out = torch.empty((n, 4 if full else 1), dtype=torch.float32, device=xyz.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(xyz.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel_fn()((ctypes.c_void_p * len(table))(*table), _depth(packed),
+                           KERNEL_WIDTH, xyz.data_ptr(), dirs.data_ptr() if full else None,
+                           samples_per_dir, out.data_ptr(), n, int(full),
+                           None if dump is None else dump.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"nerf_field_int8_forward failed: cudaError {err}")
+    return out
+
+
+def fused_nerf_sigma_int8(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
+    """Raw sigma (N, 1) f32 for (N, 3) f32 points, int8 trunk."""
+    if xyz.device.type == "cpu":
+        return fused_sigma_int8_ref(packed, xyz)
+    out = _launch(packed, xyz, None, 1)
+    LAUNCHES["sigma"] += 1
+    return out
+
+
+def fused_nerf_full_int8(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
+                         samples_per_dir: int = 1) -> torch.Tensor:
+    """[r, g, b, sigma] (N, 4) f32 for (N, 3) points, int8 trunk; point p
+    takes direction `dirs[p // samples_per_dir]`."""
+    if xyz.device.type == "cpu":
+        return fused_full_int8_ref(packed, xyz, dirs, samples_per_dir)
+    out = _launch(packed, xyz, dirs, samples_per_dir)
+    LAUNCHES["full"] += 1
+    return out
+
+
+def int8_trunk_inputs_ref(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
+    """The plain version's int8 layer inputs (`int8_trunk_inputs`), on any device."""
+    inputs: list = []
+    _trunk_int8_ref(packed, xyz, inputs)
+    return torch.stack(inputs)
+
+
+def int8_trunk_inputs(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
+    """(depth, N, W) int8: slot 0 holds [x_q (3), sin/cos_q (60), 0...],
+    slot l the int8 input of layer l. On a CUDA tensor the kernel's own
+    (one sigma-pass launch, not counted in `LAUNCHES`), on a CPU tensor the
+    plain version's."""
+    if xyz.device.type == "cpu":
+        return int8_trunk_inputs_ref(packed, xyz)
+    dump = torch.zeros((_depth(packed), xyz.shape[0], KERNEL_WIDTH), dtype=torch.int8,
+                       device=xyz.device)
+    _launch(packed, xyz, None, 1, dump)
+    return dump

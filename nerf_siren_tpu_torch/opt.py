@@ -80,7 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "backward kernels (bf16 operands, float32 "
                              "accumulation; reference 8x256 topology). "
                              "culled / culled_fused come with ROADMAP "
-                             "slice 3")
+                             "slice 6")
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
                         help="1: one step per call; grouped steps are "
                              "not ported yet (ROADMAP)")
@@ -153,7 +153,7 @@ NOT_YET = (
     ("mode", ("d3", "d3_ib"), "slice 4 (the semantic stack)"),
     ("mode", ("eg3d",), "slice 5 (EG3D)"),
     ("field", ("siren",), "slice 4 (SIREN)"),
-    ("train_backend", ("culled", "culled_fused"), "slice 3 (the fast path)"),
+    ("train_backend", ("culled", "culled_fused"), "slice 6 (culled training)"),
     ("multihost", (True,), "slice 6 (multi-GPU)"),
 )
 

@@ -69,7 +69,7 @@ class NeRFSystem:
                  device="cuda"):
         if train_backend not in BACKENDS:
             raise ValueError(f"train_backend {train_backend!r}: the port has {BACKENDS}; "
-                             "'culled' and 'culled_fused' come with ROADMAP slice 3")
+                             "'culled' and 'culled_fused' come with ROADMAP slice 6")
         if train_backend == "fused":
             from nerf_siren_tpu_torch.ops.kernels.fused_mlp_train import check_topology
 

@@ -1,0 +1,154 @@
+"""The port's int8 NeRF field (K4's plain version, which the wrappers run on
+the CPU) against the JAX package's int8 Pallas kernel, run in interpret
+mode with `fused_mlp.TILE_N` shrunk to 128 as tests/test_fused_int8.py
+does, and the int8 pack dispatch of both renderers against JAX's.
+
+Tolerances are tests/test_fused_int8.py's: rgb atol 2e-2, sigma atol 5e-2
+and rtol 2e-2. The integer sums are exact on both sides, so the outputs
+differ only where a float32 value rounds across a .5 boundary of the int8
+grid (the summation order of a scale product or of the bf16 heads moves
+it by an ulp) and by the heads' bf16 summation order. The renders: the
+fused renderer's outputs atol 5e-3 / rtol 2e-2 (the bf16 slice bar of
+tests/test_torch_fused_mlp.py); the fast renderer's per output median
+|d| < 2e-3 and 99th percentile < 0.05 of the output's scale max(1,
+max |ref|) (tests/test_proxy_march.py's bars).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nerf_siren_tpu.config import NeRFConfig, RenderConfig
+from nerf_siren_tpu.models.nerf import init_nerf
+from nerf_siren_tpu.ops.pallas import fused_mlp as jfm
+from nerf_siren_tpu.ops.pallas import fused_mlp_int8 as jk4
+from nerf_siren_tpu.ops.pallas import proxy_march as jpm
+from nerf_siren_tpu.render import fast as jfast
+from nerf_siren_tpu.render.fused import render_rays_fused as j_render_rays_fused
+from nerf_siren_tpu_torch.convert import nerf_from_jax
+from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+from nerf_siren_tpu_torch.render import fast
+from nerf_siren_tpu_torch.render.fused import field_kernels, render_rays_fused
+from tests.test_torch_proxy_march import port_proxy, rays_np
+from tests.test_torch_rendering import with_density
+
+SMALL = NeRFConfig(depth=5, width=128)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def small_tile():
+    old = jfm.TILE_N
+    jfm.TILE_N = 128  # keep interpreter-mode runs of the JAX kernels fast
+    yield
+    jfm.TILE_N = old
+
+
+def _model(params):
+    model = NeRF(SMALL)
+    model.load_state_dict(nerf_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    return model
+
+
+@pytest.fixture(scope="module")
+def field():
+    params = with_density(init_nerf(jax.random.PRNGKey(0), SMALL))
+    return params, jk4.pack_nerf_params_int8(params, SMALL), k4.pack_nerf_params_int8(_model(params))
+
+
+def _points(n, seed):
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.4, 1.4, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return xyz, d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def test_int8_pack_quantises_as_jax(field):
+    """The int8 weights and row scales equal JAX's for the hidden layers, and
+    the coordinate columns of layer 0 (JAX keeps them in its own row order
+    for the sin/cos columns, so those are compared through the outputs)."""
+    _, jpack, tpack = field
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(tpack[f"q{i}"].numpy(), np.asarray(jpack[f"q{i}"]))
+        np.testing.assert_allclose(tpack[f"f{i}"].numpy(), np.asarray(jpack[f"f{i}"])[:, 0],
+                                   rtol=1e-6)
+    np.testing.assert_array_equal(tpack["q4"].numpy(), np.asarray(jpack["q4h"]))
+    np.testing.assert_array_equal(tpack["q0x"].numpy(), np.asarray(jpack["q0x"])[:, :3])
+
+
+@pytest.mark.parametrize("n", [200, 130])
+def test_full_and_sigma_match_jax(field, n):
+    params, jpack, tpack = field
+    xyz, d = _points(n, n)
+    xyz_t = jfm._pad_lanes(jnp.asarray(xyz).T, jfm.TILE_N)
+    dir_t = jfm._pad_lanes(jnp.asarray(d).T, jfm.TILE_N)
+    want = np.asarray(jk4.fused_full_t_int8(jpack, xyz_t, dir_t, depth=SMALL.depth,
+                                            skips=SMALL.skips)[:4, :n].T)
+    want_sigma = np.asarray(jk4.fused_sigma_t_int8(jpack, xyz_t, depth=SMALL.depth,
+                                                   skips=SMALL.skips)[jfm.SIGMA_ROW, :n])
+    got = k4.fused_nerf_full_int8(tpack, torch.from_numpy(xyz), torch.from_numpy(d)).numpy()
+    got_sigma = k4.fused_nerf_sigma_int8(tpack, torch.from_numpy(xyz)).numpy()[:, 0]
+    np.testing.assert_allclose(got[:, :3], want[:, :3], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(got[:, 3], want[:, 3], atol=5e-2, rtol=2e-2)
+    np.testing.assert_allclose(got_sigma, want_sigma, atol=5e-2, rtol=2e-2)
+    # the plain version's sigma pass is its full pass's sigma, exactly
+    np.testing.assert_array_equal(got_sigma, got[:, 3])
+
+
+def test_trunk_inputs_are_int8_of_the_plain_math(field):
+    """`int8_trunk_inputs` on the CPU: slot 0 holds the quantised
+    coordinates and sin/cos, every slot is within +-127, and it is what
+    the plain field consumed (its sigma follows from the slots)."""
+    _, _, tpack = field
+    xyz, _ = _points(64, 3)
+    q = k4.int8_trunk_inputs(tpack, torch.from_numpy(xyz))
+    assert q.dtype == torch.int8 and q.shape == (SMALL.depth, 64, SMALL.width)
+    assert int(q.abs().max()) == 127
+    absmax = np.abs(xyz).max(-1, keepdims=True)
+    np.testing.assert_array_equal(q[0, :, :3].numpy(),
+                                  np.clip(np.round(xyz / (absmax / 127.0)), -127, 127))
+
+
+def test_fused_renderer_dispatches_the_int8_pack(field):
+    """render_rays_fused with int8 packs (field_kernels picks K4 by 'q0x')
+    against JAX's render_rays_fused with its int8 packs."""
+    params, jpack, tpack = field
+    assert field_kernels(tpack)[1] is k4.fused_nerf_full_int8
+    r = 16
+    rng = np.random.default_rng(9)
+    o = rng.uniform(-0.3, 0.3, (r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([o, d, np.full((r, 1), 0.5, np.float32),
+                           np.full((r, 1), 2.0, np.float32)], -1)
+    cfg = RenderConfig(n_samples=16, n_importance=8, perturb=0.0, noise_std=0.0,
+                       white_back=True, test_time=True)
+    want = j_render_rays_fused({"coarse": jpack, "fine": jpack}, jnp.asarray(rays), cfg,
+                               nerf_cfg=SMALL)
+    got = render_rays_fused({"coarse": tpack, "fine": tpack}, torch.from_numpy(rays), cfg)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(want[k]), atol=5e-3, rtol=2e-2,
+                                   err_msg=k)
+
+
+def test_fast_renderer_dispatches_the_int8_pack(field):
+    """render_rays_fast's kernel route (K3 then the field at the survivors)
+    with an int8 pack, against JAX's, on R = TILE_R rays."""
+    params, jpack, tpack = field
+    tree = jfast.init_proxy(jax.random.PRNGKey(3), hidden=96)
+    rays = rays_np(jpm.TILE_R, seed=2)
+    kw = dict(n_candidates=16, n_keep=8, white_back=True, select="pdf")
+    want = jfast.render_rays_fast({"fine": params}, tree, jnp.asarray(rays), nerf_cfg=SMALL,
+                                  packed_params={"fine": jpack},
+                                  packed_proxy=jpm.pack_proxy_params(tree), **kw)
+    proxy = port_proxy(tree)
+    with torch.no_grad():
+        got = fast.render_rays_fast(None, proxy, torch.from_numpy(rays),
+                                    packed_params={"fine": tpack},
+                                    packed_proxy=k3.pack_proxy_params(proxy), **kw)
+    for k, v in got.items():
+        ref = np.asarray(want[k])
+        err = np.abs(v.numpy() - ref) / max(1.0, float(np.abs(ref).max()))
+        assert np.median(err) < 2e-3 and np.percentile(err, 99) < 0.05, k

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain versions: the fused
-NeRF field (K1, csrc/fused_mlp.cu) and the fused training field's forward
-and backward (K2, csrc/fused_mlp_train.cu).
+NeRF field (K1, csrc/fused_mlp.cu), the fused training field's forward
+and backward (K2, csrc/fused_mlp_train.cu), the proxy march (K3,
+csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu) and the
+proxy top-K (K6, csrc/proxy_select.cu).
 
 Imports torch only, so it also runs where JAX is not installed. Tests marked
 `cuda` need a CUDA card and skip without one; on the card run
@@ -250,3 +252,169 @@ def test_train_kernels_reject_what_they_do_not_take(cuda_device):
         k2.fused_train_bwd(packed, xyz, xyz, torch.zeros((8, 3), device=cuda_device))
     with pytest.raises(ValueError, match="w_feat"):
         k2.fused_train_fwd({**packed, "w_feat": packed["w_feat"].float()}, xyz, xyz)
+
+
+# ---- K3 proxy march, K6 proxy top-K, K4 int8 field ----------------------------
+# Tolerances of kernel vs plain: the proxy kernels and their plain versions
+# round at the same points in the same order, so on an H100 they agree bit
+# for bit; the bars are still tests/test_proxy_march.py's (depths: median
+# |dz| < 0.005 and 99th percentile < 0.05 of far - near; opacity: median
+# < 2e-3, max < 0.05), as a sinf/cosf of another library may round apart.
+# K6: per-ray set equality of depths (atol 1e-5). K4: rgb atol 2e-2, sigma
+# atol 5e-2 + rtol 2e-2 (tests/test_fused_int8.py), and under 1e-3 of the
+# int8 inputs of its layers rounded apart (0 on an H100).
+
+def _proxy_rays(n, seed=0):
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.from_numpy(np.concatenate(
+        [rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32), d,
+         np.full((n, 1), 2.0, np.float32), np.full((n, 1), 6.0, np.float32)], -1))
+
+
+def _proxy_pack(hidden, device, seed=3):
+    from nerf_siren_tpu_torch.ops.kernels.proxy_march import pack_proxy_params
+    from nerf_siren_tpu_torch.render.fast import init_proxy
+
+    return pack_proxy_params(init_proxy(hidden, generator=torch.Generator().manual_seed(seed)),
+                             device)
+
+
+def test_proxy_and_int8_wrappers_run_plain_versions_on_the_cpu():
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    pp, rays = _proxy_pack(48, "cpu"), _proxy_rays(33)
+    before = (dict(k3.LAUNCHES), dict(k6.LAUNCHES), dict(k4.LAUNCHES))
+    assert torch.equal(k3.proxy_opacity(pp, rays, 16), k3.proxy_opacity_ref(pp, rays, 16))
+    for a, b in zip(k3.proxy_march_select(pp, rays, 16, 8, True, True),
+                    k3.proxy_march_select_ref(pp, rays, 16, 8, True, True)):
+        assert torch.equal(a, b)
+    assert torch.equal(k6.proxy_select(pp, rays, 32, 8), k6.proxy_select_ref(pp, rays, 32, 8))
+    model = NeRF(NeRFConfig(depth=5, width=128), generator=torch.Generator().manual_seed(0))
+    p8 = k4.pack_nerf_params_int8(model)
+    xyz, d = _points(37, 37)
+    assert torch.equal(k4.fused_nerf_full_int8(p8, xyz, d), k4.fused_full_int8_ref(p8, xyz, d))
+    assert torch.equal(k4.fused_nerf_sigma_int8(p8, xyz), k4.fused_sigma_int8_ref(p8, xyz))
+    assert (dict(k3.LAUNCHES), dict(k6.LAUNCHES), dict(k4.LAUNCHES)) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,k,hidden,midpoint", [(1, 16, 8, 48, False), (130, 32, 16, 96, True),
+                                                   (4099, 32, 16, 96, False),
+                                                   (2048, 64, 5, 128, True)])
+def test_proxy_march_kernels_match_plain(cuda_device, n, c, k, hidden, midpoint):
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    pp, rays = _proxy_pack(hidden, cuda_device), _proxy_rays(n).to(cuda_device)
+    before = dict(k3.LAUNCHES)
+    opac = k3.proxy_opacity(pp, rays, c)
+    z, xyz, rho, mass = k3.proxy_march_select(pp, rays, c, k, midpoint, True)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == {"opacity": before["opacity"] + 1, "select": before["select"] + 1}
+    ref_opac = k3.proxy_opacity_ref(pp, rays, c)
+    rz, rxyz, rrho, rmass = k3.proxy_march_select_ref(pp, rays, c, k, midpoint, True)
+    e = (opac - ref_opac).abs()
+    dz = (z - rz).abs() / 4.0
+    print(f"\n[n={n} C={c} K={k}] opacity max|d| {float(e.max()):.3e}; depth max|d| "
+          f"{float(dz.max()) * 4:.3e}, {int((z != rz).sum())} of {z.numel()} differ")
+    assert float(e.median()) < 2e-3 and float(e.max()) < 0.05
+    assert float(dz.median()) < 0.005 and float(torch.quantile(dz.flatten(), 0.99)) < 0.05
+    assert bool((z[:, 1:] >= z[:, :-1] - 1e-5).all())
+    torch.testing.assert_close(xyz, rays[:, None, :3] + rays[:, None, 3:6] * z[..., None],
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(mass, rmass, atol=1e-5, rtol=1e-4)
+    rel = (rho - rrho).abs() / rrho.abs().clamp_min(1e-3)
+    assert float(rel.median()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,k", [(1, 8, 8), (70, 32, 8), (4099, 64, 16), (257, 256, 3)])
+def test_proxy_select_kernel_matches_plain(cuda_device, n, c, k):
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    pp, rays = _proxy_pack(48, cuda_device, seed=1), _proxy_rays(n, seed=2).to(cuda_device)
+    before = k6.LAUNCHES["select"]
+    got = k6.proxy_select(pp, rays, c, k)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES["select"] == before + 1
+    ref = k6.proxy_select_ref(pp, rays, c, k)
+    bad = ((got.sort(1).values - ref.sort(1).values).abs() > 1e-5).any(1).nonzero()[:, 0]
+    if len(bad):   # show whether the rays that differ hold near-equal scores
+        z = k6._depths(rays, c)
+        s = k6.proxy_scores_ref(pp, rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None])
+        for r in bad[:4].tolist():
+            top = torch.sort(s[r], descending=True, stable=True)
+            print(f"\n[C={c} K={k}] ray {r}: plain top scores {top.values[:k + 2].tolist()} at "
+                  f"{top.indices[:k + 2].tolist()}; kernel depths {got[r].tolist()}, plain "
+                  f"{ref[r].tolist()}")
+    torch.testing.assert_close(got.sort(1).values, ref.sort(1).values, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,samples_per_dir", [(1, 1), (127, 1), (1000, 1), (4099, 7)])
+def test_int8_kernel_matches_plain(cuda_device, n, samples_per_dir):
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+
+    model = NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    p8 = k4.pack_nerf_params_int8(model)
+    xyz, d = _points(n, -(-n // samples_per_dir))
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    before = dict(k4.LAUNCHES)
+    sig = k4.fused_nerf_sigma_int8(p8, xyz)
+    full = k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == {"sigma": before["sigma"] + 1, "full": before["full"] + 1}
+    ref = k4.fused_full_int8_ref(p8, xyz, d, samples_per_dir)
+    torch.testing.assert_close(full[:, :3], ref[:, :3], atol=2e-2, rtol=0)
+    torch.testing.assert_close(full[:, 3:], ref[:, 3:], atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(sig, k4.fused_sigma_int8_ref(p8, xyz), atol=5e-2, rtol=2e-2)
+    got_q, ref_q = k4.int8_trunk_inputs(p8, xyz), k4.int8_trunk_inputs_ref(p8, xyz)
+    flips = (got_q != ref_q).sum(dim=(1, 2))
+    print(f"\n[n={n}] int8 inputs rounded apart per layer: {flips.tolist()} of {n * 256} each; "
+          f"full max|d| {(full - ref).abs().amax(0).tolist()}")
+    assert int(flips.sum()) <= 1e-3 * got_q.numel() + 1
+
+
+@pytest.mark.cuda
+def test_fast_render_on_kernels_matches_plain(cuda_device):
+    """render_rays_fast's kernel route on the card (K3 + K1, and K4) against
+    the same render on the CPU (plain versions): per output, median |d| <
+    2e-3 and 99th percentile < 0.05 (tests/test_proxy_march.py's bars)."""
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+    from nerf_siren_tpu_torch.render.fast import render_rays_fast
+
+    models = {"fine": NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(4))}
+    rays = _proxy_rays(300, seed=5)
+    proxy_cpu, proxy_gpu = _proxy_pack(96, "cpu"), _proxy_pack(96, cuda_device)
+    for pack in (fused_mlp.pack_model_params, k4.pack_model_params_int8):
+        kw = dict(n_candidates=32, n_keep=16, select="pdf", white_back=True,
+                  scene_aabb=([-2.0] * 3, [2.0] * 3))
+        with torch.no_grad():
+            ref = render_rays_fast(None, None, rays, packed_params=pack(models, "cpu"),
+                                   packed_proxy=proxy_cpu, **kw)
+            got = render_rays_fast(None, None, rays.to(cuda_device),
+                                   packed_params=pack(models, cuda_device),
+                                   packed_proxy=proxy_gpu, **kw)
+        for k, v in ref.items():
+            err = (got[k].cpu() - v).abs()
+            assert float(err.median()) < 2e-3 and float(torch.quantile(err.flatten(), .99)) < .05, k
+
+
+@pytest.mark.cuda
+def test_proxy_and_int8_kernels_reject_what_they_do_not_take(cuda_device):
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    pp, rays = _proxy_pack(48, cuda_device), _proxy_rays(8).to(cuda_device)
+    with pytest.raises(ValueError, match="rays"):
+        k3.proxy_opacity(pp, rays[:, :7].contiguous(), 16)
+    with pytest.raises(ValueError, match="candidates"):
+        k3.proxy_opacity(pp, rays, 3)
+    with pytest.raises(ValueError, match="w1"):
+        k3.proxy_opacity({**pp, "w1": pp["w1"].float()}, rays, 16)
+    p8 = k4.pack_nerf_params_int8(NeRF(NeRFConfig()).to(cuda_device))
+    with pytest.raises(ValueError, match="q1"):
+        k4.fused_nerf_sigma_int8({**p8, "q1": p8["q1"].float()}, torch.zeros((4, 3), device=cuda_device))

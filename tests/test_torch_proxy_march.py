@@ -1,0 +1,182 @@
+"""The port's density proxy and the plain versions of its proxy kernels
+against the JAX package: `apply_proxy`, the proxy weights' round trip
+through `convert.py`, the proxy march (K3: `proxy_opacity`,
+`proxy_march_select` with its density aux) and the proxy top-K (K6:
+`proxy_select`). The JAX kernels run in Pallas interpret mode on the CPU,
+as tests/test_proxy_march.py and tests/test_fast_render.py run them: K3 on
+R = TILE_R = 2048 rays.
+
+Tolerances (the JAX kernel tests' own bars, which their kernels meet
+against the jnp pipeline): the TPU kernel sums the proxy's first layer as
+W1x.o + (W1x.d) z in bf16 matmul order, the port in input order, so scores
+differ by float32 rounding and the CDF moves by O(eps). Opacity: median
+|d| < 2e-3, max < 0.05. Depths: median |d| < 0.005 and 99th percentile
+< 0.05 of far - near. Density aux: relative median < 0.05 and 80% within
+0.25 (a sample that crosses a bin edge takes its neighbour's density);
+mass relative median < 0.05. K6: per-ray set equality of the depths,
+atol 1e-5. `apply_proxy`: f32 atol 1e-5; bf16 atol 2e-3 (bf16 operands,
+float32 sums in another order, the hidden layer rounded to bf16).
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nerf_siren_tpu.ops.pallas import proxy_march as jpm
+from nerf_siren_tpu.ops.pallas import proxy_select as jps
+from nerf_siren_tpu.render import fast as jfast
+from nerf_siren_tpu_torch.convert import proxy_from_jax, proxy_to_jax
+from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+from nerf_siren_tpu_torch.render.fast import Proxy, apply_proxy
+
+C, K = 16, 8
+SPAN = 4.0   # far - near
+
+
+def _numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def port_proxy(tree) -> Proxy:
+    state = proxy_from_jax(_numpy(tree))
+    proxy = Proxy(state["l1.weight"].shape[0])
+    proxy.load_state_dict(state)
+    return proxy
+
+
+def rays_np(n, seed=0):
+    """tests/test_proxy_march.py's rays: origins in a 0.4 cube, unit
+    directions, near 2, far 6."""
+    rng = np.random.RandomState(seed)
+    o = rng.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    d = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.concatenate([o, d, np.full((n, 1), 2.0, np.float32),
+                           np.full((n, 1), 6.0, np.float32)], -1)
+
+
+@pytest.fixture(scope="module")
+def proxy():
+    tree = jfast.init_proxy(jax.random.PRNGKey(3), hidden=96)
+    return tree, jpm.pack_proxy_params(tree), k3.pack_proxy_params(port_proxy(tree))
+
+
+def test_proxy_round_trip_is_bit_exact():
+    tree = _numpy(jfast.init_proxy(jax.random.PRNGKey(5), hidden=48))
+    back = proxy_to_jax(port_proxy(tree).state_dict())
+    assert set(back) == {"l1", "l2"}
+    for layer in ("l1", "l2"):
+        for k in ("kernel", "bias"):
+            assert back[layer][k].dtype == np.float32
+            np.testing.assert_array_equal(back[layer][k], tree[layer][k])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_apply_proxy_matches_jax(proxy, dtype):
+    tree = proxy[0]
+    pts = np.random.default_rng(1).uniform(-3, 3, (4096, 3)).astype(np.float32)
+    want = np.asarray(jfast.apply_proxy(tree, jnp.asarray(pts),
+                                        jnp.bfloat16 if dtype == "bfloat16" else None))
+    got = apply_proxy(port_proxy(tree), torch.from_numpy(pts),
+                      torch.bfloat16 if dtype == "bfloat16" else None).detach().numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3 if dtype == "bfloat16" else 1e-5, rtol=0)
+
+
+def test_kernel_order_score_matches_apply_proxy(proxy):
+    """The plain score in the kernels' summation order is `apply_proxy` at
+    bf16 up to that order (atol 2e-3, the bf16 bar above)."""
+    pts = torch.from_numpy(np.random.default_rng(2).uniform(-3, 3, (2048, 3)).astype(np.float32))
+    np.testing.assert_allclose(k3.proxy_scores_ref(proxy[2], pts).numpy(),
+                               apply_proxy(port_proxy(proxy[0]), pts).detach().numpy(),
+                               atol=2e-3, rtol=0)
+
+
+def test_proxy_opacity_matches_jax(proxy):
+    _, jpack, tpack = proxy
+    rays = rays_np(jpm.TILE_R, seed=4)
+    want = np.asarray(jpm.proxy_opacity(jpack, jnp.asarray(rays).T, C))
+    got = k3.proxy_opacity(tpack, torch.from_numpy(rays), C).numpy()
+    err = np.abs(got - want)
+    assert np.median(err) < 2e-3 and err.max() < 0.05
+
+
+@pytest.mark.parametrize("midpoint", [False, True])
+def test_march_select_matches_jax(proxy, midpoint):
+    _, jpack, tpack = proxy
+    rays = rays_np(jpm.TILE_R, seed=0)
+    z_j, xyz_j, dir_j = jpm.proxy_march_select(jpack, jnp.asarray(rays).T, C, K,
+                                               midpoint=midpoint)
+    z_j = np.asarray(z_j).T                                          # (R, K)
+    z, xyz = k3.proxy_march_select(tpack, torch.from_numpy(rays), C, K, midpoint)
+    z, xyz = z.numpy(), xyz.numpy()
+    err = np.abs(z - z_j)
+    assert np.median(err) < 0.005 * SPAN and np.percentile(err, 99) < 0.05 * SPAN
+    assert np.all(np.diff(z, axis=-1) >= -1e-5)
+    # survivors ray-major (R, K, 3) where JAX lays them out candidate-major
+    np.testing.assert_allclose(xyz, rays[:, None, :3] + rays[:, None, 3:6] * z[..., None],
+                               atol=1e-5, rtol=0)
+    xyz_j = np.asarray(xyz_j)[:3].reshape(3, K, -1).transpose(2, 1, 0)
+    np.testing.assert_allclose(xyz_j, rays[:, None, :3] + rays[:, None, 3:6] * z_j[..., None],
+                               atol=1e-4, rtol=0)
+
+
+def test_march_density_aux_matches_jax(proxy):
+    _, jpack, tpack = proxy
+    rays = rays_np(jpm.TILE_R, seed=8)
+    out = jpm.proxy_march_select(jpack, jnp.asarray(rays).T, C, K, midpoint=True,
+                                 return_density=True)
+    aux = np.asarray(out[3])
+    rho_j, mass_j = aux[:K].T, aux[K]
+    z, xyz, rho, mass = (t.numpy() for t in k3.proxy_march_select(
+        tpack, torch.from_numpy(rays), C, K, True, True))
+    rel_w = np.abs(mass - mass_j) / np.maximum(mass_j, 1e-4)
+    assert np.median(rel_w) < 0.05
+    rel = np.abs(rho - rho_j) / np.maximum(np.abs(rho_j), 1e-3)
+    assert np.median(rel) < 0.05 and np.mean(rel < 0.25) > 0.8
+
+
+def test_march_plain_matches_the_jnp_pdf_path(proxy):
+    """The plain march against render_rays_fast's jnp pdf selection (the
+    JAX function K3 stands in for), at the same bars."""
+    tree, _, tpack = proxy
+    rays = rays_np(512, seed=1)
+    jr = jnp.asarray(rays)
+    near, far = jr[:, 6:7], jr[:, 7:8]
+    t = jnp.linspace(0.0, 1.0, C)
+    z = near * (1 - t) + far * t
+    score = jfast.apply_proxy(tree, jr[:, None, 0:3] + jr[:, None, 3:6] * z[..., None],
+                              jnp.bfloat16)
+    a_hat = 1.0 - jnp.exp(-jnp.expm1(jax.nn.relu(score)) * (far - near) / (C - 1))
+    tr = jnp.cumprod(1.0 - a_hat + 1e-10, axis=-1)
+    w_hat = a_hat * jnp.concatenate([jnp.ones_like(tr[:, :1]), tr[:, :-1]], -1)
+    from nerf_siren_tpu.ops.sample_pdf import sample_pdf
+    z_ref = np.asarray(sample_pdf(0.5 * (z[:, :-1] + z[:, 1:]), w_hat[:, 1:-1], K, rng=None,
+                                  det=True, midpoint=True))
+    got = k3.proxy_march_select(tpack, torch.from_numpy(rays), C, K, True)[0].numpy()
+    err = np.abs(got - z_ref)
+    assert np.median(err) < 0.005 * SPAN and np.percentile(err, 99) < 0.05 * SPAN
+
+
+@pytest.mark.parametrize("n,nc,nk", [(70, 32, 8), (64, 64, 16)])
+def test_proxy_select_matches_jax(n, nc, nk):
+    """K6's plain version against the JAX kernel (tests/test_fast_render.py's
+    rays): the same depths per ray, atol 1e-5; JAX's tie order may differ,
+    so both are sorted."""
+    tree = jfast.init_proxy(jax.random.PRNGKey(1))
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([rng.normal(size=(n, 3)).astype(np.float32) * 0.2, d,
+                           np.full((n, 1), 2, np.float32), np.full((n, 1), 6, np.float32)], -1)
+    want = np.sort(np.asarray(jps.proxy_select(jps.pack_proxy_params(tree),
+                                               jnp.asarray(rays), nc, nk)), -1)
+    packed = k6.pack_proxy_params(port_proxy(tree))
+    got = k6.proxy_select(packed, torch.from_numpy(rays), nc, nk).numpy()
+    np.testing.assert_allclose(np.sort(got, -1), want, atol=1e-5, rtol=0)
+    # score order: every kept depth scores at least as high as the next
+    z = torch.from_numpy(got)
+    scores = k3.proxy_scores_ref(packed, torch.from_numpy(rays[:, None, :3])
+                                 + torch.from_numpy(rays[:, None, 3:6]) * z[..., None])
+    assert bool((scores[:, 1:] <= scores[:, :-1]).all())

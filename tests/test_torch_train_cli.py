@@ -126,7 +126,7 @@ def test_pretrained_warm_starts_from_a_jax_checkpoint(tmp_path, scene):
     (["--mode", "d3"], "slice 4"),
     (["--mode", "eg3d"], "slice 5"),
     (["--field", "siren"], "slice 4"),
-    (["--train_backend", "culled_fused"], "slice 3"),
+    (["--train_backend", "culled_fused"], "slice 6 (culled"),
     (["--multihost"], "slice 6"),
     (["--num_chips", "4"], "slice 6"),
     (["--dataset_name", "replica"], "slice 4"),

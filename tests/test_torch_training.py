@@ -247,7 +247,7 @@ def test_fused_backend_trains_and_agrees_with_jnp():
 
 
 def test_system_rejects_what_the_port_lacks():
-    with pytest.raises(ValueError, match="slice 3"):
+    with pytest.raises(ValueError, match="slice 6"):
         NeRFSystem(train_backend="culled", device="cpu")
     with pytest.raises(ValueError, match="reference 8x256"):
         NeRFSystem(nerf_cfg=NeRFConfig(**NARROW), train_backend="fused", device="cpu")
