@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
 Run from the repository root. Phases, each printing a line:
-  1. device: needs CUDA; prints the card's name and power limit; TF32 off.
+  1. device: needs CUDA; prints the card's name and power limit; TF32 off
+     for matmuls and cuDNN convolutions.
   2. build: compiles the hand-written kernels from csrc/, one nvcc process
      per source, all started together (seconds printed).
   3. eval kernels (K1) vs plain: full-width 8x256 NeRF weights from a numpy seed,
@@ -67,13 +68,38 @@ Run from the repository root. Phases, each printing a line:
  13. K6, which has no CLI caller: `proxy_select` over one frame's rays at C
      64, K 16 with the distilled proxy, every depth finite and in its ray's
      [near, far].
-  With `--profile`, one more exact frame, one more training step and one
-  more fast frame under `torch.profiler`: device time per kernel, the
-  device's idle share and the peak device memory.
+  Phases 14-17 drive EG3D exact eval (`eval_eg3d.py`'s defaults: planes 3 x
+  32 x 256² from a 512-wide StyleGAN2, 64 + 64 samples, ray 0.1 -> 10,
+  box_warp 15, chunk 4096) on the triplane gather kernel K5:
+ 14. weights: a full-width `eg3d_renderer` tree from a numpy seed
+     (`numpy_eg3d_params`, `init_eg3d_renderer`'s shapes and distributions),
+     saved as a msgpack checkpoint and read back by the CLI's `load_model`
+     (`convert.eg3d_from_jax`); mapping + synthesis ms per frame.
+ 15. K5 vs plain on the frame's bf16 table: the 262,144 coarse points of one
+     chunk of a 128² lego frame, all 2,097,152 points that frame samples
+     (coarse and fine), and 262,144 random points within 1.05 x box_warp / 2
+     (edges and beyond): 0 elements may differ; all three within 1e-5 of
+     the table's largest magnitude of `F.grid_sample` on its float32 copy;
+     kernel, plain and `F.grid_sample` ms (float32, and bf16 where
+     `F.grid_sample` takes it) at the chunk's shape, with the bound.
+ 16. frames through the CLI's `make_renderer` with `--plane_sampler kernel`:
+     3 of 128² (latency, rays/s, finite outputs, mean opacity_fine, K5
+     launched twice per chunk), the same 3 through `gather` (every output
+     within 1e-6 of the kernel frames: the same math on the same table),
+     and one of 800² (157 chunks, 314 launches).
+ 17. 2048 rays of the first 128² frame against a CPU re-render on the
+     card's table (atol 5e-3, as phase 4), and the card's float32 planes
+     against a CPU float32 synthesis from the same weights (max |d| within
+     1e-3 of the planes' largest magnitude; cuDNN TF32 is off, phase 1).
+  With `--profile`, one more exact frame, one more training step, one
+  more fast frame and one more 128² EG3D frame under `torch.profiler`:
+  device time per kernel, the device's idle share and the peak device
+  memory.
 Then one JSON line of kernels (launches counted over the one path that
 runs each: K1 phase 4, K2 phase 6, K3 select phase 9, K3 opacity phase 10,
-K4 phase 11, K6 phase 13), the nvidia-smi line, and the JSON result as the
-last line. Any failure exits non-zero before the result is printed.
+K4 phase 11, K6 phase 13, K5 the 128² frames of phase 16), the nvidia-smi
+line, and the JSON result as the last line. Any failure exits non-zero
+before the result is printed.
 Bounds: the larger of the operations over the dense tensor-core peak of
 their type (bf16 989 TFLOP/s, int8 1,979 TOP/s) and the bytes (inputs read
 once, outputs written once) over the memory rate of an H100 SXM (3.35 TB/s).
@@ -110,7 +136,14 @@ OPACITY_BARS = (2e-3, 5e-2)  # median, max
 FAST_BARS = (2e-3, 5e-2)     # median, 99th percentile of |d| / max(1, max|ref|)
 INT8_RGB_ATOL, INT8_SIGMA_TOL, INT8_VS_BF16 = 2e-2, (5e-2, 2e-2), 0.15
 PEAK_FLOPS, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM dense; HBM3
-SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select")
+EG3D_SEED, EG3D_WH, EG3D_BIG, N_EG3D = SEED + 30, 128, 800, 3
+EG3D_CHECK = slice(64 * 128, 64 * 128 + 2048)   # rays through the 128² frame's centre rows
+K5_RANDOM = 262_144
+K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
+SAME_FRAME_ATOL = 1e-6  # kernel vs gather frames
+PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest magnitude
+SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select",
+           "triplane_gather")
 PALLAS = "nerf_siren_tpu/ops/pallas"
 KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kernel it replaces)
     "fused_nerf_sigma": ("fused_mlp", "sigma", f"{PALLAS}/fused_mlp.py:262"),
@@ -122,6 +155,7 @@ KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kern
     "fused_nerf_full_int8": ("fused_mlp_int8", "full", f"{PALLAS}/fused_mlp_int8.py:253"),
     "fused_nerf_sigma_int8": ("fused_mlp_int8", "sigma", f"{PALLAS}/fused_mlp_int8.py:279"),
     "proxy_select": ("proxy_select", "select", f"{PALLAS}/proxy_select.py:55"),
+    "triplane_gather": ("triplane_gather", "gather", f"{PALLAS}/triplane_gather.py:76"),
 }
 
 
@@ -187,7 +221,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, ref, where, phase="3/13"):
+def compare(name, got, ref, where, phase="3/17"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -269,7 +303,7 @@ def check_kernels(packed, device, card):
         flops = n_pts * _flop_per_point(packed, name == "fused_nerf_full")
         n_bytes += sum(t.numel() * t.element_size() for t in packed.values())
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[3/13] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/17] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain {plain_ms:.3f} ms "
               f"({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}); {card}", flush=True)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -347,12 +381,12 @@ def check_train_kernels(model, frame_rays, device, card):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/13"))
+                                       "5/17"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/13] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/17] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
@@ -376,7 +410,7 @@ def check_train_kernels(model, frame_rays, device, card):
              2 * bwd_macs * n_pts, in_bytes + n_pts * 16 + len(shapes) * g_bytes)):
         ms, plain_ms, (p1, k1, k2_, p2) = timed_pair(kern, plain)
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[5/13] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
+        print(f"[5/17] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
               f"({k1:.3f}, {k2_:.3f}; {flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}, "
               f"{flops * 1e-12:.3f} TFLOP); {card}", flush=True)
@@ -435,7 +469,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/13] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/17] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -457,7 +491,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/13] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/17] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -479,7 +513,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/13] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/17] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
     return launches, ms, (system, state, batches[-1])
@@ -609,7 +643,7 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
     bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
-    print(f"[8/13] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+    print(f"[8/17] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
           f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
@@ -641,7 +675,7 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
     dz = (z - rz).abs() / span[:, None]
     med, p99 = float(dz.median()), percentile(dz, 0.99)
     err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
-    print(f"[8/13] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+    print(f"[8/17] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
           f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
@@ -660,7 +694,7 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (op - rop).abs()
     err = float(d.max())
-    print(f"[8/13] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+    print(f"[8/17] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
           f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
           f"{int((op != rop).sum())} of {r} differ", flush=True)
     if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
@@ -717,7 +751,7 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
         sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
         rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
         errs[name] = max(errs[name], float(d.max()))
-        print(f"[8/13] {name} vs plain {where}: max|d| per column "
+        print(f"[8/17] {name} vs plain {where}: max|d| per column "
               f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
               f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
               f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
@@ -725,7 +759,7 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
             fail(f"{name} disagrees with its plain version {where}")
     n_flip = 65536
     flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
-    print(f"[8/13] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+    print(f"[8/17] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
     for name, n, full, kern, plain in (
@@ -743,7 +777,7 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (got.sort(1).values - ref.sort(1).values).abs()
     err = float(d.max())
-    print(f"[8/13] proxy_select vs plain at {K6_RAYS} rays, C {K6_C}, K {K6_K}: per-ray sorted "
+    print(f"[8/17] proxy_select vs plain at {K6_RAYS} rays, C {K6_C}, K {K6_K}: per-ray sorted "
           f"depths max|d| {err:.3e} (atol 1e-5); {int((d > 1e-5).any(1).sum())} rays differ",
           flush=True)
     if not torch.isfinite(got).all() or err > 1e-5:
@@ -779,7 +813,7 @@ def fast_phases(frames_rays, device, card, args):
     exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
     check_outputs(exact, "exact frame")
     empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
-    print(f"[7/13] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+    print(f"[7/17] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
           f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
           f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
           f"per frame {[round(e, 4) for e in empty]}", flush=True)
@@ -812,7 +846,7 @@ def fast_phases(frames_rays, device, card, args):
     t0 = time.perf_counter()
     cached = setup_fast_proxy(models, hp, bounds)
     t_cached = time.perf_counter() - t0
-    print(f"[7/13] proxy distilled ({hp.fast_distill_steps} steps, batch "
+    print(f"[7/17] proxy distilled ({hp.fast_distill_steps} steps, batch "
           f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
           f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
           f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
@@ -835,7 +869,7 @@ def fast_phases(frames_rays, device, card, args):
     counts = read_counts(names)
     launches["proxy_march_select"] = counts["proxy_march_select"]
     n_chunks = -(-H * W // CHUNK)
-    print(f"[9/13] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+    print(f"[9/17] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
           f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
           f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
           f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
@@ -856,7 +890,7 @@ def fast_phases(frames_rays, device, card, args):
     for k, v in ref.items():
         d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
-    print(f"[9/13] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+    print(f"[9/17] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
           f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
           flush=True)
     if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
@@ -881,7 +915,7 @@ def fast_phases(frames_rays, device, card, args):
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
             lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
-            print(f"[10/13] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+            print(f"[10/17] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
                   f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
                   f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
@@ -908,7 +942,7 @@ def fast_phases(frames_rays, device, card, args):
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/13] int8 frames: fast {sec_f8:.4f} s (rgb max|d| vs the bf16 fast frame "
+    print(f"[11/17] int8 frames: fast {sec_f8:.4f} s (rgb max|d| vs the bf16 fast frame "
           f"{d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused {sec_x8:.4f} s "
           f"(rgb max|d| vs the bf16 exact frame {d_fused:.4f}, PSNR {psnr_vs(out_x8, exact[0]):.2f} "
           f"dB); bar {INT8_VS_BF16}; launches {read_counts(names)} ({card})", flush=True)
@@ -920,7 +954,7 @@ def fast_phases(frames_rays, device, card, args):
                          hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
     (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
     check_outputs([out_e], "edge-refined frame")
-    print(f"[12/13] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+    print(f"[12/17] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
           f"({card}); "
           f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
           f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
@@ -935,12 +969,266 @@ def fast_phases(frames_rays, device, card, args):
     sec6 = time.perf_counter() - t0
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
-    print(f"[13/13] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+    print(f"[13/17] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
           f"({card}); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
         fail("proxy_select's depths are not finite or leave their rays' [near, far]")
     return results, launches
+
+
+# ---- EG3D exact eval on K5 (phases 14-17) ---------------------------------------
+
+def numpy_eg3d_params(rng, cfg):
+    """A JAX-layout `eg3d_renderer` tree at `cfg` with `init_eg3d_renderer`'s
+    shapes and distributions: FC weights N(0, 1) / lr_multiplier (0.01 in
+    the mapping), affine biases 1, other biases 0, convolution weights,
+    consts, noise_const and z N(0, 1), noise strengths and w_avg 0."""
+    g = cfg.backbone
+    syn = g.synthesis
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    def fc(i, o, lr=1.0, bias_init=0.0):
+        return {"weight": normal(o, i) / np.float32(lr), "bias": np.full(o, bias_init, np.float32)}
+
+    def layer(i, o, res):
+        return {"affine": fc(g.w_dim, i, bias_init=1.0), "weight": normal(o, i, 3, 3),
+                "bias": np.zeros(o, np.float32), "noise_const": normal(res, res),
+                "noise_strength": np.zeros((), np.float32)}
+
+    feats = [g.z_dim] + [g.w_dim] * g.mapping_layers
+    synthesis = {}
+    for res in syn.block_resolutions:
+        out = syn.channels(res)
+        block = ({"const": normal(out, res, res)} if res == 4
+                 else {"conv0": layer(syn.channels(res // 2), out, res)})
+        block["conv1"] = layer(out, out, res)
+        block["torgb"] = {"affine": fc(g.w_dim, out, bias_init=1.0),
+                          "weight": normal(syn.img_channels, out, 1, 1),
+                          "bias": np.zeros(syn.img_channels, np.float32)}
+        synthesis[f"b{res}"] = block
+    return {"backbone": {"mapping": {"fcs": [fc(i, o, lr=0.01) for i, o in
+                                             zip(feats[:-1], feats[1:])],
+                                     "w_avg": np.zeros(g.w_dim, np.float32)},
+                         "synthesis": synthesis},
+            "decoder": {"fc1": fc(cfg.plane_channels, 64), "fc2": fc(64, 4)},
+            "z": normal(1, g.z_dim)}
+
+
+def synced_s(fn):
+    """(result, host seconds) of fn(), ending in a sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def eg3d_setup(device, card):
+    """Phase 14: the weights through a msgpack checkpoint and the CLI's load
+    path; mapping + synthesis timed. Returns (hparams, model, seconds per
+    synthesis)."""
+    from pathlib import Path
+
+    from nerf_siren_tpu_torch.eval_eg3d import get_opts, load_model, triplane_config
+    from nerf_siren_tpu_torch.training.checkpoints import save_checkpoint
+    from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+    ckpt_dir = Path("ckpts") / "chip_smoke"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = str(ckpt_dir / "eg3d.msgpack")
+    hp = get_opts(["--root_dir", str(ckpt_dir), "--ckpt_path", ckpt, "--plane_sampler", "kernel"])
+    cfg = triplane_config(hp, white_back=True)     # the Blender loader's white background
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, {"eg3d_renderer": numpy_eg3d_params(np.random.default_rng(EG3D_SEED),
+                                                              cfg)})
+    t_save = time.perf_counter() - t0
+    system = EG3DSystem(cfg, hp.plane_sampler)
+    model, t_load = synced_s(lambda: load_model(system, ckpt, device))
+    n_params = sum(p.numel() for p in model.parameters())
+    synth = [synced_s(lambda: system.frame_planes(model))[1] for _ in range(4)]
+    print(f"[14/17] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
+          f"{cfg.plane_channels} x {cfg.plane_resolution}², channel_base {cfg.channel_base}, "
+          f"channel_max {cfg.channel_max}): checkpoint written in {t_save:.2f} s, read by the "
+          f"CLI's load_model in {t_load:.2f} s; mapping + synthesis + bf16 packing ms "
+          f"{[round(1e3 * t, 3) for t in synth]} ({card})", flush=True)
+    return hp, system, model, float(np.median(synth[1:]))
+
+
+def frame_points(system, model, packed, rays, chunk):
+    """Every point the importance renderer samples for these rays (coarse,
+    then fine, chunk by chunk), recorded at the sampler."""
+    import torch
+    from nerf_siren_tpu_torch.render.triplane import (importance_render,
+                                                      make_kernel_plane_sampler)
+
+    sampler = make_kernel_plane_sampler(packed, system.cfg.rendering.box_warp)
+    pts = []
+
+    def record(coords):
+        pts.append(coords[0])
+        return sampler(coords)
+
+    with torch.no_grad():
+        for i in range(0, rays.shape[0], chunk):
+            t = rays[i: i + chunk]
+            importance_render(packed, model.decoder, t[None, :, :3], t[None, :, 3:6],
+                              system.cfg.rendering, packed=True, sampler=record)
+    return torch.cat(pts).contiguous()
+
+
+def check_triplane_gather(system, model, frame_rays, chunk, device, card):
+    """Phase 15: K5 against its plain version and F.grid_sample on the
+    frame's table at the path's shapes; each timed."""
+    import torch
+    import torch.nn.functional as F
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+    from nerf_siren_tpu_torch.render.triplane import sample_stratified
+
+    rendering = system.cfg.rendering
+    scale = 2.0 / rendering.box_warp
+    packed = system.frame_planes(model)
+    table = packed[0]
+    n_planes, _, _, c = table.shape
+    first = frame_rays[:chunk]
+    z = sample_stratified(first[None, :, :3], rendering.ray_start, rendering.ray_end,
+                          rendering.depth_resolution)[0]
+    coarse = (first[:, None, :3] + z * first[:, None, 3:6]).reshape(-1, 3).contiguous()
+    rng = np.random.default_rng(EG3D_SEED + 1)
+    random = torch.tensor(rng.uniform(-1.05, 1.05, (K5_RANDOM, 3)) * rendering.box_warp / 2,
+                          dtype=torch.float32, device=device)
+    planes32 = table[:, 1:-1, 1:-1, :].float().permute(0, 3, 1, 2).contiguous()   # (3, C, H, W)
+    planes16 = planes32.to(torch.bfloat16)
+    t_scale = float(table.float().abs().max())
+
+    def grid(xyz):
+        return k5.project_to_planes(xyz * scale)[:, None].contiguous()             # (3, 1, M, 2)
+
+    def library(planes, g):
+        return F.grid_sample(planes, g.to(planes.dtype), mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
+    err = 0.0
+    for label, xyz in (("one chunk's coarse points", coarse),
+                       ("all points of the frame", frame_points(system, model, packed,
+                                                                frame_rays, chunk)),
+                       ("random points within 1.05 x box_warp / 2", random)):
+        got, ref = k5.triplane_gather(table, xyz, scale), k5.triplane_gather_ref(table, xyz, scale)
+        torch.cuda.synchronize()
+        if got.shape != (n_planes, xyz.shape[0], c) or not torch.isfinite(got).all():
+            fail(f"triplane_gather {label}: shape {tuple(got.shape)} or non-finite values")
+        n_diff = int((got != ref).sum())
+        lib = library(planes32, grid(xyz))[:, :, 0].permute(0, 2, 1)
+        lib_err = float((got - lib).abs().max())
+        err = max(err, float((got - ref).abs().max()))
+        print(f"[15/17] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
+              f"{c}): {n_diff} of {got.numel()} elements differ; max|d| vs F.grid_sample on the "
+              f"float32 planes {lib_err:.3e} (bar {K5_LIB_TOL} x {t_scale:.3f})", flush=True)
+        if n_diff or lib_err > K5_LIB_TOL * t_scale:
+            fail(f"triplane_gather disagrees with its plain version or F.grid_sample ({label})")
+        del got, ref, lib
+
+    g32 = grid(coarse)
+    ms, plain_ms, (p1, k1, k2, p2) = timed_pair([lambda: k5.triplane_gather(table, coarse, scale)],
+                                                [lambda: k5.triplane_gather_ref(table, coarse,
+                                                                                scale)])
+    lib_ms = cuda_ms(lambda: library(planes32, g32), 5)
+    try:   # a capability probe, not a phase: does F.grid_sample take bf16 on this build?
+        library(planes16, g32[:, :, :8])
+        lib16 = f"{cuda_ms(lambda: library(planes16, g32), 5):.4f} ms"
+    except RuntimeError as e:
+        lib16 = f"not taken ({str(e).splitlines()[0][:80]})"
+    n = coarse.shape[0]
+    n_bytes = n * 12 + table.numel() * table.element_size() + n_planes * n * c * 4
+    bound_ms, bound_by = bound(0.0, n_bytes)
+    print(f"[15/17] triplane_gather at {n} points (one chunk's coarse pass): kernel {ms:.4f} ms "
+          f"({k1:.4f}, {k2:.4f}; {n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of counted bytes), "
+          f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); F.grid_sample float32 {lib_ms:.4f} ms, "
+          f"bf16 {lib16} (grid precomputed); bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def eg3d_phases(device, card, args):
+    """Phases 14-17. Returns (result, launches) of K5."""
+    import torch
+    from nerf_siren_tpu_torch.eval_eg3d import make_renderer
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+    from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+    hp, system, model, synth_s = eg3d_setup(device, card)
+    frames_rays = [lego_rays(k, device, EG3D_WH, EG3D_WH) for k in range(N_EG3D)]
+    result = check_triplane_gather(system, model, frames_rays[0], hp.chunk, device, card)
+    torch.cuda.empty_cache()
+
+    # ---- 16. frames through the CLI's renderer ---------------------------------
+    render = make_renderer(system, model, hp.chunk)
+    reset_counts(["triplane_gather"])
+    outs, lat = render_frames(render, frames_rays)
+    launches = read_counts(["triplane_gather"])["triplane_gather"]
+    n_chunks = -(-EG3D_WH * EG3D_WH // hp.chunk)
+    for out in outs:
+        for k, v in out.items():
+            if v.shape[0] != EG3D_WH * EG3D_WH or not torch.isfinite(v).all():
+                fail(f"EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
+    print(f"[16/17] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
+          f"{hp.N_importance} samples, chunk {hp.chunk}, --plane_sampler kernel): latency s "
+          f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the "
+          f"median frame, of which mapping + synthesis {1e3 * synth_s:.3f} ms ({card}); K5 "
+          f"launches {launches}; outputs finite; opacity_fine mean per frame "
+          f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
+    if launches != 2 * n_chunks * N_EG3D:
+        fail(f"K5 launched {launches} times, expected {2 * n_chunks * N_EG3D}")
+    gather = make_renderer(EG3DSystem(system.cfg, "gather"), model, hp.chunk)
+    g_outs, g_lat = render_frames(gather, frames_rays)
+    worst = {k: max(float((o[k] - g[k]).abs().max()) for o, g in zip(outs, g_outs))
+             for k in outs[0]}
+    n_diff = sum(int((o[k] != g[k]).sum()) for o, g in zip(outs, g_outs) for k in o)
+    print(f"[16/17] the same frames through --plane_sampler gather: latency s "
+          f"{[round(t, 4) for t in g_lat]}; {n_diff} output elements differ from the kernel "
+          f"frames, max|d| {worst} (bar {SAME_FRAME_ATOL})", flush=True)
+    if max(worst.values()) > SAME_FRAME_ATOL:
+        fail("the kernel and gather EG3D frames disagree")
+    big = lego_rays(0, device, EG3D_BIG, EG3D_BIG)
+    reset_counts(["triplane_gather"])
+    (out_big,), (sec_big,) = render_frames(render, [big])
+    big_launches = read_counts(["triplane_gather"])["triplane_gather"]
+    big_chunks = -(-EG3D_BIG * EG3D_BIG // hp.chunk)
+    if big_launches != 2 * big_chunks or not all(torch.isfinite(v).all()
+                                                 for v in out_big.values()):
+        fail(f"the {EG3D_BIG}² frame: {big_launches} K5 launches (expected {2 * big_chunks}) "
+             f"or non-finite outputs")
+    print(f"[16/17] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
+          f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
+          f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
+          f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
+    del out_big, big, g_outs
+
+    # ---- 17. the card's frame and planes against the CPU ---------------------------
+    cpu_model = copy.deepcopy(model).cpu()
+    packed = system.frame_planes(model)
+    with torch.no_grad():
+        ref = EG3DSystem(system.cfg, "gather").render_packed(
+            cpu_model, packed.cpu(), frames_rays[0][EG3D_CHECK].cpu(), hp.chunk)
+        planes = model.planes(model.mapping(model.z)).cpu()
+        cpu_planes = cpu_model.planes(cpu_model.mapping(cpu_model.z))
+    worst = {k: float((outs[0][k][EG3D_CHECK].cpu() - v).abs().max()) for k, v in ref.items()}
+    p_err, p_scale = float((planes - cpu_planes).abs().max()), float(cpu_planes.abs().max())
+    print(f"[17/17] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
+          f"a CPU re-render on the card's table: max|d| {worst} (atol {RENDER_ATOL}); the card's "
+          f"float32 planes vs a CPU float32 synthesis (cuDNN TF32 "
+          f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max|d| {p_err:.3e}, largest "
+          f"|plane| {p_scale:.3f} (bar {PLANES_RTOL} of it)", flush=True)
+    if max(worst.values()) > RENDER_ATOL or p_err > PLANES_RTOL * p_scale:
+        fail("the EG3D frame or planes disagree with the CPU")
+    if args.profile:
+        profile("EG3D frame", lambda: render(frames_rays[1]), card)
+    return result, launches
 
 
 def profile(label, fn, card):
@@ -984,7 +1272,8 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one more exact frame, training step and fast frame")
+                        help="profile one more exact frame, training step, fast frame and "
+                             "EG3D frame")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------
@@ -997,7 +1286,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/13] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/17] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -1012,7 +1301,7 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/13] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/17] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
@@ -1038,7 +1327,7 @@ def main():
             lat.append(time.perf_counter() - t0)
     launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/13] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/17] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
@@ -1052,7 +1341,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/13] outputs finite; opacity_fine mean per frame "
+    print(f"[4/17] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -1061,7 +1350,7 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/13] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/17] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
@@ -1089,6 +1378,11 @@ def main():
     fast_results, fast_launches = fast_phases(frames_rays, device, smi, args)
     results.update(fast_results)
     launches.update(fast_launches)
+    del frames_rays
+    torch.cuda.empty_cache()
+
+    # ---- 14-17. EG3D exact eval on K5 ---------------------------------------------
+    results["triplane_gather"], launches["triplane_gather"] = eg3d_phases(device, smi, args)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"nerf_siren_tpu_torch/csrc/{src}.cu",

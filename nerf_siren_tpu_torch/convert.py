@@ -8,7 +8,13 @@ transposed on the way across. Lists restored from msgpack may arrive as
 ``{"0": ..., "1": ...}`` dicts; both forms are accepted. The fast
 renderer's density proxy (`nerf_siren_tpu.render.fast.init_proxy`) is
 ``{'l1': {kernel, bias}, 'l2': {kernel, bias}}``, the port's
-`render.fast.Proxy`.
+`render.fast.Proxy`. The EG3D renderer
+(`nerf_siren_tpu.render.triplane.init_eg3d_renderer`) is ``{'z',
+'backbone': {'mapping': {'fcs': [...], 'w_avg'}, 'synthesis': {'b4':
+{'const', 'conv1', 'torgb'}, 'b8': {'conv0', 'conv1', 'torgb'}, ...}},
+'decoder': {'fc1', 'fc2'}}``, its FC weights already (out, in): the
+port's `render.triplane.EG3DRenderer` names every tensor by its path in
+that tree, so the two maps only flatten and nest.
 """
 from __future__ import annotations
 
@@ -82,3 +88,43 @@ def proxy_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def proxy_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """`render.fast.Proxy` state_dict -> JAX proxy tree of float32 numpy arrays."""
     return {name: _get(state_dict, name) for name in _PROXY}
+
+
+def eg3d_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX `eg3d_renderer` tree -> `EG3DRenderer` state_dict (float32 CPU
+    tensors), keyed by the dotted tree path (a list's items by index)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, (list, tuple)):
+            node = {str(i): v for i, v in enumerate(node)}
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+            return
+        out[prefix[:-1]] = torch.from_numpy(np.array(node, np.float32))
+
+    walk("", params)
+    return out
+
+
+def eg3d_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """`EG3DRenderer` state_dict -> JAX `eg3d_renderer` tree of float32
+    numpy arrays (the mapping's `fcs` as a list)."""
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().float().numpy().copy()
+
+    def lists(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)

@@ -4,10 +4,11 @@ Counterpart of `nerf_siren_tpu/training/checkpoints.py`. The files are in
 flax's `msgpack_serialize` encoding, written and read here without flax:
 arrays are msgpack ext type 1 (numpy scalars ext type 3), each holding a
 packed ``(shape, dtype name, C-order bytes)`` triple. Models are keyed by
-name (`nerf_coarse`, `nerf_fine`) with the JAX package's parameter trees
-(`convert.nerf_to_jax`), and full-resume checkpoints nest them under
-'params', so the JAX package's `load_ckpt` and `eval.py` read what the port
-trains, and the port reads what the JAX package trains.
+name (`nerf_coarse`, `nerf_fine`, `eg3d_renderer`) with the JAX package's
+parameter trees (`convert.nerf_to_jax`, `convert.eg3d_to_jax`), and
+full-resume checkpoints nest them under 'params', so the JAX package's
+`load_ckpt` and `eval.py` read what the port trains, and the port reads
+what the JAX package trains.
 
 A full-resume file (`save_train_state`) holds
   {"params": {"nerf_coarse": tree, "nerf_fine": tree},
@@ -23,13 +24,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import os
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from nerf_siren_tpu_torch.convert import nerf_from_jax, nerf_to_jax
+from nerf_siren_tpu_torch.convert import eg3d_from_jax, nerf_from_jax, nerf_to_jax
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 MODEL_NAMES = {"coarse": "nerf_coarse", "fine": "nerf_fine"}
@@ -103,8 +104,12 @@ def extract_model_state(ckpt: Dict[str, Any], model_name: str,
 
 
 def load_ckpt(model: nn.Module, path: str, model_name: str,
-              prefixes_to_ignore: Iterable[str] = ("loss",)) -> nn.Module:
-    """Warm-start a `NeRF` from the `model_name` tree of a checkpoint file.
+              prefixes_to_ignore: Iterable[str] = ("loss",),
+              from_jax: Callable[[Dict[str, Any]], Dict[str, torch.Tensor]] = nerf_from_jax
+              ) -> nn.Module:
+    """Warm-start `model` from the `model_name` tree of a checkpoint file,
+    mapped to its state_dict by `from_jax` (a `NeRF` by default;
+    `load_eg3d_ckpt` for the EG3D renderer).
 
     Non-strict like the JAX `load_ckpt`: tensors whose name and shape match
     are taken, the rest keep their init, and a load that takes nothing is
@@ -118,7 +123,7 @@ def load_ckpt(model: nn.Module, path: str, model_name: str,
         return model
     state = model.state_dict()
     taken = skipped = 0
-    for k, v in nerf_from_jax(sub).items():
+    for k, v in from_jax(sub).items():
         if k not in state:
             continue
         if state[k].shape != v.shape:
@@ -135,6 +140,13 @@ def load_ckpt(model: nn.Module, path: str, model_name: str,
         print(f"NOTE: '{model_name}' load from {path}: {taken} tensors taken, "
               f"{skipped} skipped on shape mismatch", flush=True)
     return model
+
+
+def load_eg3d_ckpt(model: nn.Module, path: str,
+                   model_name: str = "eg3d_renderer") -> nn.Module:
+    """Load the `eg3d_renderer` tree (backbone, decoder, z) of a checkpoint
+    into an `EG3DRenderer`, non-strict and loud as `load_ckpt`."""
+    return load_ckpt(model, path, model_name, from_jax=eg3d_from_jax)
 
 
 # -- full training-state checkpoints (resume) ---------------------------------

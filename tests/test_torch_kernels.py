@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain versions: the fused
 NeRF field (K1, csrc/fused_mlp.cu), the fused training field's forward
 and backward (K2, csrc/fused_mlp_train.cu), the proxy march (K3,
-csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu) and the
-proxy top-K (K6, csrc/proxy_select.cu).
+csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu), the
+triplane gather (K5, csrc/triplane_gather.cu) and the proxy top-K (K6,
+csrc/proxy_select.cu).
 
 Imports torch only, so it also runs where JAX is not installed. Tests marked
 `cuda` need a CUDA card and skip without one; on the card run
@@ -418,3 +419,116 @@ def test_proxy_and_int8_kernels_reject_what_they_do_not_take(cuda_device):
     p8 = k4.pack_nerf_params_int8(NeRF(NeRFConfig()).to(cuda_device))
     with pytest.raises(ValueError, match="q1"):
         k4.fused_nerf_sigma_int8({**p8, "q1": p8["q1"].float()}, torch.zeros((4, 3), device=cuda_device))
+
+
+# ---- K5 triplane gather -----------------------------------------------------------
+# Kernel vs plain: the same float32 steps in the same order (no FMA contraction)
+# on the same bf16 or float32 table, so no element may differ. Both against
+# F.grid_sample on the float32 copy of the planes: within 1e-5 of the table's
+# largest magnitude (F.grid_sample forms its weights in another order).
+
+K5_BOX = 15.0
+
+
+def _k5_table(c, hw, dtype, device, seed=0):
+    from nerf_siren_tpu_torch.render.triplane import pack_planes_for_sampling
+
+    planes = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(1, 3, c, hw, hw)).astype(np.float32))
+    return pack_planes_for_sampling(planes, dtype)[0].to(device)
+
+
+def _k5_points(n, seed=1):
+    """Camera points (rays from radius 4 marching 0.1..10), border points
+    (within 1.05 of the box's half side) and far out-of-plane points."""
+    rng = np.random.default_rng(seed)
+    k = n // 3
+    d = rng.normal(size=(k, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cam = np.array([4.0, 0.0, 2.0]) + d * rng.uniform(0.1, 10.0, (k, 1))
+    border = rng.uniform(-1.05, 1.05, (k, 3)) * K5_BOX / 2
+    far = rng.uniform(-3, 3, (n - 2 * k, 3)) * K5_BOX
+    return torch.from_numpy(np.concatenate([cam, border, far]).astype(np.float32))
+
+
+def test_triplane_gather_wrapper_runs_the_plain_version_on_the_cpu():
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+
+    table, xyz = _k5_table(8, 16, torch.bfloat16, "cpu"), _k5_points(99)
+    before = dict(k5.LAUNCHES)
+    assert torch.equal(k5.triplane_gather(table, xyz, 2 / K5_BOX),
+                       k5.triplane_gather_ref(table, xyz, 2 / K5_BOX))
+    assert k5.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 4099, 262_144])
+@pytest.mark.parametrize("c,dtype", [(32, torch.bfloat16), (8, torch.bfloat16),
+                                     (32, torch.float32)])
+def test_triplane_gather_kernel_matches_plain(cuda_device, n, c, dtype):
+    import torch.nn.functional as F
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+
+    table = _k5_table(c, 256 if c == 32 else 64, dtype, cuda_device)
+    xyz = _k5_points(n).to(cuda_device)
+    before = k5.LAUNCHES["gather"]
+    got = k5.triplane_gather(table, xyz, 2 / K5_BOX)
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES["gather"] == before + 1
+    ref = k5.triplane_gather_ref(table, xyz, 2 / K5_BOX)
+    assert got.shape == ref.shape == (3, n, c)
+    assert int((got != ref).sum()) == 0
+    planes = table[:, 1:-1, 1:-1, :].float().permute(0, 3, 1, 2)
+    grid = k5.project_to_planes(xyz * (2 / K5_BOX))[:, None]
+    lib = F.grid_sample(planes, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)[:, :, 0].permute(0, 2, 1)
+    scale = float(table.float().abs().max())
+    assert float((got - lib).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_triplane_gather_kernel_rejects_what_it_does_not_take(cuda_device):
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+
+    table, xyz = _k5_table(8, 16, torch.bfloat16, cuda_device), _k5_points(9).to(cuda_device)
+    with pytest.raises(ValueError, match="table"):
+        k5.triplane_gather(table.half(), xyz, 0.1)
+    with pytest.raises(ValueError, match="table"):
+        k5.triplane_gather(table[:2].contiguous(), xyz, 0.1)
+    with pytest.raises(ValueError, match="xyz"):
+        k5.triplane_gather(table, xyz.double(), 0.1)
+    with pytest.raises(ValueError, match="xyz"):
+        k5.triplane_gather(table, xyz.t().contiguous().t(), 0.1)
+    with pytest.raises(ValueError, match="no backward"):
+        k5.triplane_gather(table, xyz.clone().requires_grad_(), 0.1)
+    assert k5.triplane_gather(table, xyz[:0], 0.1).shape == (3, 0, 8)
+
+
+@pytest.mark.cuda
+def test_eg3d_render_on_the_kernel_matches_the_gather_route(cuda_device):
+    """EG3DSystem.render on the card: the kernel route equals the gather
+    route (the same planes, K5 equal to its plain version), and a CPU
+    re-render of the card's table within 1e-4 (float32 reductions in
+    another order)."""
+    from nerf_siren_tpu_torch.render.triplane import RenderingOptions, TriPlaneConfig
+    from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+    cfg = TriPlaneConfig(z_dim=32, w_dim=32, plane_resolution=32, channel_base=1024,
+                         channel_max=32, rendering=RenderingOptions(
+                             depth_resolution=16, depth_resolution_importance=16,
+                             ray_start=2.0, ray_end=6.0, box_warp=8.0))
+    model = EG3DSystem(cfg).init_model(torch.Generator().manual_seed(0)).to(cuda_device)
+    d = np.random.default_rng(3).normal(size=(300, 3)) * 0.2
+    d[:, 2] = -1.0                         # from z = 4 towards the origin
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to([0.0, 0.0, 4.0], d.shape)
+    rays = torch.from_numpy(np.concatenate([o, d], -1).astype(np.float32)).to(cuda_device)
+    kernel, gather = EG3DSystem(cfg, "kernel"), EG3DSystem(cfg, "gather")
+    packed = kernel.frame_planes(model)
+    got = kernel.render_packed(model, packed, rays, chunk=128)
+    want = gather.render_packed(model, packed, rays, chunk=128)
+    cpu_model = EG3DSystem(cfg).init_model(torch.Generator().manual_seed(0))
+    cpu = gather.render_packed(cpu_model, packed.cpu(), rays.cpu(), chunk=128)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        torch.testing.assert_close(got[k].cpu(), cpu[k], atol=1e-4, rtol=0, msg=k)
