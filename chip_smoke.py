@@ -13,7 +13,12 @@ Run from the repository root. Phases, each printing a line:
      accumulation on both sides, only the summation order differs); then
      the same check and each kernel's time beside the plain version's at the
      eval path's shapes (32768 rays x 64 sigma points; 32768 x 192 full
-     points, one direction per ray).
+     points, one direction per ray): TFLOP/s and share of the bound, the
+     registers, spill bytes and stack of both instantiations from the
+     build's `-Xptxas -v` log with their dynamic shared memory, the earlier
+     kernel's times (EARLIER_K1_MS, another call), and as a reading only (never
+     on the path) the same layer products as a chain of bf16 `torch.matmul`
+     calls at the same shapes.
   4. eval path: 3 Blender-lego 800x800 frames (64 + 128 samples, chunk
      32768, white background) through the port eval's `make_renderer` with
      the fused renderer; checks finite outputs, rgb in [0, 1 + 1e-3], each
@@ -145,6 +150,10 @@ PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest 
 SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select",
            "triplane_gather")
 PALLAS = "nerf_siren_tpu/ops/pallas"
+# K1's times before its redesign (the wmma kernel, at these shapes on an H100 80GB HBM3, 700 W)
+EARLIER_K1_MS = {"fused_nerf_sigma": 20.673, "fused_nerf_full": 68.704}
+K1_SYMBOLS = {"fused_nerf_sigma": "nerf_field_kernelILb0E",   # mangled <false> / <true>
+              "fused_nerf_full": "nerf_field_kernelILb1E"}
 KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kernel it replaces)
     "fused_nerf_sigma": ("fused_mlp", "sigma", f"{PALLAS}/fused_mlp.py:262"),
     "fused_nerf_full": ("fused_mlp", "full", f"{PALLAS}/fused_mlp.py:272"),
@@ -265,6 +274,7 @@ def check_kernels(packed, device, card):
     """Phase 3: each K1 kernel against its plain version at N_CHECK points
     and at the eval path's shapes, then both timed at the latter."""
     import torch
+    from nerf_siren_tpu_torch.ops.kernels import _build
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
 
     rng = np.random.default_rng(SEED + 1)
@@ -289,6 +299,14 @@ def check_kernels(packed, device, card):
     pts_c = (rays[:, None, :3] + rays[:, None, 3:6] * zc[:, None]).reshape(-1, 3)
     pts_f = (rays[:, None, :3] + rays[:, None, 3:6] * zf[:, None]).reshape(-1, 3)
     dirs = rays[:, 3:6].contiguous()
+    lib = _build.load("fused_mlp")
+    report = ptxas_report("fused_mlp")
+    for name, symbol in K1_SYMBOLS.items():
+        regs, spills, stack = next(v for k, v in report.items() if symbol in k)
+        print(f"[3/17] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
+              f"(stores + loads), {stack} bytes stack frame; "
+              f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
+              f"memory", flush=True)
     results = {}
     for name, kern, plain, n_pts, n_bytes, where in (
             ("fused_nerf_sigma", lambda: fm.fused_nerf_sigma(packed, pts_c),
@@ -298,17 +316,83 @@ def check_kernels(packed, device, card):
              lambda: fm.fused_full_ref(packed, pts_f, dirs, s_all), pts_f.shape[0],
              pts_f.shape[0] * (12 + 16) + dirs.numel() * 4,
              f"at {CHUNK} rays x {s_all}, samples_per_dir {s_all}")):
+        full = name == "fused_nerf_full"
         err = max(errs[name], compare(name, kern(), plain(), where))
         ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain])
-        flops = n_pts * _flop_per_point(packed, name == "fused_nerf_full")
-        n_bytes += sum(t.numel() * t.element_size() for t in packed.values())
+        flops = n_pts * _flop_per_point(packed, full)
+        n_bytes += k1_weight_bytes(packed)
         bound_ms, bound_by = bound(flops, n_bytes)
+        chain_ms = matmul_chain_ms(packed, n_pts, full)
         print(f"[3/17] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
-              f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain {plain_ms:.3f} ms "
-              f"({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}); {card}", flush=True)
+              f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
+              f"bound), plain {plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms "
+              f"({bound_by}); earlier wmma kernel {EARLIER_K1_MS[name]} ms (another call); bf16 "
+              f"torch.matmul chain of the same products {chain_ms:.3f} ms "
+              f"({flops * 1e-12 / (chain_ms * 1e-3):.1f} TFLOP/s; a reading); {card}", flush=True)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     return results
+
+
+def k1_weight_bytes(packed):
+    """Bytes of the pack that K1 reads: the weight stream (W_comb and W_dir
+    included), the biases and the heads."""
+    return sum(t.numel() * t.element_size() for k, t in packed.items()
+               if k in ("k1_stream", "w_sigma", "w_rgb") or k[0] == "b")
+
+
+def ptxas_report(name):
+    """{mangled kernel name: (registers, spill store + load bytes, stack
+    frame bytes)} from the `-Xptxas -v` log the build keeps beside
+    csrc/<name>.cu's library."""
+    import re
+    from pathlib import Path
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    report, kernel, props = {}, None, (0, 0)
+    for line in Path(str(_build.build(name)) + ".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            props = (int(m.group(2)) + int(m.group(3)), int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report[kernel] = (int(m.group(1)), *props)
+            props = (0, 0)
+    return report
+
+
+def matmul_chain_ms(packed, n, full):
+    """A reading only, never on the path: the field's layer products at n
+    points as a chain of bf16 `torch.matmul` calls at K1's shapes (random
+    inputs; no embedding, bias, ReLU or head nonlinearity), ms per chain
+    over 3 runs."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+
+    dev, bf = packed["w_sigma"].device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    e = torch.rand((n, fm.EMB_X), generator=gen, device=dev).to(bf)
+    d = torch.rand((n, fm.EMB_D), generator=gen, device=dev).to(bf) if full else None
+
+    def chain():
+        h = e @ packed["w0e"].t()
+        for i in range(1, fm._depth(packed)):
+            y = h @ packed[f"w{i}"].t()
+            h = torch.addmm(y, e, packed[f"w{i}e"].t()) if f"w{i}e" in packed else y
+        sigma = h @ packed["w_sigma"][:, None]
+        if not full:
+            return sigma
+        hd = torch.addmm(h @ packed["w_comb"].t(), d, packed["w_dir"].t())
+        return sigma, hd @ packed["w_rgb"].t()
+
+    ms = cuda_ms(chain, 3)
+    del e, d
+    torch.cuda.empty_cache()
+    return ms
 
 
 def _flop_per_point(packed, full):

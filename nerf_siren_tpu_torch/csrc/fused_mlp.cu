@@ -6,8 +6,8 @@
 // nerf_siren_tpu_torch/ops/kernels/fused_mlp.py::fused_sigma_ref/_full_ref:
 //   positional encoding of xyz (10 freqs) and of the direction (4 freqs) in
 //   reference channel order, sin/cos formed in float32 with the precise
-//   sinf/cosf (arguments reach 2^9|x| ~ 2000-5000, where the fast
-//   intrinsics lose accuracy; never build this with --use_fast_math);
+//   sincosf (arguments reach 2^9|x| ~ 2000-5000, where the fast intrinsics
+//   lose accuracy; never build this with --use_fast_math);
 //   the ReLU trunk (width 256, any depth <= MAX_DEPTH, skip concat
 //   [emb, h] at the layers whose embedding weight is given);
 //   the sigma head; and in the full pass the folded direction branch
@@ -19,139 +19,485 @@
 // Bound: compute. A point costs ~1 MFLOP (7 256x256 layers, the 64-wide
 // embedding inputs, the 128-wide direction branch) against 12-24 bytes of
 // input and 4-16 bytes of output, so the tensor cores are the limit, not
-// HBM. The design keeps everything but the weights on chip: one CTA owns a
-// tile of TP = 128 points, their embeddings and bf16 activations live in
-// shared memory for the whole network (one activation buffer, rewritten
-// in place after a block barrier), and the layer products run on the
-// tensor cores (wmma, bf16 in / f32 accumulate). The weights (~1.06 MB bf16
-// per field) do not fit one SM's shared memory and stream from L2 as wmma
-// B fragments; each warp reuses every B fragment for 4 row tiles (64
-// points). The heads (1 and 3 outputs) are SIMT dot products from shared
-// memory. The ragged last tile is masked: no padding of N is needed.
-// TMA, wgmma and warp specialisation are left for later work.
+// HBM. The weights (~1 MB bf16 per field) stay in the 50 MB L2; per 128
+// points they are ~1 MB of L2 reads against ~126 MFLOP, so L2 bandwidth is
+// the next limit and every weight byte is read once per 128-point tile.
+//
+// Design (persistent, warp-specialised, wgmma):
+// - Persistent grid: one CTA per SM (the launcher reads the SM count) walks
+//   the 128-point tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// - Warpgroup 2 is the producer: one thread streams the weights, K-slice by
+//   K-slice, into a ring of STAGES shared-memory stages with one 1-D bulk
+//   copy each (cp.async.bulk, completing on the stage's `full` mbarrier),
+//   and waits on the stage's `empty` mbarrier (one arrival per consumer
+//   warp) before refilling it. Warpgroups 0 and 1 are the consumers: each
+//   owns 64 of the tile's points and runs wgmma m64n256k16 (m64n128k16 in
+//   the direction branch) with A = its rows of the activations in shared
+//   memory and B = the stage. setmaxnreg gives the consumers 232 registers
+//   (128 of them accumulators), the producer 40.
+// - The weights come pre-swizzled as one stream (the pack's `k1_stream`,
+//   ops/kernels/fused_mlp.py::k1_schedule): each slice is 64 inputs of one
+//   product for all its outputs, K-major in the 128-byte swizzle wgmma reads
+//   (sm90_async.cuh), in the order consumed:
+//     for each trunk layer l: 4 hidden slices (inputs 0-63, ..., 192-255;
+//       none at layer 0), then 1 embedding slice if layer l takes the
+//       embedding (layer 0 always): 256 rows x 64, 32 KB each;
+//     then W_comb's 4 slices and W_dir zero-padded to 64 inputs: 128 rows x
+//       64, 16 KB each (streamed by the full pass only).
+//   The reference field (8 layers, skip at 4): 30 trunk + 5 = 35 slices;
+//   depth 3 with the skip at 1: 10 + 5.
+// - Activations stay on chip: 128 x 256 bf16 in four 64-column swizzled
+//   blocks, rewritten once per layer straight from the accumulators (bias,
+//   ReLU, bf16). A warpgroup writes and reads only its own rows, so it syncs
+//   on a named barrier of its own 128 threads, never the CTA. Generic-proxy
+//   writes are fenced (fence.proxy.async) before wgmma reads them; a stage
+//   is released only after wgmma.wait_group has retired its products.
+// - Heads without a staging pass: sigma is the dot of the last layer's bf16
+//   activations with w_sigma, summed over a quad (from the accumulators in
+//   the sigma pass; read back from shared memory in the full pass, where
+//   the accumulators beside it would cost spills); the direction branch is
+//   one more wgmma chain (n128) over W_comb and W_dir; rgb is summed from
+//   its accumulators the same way.
+// - The two consumer warpgroups take their epilogues in strict alternation
+//   (an ordered pair of named barriers), so they drift half a step apart:
+//   one's epilogue, and its embedding of the next tile's points (precise
+//   sincosf, at the tile's start, where no accumulator is live), run while
+//   the other's products keep the tensor cores busy.
+// - The ragged last tile embeds zeros past N and masks its stores.
+// Shared memory: 64 KB activations + 4 x 32 KB ring + 16 KB xyz embedding
+// (+ 16 KB direction embedding in the full pass) + barriers.
 //
 // Plain C interface, loaded with ctypes; the launcher returns
 // cudaGetLastError() so the caller can raise on a refused launch. The tile
-// shape, the layer product and the embedding are in nerf_field_common.cuh,
-// shared with the training kernels; the heads too, shared with the int8
-// field (fused_mlp_int8.cu).
+// and head shapes come from nerf_field_common.cuh (shared with K2 and K4),
+// the PTX building blocks from sm90_async.cuh.
 
 #include "nerf_field_common.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
 using namespace nerf_field;
 
 constexpr int MAX_DEPTH = 16;
+constexpr int KS = 64;                             // inputs per weight slice (one swizzle row)
+constexpr int SLICE_BYTES = W * KS * 2;            // trunk slice: W output rows
+constexpr int DSLICE_BYTES = WD * KS * 2;          // direction-branch slice: WD output rows
+constexpr int DIR_SLICES = W / KS + 1;             // W_comb's, then W_dir's
+constexpr int STAGES = 4;
+constexpr int CONSUMERS = 2;                       // consumer warpgroups
+constexpr int WG_ROWS = TP / CONSUMERS;            // points per consumer warpgroup
+constexpr int K1_THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
+constexpr int BLOCK_BYTES = TP * KS * 2;           // 64 columns of the tile, 16 KB
+constexpr int WG_BLOCK_BYTES = WG_ROWS * KS * 2;   // one warpgroup's rows of a block
+constexpr int SMEM_ACT = (W / KS) * BLOCK_BYTES;
+constexpr int SMEM_RING = STAGES * SLICE_BYTES;
 
-constexpr size_t SMEM_H = size_t(TP) * LDH * 2;
-constexpr size_t SMEM_X = size_t(TP) * LDX * 2;
-constexpr size_t SMEM_D = size_t(TP) * LDD * 2;
-constexpr size_t SMEM_STAGE = size_t(THREADS / 32) * 256 * 4;
-constexpr size_t SMEM_PTS = size_t(TP) * 3 * 4;
-constexpr size_t SMEM_BYTES = SMEM_H + SMEM_X + SMEM_D + SMEM_STAGE + 2 * SMEM_PTS + TP * 4;
+constexpr int smem_bytes(bool full) {
+  return 1024 /* alignment slack */ + SMEM_ACT + SMEM_RING + BLOCK_BYTES * (full ? 2 : 1) +
+         2 * STAGES * 8;
+}
 
 struct FieldParams {
-  const __nv_bfloat16* w_h[MAX_DEPTH];  // (W, W) hidden-input columns; null for layer 0
-  const __nv_bfloat16* w_e[MAX_DEPTH];  // (W, EMB_X) embedding-input columns; null if none
-  const float* b[MAX_DEPTH];            // (W,)
-  HeadParams heads;
+  const bf16* stream;          // the pack's k1_stream
+  const float* b[MAX_DEPTH];   // (W,) per trunk layer
+  HeadParams heads;            // w_comb and w_dir unused: they are streamed
+  unsigned emb_mask;           // bit l: layer l takes the embedding
   int depth;
+  int n_trunk;                 // trunk slices in the stream
 };
 
+// The ring's position; producer and consumers walk the same slice sequence.
+struct Ring {
+  uint32_t base, bars;  // stages; full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s)
+  int stage;
+  uint32_t phase;
+  __device__ uint32_t full() const { return bars + 8 * stage; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (STAGES + s); }
+  __device__ uint32_t slot() const { return base + stage * SLICE_BYTES; }
+  __device__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 h) {
+  return uint32_t(__bfloat16_as_ushort(h.x)) | (uint32_t(__bfloat16_as_ushort(h.y)) << 16);
+}
+
+__device__ __forceinline__ float2 bf162_to_float2(uint32_t u) {
+  return make_float2(__bfloat162float(__ushort_as_bfloat16(u & 0xffffu)),
+                     __bfloat162float(__ushort_as_bfloat16(u >> 16)));
+}
+
+__device__ __forceinline__ float2 ldg_bf162(const bf16* p) {
+  return bf162_to_float2(__ldg(reinterpret_cast<const unsigned*>(p)));
+}
+
+// Address of element (r, c) of a 64-column swizzled block whose rows start
+// at `rows` (1024-byte aligned).
+__device__ __forceinline__ uint32_t sw_addr(uint32_t rows, int r, int c) {
+  return rows + r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+__device__ __forceinline__ void st_bf16(uint32_t rows, int r, int c, float v) {
+  sm90::st_b16(sw_addr(rows, r, c), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+// Reference-order embedding [x, sin(2^0 x), cos(2^0 x), sin(2^1 x), ...] of
+// point x into row r of a swizzled block, zero past 3 (2 N_FREQS + 1); the
+// two threads of a point split the frequencies (`half`).
+template <int N_FREQS>
+__device__ __forceinline__ void embed_row(uint32_t rows, const float (&x)[3], int r, int half) {
+  static_assert(N_FREQS % 2 == 0, "the two threads of a point take half of the frequencies each");
+  constexpr int USED = 3 * (2 * N_FREQS + 1);
+  if (half == 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) st_bf16(rows, r, j, x[j]);
+  } else {
+#pragma unroll
+    for (int c = USED; c < ((USED + 7) & ~7); ++c) st_bf16(rows, r, c, 0.0f);
+#pragma unroll
+    for (int ch = (USED + 7) / 8; ch < 8; ++ch)
+      sm90::st_zero16(rows + r * 128 + ((ch ^ (r & 7)) << 4));
+  }
+#pragma unroll 1  // one frequency at a time: it runs beside 128 live accumulators
+  for (int kk = 0; kk < N_FREQS / 2; ++kk) {
+    const int k = half * (N_FREQS / 2) + kk;
+    const float scale = float(1 << k);  // exact power-of-two scale
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float s, c;
+      sincosf(x[j] * scale, &s, &c);
+      st_bf16(rows, r, 3 + 6 * k + j, s);
+      st_bf16(rows, r, 6 + 6 * k + j, c);
+    }
+  }
+}
+
+// The three floats at src[3 i], or zeros past the ragged edge.
+__device__ __forceinline__ void load3(const float* __restrict__ src, long long i, bool valid,
+                                      float (&x)[3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) x[j] = valid ? __ldg(src + 3 * i + j) : 0.0f;
+}
+
+// One slot (a trunk layer, or the direction branch): acc = sum over its
+// n_slices ring slices of A_j (this warpgroup's 64 rows x 64 at a_rows(j)) x
+// slice_j. Keeps two slices' products in flight and releases each stage
+// once its products are retired. On return every product of the slot has
+// completed.
+template <int N, typename ARows>
+__device__ __forceinline__ void run_slot(float (&acc)[N / 2], Ring& ring, int n_slices,
+                                         ARows a_rows, int lane) {
+  int held = -1;  // the stage whose products may still be in flight
+  // Real zeros (the first product overwrites them anyway): they end the
+  // previous values' live range, which would otherwise reach back through
+  // the rest of the tile and cost the full pass its spills.
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < n_slices; ++j) {
+    sm90::mbar_wait(ring.full(), ring.phase);
+    const uint32_t a = a_rows(j), b = ring.slot();
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS / 16; ++kk) {
+      const uint64_t da = sm90::desc_sw128(a + 32 * kk), db = sm90::desc_sw128(b + 32 * kk);
+      if constexpr (N == W)
+        sm90::wgmma_m64n256k16(acc, da, db, j > 0 || kk > 0);
+      else
+        sm90::wgmma_m64n128k16(acc, da, db, j > 0 || kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::fence_operand(acc);
+    sm90::wgmma_wait<1>();
+    sm90::fence_operand(acc);
+    if (held >= 0 && lane == 0) sm90::mbar_arrive(ring.empty(held));
+    held = ring.stage;
+    ring.advance();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(acc);
+  if (lane == 0) sm90::mbar_arrive(ring.empty(held));
+}
+
+// bf16(relu(acc + bias)) of the warpgroup's 64 x W block: stored into the
+// activation blocks at `act_rows` when STORE; when SIGMA, s0 / s1 gain the
+// thread's partial dot of its two rows with w_sigma.
+template <bool STORE, bool SIGMA>
+__device__ __forceinline__ void trunk_epilogue(const float (&acc)[W / 2],
+                                               const float* __restrict__ bias,
+                                               const bf16* __restrict__ w_sigma,
+                                               uint32_t act_rows, int warp, int lane, float& s0,
+                                               float& s1) {
+  const int r = warp * 16 + (lane >> 2);  // rows r and r + 8; both have r % 8 == lane / 4
+  const int cq = 2 * (lane & 3);
+  const uint32_t row_addr = act_rows + r * 128 + cq * 2;
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    const int c = 8 * i + cq;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+    const __nv_bfloat162 h0 = __floats2bfloat162_rn(fmaxf(acc[4 * i] + bb.x, 0.0f),
+                                                    fmaxf(acc[4 * i + 1] + bb.y, 0.0f));
+    const __nv_bfloat162 h1 = __floats2bfloat162_rn(fmaxf(acc[4 * i + 2] + bb.x, 0.0f),
+                                                    fmaxf(acc[4 * i + 3] + bb.y, 0.0f));
+    if (STORE) {
+      const uint32_t a = row_addr + (i / 8) * BLOCK_BYTES + (((i & 7) ^ (lane >> 2)) << 4);
+      sm90::st_b32(a, bf162_bits(h0));
+      sm90::st_b32(a + 8 * 128, bf162_bits(h1));
+    }
+    if (SIGMA) {
+      const float2 ws = ldg_bf162(w_sigma + c);
+      s0 += __low2float(h0) * ws.x + __high2float(h0) * ws.y;
+      s1 += __low2float(h1) * ws.x + __high2float(h1) * ws.y;
+    }
+  }
+}
+
+// The full pass's sigma partials: the last layer's bf16 activations read
+// back from the thread's two rows of the activation blocks (the layout
+// trunk_epilogue writes), dotted with w_sigma; no accumulator is live here.
+__device__ __forceinline__ void sigma_from_smem(const bf16* __restrict__ w_sigma,
+                                                uint32_t act_rows, int warp, int lane, float& s0,
+                                                float& s1) {
+  const int r = warp * 16 + (lane >> 2);
+  const uint32_t row_addr = act_rows + r * 128 + 4 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < W / 8; ++i) {
+    const uint32_t a = row_addr + (i / 8) * BLOCK_BYTES + (((i & 7) ^ (lane >> 2)) << 4);
+    const float2 ws = ldg_bf162(w_sigma + 8 * i + 2 * (lane & 3));
+    const float2 h0 = bf162_to_float2(sm90::ld_b32(a));
+    const float2 h1 = bf162_to_float2(sm90::ld_b32(a + 8 * 128));
+    s0 += h0.x * ws.x + h0.y * ws.y;
+    s1 += h1.x * ws.x + h1.y * ws.y;
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The rgb head from the direction branch's accumulators: c0 / c1 (3 each)
+// are the full sums for the thread's two rows, before b_rgb.
+__device__ __forceinline__ void rgb_epilogue(const float (&acc)[WD / 2], const HeadParams& hp,
+                                             int lane, float (&c0)[3], float (&c1)[3]) {
+  const int cq = 2 * (lane & 3);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) c0[ch] = c1[ch] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < WD / 8; ++i) {
+    const int c = 8 * i + cq;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(hp.b_comb + c));
+    const __nv_bfloat162 h0 = __floats2bfloat162_rn(fmaxf(acc[4 * i] + bb.x, 0.0f),
+                                                    fmaxf(acc[4 * i + 1] + bb.y, 0.0f));
+    const __nv_bfloat162 h1 = __floats2bfloat162_rn(fmaxf(acc[4 * i + 2] + bb.x, 0.0f),
+                                                    fmaxf(acc[4 * i + 3] + bb.y, 0.0f));
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float2 w = ldg_bf162(hp.w_rgb + ch * WD + c);
+      c0[ch] += __low2float(h0) * w.x + __high2float(h0) * w.y;
+      c1[ch] += __low2float(h1) * w.x + __high2float(h1) * w.y;
+    }
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    c0[ch] = quad_sum(c0[ch]);
+    c1[ch] = quad_sum(c1[ch]);
+  }
+}
+
+__device__ __forceinline__ void produce(const FieldParams& prm, Ring ring, int n_slices,
+                                        long long n_tiles) {
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(prm.stream);
+    for (int j = 0; j < n_slices; ++j) {
+      const uint32_t bytes = j < prm.n_trunk ? SLICE_BYTES : DSLICE_BYTES;
+      sm90::mbar_wait(ring.empty(ring.stage), ring.phase ^ 1u);
+      sm90::mbar_arrive_expect_tx(ring.full(), bytes);
+      sm90::bulk_copy_g2s(ring.slot(), src, bytes, ring.full());
+      src += bytes;
+      ring.advance();
+    }
+  }
+}
+
 template <bool FULL>
-__global__ void __launch_bounds__(THREADS, 1)
-    nerf_field_kernel(FieldParams prm, const float* __restrict__ xyz,
-                      const float* __restrict__ dirs, long long samples_per_dir,
-                      float* __restrict__ out, long long n_points) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sh = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_H);
-  __nv_bfloat16* sd = reinterpret_cast<__nv_bfloat16*>(smem + SMEM_H + SMEM_X);
-  float* stage_all = reinterpret_cast<float*>(smem + SMEM_H + SMEM_X + SMEM_D);
-  float* pts = reinterpret_cast<float*>(smem + SMEM_H + SMEM_X + SMEM_D + SMEM_STAGE);
-  float* dsm = pts + TP * 3;
-  float* sig = dsm + TP * 3;
+__device__ __forceinline__ void consume(const FieldParams& prm, Ring ring, uint32_t base,
+                                        const float* __restrict__ xyz,
+                                        const float* __restrict__ dirs, unsigned samples_per_dir,
+                                        float* __restrict__ out, long long n_points,
+                                        long long n_tiles) {
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const uint32_t bar_id = 1 + wg;
+  const uint32_t act_rows = base + wg * WG_BLOCK_BYTES;
+  const uint32_t xemb_rows = base + SMEM_ACT + SMEM_RING + wg * WG_BLOCK_BYTES;
+  const uint32_t demb_rows = xemb_rows + BLOCK_BYTES;
+  const int er = t >> 1, half = t & 1;  // embedding: two threads per point
+  const int r = warp * 16 + (lane >> 2);  // accumulator rows r and r + 8
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = (warp >> 2) * 64;
-  float* stage = stage_all + warp * 256;
-  const long long p0 = (long long)blockIdx.x * TP;
+  // Ordered turns for the epilogues: the two warpgroups take them in
+  // alternation (barriers 3 and 4: warpgroup g waits on 3 + g, then lets the
+  // other go), so one's epilogue runs under the other's products instead of
+  // both idling the tensor cores at once.
+  const uint32_t my_turn = 3 + wg, other_turn = 4 - wg;
+  auto wg_sync = [&] { sm90::named_bar_sync(bar_id, 128); };
+  if (wg == 1) sm90::named_bar_arrive(other_turn, 256);
 
-  for (int i = tid; i < TP * 3; i += THREADS) {
-    const long long g = p0 * 3 + i;
-    pts[i] = g < n_points * 3 ? xyz[g] : 0.0f;
-    if (FULL) {
-      const long long p = p0 + i / 3;
-      dsm[i] = p < n_points ? dirs[(p / samples_per_dir) * 3 + i % 3] : 0.0f;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // the embeddings of this warpgroup's points, while the other's products run
+    const long long pe = tile * TP + wg * WG_ROWS + er;
+    float x[3];
+    load3(xyz, pe, pe < n_points, x);
+    embed_row<10>(xemb_rows, x, er, half);
+    if constexpr (FULL) {
+      load3(dirs, unsigned(pe) / samples_per_dir, pe < n_points, x);  // 32-bit: no call
+      embed_row<4>(demb_rows, x, er, half);
     }
-  }
-  __syncthreads();
-  embed(pts, 10, sx, LDX, EMB_X);
-  if (FULL) embed(dsm, 4, sd, LDD, EMB_D);
-  __syncthreads();
+    sm90::fence_proxy_async();
+    wg_sync();
 
-  {  // trunk: W-wide layers, activations kept in `sh`
-    constexpr int FN = W / 64;
-    const int n0 = (warp & 3) * (W / 4);
-    FragC acc[4][FN];
+    const long long p = tile * TP + wg * WG_ROWS + r;  // this thread's rows' points p, p + 8
+    float acc[W / 2];
+    float s0 = 0.0f, s1 = 0.0f;
     for (int l = 0; l < prm.depth; ++l) {
-      zero(acc);
-      if (prm.w_h[l]) mma_segment<FN, false>(acc, sh, LDH, prm.w_h[l], W, W, m0, n0);
-      if (prm.w_e[l]) mma_segment<FN, false>(acc, sx, LDX, prm.w_e[l], EMB_X, EMB_X, m0, n0);
-      __syncthreads();  // every warp has read `sh` before it is overwritten
-      store_relu(acc, stage, prm.b[l], sh, LDH, m0, n0, lane);
-      __syncthreads();
+      const int n_h = l ? W / KS : 0;
+      run_slot<W>(
+          acc, ring, n_h + int((prm.emb_mask >> l) & 1u),
+          [&](int j) { return j < n_h ? act_rows + j * BLOCK_BYTES : xemb_rows; }, lane);
+      // our turn; every warp of ours has retired the products that read the activations
+      sm90::named_bar_sync(my_turn, 256);
+      if (FULL || l + 1 < prm.depth)
+        trunk_epilogue<true, false>(acc, prm.b[l], prm.heads.w_sigma, act_rows, warp, lane, s0,
+                                    s1);
+      else  // the sigma pass's last layer: its head straight from the accumulators
+        trunk_epilogue<false, true>(acc, prm.b[l], prm.heads.w_sigma, act_rows, warp, lane, s0,
+                                    s1);
+      sm90::named_bar_arrive(other_turn, 256);
+      sm90::fence_proxy_async();
+      wg_sync();
     }
-  }
+    if constexpr (FULL)  // beside the accumulators it would push the full pass past 232 registers
+      sigma_from_smem(prm.heads.w_sigma, act_rows, warp, lane, s0, s1);
+    const float b_sigma = __ldg(prm.heads.b_sigma);
+    s0 = quad_sum(s0) + b_sigma;
+    s1 = quad_sum(s1) + b_sigma;
 
-  eval_heads<FULL>(prm.heads, sh, sd, stage, sig, out, p0, n_points);
+    const int q = lane & 3;
+    if constexpr (FULL) {
+      float acc2[WD / 2];
+      run_slot<WD>(
+          acc2, ring, DIR_SLICES,
+          [&](int j) { return j < W / KS ? act_rows + j * BLOCK_BYTES : demb_rows; }, lane);
+      float c0[3], c1[3];
+      rgb_epilogue(acc2, prm.heads, lane, c0, c1);
+      if (q < 2 && p + 8 * q < n_points) {
+        float rgb[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          rgb[ch] = 1.0f / (1.0f + expf(-((q ? c1[ch] : c0[ch]) + __ldg(prm.heads.b_rgb + ch))));
+        reinterpret_cast<float4*>(out)[p + 8 * q] =
+            make_float4(rgb[0], rgb[1], rgb[2], q ? s1 : s0);
+      }
+    } else {
+      if (q < 2 && p + 8 * q < n_points) out[p + 8 * q] = q ? s1 : s0;
+    }
+    wg_sync();  // every product reading this tile's embeddings has retired
+  }
+  if (wg == 0) sm90::named_bar_sync(my_turn, 256);  // the other's last turn handed over
+}
+
+template <bool FULL>
+__global__ void __launch_bounds__(K1_THREADS, 1)
+    nerf_field_kernel(const FieldParams prm, const float* __restrict__ xyz,
+                      const float* __restrict__ dirs, unsigned samples_per_dir,
+                      float* __restrict__ out, long long n_points, long long n_tiles) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  const Ring ring = {base + SMEM_ACT, base + SMEM_ACT + SMEM_RING + BLOCK_BYTES * (FULL ? 2 : 1),
+                     0, 0u};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(ring.bars + 8 * s, 1);                         // the producer's arrival
+      sm90::mbar_init(ring.bars + 8 * (STAGES + s), CONSUMERS * 4);  // one per consumer warp
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == CONSUMERS * 128)
+      produce(prm, ring, prm.n_trunk + (FULL ? DIR_SLICES : 0), n_tiles);
+  } else {
+    sm90::reg_alloc<232>();
+    consume<FULL>(prm, ring, base, xyz, dirs, samples_per_dir, out, n_points, n_tiles);
+  }
+}
+
+template <bool FULL>
+cudaError_t launch(const FieldParams& prm, const float* xyz, const float* dirs,
+                   unsigned samples_per_dir, float* out, long long n_points, long long n_tiles,
+                   unsigned grid, cudaStream_t s) {
+  const int smem = smem_bytes(FULL);
+  cudaError_t err = cudaFuncSetAttribute(nerf_field_kernel<FULL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  nerf_field_kernel<FULL><<<grid, K1_THREADS, smem, s>>>(prm, xyz, dirs, samples_per_dir, out,
+                                                         n_points, n_tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Pointer table `ptrs` (device addresses, 0 where absent), 3 * depth + 7 long:
-//   w_h[0..depth), w_e[0..depth), b[0..depth),
-//   w_sigma, b_sigma, w_comb, w_dir, b_comb, w_rgb, b_rgb.
-// xyz: (n_points, 3) f32. dirs: (ceil(n_points / samples_per_dir), 3) f32,
-// read only when `full`. out: (n_points, 1) f32 sigma, or (n_points, 4)
-// f32 [r, g, b, sigma] when `full`. Returns a cudaError_t value.
-int nerf_field_forward(const void* const* ptrs, int depth, int width, const float* xyz,
+// Dynamic shared memory of one CTA of the full (1) or sigma-only (0) kernel.
+int nerf_field_smem_bytes(int full) { return smem_bytes(full != 0); }
+
+// k1_stream: the pack's bf16 weight stream of `stream_elems` elements, in the
+// order the header gives for `depth` layers and `emb_mask` (bit l: layer l
+// takes the embedding; bit 0 must be set). Pointer table `ptrs` (device
+// addresses), depth + 7 long: b[0..depth), then w_sigma, b_sigma, w_comb,
+// w_dir, b_comb, w_rgb, b_rgb (w_comb and w_dir are read from the stream).
+// xyz: (n_points, 3) f32, n_points < 2^31. dirs: (ceil(n_points /
+// samples_per_dir), 3) f32, read only when `full`. out: (n_points, 1) f32
+// sigma, or (n_points, 4) f32 [r, g, b, sigma] when `full`. Returns a
+// cudaError_t value.
+int nerf_field_forward(const void* k1_stream, long long stream_elems, const void* const* ptrs,
+                       int depth, unsigned emb_mask, int width, const float* xyz,
                        const float* dirs, long long samples_per_dir, float* out,
                        long long n_points, int full, void* stream) {
-  if (width != W || depth < 1 || depth > MAX_DEPTH || samples_per_dir < 1 || n_points < 0)
+  if (width != W || depth < 1 || depth > MAX_DEPTH || samples_per_dir < 1 || n_points < 0 ||
+      n_points > 0x7fffffffLL || !(emb_mask & 1u) || (emb_mask >> depth) != 0u)
     return int(cudaErrorInvalidValue);
+  // point indices fit 32 bits, and so does the direction index's divisor
+  const unsigned spd = unsigned(samples_per_dir < n_points ? samples_per_dir : n_points);
   FieldParams prm = {};
-  for (int l = 0; l < depth; ++l) {
-    prm.w_h[l] = static_cast<const __nv_bfloat16*>(ptrs[l]);
-    prm.w_e[l] = static_cast<const __nv_bfloat16*>(ptrs[depth + l]);
-    prm.b[l] = static_cast<const float*>(ptrs[2 * depth + l]);
-  }
-  prm.heads = head_params(ptrs + 3 * depth);
+  prm.stream = static_cast<const bf16*>(k1_stream);
+  prm.emb_mask = emb_mask;
   prm.depth = depth;
-  if (prm.w_e[0] == nullptr || prm.w_h[0] != nullptr) return int(cudaErrorInvalidValue);
+  for (int l = 0; l < depth; ++l) {
+    prm.b[l] = static_cast<const float*>(ptrs[l]);
+    prm.n_trunk += (l ? W / KS : 0) + int((emb_mask >> l) & 1u);
+  }
+  prm.heads = head_params(ptrs + depth);
+  if (stream_elems != (long long)prm.n_trunk * W * KS + (long long)DIR_SLICES * WD * KS)
+    return int(cudaErrorInvalidValue);
   if (n_points == 0) return int(cudaSuccess);
 
-  const long long blocks = (n_points + TP - 1) / TP;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return int(err);
+  const long long n_tiles = (n_points + TP - 1) / TP;
+  const unsigned grid = unsigned(n_tiles < sms ? n_tiles : sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (full) {
-    err = cudaFuncSetAttribute(nerf_field_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
-    if (err != cudaSuccess) return int(err);
-    nerf_field_kernel<true><<<unsigned(blocks), THREADS, SMEM_BYTES, s>>>(
-        prm, xyz, dirs, samples_per_dir, out, n_points);
-  } else {
-    err = cudaFuncSetAttribute(nerf_field_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
-    if (err != cudaSuccess) return int(err);
-    nerf_field_kernel<false><<<unsigned(blocks), THREADS, SMEM_BYTES, s>>>(
-        prm, xyz, dirs, samples_per_dir, out, n_points);
-  }
-  return int(cudaGetLastError());
+  err = full ? launch<true>(prm, xyz, dirs, spd, out, n_points, n_tiles, grid, s)
+             : launch<false>(prm, xyz, dirs, spd, out, n_points, n_tiles, grid, s);
+  return int(err);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
-// Device code shared by the NeRF field kernels (csrc/fused_mlp.cu and
-// csrc/fused_mlp_int8.cu, eval; csrc/fused_mlp_train.cu, training): the tile
-// shape, the shared-memory row layout, the tensor-core product over one
-// layer, the positional encoding, and the eval heads. One CTA of THREADS
-// threads owns a tile of TP points; its 8 warps split the tile as 2 (rows of
-// 64 points) x 4 (column slices).
+// Device code shared by the NeRF field kernels: the int8 eval field
+// (csrc/fused_mlp_int8.cu) and the training field (csrc/fused_mlp_train.cu)
+// use all of it: the tile shape, the shared-memory row layout, the
+// tensor-core product over one layer, the positional encoding, and the eval
+// heads. One CTA of THREADS threads owns a tile of TP points; its 8 warps
+// split the tile as 2 (rows of 64 points) x 4 (column slices). The bf16 eval
+// field (csrc/fused_mlp.cu) takes only the widths, TP and the head pointers.
 //
 // The build (ops/kernels/_build.py) hashes this header with each source, so
 // an edit here rebuilds every library.

@@ -14,6 +14,13 @@ module owns everything around it:
   linears), as the JAX pack does (~1e-4 output delta against the unfolded
   MLP). The TPU layout tricks (k-major permuted sin/cos rows, +pi/2 cos
   phase, 128-row heads, the (8, N) lane-major point layout) are not kept.
+- `k1_stream` (a key of the pack at the kernel's width): the weights again,
+  as the kernel streams them. One bf16 buffer of 64-input slices in the
+  order `k1_schedule` lists (the order the kernel consumes them), each
+  slice (rows, 64) in the 128-byte swizzle its wgmma reads: 16-byte chunk
+  j of row r holds chunk j ^ (r % 8). `unpack_k1_stream` is its plain
+  inverse. The other keys stay: the plain versions and the int8 pack read
+  them.
 - `fused_sigma_ref` / `fused_full_ref`: the plain version of the kernel's
   math — bf16 operands (rounded, then multiplied in float32 with TF32 off),
   float32 accumulation, biases and heads.
@@ -32,10 +39,11 @@ import torch.nn.functional as F
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
 
-EMB_X = 64        # 63 xyz-embedding channels + 1 zero column (wmma k-step of 16)
+EMB_X = 64        # 63 xyz-embedding channels + 1 zero column
 EMB_D = 32        # 27 direction-embedding channels + 5 zero columns
 KERNEL_WIDTH = 256  # the width csrc/fused_mlp.cu is compiled for
 MAX_DEPTH = 16
+SLICE = 64        # inputs per slice of `k1_stream`: one 128-byte swizzle row
 
 LAUNCHES = {"sigma": 0, "full": 0}
 
@@ -74,6 +82,8 @@ def pack_nerf_params(model: NeRF, device=None) -> Packed:
     w["w_rgb"] = f32(model.rgb.weight)
     b["b_rgb"] = f32(model.rgb.bias)
 
+    if width == KERNEL_WIDTH:
+        w["k1_stream"] = _k1_stream(w, cfg.depth)
     out = {k: v.to(device, torch.bfloat16).contiguous() for k, v in w.items()}
     out.update({k: v.to(device).contiguous() for k, v in b.items()})
     return out
@@ -86,6 +96,64 @@ def pack_model_params(models: Dict[str, NeRF], device=None) -> Dict[str, Packed]
 
 def _depth(packed: Packed) -> int:
     return sum(1 for k in packed if k[0] == "b" and k[1:].isdigit())
+
+
+def _emb_layers(packed: Packed) -> list:
+    return [i for i in range(_depth(packed)) if f"w{i}e" in packed]
+
+
+def k1_schedule(depth: int, emb_layers) -> list:
+    """The slices of `k1_stream`, in the order the kernel consumes them, as
+    (weight key, first input column): per trunk layer its hidden slices
+    (none at layer 0), then its embedding slice if it takes the embedding;
+    then W_comb's slices and W_dir's (zero-padded to SLICE inputs)."""
+    out = []
+    for i in range(depth):
+        if i:
+            out += [(f"w{i}", c) for c in range(0, KERNEL_WIDTH, SLICE)]
+        if i in emb_layers:
+            out.append((f"w{i}e", 0))
+    return out + [("w_comb", c) for c in range(0, KERNEL_WIDTH, SLICE)] + [("w_dir", 0)]
+
+
+def _swizzle128(s: torch.Tensor) -> torch.Tensor:
+    """(rows, 64) -> the same slice with 8-element chunk j of row r moved
+    to chunk j ^ (r % 8): the 128-byte swizzle (its own inverse)."""
+    rows = s.shape[0]
+    chunk = torch.arange(8)[None, :] ^ (torch.arange(rows) % 8)[:, None]
+    return s.reshape(rows, 8, 8)[torch.arange(rows)[:, None], chunk].reshape(rows, SLICE)
+
+
+def _k1_stream(w: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:
+    slices = []
+    for k, c in k1_schedule(depth, [i for i in range(depth) if f"w{i}e" in w]):
+        s = w[k][:, c: c + SLICE]
+        slices.append(_swizzle128(F.pad(s, (0, SLICE - s.shape[1]))).flatten())
+    return torch.cat(slices)
+
+
+def _slice_rows(key: str) -> int:
+    return KERNEL_WIDTH // 2 if key in ("w_comb", "w_dir") else KERNEL_WIDTH
+
+
+def k1_stream_numel(depth: int, emb_layers) -> int:
+    return sum(_slice_rows(k) * SLICE for k, _ in k1_schedule(depth, emb_layers))
+
+
+def unpack_k1_stream(stream: torch.Tensor, depth: int, emb_layers) -> Dict[str, torch.Tensor]:
+    """The weights `k1_stream` holds, rebuilt from it alone (the plain
+    inverse of the pack): {key: (rows, in) in the stream's dtype}; `w_dir`
+    keeps its SLICE zero-padded inputs."""
+    if stream.numel() != k1_stream_numel(depth, emb_layers):
+        raise ValueError(f"k1_stream: {stream.numel()} elements, the schedule holds "
+                         f"{k1_stream_numel(depth, emb_layers)}")
+    parts: Dict[str, Dict[int, torch.Tensor]] = {}
+    off = 0
+    for k, c in k1_schedule(depth, emb_layers):
+        rows = _slice_rows(k)
+        parts.setdefault(k, {})[c] = _swizzle128(stream[off: off + rows * SLICE].view(rows, SLICE))
+        off += rows * SLICE
+    return {k: torch.cat([v[c] for c in sorted(v)], dim=1) for k, v in parts.items()}
 
 
 # ---- plain PyTorch version --------------------------------------------------
@@ -144,14 +212,20 @@ def full_heads_ref(packed: Packed, h: torch.Tensor, dirs: torch.Tensor,
 
 # ---- CUDA kernel ------------------------------------------------------------
 
+# nerf_field_forward(k1_stream, stream_elems, ptrs, depth, emb_mask, width, xyz, dirs,
+#                    samples_per_dir, out, n_points, full, stream) -> cudaError_t
+KERNEL_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+
+
 def _kernel_fn():
     """`nerf_field_forward` from the built library (built at first use)."""
     from nerf_siren_tpu_torch.ops.kernels import _build
 
     fn = _build.load("fused_mlp").nerf_field_forward
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = KERNEL_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -190,28 +264,23 @@ def head_pointers(packed: Packed, device) -> list:
     return [packed[k].data_ptr() for k in HEAD_KEYS]
 
 
-def _pointer_table(packed: Packed, device) -> list:
-    """Validate the pack against the kernel and list its device pointers in
-    the order `nerf_field_forward` reads them."""
+def _kernel_args(packed: Packed, device) -> tuple:
+    """Validate what the kernel reads of the pack (the weight stream, the
+    biases, the heads) and return (stream, emb_mask, pointer table in the
+    order `nerf_field_forward` reads it)."""
     depth, width = _depth(packed), _width(packed, "fused kernel")
-    bf, f32 = torch.bfloat16, torch.float32
-    shapes = {"w0e": (bf, (width, EMB_X))}
+    emb_layers = _emb_layers(packed)
+    if 0 not in emb_layers or "w0" in packed:
+        raise ValueError("fused kernel: layer 0 takes the embedding (w0e) and no hidden input")
+    if "k1_stream" not in packed:
+        raise ValueError("k1_stream: the pack has no weight stream (pack_nerf_params builds it)")
+    stream = packed["k1_stream"]
+    _check(stream, "k1_stream", device, torch.bfloat16, (k1_stream_numel(depth, emb_layers),))
     for i in range(depth):
-        shapes[f"b{i}"] = (f32, (width,))
-        if i > 0:
-            shapes[f"w{i}"] = (bf, (width, width))
-            if f"w{i}e" in packed:
-                shapes[f"w{i}e"] = (bf, (width, EMB_X))
-    for k, (dtype, shape) in shapes.items():
-        _check(packed[k], k, device, dtype, shape)
-
-    def ptr(k):
-        return packed[k].data_ptr() if k in packed else 0
-
-    return ([ptr(f"w{i}") if i else 0 for i in range(depth)]
-            + [ptr(f"w{i}e") for i in range(depth)]
-            + [ptr(f"b{i}") for i in range(depth)]
-            + head_pointers(packed, device))
+        _check(packed[f"b{i}"], f"b{i}", device, torch.float32, (width,))
+    emb_mask = sum(1 << i for i in emb_layers)
+    return (stream, emb_mask,
+            [packed[f"b{i}"].data_ptr() for i in range(depth)] + head_pointers(packed, device))
 
 
 def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
@@ -220,21 +289,24 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
         raise ValueError(f"fused NeRF field: unsupported device {xyz.device}")
     n = xyz.shape[0]
     full = dirs is not None
+    if n >= 2 ** 31:
+        raise ValueError(f"fused NeRF field: at most 2^31 - 1 points per call, got {n}")
     _check(xyz, "xyz", xyz.device, torch.float32, (n, 3))
     if full:
         if samples_per_dir < 1:
             raise ValueError(f"samples_per_dir must be >= 1, got {samples_per_dir}")
         _check(dirs, "dirs", xyz.device, torch.float32, (-(-n // samples_per_dir), 3))
-    table = _pointer_table(packed, xyz.device)
+    weights, emb_mask, table = _kernel_args(packed, xyz.device)
     out = torch.empty((n, 4 if full else 1), dtype=torch.float32, device=xyz.device)
     if n == 0:
         return out
     fn = _kernel_fn()
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn((ctypes.c_void_p * len(table))(*table), _depth(packed), KERNEL_WIDTH,
-                 xyz.data_ptr(), dirs.data_ptr() if full else None, samples_per_dir,
-                 out.data_ptr(), n, int(full), stream)
+        err = fn(weights.data_ptr(), weights.numel(), (ctypes.c_void_p * len(table))(*table),
+                 _depth(packed), emb_mask, KERNEL_WIDTH, xyz.data_ptr(),
+                 dirs.data_ptr() if full else None, samples_per_dir, out.data_ptr(), n, int(full),
+                 stream)
     if err != 0:
         raise RuntimeError(f"nerf_field_forward failed: cudaError {err}")
     LAUNCHES["full" if full else "sigma"] += 1

@@ -123,3 +123,58 @@ def test_render_rays_fused_rejects_non_eval_configs(field):
                 RenderConfig(n_samples=8, n_importance=8, noise_std=1.0, test_time=True)):
         with pytest.raises(ValueError, match="test_time"):
             render_rays_fused({"coarse": tpacked, "fine": tpacked}, rays, cfg)
+
+
+# ---- the kernel's weight stream (k1_stream) ----------------------------------
+
+@pytest.mark.parametrize("depth,skips", [(8, (4,)), (3, (1,))])
+def test_k1_stream_unpacks_to_every_weight(depth, skips):
+    """The plain inverse rebuilds every streamed weight of the pack exactly;
+    W_dir's padding to 64 inputs is zero."""
+    model = NeRF(NeRFConfig(depth=depth, width=256, skips=skips))
+    packed = tfm.pack_nerf_params(model)
+    emb_layers = [0, *skips]
+    got = tfm.unpack_k1_stream(packed["k1_stream"], depth, emb_layers)
+    expect = ({f"w{i}" for i in range(1, depth)} | {f"w{i}e" for i in emb_layers}
+              | {"w_comb", "w_dir"})
+    assert set(got) == expect
+    for k in expect - {"w_dir"}:
+        assert torch.equal(got[k], packed[k]), k
+    assert torch.equal(got["w_dir"][:, :tfm.EMB_D], packed["w_dir"])
+    assert not got["w_dir"][:, tfm.EMB_D:].any()
+
+
+@pytest.mark.parametrize("depth,skips,n_trunk", [(8, (4,), 30), (3, (1,), 10)])
+def test_k1_stream_order_and_swizzle(depth, skips, n_trunk):
+    """The slice count and order documented in csrc/fused_mlp.cu (the reference
+    field 30 trunk + 5 direction slices, depth 3 with the skip at 1 10 + 5),
+    and each element where the 128-byte swizzle puts it: element (r, c) of a
+    slice at r * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8."""
+    packed = tfm.pack_nerf_params(NeRF(NeRFConfig(depth=depth, width=256, skips=skips)))
+    sched = tfm.k1_schedule(depth, [0, *skips])
+    trunk = [("w0e", 0)]
+    for i in range(1, depth):
+        trunk += [(f"w{i}", c) for c in (0, 64, 128, 192)] + ([(f"w{i}e", 0)] if i in skips else [])
+    assert len(trunk) == n_trunk
+    assert sched == trunk + [("w_comb", c) for c in (0, 64, 128, 192)] + [("w_dir", 0)]
+    stream = packed["k1_stream"].view(torch.int16).numpy()
+    assert stream.size == n_trunk * 256 * 64 + 5 * 128 * 64
+    r, c = np.meshgrid(np.arange(256), np.arange(64), indexing="ij")
+    off = 0
+    for k, c0 in sched:
+        w = torch.nn.functional.pad(packed[k], (0, max(0, 64 - packed[k].shape[1])))
+        w = w.view(torch.int16).numpy()
+        rows = w.shape[0]
+        rr, cc = r[:rows], c[:rows]
+        np.testing.assert_array_equal(stream[off + rr * 64 + ((cc // 8) ^ (rr % 8)) * 8 + cc % 8],
+                                      w[:, c0: c0 + 64], err_msg=f"{k}[:, {c0}:]")
+        off += rows * 64
+
+
+def test_k1_stream_only_in_the_bf16_pack_at_the_kernel_width():
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as tk4
+
+    model = NeRF(NeRFConfig())
+    assert "k1_stream" in tfm.pack_nerf_params(model)
+    assert "k1_stream" not in tk4.pack_nerf_params_int8(model)
+    assert "k1_stream" not in tfm.pack_nerf_params(NeRF(SMALL))

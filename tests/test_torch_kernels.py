@@ -45,8 +45,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _packed(width=256, depth=8, device="cpu", seed=0):
-    model = NeRF(NeRFConfig(depth=depth, width=width),
+def _packed(width=256, depth=8, device="cpu", seed=0, skips=(4,)):
+    model = NeRF(NeRFConfig(depth=depth, width=width, skips=skips),
                  generator=torch.Generator().manual_seed(seed))
     return fused_mlp.pack_nerf_params(model, device)
 
@@ -86,10 +86,23 @@ def test_wrapper_rejects_non_cuda_devices():
         fused_mlp.fused_nerf_sigma(packed, xyz)
 
 
+GRID_EDGE = -1   # n = 2 x (the card's SM count) x 128 + 5: past two rounds of the persistent grid
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,samples_per_dir", [(1, 1), (127, 1), (1000, 1), (4099, 7)])
-def test_kernel_matches_plain(cuda_device, n, samples_per_dir):
-    packed = _packed(device=cuda_device)
+@pytest.mark.parametrize("n,samples_per_dir,depth,skips", [
+    (1, 1, 8, (4,)), (63, 1, 8, (4,)), (64, 7, 8, (4,)), (127, 1, 8, (4,)),
+    (128, 192, 8, (4,)), (129, 7, 8, (4,)), (1000, 1, 8, (4,)), (4099, 7, 8, (4,)),
+    (4099, 192, 8, (1, 6)), (GRID_EDGE, 192, 8, (4,)), (GRID_EDGE, 1, 3, (1,)),
+    (4099, 7, 3, (1,)), (129, 1, 3, (2,)), (1000, 7, 1, ()), (1, 192, 1, ())])
+def test_kernel_matches_plain(cuda_device, n, samples_per_dir, depth, skips):
+    """Tile (128 points) and persistent-grid edges, depths 1 / 3 / 8 with
+    the embedding taken at varied layers (the next tile's embedding is
+    formed at another point of the layer loop for each), one direction per
+    1, 7 or 192 points."""
+    if n == GRID_EDGE:
+        n = 2 * torch.cuda.get_device_properties(cuda_device).multi_processor_count * 128 + 5
+    packed = _packed(depth=depth, device=cuda_device, skips=skips)
     xyz, d = _points(n, -(-n // samples_per_dir))
     xyz, d = xyz.to(cuda_device), d.to(cuda_device)
     sig = fused_mlp.fused_nerf_sigma(packed, xyz)
@@ -139,6 +152,29 @@ def test_kernel_counts_launches_and_skips_empty_input(cuda_device):
     assert fused_mlp.LAUNCHES["full"] == before["full"] + 1
 
 
+def test_k1_ablation_variants_apply_to_the_kernel_source():
+    """Every text edit of the ablation tool still finds its place in
+    csrc/fused_mlp.cu, and each variant differs from the kernel."""
+    from nerf_siren_tpu_torch import k1_ablation
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "fused_mlp.cu").read_text()
+    found = k1_ablation.variants(src)
+    assert found.pop("as built") == src
+    assert len(found) == 5 and all(text != src for text in found.values())
+
+
+@pytest.mark.cuda
+def test_kernel_launches_are_bit_identical(cuda_device):
+    """A fixed tile schedule and summation order: two launches agree bit for bit."""
+    packed = _packed(device=cuda_device)
+    xyz, d = _points(20_000, 20_000 // 64 + 1)
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    for run in (lambda: fused_mlp.fused_nerf_sigma(packed, xyz),
+                lambda: fused_mlp.fused_nerf_full(packed, xyz, d, samples_per_dir=64)):
+        assert torch.equal(run(), run())
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     packed = _packed(device=cuda_device)
@@ -151,8 +187,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         fused_mlp.fused_nerf_full(packed, xyz, torch.zeros((3, 3), device=cuda_device))
     with pytest.raises(ValueError, match="width"):
         fused_mlp.fused_nerf_sigma(_packed(width=128, device=cuda_device), xyz)
-    with pytest.raises(ValueError, match="w0e"):
-        fused_mlp.fused_nerf_sigma({**packed, "w0e": packed["w0e"].cpu()}, xyz)
+    with pytest.raises(ValueError, match="k1_stream"):
+        fused_mlp.fused_nerf_sigma({**packed, "k1_stream": packed["k1_stream"].cpu()}, xyz)
+    with pytest.raises(ValueError, match="k1_stream"):
+        fused_mlp.fused_nerf_sigma({k: v for k, v in packed.items() if k != "k1_stream"}, xyz)
+    with pytest.raises(ValueError, match="b3"):
+        fused_mlp.fused_nerf_sigma({**packed, "b3": packed["b3"].cpu()}, xyz)
 
 
 def assert_grads_close(got, ref, msg=""):
