@@ -54,9 +54,16 @@ Run from the repository root. Phases, each printing a line:
      median |d| < 0.005 and 99th percentile < 0.05 of far - near; opacity
      prepass at C 16: median < 2e-3, max < 0.05); K4 at N = 1,000,003 and
      at one chunk's survivors (32768 rays x 16, one direction per ray) and
-     coarse points (x 64): rgb atol 2e-2, sigma atol 5e-2 + rtol 2e-2; K6
-     at 65,536 rays, C 64, K 16: per-ray set equality of depths, atol 1e-5.
-     Each timed beside its plain version.
+     coarse points (x 64): rgb atol 2e-2, sigma atol 5e-2 + rtol 2e-2, and
+     the int8 layer inputs that round apart counted; K6 at 65,536 rays, C
+     64, K 16: per-ray set equality of depths, atol 1e-5. Each timed beside
+     its plain version. K4 also: TOP/s and share of the bound, its earlier
+     kernel's times (EARLIER_K4_MS, another call), K1 on the bf16 pack of
+     the same field at the same points in turns with it, the registers,
+     spills, stack and dynamic shared memory of both instantiations, the
+     SASS instructions of a hidden layer's epilogue (cuobjdump), and as a
+     reading only (never on the path) the same trunk products as
+     `torch._int_mm` calls.
   9. fast frames: 3 frames through the CLI's fast renderer at its defaults
      (C 32, K 16, pdf, mid, delta): finite, rgb in [0, 1 + 1e-3], K3 select
      and K1 full launched at least once per chunk per frame; 2048 rays of
@@ -67,8 +74,9 @@ Run from the repository root. Phases, each printing a line:
  10. `--fast_cull auto`: 5 frames; every ray equals the fast frame's value
      (atol 1e-6: the same kernels on the same rays) or is background (a
      culled block); the active fraction, the bypass and eps per frame.
- 11. `--fast_field_dtype int8` on the fast and the fused renderer, one frame
-     each: finite, K4 launched, rgb within 0.15 of the bf16 frame.
+ 11. `--fast_field_dtype int8` on the fast and the fused renderer, two
+     frames each: finite, K4 launched, rgb within 0.15 of the bf16 frame;
+     their latencies beside the bf16 frames' (phases 7 and 9).
  12. `--fast_edge_refine 0.04`: one frame, finite; the refined-ray count.
  13. K6, which has no CLI caller: `proxy_select` over one frame's rays at C
      64, K 16 with the distilled proxy, every depth finite and in its ray's
@@ -85,8 +93,10 @@ Run from the repository root. Phases, each printing a line:
      (coarse and fine), and 262,144 random points within 1.05 x box_warp / 2
      (edges and beyond): 0 elements may differ; all three within 1e-5 of
      the table's largest magnitude of `F.grid_sample` on its float32 copy;
-     kernel, plain and `F.grid_sample` ms (float32, and bf16 where
-     `F.grid_sample` takes it) at the chunk's shape, with the bound.
+     at the chunk's shape the plain version's ms, and K5 and `F.grid_sample`
+     (float32, and bf16 where it takes it) in turns over K5_ROUNDS rounds
+     (library, kernel, kernel, library): each round and the medians, with
+     the bound.
  16. frames through the CLI's `make_renderer` with `--plane_sampler kernel`:
      3 of 128² (latency, rays/s, finite outputs, mean opacity_fine, K5
      launched twice per chunk), the same 3 through `gather` (every output
@@ -97,7 +107,8 @@ Run from the repository root. Phases, each printing a line:
      against a CPU float32 synthesis from the same weights (max |d| within
      1e-3 of the planes' largest magnitude; cuDNN TF32 is off, phase 1).
   With `--profile`, one more exact frame, one more training step, one
-  more fast frame and one more 128² EG3D frame under `torch.profiler`:
+  more fast frame, one more int8 fast and int8 exact frame and one more
+  128² EG3D frame under `torch.profiler`:
   device time per kernel, the device's idle share and the peak device
   memory.
 Then one JSON line of kernels (launches counted over the one path that
@@ -145,6 +156,7 @@ EG3D_SEED, EG3D_WH, EG3D_BIG, N_EG3D = SEED + 30, 128, 800, 3
 EG3D_CHECK = slice(64 * 128, 64 * 128 + 2048)   # rays through the 128² frame's centre rows
 K5_RANDOM = 262_144
 K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
+K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
 SAME_FRAME_ATOL = 1e-6  # kernel vs gather frames
 PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest magnitude
 SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select",
@@ -152,6 +164,11 @@ SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "pro
 PALLAS = "nerf_siren_tpu/ops/pallas"
 # K1's times before its redesign (the wmma kernel, at these shapes on an H100 80GB HBM3, 700 W)
 EARLIER_K1_MS = {"fused_nerf_sigma": 20.673, "fused_nerf_full": 68.704}
+# K4's times before its redesign (the mma.sync kernel, at phase 8's shapes on an H100 80GB
+# HBM3, 700 W)
+EARLIER_K4_MS = {"fused_nerf_sigma_int8": 42.806, "fused_nerf_full_int8": 11.652}
+K4_SYMBOLS = {"fused_nerf_sigma_int8": "nerf_field_int8_kernelILb0E",
+              "fused_nerf_full_int8": "nerf_field_int8_kernelILb1E"}
 K1_SYMBOLS = {"fused_nerf_sigma": "nerf_field_kernelILb0E",   # mangled <false> / <true>
               "fused_nerf_full": "nerf_field_kernelILb1E"}
 KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kernel it replaces)
@@ -723,6 +740,59 @@ def int8_work_per_point(packed, full):
     return 2 * heads, 2 * trunk
 
 
+def k4_weight_bytes(p8):
+    """Bytes of the int8 pack that K4 reads: the weight stream (W_comb and
+    W_dir included), the row scales, the coordinate columns, the biases and
+    the heads."""
+    return sum(t.numel() * t.element_size() for k, t in p8.items()
+               if k in ("k4_stream", "w_sigma", "w_rgb") or k[0] in "bf" or k.endswith("x"))
+
+
+def sass_epilogue(name, symbol):
+    """(convert, quantise) instructions of a hidden layer's epilogue in the
+    SASS of csrc/<name>.cu's `symbol` instantiation (cuobjdump of the build):
+    the straight-line block that converts the 128 accumulators (128 exact
+    int-to-float additions of 0x4b400000, no dp4a, no wgmma) and the one
+    that quantises them without the dump (64 two-byte shared stores, no
+    global store), up to its last store. None where the toolkit has no
+    cuobjdump or the blocks are not found."""
+    import re
+    import shutil
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
+                              text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    funcs = sass.split("Function : ")
+    body = next((f for f in funcs if f.startswith("_") and symbol in f.split()[0]), "")
+    code = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    targets = set(re.findall(r"BRA(?:\s+\S+,)?\s+0x([0-9a-f]+)", body))
+    blocks, cur = [], []
+    for addr, text in code:
+        if addr.lstrip("0") in {t.lstrip("0") for t in targets} and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append(text)
+        if "BRA" in text or "EXIT" in text:
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+
+    def count(b, op):
+        return sum(op in t for t in b)
+
+    conv = [b for b in blocks if sum("IADD3" in t and "0x4b400000" in t for t in b) == 128
+            and not count(b, "IDP.4A") and not count(b, "GMMA")]
+    quant = [b for b in blocks if count(b, "STS.U16") == 64 and not count(b, "STG")]
+    if not conv or not quant:
+        return None
+    last = max(i for i, t in enumerate(quant[0]) if "STS.U16" in t)
+    return len(conv[0]), last + 1
+
+
 def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0.0,
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
@@ -735,10 +805,43 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
             "bound_by": bound_by, "library_ms": None}
 
 
-def check_fast_kernels(fast, p8, frame_rays, device, card):
-    """Phase 8: K3 (both wrappers), K4 (both) and K6 against their plain
-    versions at the fast path's shapes, each timed beside its plain version."""
+def int_mm_chain_ms(p8, n):
+    """A reading only, never on the path: the int8 trunk's products at n
+    points as `torch._int_mm` calls at K4's shapes (random int8 inputs; no
+    scales, quantisation or heads): ms and TOP/s per chain over 3 runs, or
+    why the build does not take them."""
     import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+
+    dev = p8["w_sigma"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    h = torch.randint(-127, 128, (n, fm.KERNEL_WIDTH), generator=gen, device=dev).to(torch.int8)
+    e = torch.randint(-127, 128, (n, 64), generator=gen, device=dev).to(torch.int8)
+    prods = [(h, p8[f"q{i}"].t()) for i in range(1, fm._depth(p8))]
+    prods += [(e, p8[f"q{i}s"].t()) for i in range(fm._depth(p8)) if f"q{i}s" in p8]
+    ops = 2 * n * sum(b.numel() for _, b in prods)
+
+    def chain():
+        for a, b in prods:
+            torch._int_mm(a, b)
+
+    try:
+        ms = cuda_ms(chain, 3)
+    except (RuntimeError, AttributeError) as err:
+        return f"not taken ({str(err).splitlines()[0][:80]})"
+    finally:
+        del h, e
+    torch.cuda.empty_cache()
+    return f"{ms:.3f} ms ({ops * 1e-12 / (ms * 1e-3):.1f} TOP/s)"
+
+
+def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
+    """Phase 8: K3 (both wrappers), K4 (both) and K6 against their plain
+    versions at the fast path's shapes, each timed beside its plain version;
+    K4 also beside K1 (the bf16 pack `p16` of the same field) at its shapes."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import _build
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
     from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
     from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
@@ -791,7 +894,6 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
         plain_reps=1)
 
     # K4 at N_CHECK random points, then at one chunk's survivors and coarse points
-    p8_bytes = sum(t.numel() * t.element_size() for t in p8.values())
     rng = np.random.default_rng(SEED + 4)
     pts = torch.tensor(rng.uniform(-4.0, 4.0, (N_CHECK, 3)), dtype=torch.float32, device=device)
     dirs = torch.tensor(rng.normal(size=(N_CHECK, 3)), dtype=torch.float32, device=device)
@@ -846,13 +948,38 @@ def check_fast_kernels(fast, p8, frame_rays, device, card):
     print(f"[8/17] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
-    for name, n, full, kern, plain in (
-            ("fused_nerf_full_int8", surv.shape[0], True, full_surv, full_surv_ref),
-            ("fused_nerf_sigma_int8", coarse.shape[0], False, sigma_coarse, sigma_coarse_ref)):
+    lib = _build.load("fused_mlp_int8")
+    report = ptxas_report("fused_mlp_int8")
+    n_emb = sum(1 for k in p8 if k[0] == "q" and k.endswith("x"))
+    epi = sass_epilogue("fused_mlp_int8", K4_SYMBOLS["fused_nerf_sigma_int8"])
+    print("[8/17] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
+          (f"{epi[0]} instructions converting its 128 accumulators, {epi[1]} adding the bias, "
+           f"ReLU and absmax and quantising them: {sum(epi) / 128:.2f} per element"
+           if epi else "not found"), flush=True)
+    for name, n, full, kern, plain, bf16_kern in (
+            ("fused_nerf_full_int8", surv.shape[0], True, full_surv, full_surv_ref,
+             lambda: fm.fused_nerf_full(p16, surv, sel_dirs, FAST_K)),
+            ("fused_nerf_sigma_int8", coarse.shape[0], False, sigma_coarse, sigma_coarse_ref,
+             lambda: fm.fused_nerf_sigma(p16, coarse))):
         f_bf16, i8 = int8_work_per_point(p8, full)
-        n_bytes = n * (12 + (16 if full else 4)) + (sel_dirs.numel() * 4 if full else 0) + p8_bytes
-        results[name] = timed_result(f"at {n} points", name, kern, plain, n * f_bf16, n_bytes,
-                                     errs[name], card, int8_ops=n * i8)
+        n_bytes = (n * (12 + (16 if full else 4)) + (sel_dirs.numel() * 4 if full else 0)
+                   + k4_weight_bytes(p8))
+        res = timed_result(f"at {n} points", name, kern, plain, n * f_bf16, n_bytes, errs[name],
+                           card, int8_ops=n * i8)
+        ms4, ms1, (a1, b1, b2, a2) = timed_pair([kern], [bf16_kern])   # K1, K4, K4, K1
+        regs, spills, stack = next(v for k, v in report.items() if K4_SYMBOLS[name] in k)
+        print(f"[8/17] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
+              f"int8 + {n * f_bf16 * 1e-12 / (res['ms'] * 1e-3):.1f} TFLOP/s bf16, "
+              f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound; earlier mma.sync kernel "
+              f"{EARLIER_K4_MS[name]} ms (another call; {EARLIER_K4_MS[name] / res['ms']:.1f}x); "
+              f"K1 on the bf16 pack of the same field at the same points {ms1:.3f} ms ({a1:.3f}, "
+              f"{a2:.3f}) in turns with K4 {ms4:.3f} ms ({b1:.3f}, {b2:.3f}): int8 / bf16 time "
+              f"{ms4 / ms1:.3f}; build (-Xptxas -v): {regs} registers at entry, {spills} spill "
+              f"bytes, {stack} bytes stack frame; "
+              f"{lib.nerf_field_int8_smem_bytes(int(full), fm._depth(p8), n_emb)} bytes dynamic "
+              f"shared memory; torch._int_mm over the same trunk products "
+              f"{int_mm_chain_ms(p8, n)} (a reading); {card}", flush=True)
+        results[name] = res
 
     # K6: 65,536 rays of the frame, C 64, K 16
     rays6 = rays8[torch.as_tensor(rng.permutation(r)[:K6_RAYS], device=device)]
@@ -942,7 +1069,8 @@ def fast_phases(frames_rays, device, card, args):
                for k in fast.packed_proxy):
         fail("the cached proxy differs from the distilled one")
     results = check_fast_kernels(fast, pack_model_params_int8(models)[fast.model_key],
-                                 frames_rays[0], device, card)
+                                 fm.pack_model_params(models)[fast.model_key], frames_rays[0],
+                                 device, card)
     launches = {}
 
     # ---- 9. fast frames through the CLI's renderer ----------------------------
@@ -1017,21 +1145,28 @@ def fast_phases(frames_rays, device, card, args):
     fast8 = setup_fast_proxy(models, hp8, bounds)
     names = ["fused_nerf_full_int8", "fused_nerf_sigma_int8"]
     reset_counts(names)
-    (out_f8,), (sec_f8,) = render_frames(
-        make_renderer(models, cfg, renderer="fast", fast=fast8, hparams=hp8, img_hw=(H, W)),
-        [frames_rays[0]])
-    (out_x8,), (sec_x8,) = render_frames(
-        make_renderer(models, cfg, renderer="fused", field_dtype="int8"), [frames_rays[0]])
+    fast_int8 = make_renderer(models, cfg, renderer="fast", fast=fast8, hparams=hp8,
+                              img_hw=(H, W))
+    exact_int8 = make_renderer(models, cfg, renderer="fused", field_dtype="int8")
+    (out_f8, _), sec_f8 = render_frames(fast_int8, frames_rays[:2])
+    (out_x8, _), sec_x8 = render_frames(exact_int8, frames_rays[:2])
     launches.update(read_counts(names))
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/17] int8 frames: fast {sec_f8:.4f} s (rgb max|d| vs the bf16 fast frame "
-          f"{d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused {sec_x8:.4f} s "
-          f"(rgb max|d| vs the bf16 exact frame {d_fused:.4f}, PSNR {psnr_vs(out_x8, exact[0]):.2f} "
-          f"dB); bar {INT8_VS_BF16}; launches {read_counts(names)} ({card})", flush=True)
+    print(f"[11/17] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
+          f"against the bf16 fast frames' {[round(t, 4) for t in lat]} (rgb max|d| vs the bf16 "
+          f"fast frame {d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused "
+          f"{[round(t, 4) for t in sec_x8]} against the bf16 exact frames' "
+          f"{[round(t, 4) for t in exact_lat]} (rgb max|d| vs the bf16 exact frame "
+          f"{d_fused:.4f}, PSNR {psnr_vs(out_x8, exact[0]):.2f} dB); bar {INT8_VS_BF16}; "
+          f"launches {read_counts(names)} ({card})", flush=True)
     if min(launches[n] for n in names) < 1 or max(d_fast, d_fused) >= INT8_VS_BF16:
         fail("the int8 frames did not run on K4 or moved from the bf16 frames")
+    if args.profile:
+        with torch.no_grad():
+            profile("int8 fast frame", lambda: fast_int8(frames_rays[1]), card)
+            profile("int8 exact frame", lambda: exact_int8(frames_rays[1]), card)
 
     # ---- 12. edge refinement ------------------------------------------------------
     edge = make_renderer(models, cfg, renderer="fast", fast=fast,
@@ -1217,23 +1352,44 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         del got, ref, lib
 
     g32 = grid(coarse)
-    ms, plain_ms, (p1, k1, k2, p2) = timed_pair([lambda: k5.triplane_gather(table, coarse, scale)],
-                                                [lambda: k5.triplane_gather_ref(table, coarse,
-                                                                                scale)])
-    lib_ms = cuda_ms(lambda: library(planes32, g32), 5)
+    _, plain_ms, (p1, _, _, p2) = timed_pair([lambda: k5.triplane_gather(table, coarse, scale)],
+                                             [lambda: k5.triplane_gather_ref(table, coarse,
+                                                                             scale)])
     try:   # a capability probe, not a phase: does F.grid_sample take bf16 on this build?
         library(planes16, g32[:, :, :8])
-        lib16 = f"{cuda_ms(lambda: library(planes16, g32), 5):.4f} ms"
+        lib16 = True
     except RuntimeError as e:
         lib16 = f"not taken ({str(e).splitlines()[0][:80]})"
+    # the kernel and its library call in turns, K5_ROUNDS rounds of: float32
+    # library, bf16 library, kernel, kernel, bf16 library, float32 library
+    runs = {"kernel": [], "f32": [], "bf16": []}
+    for rnd in range(K5_ROUNDS):
+        order = ["f32", "bf16", "kernel", "kernel", "bf16", "f32"]
+        got = {"kernel": [], "f32": [], "bf16": []}
+        for which in order:
+            if which == "bf16" and lib16 is not True:
+                continue
+            fn = {"kernel": lambda: k5.triplane_gather(table, coarse, scale),
+                  "f32": lambda: library(planes32, g32),
+                  "bf16": lambda: library(planes16, g32)}[which]
+            got[which].append(cuda_ms(fn, 5))
+        for k, v in got.items():
+            runs[k] += v
+        print(f"[15/17] triplane_gather round {rnd} in turns (ms): kernel "
+              f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
+              f"{[round(t, 4) for t in got['f32']]}, bf16 "
+              f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}", flush=True)
+    ms, lib_ms = float(np.median(runs["kernel"])), float(np.median(runs["f32"]))
+    lib16_txt = f"{float(np.median(runs['bf16'])):.4f} ms" if lib16 is True else lib16
     n = coarse.shape[0]
     n_bytes = n * 12 + table.numel() * table.element_size() + n_planes * n * c * 4
     bound_ms, bound_by = bound(0.0, n_bytes)
-    print(f"[15/17] triplane_gather at {n} points (one chunk's coarse pass): kernel {ms:.4f} ms "
-          f"({k1:.4f}, {k2:.4f}; {n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of counted bytes), "
-          f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); F.grid_sample float32 {lib_ms:.4f} ms, "
-          f"bf16 {lib16} (grid precomputed); bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
+    print(f"[15/17] triplane_gather at {n} points (one chunk's coarse pass), medians of "
+          f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
+          f"counted bytes), F.grid_sample float32 {lib_ms:.4f} ms, bf16 {lib16_txt} (grid "
+          f"precomputed): kernel / float32 library {ms / lib_ms:.3f}; plain {plain_ms:.4f} ms "
+          f"({p1:.4f}, {p2:.4f}); bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); "
+          f"{card}", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -1356,8 +1512,8 @@ def main():
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one more exact frame, training step, fast frame and "
-                             "EG3D frame")
+                        help="profile one more exact frame, training step, fast frame, "
+                             "int8 fast and exact frame and EG3D frame")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------

@@ -1,10 +1,11 @@
-// Device code shared by the NeRF field kernels: the int8 eval field
-// (csrc/fused_mlp_int8.cu) and the training field (csrc/fused_mlp_train.cu)
-// use all of it: the tile shape, the shared-memory row layout, the
-// tensor-core product over one layer, the positional encoding, and the eval
-// heads. One CTA of THREADS threads owns a tile of TP points; its 8 warps
-// split the tile as 2 (rows of 64 points) x 4 (column slices). The bf16 eval
-// field (csrc/fused_mlp.cu) takes only the widths, TP and the head pointers.
+// Device code shared by the NeRF field kernels: the training field
+// (csrc/fused_mlp_train.cu) uses all of it: the tile shape, the
+// shared-memory row layout, the tensor-core product over one layer and the
+// positional encoding. One CTA of THREADS threads owns a tile of TP points;
+// its 8 warps split the tile as 2 (rows of 64 points) x 4 (column slices).
+// The eval fields (csrc/fused_mlp.cu, csrc/fused_mlp_int8.cu) take only the
+// widths, TP and the head pointers; their shared device code is in
+// nerf_field_sm90.cuh.
 //
 // The build (ops/kernels/_build.py) hashes this header with each source, so
 // an edit here rebuilds every library.
@@ -106,92 +107,6 @@ struct HeadParams {
   const bf16* w_rgb;    // (3, WD)
   const float* b_rgb;   // (3,)
 };
-
-// out[m, n] = bf16(relu(acc[m, n] + bias[n])) for the warp's (64, 16*FN)
-// block, through a per-warp 16x16 float staging tile (the accumulator's
-// register layout is opaque to wmma).
-template <int FN>
-__device__ __forceinline__ void store_relu(FragC (&acc)[4][FN], float* stage,
-                                           const float* __restrict__ bias,
-                                           bf16* out, int ldo, int m0, int n0, int lane) {
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int col = n0 + 16 * j + c0;
-      bf16* dst = out + (m0 + 16 * i + r) * ldo + col;
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = __float2bfloat16_rn(fmaxf(stage[r * 16 + c0 + e] + bias[col + e], 0.0f));
-      __syncwarp();
-    }
-  }
-}
-
-// Heads over one tile whose final trunk activations are bf16 in `sh` (TP,
-// LDH) and, when FULL, whose direction embedding is in `sd` (TP, LDD):
-// sigma, then relu(W_comb h + W_dir demb + b_comb) -> sigmoid rgb. Writes
-// (n, 1) sigma, or (n, 4) [r, g, b, sigma] when FULL, for the tile's points
-// below n_points. `stage` is the calling warp's 16x16 float tile, `sig` TP
-// floats. Called by every thread of the CTA after a block barrier.
-template <bool FULL>
-__device__ __forceinline__ void eval_heads(const HeadParams& prm, bf16* sh, const bf16* sd,
-                                           float* stage, float* sig, float* __restrict__ out,
-                                           long long p0, long long n_points) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = (warp >> 2) * 64;
-  // sigma head: two threads per point, each over half of the width
-  const int p = tid >> 1, half = tid & 1;
-  {
-    const bf16* hp = sh + p * LDH + half * (W / 2);
-    const bf16* wp = prm.w_sigma + half * (W / 2);
-    float s = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < W / 2; ++k) s += __bfloat162float(hp[k]) * __bfloat162float(wp[k]);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += prm.b_sigma[0];
-    if (!FULL) {
-      if (half == 0 && p0 + p < n_points) out[p0 + p] = s;
-      return;
-    }
-    if (half == 0) sig[p] = s;
-  }
-
-  {  // direction branch: relu(W_comb h + W_dir demb + b_comb) -> sh[:, :WD]
-    constexpr int FN = WD / 64;
-    const int n0 = (warp & 3) * (WD / 4);
-    FragC acc[4][FN];
-    zero(acc);
-    mma_segment<FN, false>(acc, sh, LDH, prm.w_comb, W, W, m0, n0);
-    mma_segment<FN, false>(acc, sd, LDD, prm.w_dir, EMB_D, EMB_D, m0, n0);
-    __syncthreads();
-    store_relu(acc, stage, prm.b_comb, sh, LDH, m0, n0, lane);
-    __syncthreads();
-  }
-
-  {  // rgb head: two threads per point, 3 sums each over half of WD
-    const bf16* hp = sh + p * LDH + half * (WD / 2);
-    float c[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int k = 0; k < WD / 2; ++k) {
-      const float h = __bfloat162float(hp[k]);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-        c[ch] += h * __bfloat162float(prm.w_rgb[ch * WD + half * (WD / 2) + k]);
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) c[ch] += __shfl_xor_sync(0xffffffffu, c[ch], 1);
-    if (half == 0 && p0 + p < n_points) {
-      float* o = out + (p0 + p) * 4;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) o[ch] = 1.0f / (1.0f + expf(-(c[ch] + prm.b_rgb[ch])));
-      o[3] = sig[p];
-    }
-  }
-}
 
 // The head pointers at the end of a field's pointer table (the order the
 // wrappers in ops/kernels/ pass them): w_sigma, b_sigma, w_comb, w_dir,

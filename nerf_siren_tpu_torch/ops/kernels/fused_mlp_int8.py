@@ -14,6 +14,14 @@ kernels `_full_kernel_int8` / `_sigma_kernel_int8`). The kernel is
   ``q{i}`` / ``f{i}``. Biases and the bf16 heads are K1's pack
   (`fused_mlp.pack_nerf_params`), the W_comb fold included. The key ``q0x``
   marks an int8 pack (`render.fused.field_kernels` dispatches on it).
+- `k4_stream` (a key of the pack at the kernel's width): the weights the
+  kernel streams, as one int8 buffer of slices in the order `k4_schedule`
+  lists (the order the kernel consumes them): per layer its hidden columns
+  in two 128-input slices, then its sin/cos columns zero-padded to one; then
+  K1's bf16 W_comb / W_dir slices (`fused_mlp.k1_schedule`), as bytes. Each
+  slice has rows of 128 bytes in the 128-byte swizzle wgmma reads: 16-byte
+  chunk j of row r holds chunk j ^ (r % 8). `unpack_k4_stream` is its plain
+  inverse. The int8 pack carries no `k1_stream`.
 - `fused_sigma_int8_ref` / `fused_full_int8_ref`: the plain version. Per
   point, coordinates and hidden activations are quantised at a dynamic
   scale s = max(absmax, 1e-9) * (1/127), q = clip(round(v / s), +-127); the
@@ -37,13 +45,14 @@ import torch.nn.functional as F
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp
-from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTH, Packed, _bf16,
-                                                        _check, _depth, _width,
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTH, SLICE, Packed,
+                                                        _bf16, _check, _depth, _width,
                                                         full_heads_ref, head_pointers,
                                                         sigma_head_ref)
 
-EMB_Q = 64        # 60 sin/cos columns + 4 zero columns (the mma k-step of 32)
+EMB_Q = 64        # 60 sin/cos columns + 4 zero columns (two int8 k-steps of 32)
 INV127 = 1.0 / 127.0
+ROW_BYTES = 128   # bytes per row of a `k4_stream` slice: one 128-byte swizzle row
 
 LAUNCHES = {"sigma": 0, "full": 0}
 
@@ -73,6 +82,9 @@ def pack_nerf_params_int8(model: NeRF, device=None) -> Packed:
         else:
             q[f"q{i}"], q[f"f{i}"] = _quant_rows(k)
         out[f"b{i}"] = base[f"b{i}"]
+    if cfg.width == KERNEL_WIDTH:
+        q["k4_stream"] = _k4_stream({**q, "w_comb": base["w_comb"].cpu(),
+                                     "w_dir": base["w_dir"].cpu()}, cfg.depth)
     out.update({k: v.to(device).contiguous() for k, v in q.items()})
     return out
 
@@ -80,6 +92,68 @@ def pack_nerf_params_int8(model: NeRF, device=None) -> Packed:
 def pack_model_params_int8(models: Dict[str, NeRF], device=None) -> Dict[str, Packed]:
     """Pack each field of a {'coarse': NeRF, 'fine': NeRF} dict for K4."""
     return {k: pack_nerf_params_int8(m, device) for k, m in models.items()}
+
+
+def _emb_layers(packed: Packed) -> list:
+    return [i for i in range(_depth(packed)) if f"q{i}x" in packed]
+
+
+def k4_schedule(depth: int, emb_layers) -> list:
+    """The slices of `k4_stream`, in the order the kernel consumes them, as
+    (weight key, first input column): per trunk layer its two hidden slices
+    of 128 int8 inputs (none at layer 0), then its sin/cos slice if it takes
+    the embedding; then K1's bf16 slices of W_comb (64 inputs each) and W_dir
+    (zero-padded to 64)."""
+    out = []
+    for i in range(depth):
+        if i:
+            out += [(f"q{i}", c) for c in range(0, KERNEL_WIDTH, ROW_BYTES)]
+        if i in emb_layers:
+            out.append((f"q{i}s", 0))
+    return out + [("w_comb", c) for c in range(0, KERNEL_WIDTH, SLICE)] + [("w_dir", 0)]
+
+
+def _slice_shape(key: str) -> tuple:
+    """(rows, inputs) of one slice of `key`: int8 trunk slices hold 128
+    inputs of all W outputs, the bf16 direction-branch ones 64 of W / 2."""
+    return (KERNEL_WIDTH // 2, SLICE) if key in ("w_comb", "w_dir") else (KERNEL_WIDTH, ROW_BYTES)
+
+
+def _swizzle_bytes(s: torch.Tensor) -> torch.Tensor:
+    """(rows, 128) int8 -> the same slice with 16-byte chunk j of row r moved
+    to chunk j ^ (r % 8): K1's 128-byte swizzle, on the bytes."""
+    return fused_mlp._swizzle128(s.view(torch.int16)).view(torch.int8)
+
+
+def _k4_stream(w: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:
+    slices = []
+    for k, c in k4_schedule(depth, [i for i in range(depth) if f"q{i}x" in w]):
+        cols = _slice_shape(k)[1]
+        s = F.pad(w[k][:, c: c + cols], (0, max(0, c + cols - w[k].shape[1])))
+        slices.append(_swizzle_bytes(s.contiguous().view(torch.int8)).flatten())
+    return torch.cat(slices)
+
+
+def k4_stream_numel(depth: int, emb_layers) -> int:
+    return sum(_slice_shape(k)[0] * ROW_BYTES for k, _ in k4_schedule(depth, emb_layers))
+
+
+def unpack_k4_stream(stream: torch.Tensor, depth: int, emb_layers) -> Dict[str, torch.Tensor]:
+    """The weights `k4_stream` holds, rebuilt from it alone (the plain
+    inverse of the pack): {key: (rows, in)}, int8 for the trunk's ``q*``
+    keys and bf16 for ``w_comb`` / ``w_dir``; ``q{i}s`` keeps its 128
+    zero-padded inputs and ``w_dir`` its 64."""
+    if stream.numel() != k4_stream_numel(depth, emb_layers):
+        raise ValueError(f"k4_stream: {stream.numel()} bytes, the schedule holds "
+                         f"{k4_stream_numel(depth, emb_layers)}")
+    parts: Dict[str, Dict[int, torch.Tensor]] = {}
+    off = 0
+    for k, c in k4_schedule(depth, emb_layers):
+        rows = _slice_shape(k)[0]
+        s = _swizzle_bytes(stream[off: off + rows * ROW_BYTES].view(rows, ROW_BYTES))
+        parts.setdefault(k, {})[c] = s if k[0] == "q" else s.view(torch.bfloat16)
+        off += rows * ROW_BYTES
+    return {k: torch.cat([v[c] for c in sorted(v)], dim=1) for k, v in parts.items()}
 
 
 # ---- plain PyTorch version --------------------------------------------------
@@ -141,16 +215,22 @@ def _kernel_fn():
 
     fn = _build.load("fused_mlp_int8").nerf_field_int8_forward
     p = ctypes.c_void_p
-    fn.argtypes = [ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p, ctypes.c_longlong,
-                   p, ctypes.c_longlong, ctypes.c_int, p, p]
+    fn.argtypes = [p, ctypes.c_longlong, ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p,
+                   ctypes.c_longlong, p, ctypes.c_longlong, ctypes.c_int, p, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _pointer_table(packed: Packed, device) -> list:
-    """Validate the pack against the kernel and list its device pointers in
-    the order `nerf_field_int8_forward` reads them."""
+    """Validate the pack against the kernel (the weight stream, the int8
+    weights and scales, the biases, the heads) and list its device pointers
+    in the order `nerf_field_int8_forward` reads them."""
     depth, width = _depth(packed), _width(packed, "int8 kernel")
+    if "k4_stream" not in packed:
+        raise ValueError("k4_stream: the pack has no weight stream "
+                         "(pack_nerf_params_int8 builds it)")
+    _check(packed["k4_stream"], "k4_stream", device, torch.int8,
+           (k4_stream_numel(depth, _emb_layers(packed)),))
     i8, f32 = torch.int8, torch.float32
     shapes = {"q0x": (i8, (width, 3))}
     for i in range(depth):
@@ -181,6 +261,8 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
         raise ValueError(f"int8 NeRF field: unsupported device {xyz.device}")
     n = xyz.shape[0]
     full = dirs is not None
+    if n >= 2 ** 31:
+        raise ValueError(f"int8 NeRF field: at most 2^31 - 1 points per call, got {n}")
     _check(xyz, "xyz", xyz.device, torch.float32, (n, 3))
     if full:
         if samples_per_dir < 1:
@@ -192,7 +274,9 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
         return out
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()((ctypes.c_void_p * len(table))(*table), _depth(packed),
+        weights = packed["k4_stream"]
+        err = _kernel_fn()(weights.data_ptr(), weights.numel(),
+                           (ctypes.c_void_p * len(table))(*table), _depth(packed),
                            KERNEL_WIDTH, xyz.data_ptr(), dirs.data_ptr() if full else None,
                            samples_per_dir, out.data_ptr(), n, int(full),
                            None if dump is None else dump.data_ptr(), stream)

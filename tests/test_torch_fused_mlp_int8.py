@@ -152,3 +152,81 @@ def test_fast_renderer_dispatches_the_int8_pack(field):
         ref = np.asarray(want[k])
         err = np.abs(v.numpy() - ref) / max(1.0, float(np.abs(ref).max()))
         assert np.median(err) < 2e-3 and np.percentile(err, 99) < 0.05, k
+
+
+# ---- the kernel's weight stream (k4_stream) ----------------------------------
+
+def _int8_pack(depth, skips):
+    from nerf_siren_tpu_torch.config import NeRFConfig as TorchNeRFConfig
+
+    model = NeRF(TorchNeRFConfig(depth=depth, width=256, skips=skips),
+                 generator=torch.Generator().manual_seed(depth))
+    return k4.pack_nerf_params_int8(model)
+
+
+@pytest.mark.parametrize("depth,skips", [(8, (4,)), (3, (1,))])
+def test_k4_stream_unpacks_to_every_weight(depth, skips):
+    """The plain inverse rebuilds every streamed weight of the pack exactly:
+    each q* int8 weight (the sin/cos columns' padding to 128 inputs zero),
+    and K1's bf16 W_comb and W_dir (W_dir's padding to 64 inputs zero)."""
+    packed = _int8_pack(depth, skips)
+    emb_layers = [0, *skips]
+    got = k4.unpack_k4_stream(packed["k4_stream"], depth, emb_layers)
+    expect = ({f"q{i}" for i in range(1, depth)} | {f"q{i}s" for i in emb_layers}
+              | {"w_comb", "w_dir"})
+    assert set(got) == expect
+    for k in expect:
+        want = packed[k]
+        assert got[k].dtype == want.dtype, k
+        assert torch.equal(got[k][:, :want.shape[1]], want), k
+        assert not got[k][:, want.shape[1]:].float().any(), k
+    assert got["q0s"].shape == (256, 128) and got["w_dir"].shape == (128, 64)
+
+
+@pytest.mark.parametrize("depth,skips,n_trunk", [(8, (4,), 16), (3, (1,), 6)])
+def test_k4_stream_order_and_swizzle(depth, skips, n_trunk):
+    """The slice count and order documented in csrc/fused_mlp_int8.cu (the
+    reference field 16 int8 trunk slices + 5 bf16 direction slices; depth 3
+    with the skip at 1 6 + 5), and each byte where the 128-byte swizzle puts
+    it: byte (r, c) of a slice's rows of 128 bytes at
+    r * 128 + ((c // 16) ^ (r % 8)) * 16 + c % 16."""
+    packed = _int8_pack(depth, skips)
+    sched = k4.k4_schedule(depth, [0, *skips])
+    trunk = [("q0s", 0)]
+    for i in range(1, depth):
+        trunk += [(f"q{i}", 0), (f"q{i}", 128)] + ([(f"q{i}s", 0)] if i in skips else [])
+    assert len(trunk) == n_trunk
+    assert sched == trunk + [("w_comb", c) for c in (0, 64, 128, 192)] + [("w_dir", 0)]
+    stream = packed["k4_stream"]
+    assert stream.dtype == torch.int8
+    assert stream.numel() == n_trunk * 256 * 128 + 5 * 128 * 128
+    stream = stream.numpy()
+    r, c = np.meshgrid(np.arange(256), np.arange(128), indexing="ij")
+    off = 0
+    for k, c0 in sched:
+        w = packed[k]
+        if w.dtype == torch.bfloat16:           # 64 inputs of 2 bytes per row
+            w = torch.nn.functional.pad(w, (0, max(0, c0 + 64 - w.shape[1])))[:, c0: c0 + 64]
+            rows_bytes = w.contiguous().view(torch.int8).numpy()
+        else:                                   # 128 int8 inputs per row
+            w = torch.nn.functional.pad(w, (0, max(0, c0 + 128 - w.shape[1])))[:, c0: c0 + 128]
+            rows_bytes = w.numpy()
+        rows = rows_bytes.shape[0]
+        rr, cc = r[:rows], c[:rows]
+        np.testing.assert_array_equal(
+            stream[off + rr * 128 + ((cc // 16) ^ (rr % 8)) * 16 + cc % 16], rows_bytes,
+            err_msg=f"{k}[:, {c0}:]")
+        off += rows * 128
+    assert off == stream.size
+
+
+def test_k4_stream_only_at_the_kernel_width():
+    """The int8 pack carries k4_stream at the kernel's width 256 and no
+    k1_stream; at another width it carries neither, and its inverse
+    refuses a stream of the wrong size."""
+    packed = _int8_pack(3, (1,))
+    assert "k4_stream" in packed and "k1_stream" not in packed
+    narrow = k4.pack_nerf_params_int8(NeRF(SMALL))
+    assert "k4_stream" not in narrow and "k1_stream" not in narrow
+    with pytest.raises(ValueError, match="k4_stream"):
+        k4.unpack_k4_stream(packed["k4_stream"][:-1], 3, [0, 1])

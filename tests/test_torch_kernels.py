@@ -395,11 +395,20 @@ def test_proxy_select_kernel_matches_plain(cuda_device, n, c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,samples_per_dir", [(1, 1), (127, 1), (1000, 1), (4099, 7)])
-def test_int8_kernel_matches_plain(cuda_device, n, samples_per_dir):
+@pytest.mark.parametrize("n,samples_per_dir,depth,skips", [
+    (1, 1, 8, (4,)), (63, 7, 8, (4,)), (64, 16, 8, (4,)), (127, 1, 8, (4,)),
+    (128, 192, 8, (4,)), (129, 7, 8, (4,)), (1000, 1, 8, (4,)), (4099, 7, 8, (4,)),
+    (GRID_EDGE, 16, 8, (4,)), (1, 192, 3, (1,)), (129, 16, 3, (1,)), (4099, 192, 3, (1,)),
+    (GRID_EDGE, 1, 3, (1,))])
+def test_int8_kernel_matches_plain(cuda_device, n, samples_per_dir, depth, skips):
+    """Tile (128 points) and persistent-grid edges, the reference depth and
+    depth 3 with the skip at 1, one direction per 1, 7, 16 or 192 points."""
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
 
-    model = NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    if n == GRID_EDGE:
+        n = 2 * torch.cuda.get_device_properties(cuda_device).multi_processor_count * 128 + 5
+    model = NeRF(NeRFConfig(depth=depth, skips=skips),
+                 generator=torch.Generator().manual_seed(0)).to(cuda_device)
     p8 = k4.pack_nerf_params_int8(model)
     xyz, d = _points(n, -(-n // samples_per_dir))
     xyz, d = xyz.to(cuda_device), d.to(cuda_device)
@@ -417,6 +426,20 @@ def test_int8_kernel_matches_plain(cuda_device, n, samples_per_dir):
     print(f"\n[n={n}] int8 inputs rounded apart per layer: {flips.tolist()} of {n * 256} each; "
           f"full max|d| {(full - ref).abs().amax(0).tolist()}")
     assert int(flips.sum()) <= 1e-3 * got_q.numel() + 1
+
+
+@pytest.mark.cuda
+def test_int8_kernel_launches_are_bit_identical(cuda_device):
+    """A fixed tile schedule and summation order: two launches agree bit for bit."""
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+
+    p8 = k4.pack_nerf_params_int8(
+        NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(0)).to(cuda_device))
+    xyz, d = _points(20_000, 20_000 // 16)
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    for run in (lambda: k4.fused_nerf_sigma_int8(p8, xyz),
+                lambda: k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir=16)):
+        assert torch.equal(run(), run())
 
 
 @pytest.mark.cuda
@@ -457,8 +480,17 @@ def test_proxy_and_int8_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="w1"):
         k3.proxy_opacity({**pp, "w1": pp["w1"].float()}, rays, 16)
     p8 = k4.pack_nerf_params_int8(NeRF(NeRFConfig()).to(cuda_device))
+    xyz = torch.zeros((4, 3), device=cuda_device)
     with pytest.raises(ValueError, match="q1"):
-        k4.fused_nerf_sigma_int8({**p8, "q1": p8["q1"].float()}, torch.zeros((4, 3), device=cuda_device))
+        k4.fused_nerf_sigma_int8({**p8, "q1": p8["q1"].float()}, xyz)
+    before = dict(k4.LAUNCHES)
+    with pytest.raises(ValueError, match="k4_stream"):
+        k4.fused_nerf_sigma_int8({k: v for k, v in p8.items() if k != "k4_stream"}, xyz)
+    with pytest.raises(ValueError, match="k4_stream"):
+        k4.fused_nerf_sigma_int8({**p8, "k4_stream": p8["k4_stream"][:-16]}, xyz)
+    with pytest.raises(ValueError, match="k4_stream"):
+        k4.fused_nerf_full_int8({**p8, "k4_stream": p8["k4_stream"].cpu()}, xyz, xyz)
+    assert k4.LAUNCHES == before
 
 
 # ---- K5 triplane gather -----------------------------------------------------------
