@@ -95,8 +95,17 @@ Run from the repository root. Phases, each printing a line:
      the table's largest magnitude of `F.grid_sample` on its float32 copy;
      at the chunk's shape the plain version's ms, and K5 and `F.grid_sample`
      (float32, and bf16 where it takes it) in turns over K5_ROUNDS rounds
-     (library, kernel, kernel, library): each round and the medians, with
-     the bound.
+     (library, kernel, kernel, library; each timing K5_REPS launches queued
+     behind a device-side sleep, so that host launch time is not counted:
+     K5 takes less time on the card than its wrapper on the host): each
+     round with its kernel / float32 ratio, the medians, whether the
+     kernel's median is below the float32 library's in every round
+     (printed, not a gate), the route the table took (`launch_plan`: load
+     width, threads per point, blocks), the route's registers and spill
+     bytes from the build log, TB/s of the counted bytes (coordinates, the
+     table's texels that the points read, each once, and the output) and
+     the share of the bound; and K5 timed unqueued, as the other phases
+     time their kernels.
  16. frames through the CLI's `make_renderer` with `--plane_sampler kernel`:
      3 of 128² (latency, rays/s, finite outputs, mean opacity_fine, K5
      launched twice per chunk), the same 3 through `gather` (every output
@@ -108,12 +117,13 @@ Run from the repository root. Phases, each printing a line:
      1e-3 of the planes' largest magnitude; cuDNN TF32 is off, phase 1).
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
-  128² EG3D frame under `torch.profiler`:
+  128² and 800² EG3D frame under `torch.profiler`:
   device time per kernel, the device's idle share and the peak device
   memory.
 Then one JSON line of kernels (launches counted over the one path that
 runs each: K1 phase 4, K2 phase 6, K3 select phase 9, K3 opacity phase 10,
-K4 phase 11, K6 phase 13, K5 the 128² frames of phase 16), the nvidia-smi
+K4 phase 11, K6 phase 13, K5 the 128² frames of phase 16; `timing` says
+how `ms` was taken: "queued" for K5, "unqueued" for the rest), the nvidia-smi
 line, and the JSON result as the last line. Any failure exits non-zero
 before the result is printed.
 Bounds: the larger of the operations over the dense tensor-core peak of
@@ -157,6 +167,8 @@ EG3D_CHECK = slice(64 * 128, 64 * 128 + 2048)   # rays through the 128² frame's
 K5_RANDOM = 262_144
 K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
 K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
+K5_REPS = 20            # launches per timing, queued behind ~11 ms of device sleep
+K5_UNQUEUED = 4         # timings of K5 unqueued, as every other kernel is timed
 SAME_FRAME_ATOL = 1e-6  # kernel vs gather frames
 PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest magnitude
 SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select",
@@ -233,18 +245,11 @@ def lego_rays(k, device, h=H, w=W):
                       torch.full((n, 1), FAR, device=device)], -1).contiguous()
 
 
-def cuda_ms(fn, reps):
-    import torch
+def cuda_ms(fn, reps, queued=False):
+    """ms per call of fn over reps calls (`card_bench.device_ms`)."""
+    from nerf_siren_tpu_torch.card_bench import device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_ms(fn, reps, queued)
 
 
 def compare(name, got, ref, where, phase="3/17"):
@@ -1363,6 +1368,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
     # the kernel and its library call in turns, K5_ROUNDS rounds of: float32
     # library, bf16 library, kernel, kernel, bf16 library, float32 library
     runs = {"kernel": [], "f32": [], "bf16": []}
+    ratios = []   # per round: the kernel's median over the float32 library's
     for rnd in range(K5_ROUNDS):
         order = ["f32", "bf16", "kernel", "kernel", "bf16", "f32"]
         got = {"kernel": [], "f32": [], "bf16": []}
@@ -1372,26 +1378,63 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
             fn = {"kernel": lambda: k5.triplane_gather(table, coarse, scale),
                   "f32": lambda: library(planes32, g32),
                   "bf16": lambda: library(planes16, g32)}[which]
-            got[which].append(cuda_ms(fn, 5))
+            got[which].append(cuda_ms(fn, K5_REPS, queued=True))
         for k, v in got.items():
             runs[k] += v
+        ratios.append(float(np.median(got["kernel"]) / np.median(got["f32"])))
         print(f"[15/17] triplane_gather round {rnd} in turns (ms): kernel "
               f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
               f"{[round(t, 4) for t in got['f32']]}, bf16 "
-              f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}", flush=True)
+              f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}; kernel / "
+              f"float32 {ratios[-1]:.3f}", flush=True)
     ms, lib_ms = float(np.median(runs["kernel"])), float(np.median(runs["f32"]))
     lib16_txt = f"{float(np.median(runs['bf16'])):.4f} ms" if lib16 is True else lib16
+    # the kernel timed as the other phases time theirs: K5_UNQUEUED timings of
+    # 5 launches back to back, their host time included
+    unqueued = [cuda_ms(lambda: k5.triplane_gather(table, coarse, scale), 5)
+                for _ in range(K5_UNQUEUED)]
     n = coarse.shape[0]
-    n_bytes = n * 12 + table.numel() * table.element_size() + n_planes * n * c * 4
+    table_bytes = touched_table_bytes(table, coarse, scale)
+    n_bytes = n * 12 + table_bytes + n_planes * n * c * 4
     bound_ms, bound_by = bound(0.0, n_bytes)
+    plan = k5.launch_plan(c, table.dtype, n, table.data_ptr())
+    elem = "13__nv_bfloat16" if table.dtype == torch.bfloat16 else "f"
+    symbol = f"triplane_gather_kernelI{elem}Li{plan.vec}E"
+    regs, spills, stack = next(v for k, v in ptxas_report("triplane_gather").items() if symbol in k)
+    print(f"[15/17] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
+          f"channels of {table.dtype}), {plan.groups} threads per point, {plan.blocks} blocks of "
+          f"{plan.threads}; {regs} registers, {spills} spill bytes, {stack} bytes of stack",
+          flush=True)
     print(f"[15/17] triplane_gather at {n} points (one chunk's coarse pass), medians of "
           f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
-          f"counted bytes), F.grid_sample float32 {lib_ms:.4f} ms, bf16 {lib16_txt} (grid "
-          f"precomputed): kernel / float32 library {ms / lib_ms:.3f}; plain {plain_ms:.4f} ms "
-          f"({p1:.4f}, {p2:.4f}); bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); "
-          f"{card}", flush=True)
+          f"counted bytes, {100 * bound_ms / ms:.1f}% of the bound), F.grid_sample float32 "
+          f"{lib_ms:.4f} ms, bf16 {lib16_txt} (grid precomputed): kernel / float32 library "
+          f"{ms / lib_ms:.3f}; plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB: coordinates, the "
+          f"{table_bytes / 1e6:.2f} MB of the table's texels the points read, output); "
+          f"kernel unqueued {float(np.median(unqueued)):.4f} ms (median of "
+          f"{[round(t, 4) for t in unqueued]}); {card}", flush=True)
+    print(f"[15/17] triplane_gather below F.grid_sample float32 in every round: "
+          f"{'yes' if max(ratios) < 1 else 'no'} (kernel / float32 per round "
+          f"{[round(r, 3) for r in ratios]})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_by": bound_by, "library_ms": lib_ms, "timing": "queued"}
+
+
+def touched_table_bytes(table, xyz, scale):
+    """Bytes of the (3, H+2, W+2, C) table that K5 must read for the points
+    xyz: each texel of the 2x2 corner blocks of the (plane, point) pairs that
+    sample their plane, counted once (the plain version's indices)."""
+    import torch
+    from nerf_siren_tpu_torch.ops.grid_sample import packed_corner_block
+    from nerf_siren_tpu_torch.ops.kernels.triplane_gather import project_to_planes
+
+    n_planes, hp, wp, c = table.shape
+    r0, c0, _, _, valid = packed_corner_block(project_to_planes(scale * xyz), hp - 2, wp - 2)
+    plane = torch.arange(n_planes, device=xyz.device)[:, None]
+    first = ((plane * hp + r0) * wp + c0)[valid]
+    texels = torch.unique(torch.cat([first, first + 1, first + wp, first + wp + 1]))
+    return int(texels.numel()) * c * table.element_size()
 
 
 def eg3d_phases(device, card, args):
@@ -1447,7 +1490,10 @@ def eg3d_phases(device, card, args):
           f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
           f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
           f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
-    del out_big, big, g_outs
+    del out_big, g_outs
+    if args.profile:
+        profile(f"EG3D frame {EG3D_BIG}²", lambda: render(big), card)
+    del big
 
     # ---- 17. the card's frame and planes against the CPU ---------------------------
     cpu_model = copy.deepcopy(model).cpu()
@@ -1513,7 +1559,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one more exact frame, training step, fast frame, "
-                             "int8 fast and exact frame and EG3D frame")
+                             "int8 fast and exact frame and EG3D frame of 128² and 800²")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------
@@ -1626,7 +1672,8 @@ def main():
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"nerf_siren_tpu_torch/csrc/{src}.cu",
-         "replaces": replaces, "launches": launches[name], **results[name]}
+         "replaces": replaces, "launches": launches[name], "timing": "unqueued",
+         **results[name]}
         for name, (src, _, replaces) in KERNELS.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,7 @@ Counterpart of `nerf_siren_tpu/ops/grid_sample.py`:
 - `pack_grid_for_block_sample` / `grid_sample_2d_packed`: the same function
   on a channel-last table with a 1-texel zero border, where the four
   corners of a point are rows iy0+1, iy0+2 and columns ix0+1, ix0+2 of the
-  table. This is the plain version of the triplane gather kernel K5
+  table (`packed_corner_block`). This is the plain version of the triplane gather kernel K5
   (`ops/kernels/triplane_gather.py`, `csrc/triplane_gather.cu`), which
   rounds at the same points in the same order.
 
@@ -70,12 +70,9 @@ def grid_sample_2d_packed(table: torch.Tensor, coords: torch.Tensor) -> torch.Te
     ix0 or iy0 lies outside [-1, size-1] (beyond the border every corner is
     zero, and the clamped block would read others)."""
     b, hp, wp, c = table.shape
-    h, w = hp - 2, wp - 2
-    ix0, iy0, wx1, wy1 = _corner_coords(coords[..., 0], coords[..., 1], h, w)
+    r0, c0, wx1, wy1, valid = packed_corner_block(coords, hp - 2, wp - 2)
     wx1, wy1 = wx1[..., None], wy1[..., None]
     wx0, wy0 = 1.0 - wx1, 1.0 - wy1
-    r0 = (iy0 + 1).nan_to_num(0.0).clamp(0, h).long()
-    c0 = (ix0 + 1).nan_to_num(0.0).clamp(0, w).long()
     bi = torch.arange(b, device=table.device)[:, None]
 
     def corner(dr, dc):
@@ -83,5 +80,16 @@ def grid_sample_2d_packed(table: torch.Tensor, coords: torch.Tensor) -> torch.Te
 
     out = (corner(0, 0) * (wy0 * wx0) + corner(0, 1) * (wy0 * wx1)
            + corner(1, 0) * (wy1 * wx0) + corner(1, 1) * (wy1 * wx1))
-    valid = (ix0 >= -1) & (ix0 <= w - 1) & (iy0 >= -1) & (iy0 <= h - 1)
     return out * valid[..., None]
+
+
+def packed_corner_block(coords: torch.Tensor, h: int, w: int):
+    """Where grid_sample_2d_packed reads, for (..., 2) coords on an h x w
+    grid: the table row r0 and column c0 of each point's 2x2 corner block
+    (clamped into the table; long), the weights wx1, wy1 of its second
+    column and row, and whether the point samples the grid at all."""
+    ix0, iy0, wx1, wy1 = _corner_coords(coords[..., 0], coords[..., 1], h, w)
+    r0 = (iy0 + 1).nan_to_num(0.0).clamp(0, h).long()
+    c0 = (ix0 + 1).nan_to_num(0.0).clamp(0, w).long()
+    valid = (ix0 >= -1) & (ix0 <= w - 1) & (iy0 >= -1) & (iy0 <= h - 1)
+    return r0, c0, wx1, wy1, valid

@@ -18,10 +18,15 @@ of `render/triplane.py::generate_planes`), then `grid_sample_2d_packed`.
   version; a CUDA tensor launches the kernel or raises. There is no
   backward (as in JAX): inputs that need a gradient are refused.
   `LAUNCHES` counts kernel launches.
+- `launch_plan`: the kernel's route and grid for a call (the corner load
+  width, threads per point, blocks), a plain function so that the CPU
+  tests can check that its threads cover every output once.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +36,36 @@ from nerf_siren_tpu_torch.ops.kernels.proxy_march import current_stream
 PLANE_AXES = ((0, 1), (0, 2), (2, 0))   # the (u, v) world axes of planes 0, 1, 2
 
 LAUNCHES = {"gather": 0}
+
+THREADS = 256                   # the kernel's block size
+LOAD_BYTES = (16, 8, 4, 2)      # the corner load widths the kernel is built for, widest first
+
+
+class LaunchPlan(NamedTuple):
+    """Thread t of the grid takes point t // groups and channels
+    [(t % groups) vec, (t % groups + 1) vec) of it on all three planes."""
+    vec: int        # channels per corner load (a template argument of the kernel)
+    load_bytes: int
+    groups: int     # threads per point, C / vec
+    threads: int    # per block
+    blocks: int
+
+
+def launch_plan(c: int, dtype: torch.dtype, m: int, table_ptr: int = 0) -> LaunchPlan:
+    """The kernel's route for a (3, H+2, W+2, c) table of `dtype` at
+    address `table_ptr` and m points: the widest corner load whose channel
+    count divides c and to whose width the table is aligned (every row
+    and corner then is), one thread per (point, channel group), point-major,
+    and just enough blocks of THREADS."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    load_bytes = next(b for b in LOAD_BYTES
+                      if b >= elem and c % (b // elem) == 0 and table_ptr % b == 0)
+    vec = load_bytes // elem
+    groups = c // vec
+    blocks = -(-m * groups // THREADS)
+    if blocks > 2**31 - 1:
+        raise ValueError(f"triplane_gather: {m} points x {groups} channel groups exceed one grid")
+    return LaunchPlan(vec, load_bytes, groups, THREADS, blocks)
 
 
 def project_to_planes(q: torch.Tensor) -> torch.Tensor:
@@ -43,13 +78,19 @@ def triplane_gather_ref(table: torch.Tensor, xyz: torch.Tensor, scale: float) ->
     return grid_sample_2d_packed(table, project_to_planes(scale * xyz))
 
 
+# triplane_gather_forward(table, is_bf16, H, W, C, vec, xyz, M, scale, out, blocks, stream)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNEL_ARGTYPES = [_P, _I, _I, _I, _I, _I, _P, _LL, ctypes.c_float, _P, _LL, _P]
+
+
+@functools.cache
 def _fn():
+    """The launcher, built, loaded and bound once per process."""
     from nerf_siren_tpu_torch.ops.kernels import _build
 
     fn = _build.load("triplane_gather").triplane_gather_forward
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, i, i, i, i, p, ll, ctypes.c_float, p, p]
-    fn.restype = i
+    fn.argtypes = KERNEL_ARGTYPES
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -84,8 +125,10 @@ def triplane_gather(table: torch.Tensor, xyz: torch.Tensor, scale: float) -> tor
     out = torch.empty((n_planes, m, c), dtype=torch.float32, device=xyz.device)
     if m == 0:
         return out
+    plan = launch_plan(c, table.dtype, m, table.data_ptr())
     err = _fn()(table.data_ptr(), int(table.dtype == torch.bfloat16), hp - 2, wp - 2, c,
-                xyz.data_ptr(), m, scale, out.data_ptr(), current_stream(xyz.device))
+                plan.vec, xyz.data_ptr(), m, scale, out.data_ptr(), plan.blocks,
+                current_stream(xyz.device))
     if err != 0:
         raise RuntimeError(f"triplane_gather_forward failed: cudaError {err}")
     LAUNCHES["gather"] += 1

@@ -533,16 +533,70 @@ def test_triplane_gather_wrapper_runs_the_plain_version_on_the_cpu():
     assert k5.LAUNCHES == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 127, 4099, 262_144])
-@pytest.mark.parametrize("c,dtype", [(32, torch.bfloat16), (8, torch.bfloat16),
-                                     (32, torch.float32)])
-def test_triplane_gather_kernel_matches_plain(cuda_device, n, c, dtype):
+@pytest.mark.parametrize("m", [1, 127, 4099])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [1, 6, 8, 12, 32])
+def test_triplane_gather_launch_plan_covers_every_output_once(c, dtype, m):
+    """K5's grid as the kernel walks it: thread t takes point t // groups
+    and channels [(t % groups) vec, + vec) on each of the 3 planes. Every
+    output element is written exactly once, no block is idle, the load is
+    the widest that divides C, and a warp's stores to one plane are one
+    contiguous run of the output."""
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+
+    plan = k5.launch_plan(c, dtype, m)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    assert plan.vec * elem == plan.load_bytes and plan.vec * plan.groups == c
+    assert all(c % (b // elem) for b in k5.LOAD_BYTES if b > plan.load_bytes)
+    t = np.arange(plan.blocks * plan.threads)
+    point, group = t // plan.groups, t % plan.groups
+    live = point < m
+    assert live.sum() == m * plan.groups and (~live).sum() < plan.threads
+    off = ((np.arange(3)[:, None, None] * m + point[None, :, None]) * c
+           + group[None, :, None] * plan.vec + np.arange(plan.vec))   # (plane, thread, vec)
+    written = np.bincount(off[:, live].reshape(-1), minlength=3 * m * c)
+    assert written.shape == (3 * m * c,) and (written == 1).all()
+    for w0 in range(0, int(live.sum()) - 31, 32):            # warps with every lane live
+        for p in range(3):
+            run = np.sort(off[p, w0:w0 + 32].reshape(-1))
+            assert (np.diff(run) == 1).all()
+
+
+def test_triplane_gather_launch_plan_narrows_the_load_to_the_table_alignment():
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert k5.launch_plan(32, bf16, 262_144, 0x7f0000000000)[:4] == (8, 16, 4, 256)
+    assert k5.launch_plan(32, bf16, 262_144).blocks == 4096
+    assert k5.launch_plan(32, f32, 10)[:3] == (4, 16, 8)
+    assert k5.launch_plan(12, bf16, 10)[:3] == (4, 8, 3)
+    assert k5.launch_plan(6, f32, 10)[:3] == (2, 8, 3)
+    assert k5.launch_plan(32, bf16, 10, table_ptr=8)[:2] == (4, 8)
+    assert k5.launch_plan(32, bf16, 10, table_ptr=2)[:2] == (1, 2)
+    assert k5.launch_plan(32, f32, 10, table_ptr=4)[:2] == (1, 4)
+    with pytest.raises(ValueError, match="exceed one grid"):
+        k5.launch_plan(32, bf16, 2**40)
+
+
+def test_k5_ablation_variants_apply_to_the_kernel_source():
+    """Every text edit of the K5 ablation tool still finds its place in
+    csrc/triplane_gather.cu, and each variant differs from the kernel."""
+    from nerf_siren_tpu_torch import k5_ablation
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "triplane_gather.cu").read_text()
+    found = k5_ablation.variants(src)
+    assert found.pop("as built") == src
+    assert len(found) == 4 and all(text != src for text in found.values())
+    assert "cache_hint" not in found["no load policy"] and "__stcs" not in found["neither hint"]
+    assert k5_ablation.chunk_points("cpu").shape == (k5_ablation.CHUNK * k5_ablation.DEPTHS, 3)
+
+
+def _k5_check_kernel(table, xyz, c):
     import torch.nn.functional as F
     from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
 
-    table = _k5_table(c, 256 if c == 32 else 64, dtype, cuda_device)
-    xyz = _k5_points(n).to(cuda_device)
+    n = xyz.shape[0]
     before = k5.LAUNCHES["gather"]
     got = k5.triplane_gather(table, xyz, 2 / K5_BOX)
     torch.cuda.synchronize()
@@ -556,6 +610,35 @@ def test_triplane_gather_kernel_matches_plain(cuda_device, n, c, dtype):
                         align_corners=False)[:, :, 0].permute(0, 2, 1)
     scale = float(table.float().abs().max())
     assert float((got - lib).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 4099, 262_144])
+@pytest.mark.parametrize("c,dtype", [(32, torch.bfloat16), (8, torch.bfloat16),
+                                     (32, torch.float32), (12, torch.bfloat16),
+                                     (6, torch.float32), (1, torch.bfloat16),
+                                     (3, torch.float32)])
+def test_triplane_gather_kernel_matches_plain(cuda_device, n, c, dtype):
+    """Every route: 16-byte loads (C 32, 8 bf16; C 32 f32), 8-byte (C 12
+    bf16; C 6 f32), 4-byte (C 3 f32) and 2-byte (C 1 bf16)."""
+    table = _k5_table(c, 256 if c == 32 else 64, dtype, cuda_device)
+    _k5_check_kernel(table, _k5_points(n).to(cuda_device), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,load_bytes", [(1, 2), (2, 4), (4, 8)])
+def test_triplane_gather_kernel_on_a_table_off_the_16_byte_grid(cuda_device, shift, load_bytes):
+    """A contiguous table that starts `shift` bf16 elements into its
+    storage takes the narrower load its address allows."""
+    from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
+
+    full = _k5_table(32, 64, torch.bfloat16, cuda_device)
+    store = torch.zeros(full.numel() + shift, dtype=torch.bfloat16, device=cuda_device)
+    table = store[shift:].view(full.shape)
+    table.copy_(full)
+    assert table.is_contiguous()
+    assert k5.launch_plan(32, table.dtype, 1, table.data_ptr()).load_bytes == load_bytes
+    _k5_check_kernel(table, _k5_points(4099).to(cuda_device), 32)
 
 
 @pytest.mark.cuda
