@@ -31,7 +31,16 @@ Run from the repository root. Phases, each printing a line:
      element within 5e-2 of the tensor's largest magnitude (bf16 operands
      and cotangents on both sides; a ReLU mask that flips with a
      neighbouring bf16 value moves single elements). Each kernel timed
-     beside its plain version, coarse + fine shapes (one step's work).
+     beside its plain version, coarse + fine shapes (one step's work); the
+     backward also: each of its three kernels' own device ms (tile, wgrad,
+     reduce; `torch.profiler`) beside their times before the redesign
+     (EARLIER_K2_MS, another call), their registers, spill bytes and
+     dynamic shared memory from the build's `-Xptxas -v` log, the stash's
+     bytes a point (written by the tile kernel, read by the weight
+     gradients) and the byte floor they imply beside the operations bound
+     (a reading), and as a reading only (never on the path) the backward's
+     products (recompute, dgrad, weight gradients, both shapes) as a chain
+     of bf16 `torch.matmul` calls.
   6. training path: (a) one `NeRFSystem.train_step` on each backend
      (`fused`, `jnp`) from the same numpy-seeded weights and batch at
      perturb 0, noise 0: losses within a relative 2e-2; (b) 60 steps of the
@@ -179,6 +188,12 @@ EARLIER_K1_MS = {"fused_nerf_sigma": 20.673, "fused_nerf_full": 68.704}
 # K4's times before its redesign (the mma.sync kernel, at phase 8's shapes on an H100 80GB
 # HBM3, 700 W)
 EARLIER_K4_MS = {"fused_nerf_sigma_int8": 42.806, "fused_nerf_full_int8": 11.652}
+# K2's backward before its redesign (the wmma tile kernel, the wmma weight-gradient kernel
+# and the whole backward, ms per step of 2 launches, at phase 5's shapes; another call on an
+# H100 80GB HBM3, 700 W)
+EARLIER_K2_MS = {"tile": 10.595, "wgrad": 6.679, "fused_train_bwd": 17.440}
+K2_BWD_SYMBOLS = {"tile": "nerf_train_bwd_tile_kernel", "wgrad": "nerf_train_wgrad_kernel",
+                  "reduce": "nerf_train_reduce_kernel"}
 K4_SYMBOLS = {"fused_nerf_sigma_int8": "nerf_field_int8_kernelILb0E",
               "fused_nerf_full_int8": "nerf_field_int8_kernelILb1E"}
 K1_SYMBOLS = {"fused_nerf_sigma": "nerf_field_kernelILb0E",   # mangled <false> / <true>
@@ -499,7 +514,7 @@ def check_train_kernels(model, frame_rays, device, card):
 
     n_pts = sum(pts.shape[0] for _, pts, _ in shapes)
     fwd_macs, bwd_macs = train_macs_per_point(model)
-    w_bytes = sum(t.numel() * t.element_size() for t in packed.values())
+    w_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "k2_stream")
     g_bytes = sum(p.numel() * 4 for p in model.parameters())
     in_bytes = n_pts * 12 + len(shapes) * dirs.numel() * 4 + w_bytes
     results = {}
@@ -523,7 +538,82 @@ def check_train_kernels(model, frame_rays, device, card):
         results[name] = {"max_abs_err": fwd_err if name == "fused_train_fwd" else bwd_err,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
+        if name == "fused_train_bwd":
+            backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card)
     return results
+
+
+def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
+    """Phase 5's readings of K2's backward at one step's shapes: its three
+    kernels' own device ms, their build report, the stash's byte floor and
+    the matmul chain of its products."""
+    from nerf_siren_tpu_torch.card_bench import kernel_ms
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    lib = k2._lib()
+    report = ptxas_report("fused_mlp_train")
+    own = kernel_ms(lambda: [f() for f in kern], 3)
+    smem = {"tile": lib.nerf_train_smem_bytes(0), "wgrad": lib.nerf_train_smem_bytes(1)}
+    for label, symbol in K2_BWD_SYMBOLS.items():
+        regs, spills, stack = next(v for k, v in report.items() if symbol in k)
+        k_ms = sum(v for k, v in own.items() if symbol in k)
+        earlier = (f"; before the redesign {EARLIER_K2_MS[label]} ms (another call)"
+                   if label in EARLIER_K2_MS else "")
+        print(f"[5/17] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
+              f"profiler, mean of 3){earlier}; build (-Xptxas -v): {regs} registers at entry, "
+              f"{spills} spill bytes (stores + loads), {stack} bytes stack frame; "
+              f"{smem.get(label, 0)} bytes dynamic shared memory", flush=True)
+    written, read = k2.stash_bytes_per_point()
+    floor_ms = n_pts * (written + read) / PEAK_BYTES * 1e3
+    chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes])
+    earlier = EARLIER_K2_MS["fused_train_bwd"]
+    print(f"[5/17] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
+          f"another call; {earlier / ms:.2f}x); operations bound {bound_ms:.3f} ms "
+          f"({100 * bound_ms / ms:.1f}% of it); the stash {written} bytes a point written + "
+          f"{read} read = {n_pts * (written + read) / 1e9:.3f} GB, "
+          f"a byte floor of {floor_ms:.3f} ms at 3.35 TB/s (a reading); bf16 torch.matmul chain of "
+          f"the same products {chain_ms:.3f} ms ({flops * 1e-12 / (chain_ms * 1e-3):.1f} TFLOP/s; "
+          f"a reading); {card}", flush=True)
+
+
+def train_matmul_chain_ms(packed, sizes):
+    """A reading only, never on the path: K2's backward products at each of
+    `sizes` points as bf16 `torch.matmul` calls (random inputs; no
+    embedding, bias, ReLU, mask or head nonlinearity): the recompute's
+    layer products, the dgrad chain's (dz W), and the 14 weight gradients
+    (dz^T a); ms per chain over 3 runs."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    dev, bf = packed["w_sigma"].device, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = {k: v for k, v in packed.items() if v.dtype == bf and v.dim() == 2}
+    ins = [(torch.rand((n, k2.EMB_X), generator=gen, device=dev).to(bf),
+            torch.rand((n, k2.EMB_D), generator=gen, device=dev).to(bf),
+            torch.rand((n, k2.HEAD), generator=gen, device=dev).to(bf)) for n in sizes]
+
+    def chain():
+        for e, dd, dhead in ins:
+            hs = [e @ w["w0e"].t()]
+            for i in range(1, k2.DEPTH):
+                y = hs[-1] @ w[f"w{i}"].t()
+                hs.append(torch.addmm(y, e, w[f"w{i}e"].t()) if i == k2.SKIP else y)
+            feat = hs[-1] @ w["w_feat"].t()
+            hd = torch.addmm(feat @ w["w_dfeat"].t(), dd, w["w_ddir"].t())
+            dfeat = hd @ w["w_dfeat"]
+            dz = [dfeat @ w["w_feat"]]                     # dz_7, then dz_6 .. dz_0
+            for i in range(k2.DEPTH - 1, 0, -1):
+                dz.append(dz[-1] @ w[f"w{i}"])
+            dz = dz[::-1]
+            for i in range(1, k2.DEPTH):
+                dz[i].t() @ hs[i - 1]
+            dfeat.t() @ hs[-1], hd.t() @ feat, dz[0].t() @ e, dz[k2.SKIP].t() @ e, hd.t() @ dd
+            hs[-1].t() @ dhead, hd.t() @ dhead
+
+    ms = cuda_ms(chain, 3)
+    del ins
+    torch.cuda.empty_cache()
+    return ms
 
 
 def numpy_models(seed, device, params_fn=numpy_nerf_params):

@@ -5,6 +5,8 @@ Shared by `chip_smoke.py` (`device_ms`) and the ablation tools
 of its design taken out:
 - `device_ms`: ms per call of a function over repeated calls, CUDA events;
   optionally queued behind a device-side sleep;
+- `kernel_ms`: device ms per call of each kernel a function launches,
+  `torch.profiler`;
 - `edit`: one text edit of a source, failing when its place is gone;
 - `build_variants`: each {label: source text} compiled like the kernel
   (`ops/kernels/_build.py`'s flags) into a temporary directory, one nvcc
@@ -46,6 +48,27 @@ def device_ms(fn: Callable[[], object], reps: int, queued: bool = False) -> floa
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn: Callable[[], object], reps: int) -> Dict[str, float]:
+    """{kernel name: device ms per call of fn}, over reps calls under
+    `torch.profiler` after one call to warm up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    if not per:
+        raise RuntimeError("the profiler recorded no device kernel")
+    return per
 
 
 def edit(src: str, old: str, new: str) -> str:

@@ -116,12 +116,20 @@ def k1_schedule(depth: int, emb_layers) -> list:
     return out + [("w_comb", c) for c in range(0, KERNEL_WIDTH, SLICE)] + [("w_dir", 0)]
 
 
+_SWIZZLE: Dict[tuple, tuple] = {}   # (rows, device) -> index tensors, made once
+
+
 def _swizzle128(s: torch.Tensor) -> torch.Tensor:
-    """(rows, 64) -> the same slice with 8-element chunk j of row r moved
-    to chunk j ^ (r % 8): the 128-byte swizzle (its own inverse)."""
-    rows = s.shape[0]
-    chunk = torch.arange(8)[None, :] ^ (torch.arange(rows) % 8)[:, None]
-    return s.reshape(rows, 8, 8)[torch.arange(rows)[:, None], chunk].reshape(rows, SLICE)
+    """(..., rows, 64) -> the same slices with 8-element chunk j of row r
+    moved to chunk j ^ (r % 8): the 128-byte swizzle (its own inverse)."""
+    rows = s.shape[-2]
+    key = (rows, s.device)
+    if key not in _SWIZZLE:
+        r = torch.arange(rows)
+        _SWIZZLE[key] = (r[:, None].to(s.device),
+                         (torch.arange(8)[None, :] ^ (r % 8)[:, None]).to(s.device))
+    r, chunk = _SWIZZLE[key]
+    return s.reshape(*s.shape[:-1], 8, 8)[..., r, chunk, :].reshape(s.shape)
 
 
 def _k1_stream(w: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:

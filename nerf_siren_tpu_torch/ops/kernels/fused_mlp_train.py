@@ -15,6 +15,16 @@ everything around them:
   are separate parameters. The TPU layout (k-major permuted sin/cos rows,
   +pi/2 cos phase, 8-row padded heads, the (8, N) point layout, TILE_T)
   is not kept.
+- `k2_stream` (a key of the pack): the weights again, as the backward's
+  tile kernel streams them. One bf16 buffer of 64-input slices in the
+  order `k2_schedule` lists: every slice of the recompute (as K1's
+  `k1_stream` cuts them, unfolded heads), then every slice of the dgrad
+  chain, cut from W^T (its rows are the layer's inputs), each slice
+  (rows, 64) in the 128-byte swizzle wgmma reads. `unpack_k2_stream` is its
+  plain inverse.
+- the stash layout the backward's kernels share (`block_stash`, with its
+  plain inverse `unblock_stash`), and the weight-gradient GEMM's plan
+  (`wgrad_jobs`, `wgrad_split_plan`), mirrors of the CUDA source's.
 - `fused_train_fwd_ref` / `fused_train_bwd_ref`: the plain version. The
   TPU kernel's roundings, step by step in the order of `_bwd_kernel`:
   bf16 operands (rounded, then multiplied in float32 with TF32 off) and
@@ -43,7 +53,8 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.config import NeRFConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
-from nerf_siren_tpu_torch.ops.kernels.fused_mlp import EMB_D, EMB_X, _bf16, _check, _embed
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (EMB_D, EMB_X, SLICE, _bf16, _check,
+                                                        _embed, _swizzle128)
 
 W = 256           # trunk width (reference topology)
 WD = W // 2       # direction-branch width
@@ -53,6 +64,10 @@ N_EMB_X = 63      # 3 * (2 * 10 + 1)
 N_EMB_D = 27      # 3 * (2 * 4 + 1)
 HEAD = 16         # rows of the kernel's head-gradient blocks
 SIGMA_ROW = 3     # row of d w_sigma in that block (rows 0..2: d w_rgb)
+
+TP = 128          # points per tile of the backward's tile kernel
+BLOCK = 64        # points per block of the stash
+G_M = 128         # gradient rows per CTA of the weight-gradient GEMM
 
 LAUNCHES = {"fwd": 0, "bwd": 0}
 
@@ -70,9 +85,12 @@ def check_topology(cfg: NeRFConfig) -> None:
 
 def pack_train_params(params: Dict[str, torch.Tensor]) -> Packed:
     """One field's parameters (a `NeRF` state_dict or `named_parameters`
-    dict) -> the kernels' weight dict, on the parameters' device."""
+    dict) -> the kernels' weight dict, on the parameters' device, with the
+    backward's weight stream `k2_stream`."""
     with torch.no_grad():
-        return _pack(params)
+        p = _pack(params)
+        p["k2_stream"] = k2_stream(p)
+        return p
 
 
 def _pack(params: Dict[str, torch.Tensor]) -> Packed:
@@ -101,6 +119,131 @@ def _pack(params: Dict[str, torch.Tensor]) -> Packed:
     p["w_rgb"] = params["rgb.weight"].to(bf)
     p["b_rgb"] = params["rgb.bias"].float()
     return {k: v.contiguous() for k, v in p.items()}
+
+
+# ---- the backward's weight stream (k2_stream) --------------------------------
+
+def k2_schedule() -> list:
+    """The slices of `k2_stream` in the order the backward's tile kernel
+    consumes them, as (weight key, transposed, first input column): the
+    recompute's (layer 0's embedding slice; each hidden layer's 4 slices and
+    the skip layer's embedding slice after them; W_feat's 4; W_dfeat's 4
+    and W_ddir zero-padded to 64 inputs, 128 rows each), then the dgrad
+    chain's, cut from W^T (W_dfeat^T's 2, W_feat^T's 4, W_7^T's .. W_1^T's 4
+    each, 256 rows each)."""
+    fwd = [("w0e", False, 0)]
+    for i in range(1, DEPTH):
+        fwd += [(f"w{i}", False, c) for c in range(0, W, SLICE)]
+        if i == SKIP:
+            fwd.append((f"w{i}e", False, 0))
+    fwd += [("w_feat", False, c) for c in range(0, W, SLICE)]
+    fwd += [("w_dfeat", False, c) for c in range(0, W, SLICE)] + [("w_ddir", False, 0)]
+    bwd = [("w_dfeat", True, c) for c in range(0, WD, SLICE)]
+    bwd += [("w_feat", True, c) for c in range(0, W, SLICE)]
+    for i in range(DEPTH - 1, 0, -1):
+        bwd += [(f"w{i}", True, c) for c in range(0, W, SLICE)]
+    return fwd + bwd
+
+
+def _slice_rows(key: str, transposed: bool) -> int:
+    return WD if key in ("w_dfeat", "w_ddir") and not transposed else W
+
+
+K2_STREAM_NUMEL = sum(_slice_rows(k, t) * SLICE for k, t, _ in k2_schedule())
+
+
+def _slices(m: torch.Tensor) -> torch.Tensor:
+    """(rows, 64 k) -> its k slices of 64 columns, swizzled, flattened in order."""
+    rows = m.shape[0]
+    return _swizzle128(m.reshape(rows, -1, SLICE).transpose(0, 1)).flatten()
+
+
+def k2_stream(p: Packed) -> torch.Tensor:
+    """The pack's weights in `k2_schedule`'s order and layout (bf16), in a
+    few batched operations (the pack is rebuilt every training step)."""
+    hidden = [p[f"w{i}"] for i in range(1, DEPTH)]
+    fwd = torch.cat([p["w0e"], *hidden[:SKIP], p[f"w{SKIP}e"], *hidden[SKIP:], p["w_feat"]], 1)
+    fwd_dir = torch.cat([p["w_dfeat"], F.pad(p["w_ddir"], (0, SLICE - EMB_D))], 1)
+    bwd = torch.cat([p["w_dfeat"].t(), p["w_feat"].t(), *(w.t() for w in hidden[::-1])], 1)
+    return torch.cat([_slices(fwd), _slices(fwd_dir), _slices(bwd)])
+
+
+def unpack_k2_stream(stream: torch.Tensor) -> Dict[tuple, torch.Tensor]:
+    """The weights `k2_stream` holds, rebuilt from it alone (the plain
+    inverse of the pack): {(key, transposed): matrix}, the matrix W (rows
+    out) or W^T (rows in) as the stream cut it; `w_ddir` keeps its 64
+    zero-padded inputs."""
+    if stream.numel() != K2_STREAM_NUMEL:
+        raise ValueError(f"k2_stream: {stream.numel()} elements, the schedule holds "
+                         f"{K2_STREAM_NUMEL}")
+    parts: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    off = 0
+    for k, t, c in k2_schedule():
+        rows = _slice_rows(k, t)
+        s = _swizzle128(stream[off: off + rows * SLICE].view(rows, SLICE))
+        parts.setdefault((k, t), {})[c] = s
+        off += rows * SLICE
+    return {k: torch.cat([v[c] for c in sorted(v)], dim=1) for k, v in parts.items()}
+
+
+# ---- the backward's stash and weight-gradient plan ---------------------------
+
+def block_stash(x: torch.Tensor) -> torch.Tensor:
+    """(n, F) -> the stash layout, flat: whole tiles of TP points (zero rows
+    past n), in blocks of BLOCK points; block b is F rows of BLOCK values
+    (feature f of its points), 8-value chunk j of row f stored at chunk
+    j ^ (f % 8)."""
+    n, cols = x.shape
+    n_pad = -(-n // TP) * TP
+    x = F.pad(x, (0, 0, 0, n_pad - n)).reshape(n_pad // BLOCK, BLOCK, cols).transpose(1, 2)
+    return _swizzle128(x).flatten()
+
+
+def unblock_stash(flat: torch.Tensor, n: int, cols: int) -> torch.Tensor:
+    """The plain inverse of `block_stash`: the first n points, (n, cols)."""
+    x = _swizzle128(flat.reshape(-1, cols, BLOCK))
+    return x.transpose(1, 2).reshape(-1, cols)[:n]
+
+
+def wgrad_jobs() -> list:
+    """The weight-gradient GEMM's jobs, in the CUDA source's order: (stash
+    array of the rows, its features, stash array of the columns, its
+    features, gradient key, transposed). The gradient (rows, columns) =
+    sum over points of rows^T columns; a transposed job's gradient is the
+    (columns, rows) head block (`HEAD` rows). Each job is cut into
+    rows / G_M CTA tiles."""
+    jobs = [(f"dz{i}", W, f"h{i - 1}", W, f"w{i}", False) for i in range(1, DEPTH)]
+    jobs += [("dfeat", W, f"h{DEPTH - 1}", W, "w_feat", False),
+             ("dhd", WD, "feat", W, "w_dfeat", False),
+             ("dz0", W, "emb", EMB_X, "w0e", False),
+             (f"dz{SKIP}", W, "emb", EMB_X, f"w{SKIP}e", False),
+             ("dhd", WD, "demb", EMB_D, "w_ddir", False),
+             (f"h{DEPTH - 1}", W, "dhead", HEAD, "w_sigma", True),
+             ("hd", WD, "dhead", HEAD, "w_rgb", True)]
+    return jobs
+
+
+def wgrad_split_plan(n: int) -> tuple:
+    """(blocks, blocks per slab, slabs) of the weight-gradient GEMM for n
+    points: up to 32 slabs of at least 16 blocks, none empty."""
+    blocks = -(-n // TP) * TP // BLOCK
+    want = min(max(blocks // 16, 1), 32)
+    slab = -(-blocks // want)
+    return blocks, slab, -(-blocks // slab)
+
+
+STASH_FEATURES = ({"emb": EMB_X, "demb": EMB_D, "feat": W, "hd": WD, "dfeat": W, "dhd": WD,
+                   "dhead": HEAD} | {f"h{i}": W for i in range(DEPTH)}
+                  | {f"dz{i}": W for i in range(DEPTH)})
+
+
+def stash_bytes_per_point() -> tuple:
+    """(bytes the tile kernel writes to the stash, bytes the weight-gradient
+    GEMM reads from it) per point, counted from the layout and the plan:
+    a job reads its rows once and its columns once per CTA tile."""
+    written = 2 * sum(STASH_FEATURES.values())
+    read = 2 * sum(fa + fb * (fa // G_M) for _, fa, _, fb, _, _ in wgrad_jobs())
+    return written, read
 
 
 def grads_to_state_dict(g: Packed) -> Dict[str, torch.Tensor]:
@@ -232,8 +375,12 @@ def _lib():
     lib.nerf_train_forward.restype = ctypes.c_int
     lib.nerf_train_workspace_bytes.argtypes = [ll]
     lib.nerf_train_workspace_bytes.restype = ll
-    lib.nerf_train_backward.argtypes = [table, table, vp, vp, ll, vp, ll, vp, ll, vp]
+    lib.nerf_train_backward.argtypes = [table, table, vp, ll, vp, vp, ll, vp, ll, vp, ll, vp]
     lib.nerf_train_backward.restype = ctypes.c_int
+    lib.nerf_train_stream_elems.argtypes = []
+    lib.nerf_train_stream_elems.restype = ll
+    lib.nerf_train_smem_bytes.argtypes = [ctypes.c_int]
+    lib.nerf_train_smem_bytes.restype = ctypes.c_int
     lib.nerf_train_activation_offsets.argtypes = [ll, ctypes.POINTER(ll)]
     lib.nerf_train_activation_offsets.restype = None
     return lib
@@ -263,11 +410,16 @@ def _table(tensors: Dict[str, torch.Tensor]) -> ctypes.Array:
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _check_pack(packed: Packed, device) -> None:
+def _check_pack(packed: Packed, device, stream: bool = False) -> None:
     for k, shape in _WEIGHT_SHAPES.items():
         _check(packed[k], k, device, torch.bfloat16, shape)
     for k, shape in _BIAS_SHAPES.items():
         _check(packed[k], k, device, torch.float32, shape)
+    if stream:
+        if "k2_stream" not in packed:
+            raise ValueError("k2_stream: the pack has no weight stream (pack_train_params "
+                             "builds it)")
+        _check(packed["k2_stream"], "k2_stream", device, torch.bfloat16, (K2_STREAM_NUMEL,))
 
 
 def _check_points(xyz, dirs, samples_per_dir):
@@ -298,25 +450,33 @@ def _launch_fwd(packed, xyz, dirs, samples_per_dir):
     return out
 
 
-def _launch_bwd(packed, xyz, dirs, dy, samples_per_dir):
+def _launch_bwd(packed, xyz, dirs, dy, samples_per_dir, entry=None):
+    """The backward's launch; `entry` replaces the library's
+    `nerf_train_backward` (a variant of it built by `k2_ablation`)."""
     n = _check_points(xyz, dirs, samples_per_dir)
-    _check_pack(packed, xyz.device)
+    _check_pack(packed, xyz.device, stream=True)
     _check(dy, "dy", xyz.device, torch.float32, (n, 4))
     dev = xyz.device
-    grads = {k: torch.zeros(s, dtype=torch.float32, device=dev)
-             for k, s in (_WEIGHT_SHAPES | _BIAS_SHAPES).items()}
     if n == 0:
-        return grads, None
+        return {k: torch.zeros(s, dtype=torch.float32, device=dev)
+                for k, s in (_WEIGHT_SHAPES | _BIAS_SHAPES).items()}, None
+    # the kernels write every gradient
+    grads = {k: torch.empty(s, dtype=torch.float32, device=dev)
+             for k, s in (_WEIGHT_SHAPES | _BIAS_SHAPES).items()}
     # the kernels write the head weight gradients as (HEAD, in) row blocks
     outs = dict(grads, w_sigma=torch.empty((HEAD, W), dtype=torch.float32, device=dev),
                 w_rgb=torch.empty((HEAD, WD), dtype=torch.float32, device=dev))
     lib = _lib()
-    ws = torch.empty(lib.nerf_train_workspace_bytes(n), dtype=torch.uint8, device=dev)
+    stream = packed["k2_stream"]
     with torch.cuda.device(dev):
-        err = lib.nerf_train_backward(_table(packed), _table(outs), xyz.data_ptr(),
-                                      dirs.data_ptr(), samples_per_dir, dy.data_ptr(), n,
-                                      ws.data_ptr(), ws.numel(),
-                                      torch.cuda.current_stream().cuda_stream)
+        ws_bytes = lib.nerf_train_workspace_bytes(n)
+        if ws_bytes < 0:
+            raise RuntimeError("nerf_train_workspace_bytes: cannot query the device")
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+        err = (entry or lib.nerf_train_backward)(
+            _table(packed), _table(outs), stream.data_ptr(), stream.numel(), xyz.data_ptr(),
+            dirs.data_ptr(), samples_per_dir, dy.data_ptr(), n, ws.data_ptr(), ws.numel(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nerf_train_backward failed: cudaError {err}")
     LAUNCHES["bwd"] += 1
@@ -327,16 +487,19 @@ def _launch_bwd(packed, xyz, dirs, dy, samples_per_dir):
 
 def fused_train_bwd_activations(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
                                 dy: torch.Tensor, samples_per_dir: int = 1):
-    """`fused_train_bwd` on CUDA tensors, with the forward values its kernel
-    stashed: (grads, (emb, [h_0..h_7], feat, demb, hd)), float32 with N rows,
-    in the order `backward_ref_from` takes (without rgb)."""
+    """`fused_train_bwd` on CUDA tensors, with the forward values its tile
+    kernel stashed, read back through the stash layout (`unblock_stash`):
+    (grads, (emb, [h_0..h_7], feat, demb, hd)), float32 with N rows, in the
+    order `backward_ref_from` takes (without rgb)."""
     grads, ws = _launch_bwd(packed, xyz, dirs, dy, samples_per_dir)
     n = xyz.shape[0]
+    n_pad = -(-n // TP) * TP
     offs = (ctypes.c_longlong * 12)()
     _lib().nerf_train_activation_offsets(n, offs)
 
     def view(i, cols):
-        return ws[offs[i]:offs[i] + n * cols * 2].view(torch.bfloat16).view(n, cols).float()
+        flat = ws[offs[i]:offs[i] + n_pad * cols * 2].view(torch.bfloat16)
+        return unblock_stash(flat, n, cols).float()
 
     hs = [view(2 + l, W) for l in range(DEPTH)]
     return grads, (view(0, EMB_X), hs, view(10, W), view(1, EMB_D), view(11, WD))

@@ -154,7 +154,7 @@ def test_backward_over_two_halves_sums_to_the_whole(field):
     whole = k2.fused_train_bwd(packed, x_t, d_t, dy)
     a = k2.fused_train_bwd(packed, x_t[:300], d_t[:300], dy[:300])
     b = k2.fused_train_bwd(packed, x_t[300:], d_t[300:], dy[300:])
-    assert set(whole) == set(packed)
+    assert set(whole) == set(packed) - {"k2_stream"}   # a gradient per weight, none for the stream
     for k, v in whole.items():
         assert v.shape == packed[k].shape and v.dtype == torch.float32, k
         torch.testing.assert_close(a[k] + b[k], v, rtol=1e-4, atol=1e-6, msg=k)
@@ -171,3 +171,102 @@ def test_field_fn_needs_directions(field):
     fn = k2.make_fused_train_field_fn(torch.zeros((2, 3)))
     with pytest.raises(ValueError, match="full evaluations"):
         fn(model, torch.zeros((2, 4, 3)), None)
+
+
+# ---- the backward kernels' stream, stash layout and plan (no JAX) -----------
+
+def test_k2_stream_unpacks_to_every_weight(field):
+    """The stream rebuilds each weight it holds: the recompute's slices W,
+    the dgrad chain's W^T (every hidden layer, W_feat, W_dfeat)."""
+    _, model = field
+    packed = k2.pack_train_params(model.state_dict())
+    got = k2.unpack_k2_stream(packed["k2_stream"])
+    fwd = [f"w{i}" for i in range(1, k2.DEPTH)] + ["w0e", f"w{k2.SKIP}e", "w_feat", "w_dfeat"]
+    bwd = [f"w{i}" for i in range(1, k2.DEPTH)] + ["w_feat", "w_dfeat"]
+    assert set(got) == {(k, False) for k in fwd + ["w_ddir"]} | {(k, True) for k in bwd}
+    for k in fwd:
+        assert torch.equal(got[(k, False)], packed[k]), k
+    for k in bwd:
+        assert torch.equal(got[(k, True)], packed[k].t()), k
+    assert torch.equal(got[("w_ddir", False)][:, :k2.EMB_D], packed["w_ddir"])
+    assert not got[("w_ddir", False)][:, k2.EMB_D:].any()
+
+
+def test_k2_stream_order_and_swizzle(field):
+    """Slice j of the stream is its schedule entry's (rows, 64) block with
+    8-element chunk c of row r at chunk c ^ (r % 8), in the order the tile
+    kernel consumes: 34 recompute slices of 256 rows, 5 of 128, 34 dgrad
+    slices of 256 rows (1,155,072 elements)."""
+    _, model = field
+    packed = k2.pack_train_params(model.state_dict())
+    stream = packed["k2_stream"].view(torch.int16)
+    sched = k2.k2_schedule()
+    rows = [k2._slice_rows(k, t) for k, t, _ in sched]
+    assert rows == [256] * 34 + [128] * 5 + [256] * 34
+    assert stream.numel() == k2.K2_STREAM_NUMEL == (34 + 34) * 256 * 64 + 5 * 128 * 64
+    assert sched[:6] == [("w0e", False, 0), ("w1", False, 0), ("w1", False, 64),
+                         ("w1", False, 128), ("w1", False, 192), ("w2", False, 0)]
+    assert sched[17] == (f"w{k2.SKIP}e", False, 0) and sched[39] == ("w_dfeat", True, 0)
+    assert sched[-1] == ("w1", True, 192)
+    off = 0
+    for j, ((k, t, c), n) in enumerate(zip(sched, rows)):
+        if j in (0, 17, 36, 38, 39, 44, 72):
+            w = packed[k].t() if t else packed[k]
+            w = torch.nn.functional.pad(w, (0, 64))[:, c: c + 64].contiguous().view(torch.int16)
+            s = stream[off: off + n * 64].view(n, 64)
+            for r in (0, 1, 7, 8, n - 1):
+                for chunk in range(8):
+                    stored = (chunk ^ (r % 8)) * 8
+                    assert torch.equal(s[r, stored: stored + 8],
+                                       w[r, chunk * 8: chunk * 8 + 8]), (j, r)
+        off += n * 64
+
+
+@pytest.mark.parametrize("n,cols", [(1, 16), (127, 32), (129, 64), (300, 256)])
+def test_block_stash_round_trips_in_the_kernels_layout(n, cols):
+    """`block_stash` puts (point p, feature f) where the backward's kernels
+    do (csrc/fused_mlp_train.cu's head): block p // 64 of cols rows of 64,
+    chunk ((p % 64) // 8) ^ (f % 8) of row f; rows past n (to whole tiles of
+    128) are zero; `unblock_stash` inverts it."""
+    x = torch.arange(1, n * cols + 1, dtype=torch.float32).view(n, cols)
+    flat = k2.block_stash(x)
+    n_pad = -(-n // 128) * 128
+    assert flat.numel() == n_pad * cols
+    for p in sorted({0, 7, 8, 63, n - 1} & set(range(n))):
+        for f in sorted({0, 1, 7, 9, cols - 1}):
+            r = p % 64
+            at = (p // 64) * cols * 64 + f * 64 + ((r // 8) ^ (f % 8)) * 8 + r % 8
+            assert flat[at] == x[p, f], (p, f)
+    assert int((flat != 0).sum()) == n * cols
+    assert torch.equal(k2.unblock_stash(flat, n, cols), x)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4099, 65536, 196608])
+def test_wgrad_plan_covers_every_gradient_once(n):
+    """The weight-gradient GEMM's jobs produce every weight gradient of the
+    pack once, each in CTA tiles of 128 rows that cover its rows; its slabs
+    cover every 64-point block of the stash once, none empty, at most 32."""
+    shapes = k2._WEIGHT_SHAPES
+    jobs = k2.wgrad_jobs()
+    assert sorted(j[4] for j in jobs) == sorted(shapes)
+    for rows, fa, cols, fb, key, transposed in jobs:
+        assert fa == k2.STASH_FEATURES[rows] and fb == k2.STASH_FEATURES[cols]
+        assert fa % k2.G_M == 0
+        if transposed:   # the (HEAD, in) head block whose rows hold w_sigma / w_rgb
+            rows_of_key = shapes[key][0] if key == "w_sigma" else shapes[key][1]
+            assert cols == "dhead" and fa == rows_of_key
+        else:
+            assert (fa, fb) == shapes[key], key
+    assert sum(j[1] // k2.G_M for j in jobs) == 25
+    blocks, slab, splits = k2.wgrad_split_plan(n)
+    assert blocks == -(-n // 128) * 2 and 1 <= splits <= 32
+    starts = [s * slab for s in range(splits)]
+    assert all(s < blocks for s in starts) and starts[-1] + slab >= blocks
+    assert sum(min(s + slab, blocks) - s for s in starts) == blocks
+
+
+def test_stash_bytes_per_point():
+    """Counted from the layout: 9,952 bytes a point written by the tile
+    kernel, 15,776 read by the weight-gradient GEMM (its 128-row tiles read
+    the narrow operand once per tile)."""
+    assert k2.stash_bytes_per_point() == (9952, 15776)
