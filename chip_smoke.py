@@ -61,7 +61,21 @@ Run from the repository root. Phases, each printing a line:
   8. fast-path kernels vs plain at the path's shapes: K3 over the 640,000
      rays of a frame clipped to the box (select at C 32, K 16: depths within
      median |d| < 0.005 and 99th percentile < 0.05 of far - near; opacity
-     prepass at C 16: median < 2e-3, max < 0.05); K4 at N = 1,000,003 and
+     prepass at C 16: median < 2e-3, max < 0.05); K3's own scores read back
+     (`proxy_march_scores`) at both C, each within `proxy_score_bar` of the
+     plain scores (the share that differ and the largest |d| printed), the
+     plain scores with b1 rounded to bf16 beyond that bar (a control: the
+     bar must reject such a kernel), and the plain march on the kernel's
+     scores bit-equal to both kernels' outputs; K3 select at one 32,768-ray
+     chunk of the frame (the path's shape: the JSON line's time) bit-equal
+     to the same rays in the frame's launch, timed beside that launch over
+     the whole frame, each beside the
+     CUDA-core kernel's earlier times (EARLIER_K3_MS, another call; the
+     chunk's time queued behind a device-side sleep, as K5's, and
+     unqueued: it is about as long as its wrapper's host time); both
+     K3 kernels' registers, spills, stack (`-Xptxas -v`) and dynamic shared
+     memory; K6's SASS digest beside the
+     previous tree's (K6_SASS_DIGEST, a reading); K4 at N = 1,000,003 and
      at one chunk's survivors (32768 rays x 16, one direction per ray) and
      coarse points (x 64): rgb atol 2e-2, sigma atol 5e-2 + rtol 2e-2, and
      the int8 layer inputs that round apart counted; K6 at 65,536 rays, C
@@ -132,9 +146,9 @@ Run from the repository root. Phases, each printing a line:
 Then one JSON line of kernels (launches counted over the one path that
 runs each: K1 phase 4, K2 phase 6, K3 select phase 9, K3 opacity phase 10,
 K4 phase 11, K6 phase 13, K5 the 128² frames of phase 16; `timing` says
-how `ms` was taken: "queued" for K5, "unqueued" for the rest), the nvidia-smi
-line, and the JSON result as the last line. Any failure exits non-zero
-before the result is printed.
+how `ms` was taken: "queued" for K5 and K3 select, "unqueued" for the
+rest), the nvidia-smi line, and the JSON result as the last line. Any
+failure exits non-zero before the result is printed.
 Bounds: the larger of the operations over the dense tensor-core peak of
 their type (bf16 989 TFLOP/s, int8 1,979 TOP/s) and the bytes (inputs read
 once, outputs written once) over the memory rate of an H100 SXM (3.35 TB/s).
@@ -178,6 +192,7 @@ K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
 K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
 K5_REPS = 20            # launches per timing, queued behind ~11 ms of device sleep
 K5_UNQUEUED = 4         # timings of K5 unqueued, as every other kernel is timed
+K3_QUEUED = 3           # queued timings of K3 select at one chunk (K5_REPS launches each)
 SAME_FRAME_ATOL = 1e-6  # kernel vs gather frames
 PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest magnitude
 SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select",
@@ -192,6 +207,13 @@ EARLIER_K4_MS = {"fused_nerf_sigma_int8": 42.806, "fused_nerf_full_int8": 11.652
 # and the whole backward, ms per step of 2 launches, at phase 5's shapes; another call on an
 # H100 80GB HBM3, 700 W)
 EARLIER_K2_MS = {"tile": 10.595, "wgrad": 6.679, "fused_train_bwd": 17.440}
+# K3's times before its redesign (the CUDA-core kernel on an H100 80GB HBM3, 700 W: one
+# 32,768-ray chunk at C 32, K 16 from the fast frame's profile, 9.363 ms / 20; one launch
+# over a frame's 640,000 rays; the opacity prepass at 640,000 rays, C 16)
+EARLIER_K3_MS = {"chunk": 0.468, "one launch": 5.537, "opacity": 2.662}
+# `sass_digest("proxy_select")` of the tree before K3's redesign, built with nvcc 12.8 on the
+# H100 machine: K6's code must not move with K3's
+K6_SASS_DIGEST = "0ce9c24cd4602700"
 K2_BWD_SYMBOLS = {"tile": "nerf_train_bwd_tile_kernel", "wgrad": "nerf_train_wgrad_kernel",
                   "reduce": "nerf_train_reduce_kernel"}
 K4_SYMBOLS = {"fused_nerf_sigma_int8": "nerf_field_int8_kernelILb0E",
@@ -382,24 +404,11 @@ def ptxas_report(name):
     """{mangled kernel name: (registers, spill store + load bytes, stack
     frame bytes)} from the `-Xptxas -v` log the build keeps beside
     csrc/<name>.cu's library."""
-    import re
     from pathlib import Path
+    from nerf_siren_tpu_torch.card_bench import ptxas_props
     from nerf_siren_tpu_torch.ops.kernels import _build
 
-    report, kernel, props = {}, None, (0, 0)
-    for line in Path(str(_build.build(name)) + ".log").read_text().splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
-        if m:
-            kernel = m.group(1)
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            props = (int(m.group(2)) + int(m.group(3)), int(m.group(1)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and kernel:
-            report[kernel] = (int(m.group(1)), *props)
-            props = (0, 0)
-    return report
+    return ptxas_props(Path(str(_build.build(name)) + ".log").read_text())
 
 
 def matmul_chain_ms(packed, n, full):
@@ -843,6 +852,20 @@ def k4_weight_bytes(p8):
                if k in ("k4_stream", "w_sigma", "w_rgb") or k[0] in "bf" or k.endswith("x"))
 
 
+def cuobjdump_sass(name):
+    """The SASS of csrc/<name>.cu's library (cuobjdump of the build), or None
+    where the toolkit has no cuobjdump."""
+    import shutil
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        return subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
 def sass_epilogue(name, symbol):
     """(convert, quantise) instructions of a hidden layer's epilogue in the
     SASS of csrc/<name>.cu's `symbol` instantiation (cuobjdump of the build):
@@ -852,14 +875,9 @@ def sass_epilogue(name, symbol):
     global store), up to its last store. None where the toolkit has no
     cuobjdump or the blocks are not found."""
     import re
-    import shutil
-    from nerf_siren_tpu_torch.ops.kernels import _build
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    try:
-        sass = subprocess.run([tool, "-sass", str(_build.build(name))], capture_output=True,
-                              text=True, timeout=120).stdout
-    except (OSError, subprocess.SubprocessError):
+    sass = cuobjdump_sass(name)
+    if sass is None:
         return None
     funcs = sass.split("Function : ")
     body = next((f for f in funcs if f.startswith("_") and symbol in f.split()[0]), "")
@@ -886,6 +904,62 @@ def sass_epilogue(name, symbol):
         return None
     last = max(i for i, t in enumerate(quant[0]) if "STS.U16" in t)
     return len(conv[0]), last + 1
+
+
+def k3_scores_reading(pp, rays8, c, control=False):
+    """K3's scores read back at C candidates of every ray, against the plain
+    scores: the share that differ, the largest |d| and its ratio to
+    `proxy_score_bar`; fails past the bar. With `control`, also the plain
+    scores with b1 rounded to bf16 (as a kernel folding b1 into its bf16
+    product would give them): fails unless some lie past the bar. Returns
+    the kernel's scores."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    got = k3.proxy_march_scores(pp, rays8, c)
+    pts = k3.candidate_points(rays8, c)
+    ref, bar = k3.proxy_scores_ref(pp, pts), k3.proxy_score_bar(pp, pts)
+
+    def over(scores):
+        d = (scores - ref).abs()
+        return d, torch.where(d > 0, d / bar, torch.zeros((), device=d.device))
+
+    d, ratio = over(got)
+    n_diff = int((d > 0).sum())
+    print(f"[8/17] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
+          f"differ ({100 * n_diff / d.numel():.3f}%), max|d| {float(d.max()):.3e}, max |d| / "
+          f"bar {float(ratio.max()):.3e}, median over those that differ "
+          f"{float(ratio[d > 0].median()) if n_diff else 0.0:.3e} (bar: proxy_score_bar)",
+          flush=True)
+    if not torch.isfinite(got).all() or float(ratio.max()) > 1.0:
+        fail("K3's scores lie beyond proxy_score_bar of the plain scores")
+    if control:
+        _, ratio = over(k3.proxy_scores_ref({**pp, "b1": pp["b1"].bfloat16().float()}, pts))
+        n_over = int((ratio > 1.0).sum())
+        print(f"[8/17] control, the plain scores with b1 rounded to bf16: {n_over} of "
+              f"{ratio.numel()} ({100 * n_over / ratio.numel():.3f}%) beyond proxy_score_bar, max "
+              f"|d| / bar {float(ratio.max()):.3e}", flush=True)
+        if n_over == 0:
+            fail("proxy_score_bar does not reject the scores with b1 rounded to bf16")
+    return got
+
+
+def sass_digest(name):
+    """sha256 (16 hex digits) of the SASS instructions of every kernel in
+    csrc/<name>.cu's library (cuobjdump of the build; addresses, encodings
+    and the anonymous-namespace ids that name the source's path dropped),
+    or 'not taken' where the toolkit has no cuobjdump."""
+    import hashlib
+    import re
+
+    sass = cuobjdump_sass(name)
+    if sass is None:
+        return "not taken"
+    lines = []
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);|Function : (\S+)", sass):
+        lines.append(re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_",
+                            m.group(1) or m.group(2)))
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
 
 
 def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0.0,
@@ -942,7 +1016,8 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
 
     pp = fast.packed_proxy
-    w_bytes = sum(t.numel() * t.element_size() for t in pp.values())
+    k3_bytes = sum(pp[k].numel() * pp[k].element_size() for k in ("k3_w1t", "b1", "w2", "b2"))
+    k6_bytes = sum(pp[k].numel() * pp[k].element_size() for k in ("w1", "b1", "w2", "b2"))
     rays8 = clipped_rays(frame_rays, fast.aabb)
     r = rays8.shape[0]
     span = (rays8[:, 7] - rays8[:, 6]).clamp_min(1e-12)
@@ -962,16 +1037,65 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
         fail("proxy_march_select disagrees with its plain version")
-    results["proxy_march_select"] = timed_result(
-        f"at {r} rays", "proxy_march_select",
-        lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True),
-        lambda: k3.proxy_march_select_ref(pp, rays8, FAST_C, FAST_K, midpoint=True),
-        r * FAST_C * proxy_flop_per_candidate(pp), r * (32 + 16 * FAST_K) + w_bytes, err, card,
-        plain_reps=1)
-    del z, xyz, rz, rxyz, dz
+    del rz, rxyz, dz
+
+    # K3's own scores: within proxy_score_bar of the plain ones, and the plain
+    # march on them equal to both kernels' outputs bit for bit
+    scores = k3_scores_reading(pp, rays8, FAST_C)
+    oz, oxyz = k3.proxy_march_select_ref(pp, rays8, FAST_C, FAST_K, midpoint=True, scores=scores)
+    same_sel = torch.equal(oz, z) and torch.equal(oxyz, xyz)
+    del scores, oz, oxyz
+    op = k3.proxy_opacity(pp, rays8, PREPASS_C)
+    scores = k3_scores_reading(pp, rays8, PREPASS_C)
+    same_op = torch.equal(k3.proxy_opacity_ref(pp, rays8, PREPASS_C, scores=scores), op)
+    del scores
+    print(f"[8/17] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
+          f"{FAST_C}, K {FAST_K}) {'bit-equal' if same_sel else 'DIFFERENT'}, opacity (C "
+          f"{PREPASS_C}) {'bit-equal' if same_op else 'DIFFERENT'}", flush=True)
+    if not (same_sel and same_op):
+        fail("the plain march on K3's own scores differs from the kernel")
+
+    # K3 select at the path's shape: one chunk of the frame's rays, bit-equal
+    # to the same rays in the frame's launch (a ray's outputs do not depend on
+    # its batch), so it is held to the frame's bars; the plain scores with b1
+    # rounded to bf16 on its candidates must lie past proxy_score_bar
+    pick = torch.as_tensor(np.random.default_rng(SEED + 3).permutation(r)[:CHUNK], device=device)
+    chunk = rays8[pick]
+    cz, cxyz = k3.proxy_march_select(pp, chunk, FAST_C, FAST_K, midpoint=True)
+    crz, crxyz = k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True)
+    err = float(torch.maximum((cz - crz).abs().amax(), (cxyz - crxyz).abs().amax()))
+    same_chunk = torch.equal(cz, z[pick]) and torch.equal(cxyz, xyz[pick])
+    print(f"[8/17] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
+          f"frame's launch: {'bit-equal' if same_chunk else 'DIFFERENT'}; max|d| vs plain "
+          f"{err:.3e}", flush=True)
+    if not same_chunk:
+        fail("proxy_march_select's chunk differs from the same rays in the frame's launch")
+    del cz, cxyz, crz, crxyz, z, xyz
+    k3_scores_reading(pp, chunk, FAST_C, control=True)
+    res = timed_result(
+        f"at one chunk of {CHUNK} rays", "proxy_march_select",
+        lambda: k3.proxy_march_select(pp, chunk, FAST_C, FAST_K, midpoint=True),
+        lambda: k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True),
+        CHUNK * FAST_C * proxy_flop_per_candidate(pp), CHUNK * (32 + 16 * FAST_K) + k3_bytes, err,
+        card, plain_reps=1)
+    # a chunk takes the card about as long as its wrapper takes the host: the
+    # JSON line's time is queued behind a device-side sleep, as K5's
+    queued = [cuda_ms(lambda: k3.proxy_march_select(pp, chunk, FAST_C, FAST_K, midpoint=True),
+                      K5_REPS, queued=True) for _ in range(K3_QUEUED)]
+    unqueued = res["ms"]
+    res.update(ms=float(np.median(queued)), timing="queued")
+    results["proxy_march_select"] = res
+    one_ms = cuda_ms(lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True), 5)
+    n_chunks = -(-r // CHUNK)
+    print(f"[8/17] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
+          f"(median of {[round(t, 4) for t in queued]}; unqueued {unqueued:.4f}), "
+          f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; x {n_chunks} = "
+          f"{n_chunks * res['ms']:.3f} ms a frame in chunks; beside one launch over all {r} "
+          f"rays {one_ms:.3f} ms ({one_ms * CHUNK / r:.4f} ms per {CHUNK} rays); earlier "
+          f"CUDA-core kernel {EARLIER_K3_MS['chunk']} ms a chunk, {EARLIER_K3_MS['one launch']} "
+          f"ms in one launch (another call); {card}", flush=True)
 
     # K3 opacity prepass: C 16 over a whole frame
-    op = k3.proxy_opacity(pp, rays8, PREPASS_C)
     rop = k3.proxy_opacity_ref(pp, rays8, PREPASS_C)
     torch.cuda.synchronize()
     d = (op - rop).abs()
@@ -985,8 +1109,24 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_opacity"] = timed_result(
         f"at {r} rays", "proxy_opacity", lambda: k3.proxy_opacity(pp, rays8, PREPASS_C),
         lambda: k3.proxy_opacity_ref(pp, rays8, PREPASS_C),
-        r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + w_bytes, err, card,
+        r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + k3_bytes, err, card,
         plain_reps=1)
+    res = results["proxy_opacity"]
+    print(f"[8/17] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
+          f"earlier CUDA-core kernel {EARLIER_K3_MS['opacity']} ms (another call)", flush=True)
+    hidden = pp["w1"].shape[0]
+    report = ptxas_report("proxy_march")
+    for name, epi, c in (("proxy_march_select", 1, FAST_C), ("proxy_opacity", 0, PREPASS_C)):
+        sym = f"proxy_march_kernelILi{k3.k3_width(hidden)}ELi{epi}ELb0E"
+        regs, spills, stack = next(v for k, v in report.items() if sym in k)
+        print(f"[8/17] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
+              f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
+              f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
+              f"{c}", flush=True)
+    digest = sass_digest("proxy_select")
+    print(f"[8/17] proxy_select SASS digest {digest}: "
+          f"{'unchanged from' if digest == K6_SASS_DIGEST else 'DIFFERS from'} the previous "
+          f"tree's build {K6_SASS_DIGEST} (nvcc 12.8; a reading)", flush=True)
 
     # K4 at N_CHECK random points, then at one chunk's survivors and coarse points
     rng = np.random.default_rng(SEED + 4)
@@ -1091,7 +1231,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_select"] = timed_result(
         f"at {K6_RAYS} rays", "proxy_select", lambda: k6.proxy_select(pp, rays6, K6_C, K6_K),
         lambda: k6.proxy_select_ref(pp, rays6, K6_C, K6_K),
-        K6_RAYS * K6_C * proxy_flop_per_candidate(pp), K6_RAYS * (32 + 4 * K6_K) + w_bytes, err,
+        K6_RAYS * K6_C * proxy_flop_per_candidate(pp), K6_RAYS * (32 + 4 * K6_K) + k6_bytes, err,
         card)
     return results
 

@@ -11,6 +11,8 @@ of its design taken out:
 - `build_variants`: each {label: source text} compiled like the kernel
   (`ops/kernels/_build.py`'s flags) into a temporary directory, one nvcc
   each, all at once, and its C entry point loaded with ctypes;
+- `ptxas_props`: registers, spills and stack of each kernel in a build's
+  `-Xptxas -v` report;
 - `card`: the card's name and power limit as nvidia-smi prints them.
 Needs nvcc and a card for all but `edit`.
 """
@@ -104,6 +106,25 @@ def build_variants(variants: Dict[str, str], entry: str, argtypes: list) -> List
 
         with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
             return list(pool.map(lambda kv: build(*kv), variants.items()))
+
+
+def ptxas_props(log: str) -> Dict[str, tuple]:
+    """{mangled kernel name: (registers, spill store + load bytes, stack
+    frame bytes)} from an `nvcc -Xptxas -v` report."""
+    report, kernel, props = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            props = (int(m.group(2)) + int(m.group(3)), int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report[kernel] = (int(m.group(1)), *props)
+            props = (0, 0)
+    return report
 
 
 def card() -> str:

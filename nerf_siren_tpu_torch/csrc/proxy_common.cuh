@@ -1,6 +1,7 @@
-// Device code shared by the density-proxy kernels (csrc/proxy_march.cu, K3;
-// csrc/proxy_select.cu, K6): the proxy's weights in shared memory and its
-// score at one point.
+// Device code of the density-proxy kernels: the proxy's weights in shared
+// memory and its score at one point on the CUDA cores (csrc/proxy_select.cu,
+// K6), and the constants and `along` that the proxy march (csrc/
+// proxy_march.cu, K3, which scores on the tensor cores) shares.
 //
 // The proxy (render/fast.py) is a 2-layer MLP on a 5-frequency positional
 // encoding: emb (33, reference order [x, sin(2^0 x), cos(2^0 x), ...]) ->

@@ -1,13 +1,17 @@
 // Proxy march (K3) for Hopper (sm_90a): the fast renderer's pre-model
-// pipeline in one pass over each ray.
+// pipeline, the density proxy scored on the tensor cores and each ray
+// marched from shared memory.
 //
 // Replaces the TPU Pallas kernels nerf_siren_tpu/ops/pallas/proxy_march.py::
 // _opacity_kernel (`proxy_opacity`, the culling prepass) and ::_march_kernel
-// (`proxy_march_select`). Per ray (o, d, near, far), exactly as the plain
-// PyTorch version nerf_siren_tpu_torch/ops/kernels/proxy_march.py::
+// (`proxy_march_select`). Per ray (o, d, near, far), as the plain PyTorch
+// version nerf_siren_tpu_torch/ops/kernels/proxy_march.py::
 // proxy_opacity_ref / proxy_march_select_ref:
 //   C uniform candidates z_j = near + j * spacing, spacing = (far - near) /
-//   (C - 1); the density proxy's score at o + d z_j (proxy_common.cuh);
+//   (C - 1); the density proxy's score at o + d z_j: relu(W1 emb + b1) with
+//   the 5-frequency embedding emb (33 channels) and the hidden activations
+//   rounded to bf16, float32 sums, b1 added in float32 after the product,
+//   then w2 . h + b2;
 //   sigma = expm1(relu(score)), alpha = 1 - exp(-sigma * spacing * |d|),
 //   expected weight w_j = alpha * T, T *= 1 - alpha + 1e-10.
 //   `proxy_opacity` writes 1 - T after the last candidate.
@@ -19,149 +23,487 @@
 //   ascending depths (R, K), the survivors o + d z (R, K, 3) ray-major (one
 //   direction per ray for the field kernel), and optionally the landing
 //   bin's normalised density dcdf / dz (R, K) and the mass S_total (R,).
+// The embedding and every step of the march round exactly as the plain
+// version's; only the order of the proxy's float32 sums differs (the
+// tensor cores' for W1 emb and for w2 . h). So a score may differ by
+// float32 rounding, or, where that moves a pre-activation across a bf16
+// rounding step, by one bf16 step of one hidden activation; given the
+// same scores the march is bit for bit the plain march
+// (`proxy_march_scores` reads the scores back to show it).
 //
 // Bound: operations. A candidate costs 33 H + H multiply-adds of the proxy
-// (H = 96: ~6.5 kFLOP) against 32 bytes in per ray and 16 K bytes out, so the
-// arithmetic is the limit (the TPU kernel's own finding: its time was the
-// sin and the MXU, never HBM). The design keeps everything of a ray in one
-// thread: the weights (~18 KB as float32 at H = 96) in shared memory, read
-// by every thread of a warp at the same address (a broadcast); the
-// candidate loop and its transmittance in registers; the C - 2 running sums
-// of the CDF in shared memory, one column per thread (no bank conflicts).
-// Candidate depths are near + j * spacing, so the bins need no search: the
-// CDF is walked once with a pointer that only moves forward, as u rises.
-// The proxy runs on the CUDA cores, not the tensor cores: its 33-wide input
-// is 1/8 of a wgmma tile's depth and its cost is ~1% of the field's.
+// (H = 96: ~6.5 kFLOP, ~7 us a 32,768-ray chunk at C 32 on the bf16
+// tensor cores) against 32 bytes in per ray and 16 K bytes out; what is
+// left beside the products is 15 precise sincosf a candidate, the bias and
+// conversion of H hidden units, and the march.
+//
+// Design: one template, two epilogues (OPACITY, SELECT).
+// - A persistent CTA (one warpgroup; 4 CTAs per SM, 3 at width 128) walks
+//   blocks of B rays (64 up to C 64, then 32, 16: the block's rows fit in
+//   shared memory at C 256). Its B x C points are rows p = ray C + j,
+//   scored 64 rows at a time; the last tile's rows past the block are
+//   padding, scored and dropped.
+// - The embedding is built in registers as wgmma's A (m64nNk16, A from
+//   registers, three k16 steps: 33 columns padded to 48). The four threads
+//   of a quad hold the same two rows; thread t holds columns 16 s + 8 h +
+//   2 t (+ 1) of k-step s, h = 0, 1: six bf16 pairs of each row. The 15
+//   angles 2^k (x, y, z)_r (angle q = 3 k + r) split over the quad: thread t
+//   takes q = 4 t + i, i < 4, one precise sincosf each (2^4 |x| reaches ~100
+//   in the Blender box; never build with --use_fast_math), sin and cos of
+//   one angle as the pair i; thread 3's pairs 3 and 4 hold (x, y) and (z, 0).
+//   The pack permutes W1's columns to match (ops/kernels/proxy_march.py::
+//   k3_columns, the pack's `k3_w1t`), so the embedding is the plain
+//   version's bf16 embedding bit for bit.
+// - B is W1^T: the pack's `k3_w1t`, (NT, 64) bf16 with NT = H rounded up to
+//   a width with a wrapper (16, 32, 64, 96, 128; sm90_async.cuh::wgmma_rs),
+//   K-major in the 128-byte swizzle, copied to shared memory once per CTA;
+//   w2 (bf16, the second product's B) and b1 (float32) beside it. Padded
+//   hidden rows are zero in W1, b1 and w2, so they add exactly 0.
+// - The epilogue stays in registers: + b1 in float32, then ReLU and bf16 in
+//   one conversion a pair, which lands each pair of hidden activations in
+//   the register where the second product's A wants it (the accumulator
+//   fragment's layout is the A fragment's); w2 . h is that product, (64 x
+//   NT) x (NT x 8) with w2 as B's column 0 (m64n8k16; the product of two
+//   bf16 values is exact in float32, only the sum's order differs), + b2.
+//   Lanes 0 and 1 of a quad turn rows g and g + 8's scores into the
+//   candidates' alphas (expm1f, expf), into alpha[ray][j] in shared memory,
+//   at an odd row stride so that one thread per ray reads a row
+//   conflict-free. A warp's 16 points are placed once, by lanes 0-15, and
+//   shuffled to the quads that embed them.
+// - The march, in three passes over the block, each as the plain march in
+//   order and rounding: one thread per ray scans its alphas for T and the
+//   running sums S_i (which overwrite the alphas already read); all threads
+//   divide the running sums by their ray's S into the CDF; then one thread
+//   per (ray, k) places sample k by a binary search for the count of CDF
+//   entries <= u (the CDF does not fall, so the count is the plain
+//   searchsorted's) and stores its depth, survivor and density, consecutive
+//   threads at consecutive addresses. Only the scan is serial, and it is a
+//   multiply and an add a candidate; every exp, division and search runs in
+//   parallel.
+// - A ray's outputs depend on that ray alone, never on its place in the
+//   batch: every row is scored by the same code, whatever tile it lands in.
 //
 // TPU layout tricks not kept: the (8, N) lane-major rays and TILE_R padding
-// (any R), the rotation recurrence for sin (sinf/cosf of 2^k x), the folded
-// [W1s|W1x|b1] stack, candidate-major survivor order.
+// (any R), the rotation recurrence for sin, the folded [W1s|W1x|b1] stack
+// (b1 stays float32), candidate-major survivor order.
 //
 // Plain C interface, loaded with ctypes; the launcher returns
 // cudaGetLastError().
 
 #include "proxy_common.cuh"
+#include "sm90_async.cuh"
 
 namespace {
 
 using namespace proxy;
 
-constexpr int TPB = 128;  // rays per CTA, one per thread
+constexpr int THREADS = 128;  // one warpgroup
+// CTAs per SM the registers must allow: 4 (128 registers a thread) up to
+// width 96, 3 (168) at 128, whose 64 accumulators would spill under 128.
+__host__ __device__ constexpr int min_ctas(int nt) { return nt > 96 ? 3 : 4; }
+constexpr int TILE = 64;      // rows of one wgmma
+constexpr int KSTEPS = 3;     // 48 embedding columns
+constexpr int W1T_ROW = 128;  // bytes of one hidden unit's row of the W1^T tile
 
-template <bool SELECT>
-__global__ void __launch_bounds__(TPB)
-    proxy_march_kernel(Weights wts, const float* __restrict__ rays, long long n_rays, int C,
-                       int K, int midpoint, float* __restrict__ opacity,
-                       float* __restrict__ z_out, float* __restrict__ xyz_out,
-                       float* __restrict__ rho_out, float* __restrict__ mass_out) {
-  extern __shared__ __align__(16) float smem[];
-  float* sw = smem;
-  float* cum = smem + weight_floats(wts.hidden) + threadIdx.x;  // column of this thread
-  load_weights(wts, sw);
-  __syncthreads();
+enum Epilogue { OPACITY = 0, SELECT = 1 };
 
-  const long long r = (long long)blockIdx.x * TPB + threadIdx.x;
-  if (r >= n_rays) return;
-  const float* ray = rays + r * 8;
-  const float o[3] = {ray[0], ray[1], ray[2]};
-  const float d[3] = {ray[3], ray[4], ray[5]};
-  const float near = ray[6], far = ray[7];
-  const int h = wts.hidden;
-  const float spacing = __fdiv_rn(__fsub_rn(far, near), float(C - 1));
-  const float dn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]), __fmul_rn(d[1], d[1])),
-                                   __fmul_rn(d[2], d[2])));
-  const float dz = __fmul_rn(spacing, dn);
+__host__ __device__ constexpr int rays_per_block(int c) {
+  return c <= 64 ? 64 : c <= 128 ? 32 : 16;
+}
+__host__ __device__ constexpr int row_ld(int c) { return c | 1; }  // odd row stride
 
-  float T = 1.0f, S = 0.0f;
-  for (int j = 0; j < C; ++j) {
-    const float z = along(near, float(j), spacing);
-    const float sc = score(sw, h, along(o[0], d[0], z), along(o[1], d[1], z),
-                           along(o[2], d[2], z));
-    const float a = __fsub_rn(1.0f, expf(-__fmul_rn(expm1f(fmaxf(sc, 0.0f)), dz)));
-    if (SELECT && j >= 1 && j <= C - 2) {
-      S = __fadd_rn(S, __fadd_rn(__fmul_rn(a, T), 1e-5f));
-      cum[(j - 1) * TPB] = S;
+// Byte offsets of the shared-memory regions after the W1^T tile at 0 (NT
+// rows of 128 bytes): w2 as the second product's B (8 rows of NT, row 0 w2,
+// the rest zero; K-major, 128-byte swizzle: 1024 bytes a 64-column block),
+// b1 (float32), b2, the block's rays (8 floats each), each ray's spacing,
+// spacing |d| and mass S, and its row of C alphas (then running sums, then
+// CDF).
+struct Layout {
+  int w2t, b1, b2, rays, ray_terms, rows, bytes;
+};
+
+__host__ __device__ constexpr int w2t_bytes(int nt) { return (nt + 63) / 64 * 1024; }
+
+__host__ __device__ inline Layout layout(int nt, int c) {
+  const int b = rays_per_block(c);
+  Layout l;
+  l.w2t = nt * W1T_ROW;  // a multiple of 1024: the swizzle's atoms stay aligned
+  l.b1 = l.w2t + w2t_bytes(nt);
+  l.b2 = l.b1 + nt * 4;
+  l.rays = l.b2 + 16;
+  l.ray_terms = l.rays + b * 8 * 4;
+  l.rows = l.ray_terms + b * 4 * 4;
+  l.bytes = l.rows + b * row_ld(c) * 4;
+  return l;
+}
+
+struct Args {
+  const uint4* w1t;  // (NT, 64) bf16: the pack's k3_w1t
+  const float* b1;   // (H,)
+  const bf16* w2;    // (H,)
+  const float* b2;   // (1,)
+  int hidden;
+  const float* rays;  // (n_rays, 8)
+  long long n_rays;
+  int C, K, midpoint;
+  float* opacity;  // OPACITY: (n_rays,)
+  float* z;        // SELECT: (n_rays, K), (n_rays, K, 3), and (n_rays, K), (n_rays,) or null
+  float* xyz;
+  float* rho;
+  float* mass;
+  float* scores;  // with SCORES: (n_rays, C)
+};
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return uint32_t(__bfloat16_as_ushort(h.x)) | (uint32_t(__bfloat16_as_ushort(h.y)) << 16);
+}
+
+// bf16(relu(lo)), bf16(relu(hi)) in the low and high halves.
+__device__ __forceinline__ uint32_t relu_bf16_pair(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// An output element to device memory.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
+// alpha = 1 - exp(-expm1(relu(score)) * spacing |d|), rounded as the plain march.
+__device__ __forceinline__ float alpha_of(float score, float dz) {
+  return __fsub_rn(1.0f, expf(-__fmul_rn(expm1f(fmaxf(score, 0.0f)), dz)));
+}
+
+// Thread t's six bf16 pairs of one point's embedding row: pair i < 4 is
+// (sin, cos) of angle q = 4 t + i = 3 k + r, 2^k times coordinate r, while
+// q < 15; then (x, y) at thread 3's pair 3, (z, 0) at its pair 4, zeros.
+__device__ __forceinline__ void embed_pairs(float x, float y, float z, int t, uint32_t (&pr)[6]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = 4 * t + i;
+    if (q < 3 * FREQS) {
+      const int k = q / 3, r = q - 3 * k;
+      const float v = r == 0 ? x : (r == 1 ? y : z);
+      float s, c;
+      sincosf(v * __int_as_float((127 + k) << 23), &s, &c);  // exact power-of-two scale
+      pr[i] = bf16_pair(s, c);
+    } else {
+      pr[i] = bf16_pair(x, y);
     }
-    T = __fmul_rn(T, __fadd_rn(__fsub_rn(1.0f, a), 1e-10f));
   }
-  if (!SELECT) {
-    opacity[r] = __fsub_rn(1.0f, T);
-    return;
-  }
+  pr[4] = t == 3 ? bf16_pair(z, 0.0f) : 0u;
+  pr[5] = 0u;
+}
 
-  // cdf_i = S_i / S for i = 1..nb, cdf_0 = 0; cnt = #{i : cdf_i <= u} >= 1
-  const int nb = C - 2;
-  auto cdf = [&](int i) { return i == 0 ? 0.0f : __fdiv_rn(cum[(i - 1) * TPB], S); };
-  int cnt = 1;
-  for (int k = 0; k < K; ++k) {
-    const float u = midpoint ? __fdiv_rn(float(k) + 0.5f, float(K))
-                             : __fdiv_rn(float(k), float(K - 1));
-    while (cnt <= nb && cdf(cnt) <= u) ++cnt;
-    const int below = cnt - 1, above = min(cnt, nb);
-    const float cb = cdf(below), ca = cdf(above);
+// The block's nr x C candidates scored and turned into alphas, rows_s[ray *
+// ld + j]; with SCORES the scores also go to device memory.
+template <int NT, bool SCORES>
+__device__ __forceinline__ void score_block(const Args& a, long long r0, const float* rays_s,
+                                            const float* terms_s, float* rows_s, int nr,
+                                            uint32_t w1t_addr, uint32_t w2t_addr,
+                                            const float* b1s, float b2, int warp, int lane) {
+  const int C = a.C, n_rows = nr * C, ld = row_ld(C), t = lane & 3, g = lane >> 2;
+  for (int row0 = 0; row0 < n_rows; row0 += TILE) {
+    // lane l < 16 places the warp's row l: its ray (-1 for a padding row,
+    // scored and dropped), candidate and point; the quads take theirs by
+    // shuffles (thread t of quad g holds rows g and g + 8)
+    int ray = -1, j = 0;
+    float pt[3] = {0.0f, 0.0f, 0.0f};
+    const int p = row0 + warp * 16 + (lane & 15);
+    if (p < n_rows) {
+      ray = p / C;
+      j = p - ray * C;
+      const float* ry = rays_s + ray * 8;
+      const float zj = along(ry[6], float(j), terms_s[ray * 4]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) pt[c] = along(ry[c], ry[3 + c], zj);
+    }
+    uint32_t frag[KSTEPS][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int src = g + 8 * h;
+      uint32_t pr[6];
+      embed_pairs(__shfl_sync(0xffffffffu, pt[0], src), __shfl_sync(0xffffffffu, pt[1], src),
+                  __shfl_sync(0xffffffffu, pt[2], src), t, pr);
+#pragma unroll
+      for (int s = 0; s < KSTEPS; ++s) {
+        frag[s][h] = pr[2 * s];
+        frag[s][h + 2] = pr[2 * s + 1];
+      }
+    }
+    // lane t < 2 of a quad finishes row g + 8 t
+    const int ray_t = __shfl_sync(0xffffffffu, ray, g + 8 * (t & 1));
+    const int j_t = __shfl_sync(0xffffffffu, j, g + 8 * (t & 1));
+
+    // W1 emb: (64 x 48) x (48 x NT)
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s)
+      sm90::wgmma_rs<NT>(acc, frag[s], sm90::desc_sw128(w1t_addr + 32 * s), s > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+
+    // w2 . h: h = bf16(relu(acc + b1)) is, pair by pair, the A of the
+    // second product (64 x NT) x (NT x 8), whose column 0 is the score
+    uint32_t hfrag[NT / 16][4];
+#pragma unroll
+    for (int s = 0; s < NT / 16; ++s) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 bb = *reinterpret_cast<const float2*>(b1s + 16 * s + 8 * (q >> 1) + 2 * t);
+        hfrag[s][q] = relu_bf16_pair(acc[8 * s + 2 * q] + bb.x, acc[8 * s + 2 * q + 1] + bb.y);
+      }
+    }
+    float acc2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < NT / 16; ++s)
+      sm90::wgmma_rs<8>(acc2, hfrag[s], sm90::desc_sw128(w2t_addr + (s / 4) * 1024 + (s % 4) * 32),
+                        s > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc2);
+    const float up = __shfl_sync(0xffffffffu, acc2[2], lane & ~3);  // row g + 8, column 0
+    if (t < 2 && ray_t >= 0) {
+      const float sc = __fadd_rn(t == 0 ? acc2[0] : up, b2);
+      if (SCORES) a.scores[(r0 + ray_t) * C + j_t] = sc;
+      rows_s[ray_t * ld + j_t] = alpha_of(sc, terms_s[ray_t * 4 + 1]);
+    }
+  }
+}
+
+// The march of the block's nr rays over their alphas (see the header).
+template <int EPI>
+__device__ __forceinline__ void march_block(const Args& a, long long r0, const float* rays_s,
+                                            float* terms_s, float* rows_s, int nr, int tid) {
+  const int C = a.C, K = a.K, ld = row_ld(C), nb = C - 2;
+  if (tid < nr) {  // the scan: T, and S_i over the interior candidates
+    float* row = rows_s + tid * ld;
+    float T = 1.0f, S = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < C; ++j) {
+      const float al = row[j];
+      if (EPI == SELECT && j >= 1 && j <= C - 2) {
+        S = __fadd_rn(S, __fadd_rn(__fmul_rn(al, T), 1e-5f));
+        row[j - 1] = S;  // the running sums overwrite the alphas already read
+      }
+      T = __fmul_rn(T, __fadd_rn(__fsub_rn(1.0f, al), 1e-10f));
+    }
+    if (EPI == OPACITY) put(a.opacity + r0 + tid, __fsub_rn(1.0f, T));
+    if (EPI == SELECT) {
+      terms_s[tid * 4 + 2] = S;
+      if (a.mass) put(a.mass + r0 + tid, S);
+    }
+  }
+  if (EPI != SELECT) return;
+  __syncthreads();
+  // cdf_i = S_i / S for i = 1..nb at row[i - 1]; cdf_0 = 0
+  for (int i = tid; i < nr * nb; i += THREADS) {
+    const int ray = i / nb, m = i - ray * nb;
+    rows_s[ray * ld + m] = __fdiv_rn(rows_s[ray * ld + m], terms_s[ray * 4 + 2]);
+  }
+  __syncthreads();
+  // sample k of each ray: cnt = #{i : cdf_i <= u} >= 1, found by bisection
+  for (int i = tid; i < nr * K; i += THREADS) {
+    const int ray = i / K, k = i - ray * K;
+    const float* cdf = rows_s + ray * ld;  // cdf[m] = cdf_{m + 1}
+    const float* ry = rays_s + ray * 8;
+    const float u = a.midpoint ? __fdiv_rn(float(k) + 0.5f, float(K))
+                               : __fdiv_rn(float(k), float(K - 1));
+    int lo = 0, hi = nb;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cdf[mid] <= u) lo = mid + 1;
+      else hi = mid;
+    }
+    const int below = lo, above = min(lo + 1, nb);
+    const float near = ry[6], spacing = terms_s[ray * 4];
+    const float cb = below == 0 ? 0.0f : cdf[below - 1], ca = cdf[above - 1];
     const float bb = along(near, float(below) + 0.5f, spacing);
     const float ba = along(near, float(above) + 0.5f, spacing);
     const float dcdf = __fsub_rn(ca, cb);
     const float denom = dcdf < 1e-5f ? 1.0f : dcdf;
     const float zk = __fadd_rn(bb, __fmul_rn(__fdiv_rn(__fsub_rn(u, cb), denom),
                                              __fsub_rn(ba, bb)));
-    const long long q = r * K + k;
-    z_out[q] = zk;
+    const long long q = r0 * K + i;  // = (r0 + ray) K + k
+    put(a.z + q, zk);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) xyz_out[q * 3 + c] = along(o[c], d[c], zk);
-    if (rho_out) rho_out[q] = __fdiv_rn(dcdf, fmaxf(__fsub_rn(ba, bb), 1e-7f));
+    for (int c = 0; c < 3; ++c) put(a.xyz + 3 * q + c, along(ry[c], ry[3 + c], zk));
+    if (a.rho) put(a.rho + q, __fdiv_rn(dcdf, fmaxf(__fsub_rn(ba, bb), 1e-7f)));
   }
-  if (mass_out) mass_out[r] = S;
 }
 
-template <bool SELECT>
-int launch(const Weights& w, const float* rays, long long n_rays, int C, int K, int midpoint,
-           float* opacity, float* z, float* xyz, float* rho, float* mass, void* stream) {
-  const size_t smem = size_t(weight_floats(w.hidden) + (SELECT ? (C - 2) * TPB : 0)) * 4;
-  cudaError_t err = cudaFuncSetAttribute(proxy_march_kernel<SELECT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <int NT, int EPI, bool SCORES>
+__global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int C = a.C, B = rays_per_block(C);
+  const Layout l = layout(NT, C);
+  float* b1s = reinterpret_cast<float*>(smem + l.b1);
+  float* rays_s = reinterpret_cast<float*>(smem + l.rays);
+  float* terms_s = reinterpret_cast<float*>(smem + l.ray_terms);
+  float* rows_s = reinterpret_cast<float*>(smem + l.rows);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // The weights, once per CTA; the wgmma reads W1^T and w2 through the
+  // async proxy. w2's B: element (n, k) of 64-column block k / 64 at byte
+  // 128 n + 2 (k % 64) (row 0 is not swizzled), w2 in row 0.
+  for (int i = tid; i < NT * W1T_ROW / 16; i += THREADS)
+    reinterpret_cast<uint4*>(smem)[i] = __ldg(a.w1t + i);
+  unsigned short* w2t = reinterpret_cast<unsigned short*>(smem + l.w2t);
+  for (int e = tid; e < w2t_bytes(NT) / 2; e += THREADS) {
+    const int n = (e % 512) / 64, k = e / 512 * 64 + e % 64;
+    w2t[e] = n == 0 && k < a.hidden ? __bfloat16_as_ushort(a.w2[k]) : 0;
+  }
+  for (int k = tid; k < NT; k += THREADS) b1s[k] = k < a.hidden ? __ldg(a.b1 + k) : 0.0f;
+  sm90::fence_proxy_async();
+  __syncthreads();
+  const float b2 = __ldg(a.b2);
+  const uint32_t w1t_addr = sm90::smem_addr(smem), w2t_addr = w1t_addr + l.w2t;
+
+  const long long n_blocks = (a.n_rays + B - 1) / B;
+  for (long long blk = blockIdx.x; blk < n_blocks; blk += gridDim.x) {
+    const long long r0 = blk * B;
+    const int nr = int(a.n_rays - r0 < B ? a.n_rays - r0 : B);
+    for (int i = tid; i < nr * 8; i += THREADS) rays_s[i] = __ldg(a.rays + r0 * 8 + i);
+    __syncthreads();
+    if (tid < nr) {  // spacing = (far - near) / (C - 1) and spacing |d|, as the plain march
+      const float* ry = rays_s + tid * 8;
+      const float spacing = __fdiv_rn(__fsub_rn(ry[7], ry[6]), float(C - 1));
+      const float dn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(ry[3], ry[3]), __fmul_rn(ry[4], ry[4])),
+                                       __fmul_rn(ry[5], ry[5])));
+      terms_s[tid * 4] = spacing;
+      terms_s[tid * 4 + 1] = __fmul_rn(spacing, dn);
+    }
+    __syncthreads();
+    score_block<NT, SCORES>(a, r0, rays_s, terms_s, rows_s, nr, w1t_addr, w2t_addr, b1s, b2,
+                            warp, lane);
+    __syncthreads();
+    march_block<EPI>(a, r0, rays_s, terms_s, rows_s, nr, tid);
+    __syncthreads();  // the next block's rays and rows overwrite these
+  }
+}
+
+int hidden_width(int hidden) {
+  return hidden <= 16 ? 16 : hidden <= 32 ? 32 : hidden <= 64 ? 64 : hidden <= 96 ? 96 : 128;
+}
+
+int shared_bytes(int nt, int c) { return 1024 /* alignment slack */ + layout(nt, c).bytes; }
+
+// A persistent grid: min_ctas(NT) CTAs on every SM (the registers allow
+// that many, and shared memory stays under 40 KB a CTA up to C 256), or
+// one CTA a block where there are fewer blocks.
+template <int NT, int EPI, bool SCORES>
+int launch_width(const Args& a, void* stream) {
+  auto kernel = proxy_march_kernel<NT, EPI, SCORES>;
+  const int smem = shared_bytes(NT, a.C);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  const long long blocks = (n_rays + TPB - 1) / TPB;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  proxy_march_kernel<SELECT><<<unsigned(blocks), TPB, smem, static_cast<cudaStream_t>(stream)>>>(
-      w, rays, n_rays, C, K, midpoint, opacity, z, xyz, rho, mass);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return int(err);
+  const long long n_blocks = (a.n_rays + rays_per_block(a.C) - 1) / rays_per_block(a.C);
+  const long long full = (long long)sms * min_ctas(NT);
+  kernel<<<unsigned(n_blocks < full ? n_blocks : full), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
+}
+
+template <int EPI, bool SCORES>
+int launch(const Args& a, void* stream) {
+  switch (hidden_width(a.hidden)) {
+    case 16: return launch_width<16, EPI, SCORES>(a, stream);
+    case 32: return launch_width<32, EPI, SCORES>(a, stream);
+    case 64: return launch_width<64, EPI, SCORES>(a, stream);
+    case 96: return launch_width<96, EPI, SCORES>(a, stream);
+    default: return launch_width<128, EPI, SCORES>(a, stream);
+  }
+}
+
+Args weights(const void* w1t, const void* b1, const void* w2, const void* b2, int hidden,
+             const float* rays, long long n_rays, int C) {
+  Args a = {};
+  a.w1t = static_cast<const uint4*>(w1t);
+  a.b1 = static_cast<const float*>(b1);
+  a.w2 = static_cast<const bf16*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.hidden = hidden;
+  a.rays = rays;
+  a.n_rays = n_rays;
+  a.C = C;
+  return a;
+}
+
+bool valid(int hidden, int n_candidates, long long n_rays) {
+  return hidden >= 1 && hidden <= MAX_HIDDEN && n_candidates >= 4 && n_candidates <= 256 &&
+         n_rays >= 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Weights: w1 (hidden, 33) bf16, b1 (hidden,) f32, w2 (hidden,) bf16, b2 (1,)
-// f32. rays: (n_rays, 8) f32 [o, d, near, far]. Returns a cudaError_t value.
+// Weights: w1t (NT, 64) bf16, the pack's k3_w1t (NT = hidden rounded up to
+// 16, 32, 64, 96 or 128), 16-byte aligned; b1 (hidden,) f32, w2 (hidden,)
+// bf16, b2 (1,) f32. rays: (n_rays, 8) f32 [o, d, near, far]. Returns a
+// cudaError_t value.
 
 // opacity: (n_rays,) f32.
-int proxy_opacity_forward(const void* w1, const void* b1, const void* w2, const void* b2,
+int proxy_opacity_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                           int hidden, const float* rays, long long n_rays, int n_candidates,
                           float* opacity, void* stream) {
-  if (hidden < 1 || hidden > MAX_HIDDEN || n_candidates < 4 || n_rays < 0)
-    return int(cudaErrorInvalidValue);
+  if (!valid(hidden, n_candidates, n_rays)) return int(cudaErrorInvalidValue);
   if (n_rays == 0) return int(cudaSuccess);
-  const Weights w = {static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-                     static_cast<const bf16*>(w2), static_cast<const float*>(b2), hidden};
-  return launch<false>(w, rays, n_rays, n_candidates, 0, 0, opacity, nullptr, nullptr, nullptr,
-                       nullptr, stream);
+  Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
+  a.opacity = opacity;
+  return launch<OPACITY, false>(a, stream);
 }
 
 // z: (n_rays, n_keep) f32, xyz: (n_rays, n_keep, 3) f32; rho (n_rays,
 // n_keep) and mass (n_rays,) f32, or both null.
-int proxy_march_select_forward(const void* w1, const void* b1, const void* w2, const void* b2,
+int proxy_march_select_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                                int hidden, const float* rays, long long n_rays,
                                int n_candidates, int n_keep, int midpoint, float* z, float* xyz,
                                float* rho, float* mass, void* stream) {
-  if (hidden < 1 || hidden > MAX_HIDDEN || n_candidates < 4 || n_keep < 2 || n_rays < 0 ||
-      (rho == nullptr) != (mass == nullptr))
+  if (!valid(hidden, n_candidates, n_rays) || n_keep < 2 || (rho == nullptr) != (mass == nullptr))
     return int(cudaErrorInvalidValue);
   if (n_rays == 0) return int(cudaSuccess);
-  const Weights w = {static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-                     static_cast<const bf16*>(w2), static_cast<const float*>(b2), hidden};
-  return launch<true>(w, rays, n_rays, n_candidates, n_keep, midpoint, nullptr, z, xyz, rho,
-                      mass, stream);
+  Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
+  a.K = n_keep;
+  a.midpoint = midpoint;
+  a.z = z;
+  a.xyz = xyz;
+  a.rho = rho;
+  a.mass = mass;
+  return launch<SELECT, false>(a, stream);
+}
+
+// The opacity kernel that also stores the scores it marched: scores
+// (n_rays, n_candidates) f32, opacity (n_rays,) f32. A reading for the
+// tests, not on the renderer's path.
+int proxy_march_scores_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
+                               int hidden, const float* rays, long long n_rays, int n_candidates,
+                               float* scores, float* opacity, void* stream) {
+  if (!valid(hidden, n_candidates, n_rays)) return int(cudaErrorInvalidValue);
+  if (n_rays == 0) return int(cudaSuccess);
+  Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
+  a.opacity = opacity;
+  a.scores = scores;
+  return launch<OPACITY, true>(a, stream);
+}
+
+// The dynamic shared memory of one CTA of either kernel at these sizes, in
+// bytes (a reading for the smoke's build report).
+int proxy_march_shared_bytes(int hidden, int n_candidates) {
+  if (!valid(hidden, n_candidates, 0)) return -1;
+  return shared_bytes(hidden_width(hidden), n_candidates);
 }
 
 }  // extern "C"

@@ -7,42 +7,58 @@ this module owns everything around it:
 - `pack_proxy_params`: the proxy's weights as the proxy kernels read them
   (K3 here and K6 in `proxy_select.py`): ``w1`` (H, 33) bf16 in torch layout
   with the embedding columns in reference order, ``b1`` (H,) float32,
-  ``w2`` (H,) bf16, ``b2`` (1,) float32; H <= 128.
+  ``w2`` (H,) bf16, ``b2`` (1,) float32; H <= 128; and K3's ``k3_w1t``:
+  W1^T as the kernel's wgmma reads it (`pack_k3_w1t`, plain inverse
+  `unpack_k3_w1t`): (NT, 64) bf16, NT = H rounded up to a width the kernel
+  has (`k3_width`), its 48 embedding columns in the order in which the
+  kernel's threads build the embedding in registers (`k3_columns`), in the
+  128-byte swizzle.
 - `proxy_scores_ref`: the plain version of the proxy's score with the
-  kernels' rounding points and summation order (bf16 operands, float32
-  sums in input order, the bias added last). It equals
-  `render.fast.apply_proxy` at bf16 up to that order.
+  kernels' rounding points (bf16 operands, float32 sums in input order, the
+  bias added last). It equals `render.fast.apply_proxy` at bf16 up to that
+  order. `proxy_score_bar`: how far a score summed in another order may
+  lie from it.
 - `proxy_opacity_ref` / `proxy_march_select_ref`: the plain version of the
-  march. Candidates z_j = near + j * spacing; expected weights alpha * T
-  under sigma = expm1(relu(score)); the opacity 1 - T; and the
-  deterministic inverse CDF of the interior weights w[1:-1] with the
-  reference `sample_pdf`'s edges, the CDF formed as S_i / S_total of the
-  running sums S_i of w + 1e-5 (so its last entry is exactly 1). Every
-  step rounds as the kernel's does, so on the card the two agree bit for
-  bit (the tests and the smoke hold them to looser bars all the same).
+  march. Candidates z_j = near + j * spacing (`candidate_points`); expected
+  weights alpha * T under sigma = expm1(relu(score)); the opacity 1 - T;
+  and the deterministic inverse CDF of the interior weights w[1:-1] with
+  the reference `sample_pdf`'s edges, the CDF formed as S_i / S_total of
+  the running sums S_i of w + 1e-5 (so its last entry is exactly 1). Both
+  take the candidates' scores as given (`scores`) or score them with
+  `proxy_scores_ref`. Every step of the march rounds as the kernel's does;
+  the kernel sums the proxy in another order (the tensor cores'), so its
+  scores lie within `proxy_score_bar` of the plain ones, and given its own
+  scores (`proxy_march_scores`) the plain march equals its outputs bit for
+  bit on the card. The tests and the smoke hold the outputs to the plain
+  ones' bars on depths and opacity.
 - `proxy_opacity` / `proxy_march_select`: the public wrappers. A CPU tensor
   goes to the plain version; a CUDA tensor launches the kernel or raises.
-  `LAUNCHES` counts kernel launches per wrapper.
+  `LAUNCHES` counts kernel launches per wrapper. `proxy_march_scores`
+  reads the kernel's scores back (a reading for the tests and the smoke,
+  not counted).
 
-The TPU kernel's lane-major (8, N) rays, TILE_R padding and candidate-major
-survivor layout are not kept: rays are (R, 8) for any R, and the survivors
-come back ray-major (R, K, 3), so the field kernel takes one direction per
-ray.
+The TPU kernel's lane-major (8, N) rays, TILE_R padding, rotation
+recurrence for sin and candidate-major survivor layout are not kept: rays
+are (R, 8) for any R, and the survivors come back ray-major (R, K, 3), so
+the field kernel takes one direction per ray.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
-from nerf_siren_tpu_torch.ops.kernels.fused_mlp import _bf16, _check
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import _bf16, _check, _swizzle128
 
 PROXY_FREQS = 5
 PROXY_IN = 3 * (2 * PROXY_FREQS + 1)   # 33
 MAX_HIDDEN = 128
-MAX_CANDIDATES = 256   # the CDF's running sums take (C - 2) x 128 floats of shared memory
+MAX_CANDIDATES = 256   # blocks of 16 rays at C 256 keep the scores in shared memory
+K3_WIDTHS = (16, 32, 64, 96, 128)   # hidden widths of the kernel's wgmma wrappers
+K3_COLUMNS = 48        # embedding columns of the kernel's A: 33, padded to three k16 steps
+K3_ROW = 64            # bf16 per row of `k3_w1t`: one 128-byte swizzle row
 _SCORE_CHUNK = 1 << 20  # points per step of the plain score (bounds its temporaries)
 
 LAUNCHES = {"opacity": 0, "select": 0}
@@ -61,30 +77,137 @@ def pack_proxy_params(proxy, device=None) -> Packed:
     def f32(t):
         return t.detach().to(device, torch.float32).contiguous()
 
-    return {"w1": f32(proxy.l1.weight).to(torch.bfloat16), "b1": f32(proxy.l1.bias),
+    w1 = f32(proxy.l1.weight).to(torch.bfloat16)
+    return {"w1": w1, "b1": f32(proxy.l1.bias),
             "w2": f32(proxy.l2.weight)[0].to(torch.bfloat16).contiguous(),
-            "b2": f32(proxy.l2.bias)}
+            "b2": f32(proxy.l2.bias), "k3_w1t": pack_k3_w1t(w1)}
+
+
+# ---- K3's W1^T tile ---------------------------------------------------------
+
+def k3_width(hidden: int) -> int:
+    """The kernel's wgmma width for H hidden units: H rounded up to K3_WIDTHS."""
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"proxy kernels take hidden 1..{MAX_HIDDEN}, got {hidden}")
+    return next(w for w in K3_WIDTHS if w >= hidden)
+
+
+def k3_slot(t: int, i: int, e: int) -> int:
+    """The reference embedding column that thread t of a quad places as
+    element e (0 low, 1 high) of its pair i of a row, or -1 for a zero.
+    Pair i < 4 is (sin, cos) of angle q = 4 t + i = 3 k + r (coordinate r
+    times 2^k) while q < 15; thread 3's pairs 3 and 4 are (x, y), (z, 0)."""
+    if i < 4:
+        q = 4 * t + i
+        if q < 3 * PROXY_FREQS:
+            k, r = divmod(q, 3)
+            return 3 + 6 * k + r + 3 * e
+        return e
+    return 2 if (t, i, e) == (3, 4, 0) else -1
+
+
+def k3_column(t: int, i: int, e: int) -> int:
+    """The A column of element e of thread t's pair i: wgmma's register
+    fragment puts pair i in k-step i // 2, 8 columns on for odd i."""
+    return 16 * (i // 2) + 8 * (i % 2) + 2 * t + e
+
+
+def k3_columns() -> Tuple[int, ...]:
+    """For each of the kernel's K3_COLUMNS A columns, the reference
+    embedding column it holds, or -1."""
+    cols = [-1] * K3_COLUMNS
+    for t in range(4):
+        for i in range(6):
+            for e in range(2):
+                cols[k3_column(t, i, e)] = k3_slot(t, i, e)
+    return tuple(cols)
+
+
+def pack_k3_w1t(w1: torch.Tensor) -> torch.Tensor:
+    """w1 (H, 33) bf16 -> K3's W1^T tile (k3_width(H), K3_ROW) bf16: row n
+    holds hidden unit n's weights in `k3_columns` order (zeros in the
+    padding columns and rows), in the 128-byte swizzle."""
+    hidden = w1.shape[0]
+    cols = torch.tensor(k3_columns(), device=w1.device)
+    used = (cols >= 0).nonzero()[:, 0]
+    dense = torch.zeros((k3_width(hidden), K3_ROW), dtype=w1.dtype, device=w1.device)
+    dense[:hidden, used] = w1[:, cols[used]]
+    return _swizzle128(dense).contiguous()
+
+
+def unpack_k3_w1t(tile: torch.Tensor, hidden: int) -> torch.Tensor:
+    """The plain inverse of `pack_k3_w1t`: w1 (hidden, 33)."""
+    if tuple(tile.shape) != (k3_width(hidden), K3_ROW):
+        raise ValueError(f"k3_w1t: expected {(k3_width(hidden), K3_ROW)}, "
+                         f"got {tuple(tile.shape)}")
+    cols = torch.tensor(k3_columns(), device=tile.device)
+    used = (cols >= 0).nonzero()[:, 0]
+    w1 = torch.empty((hidden, PROXY_IN), dtype=tile.dtype, device=tile.device)
+    w1[:, cols[used]] = _swizzle128(tile)[:hidden, used]
+    return w1
 
 
 # ---- plain PyTorch version --------------------------------------------------
+
+def _pre_ref(packed: Packed, flat: torch.Tensor):
+    """(bf16 embedding, pre-activations W1 emb + b1) of points (N, 3),
+    summed as the kernels sum."""
+    w1, b1 = packed["w1"].float(), packed["b1"]
+    emb = _bf16(positional_encoding(flat, PROXY_FREQS))
+    acc = torch.zeros((emb.shape[0], w1.shape[0]), dtype=torch.float32, device=flat.device)
+    for j in range(PROXY_IN):
+        acc = acc + emb[:, j: j + 1] * w1[:, j]
+    return emb, acc + b1
+
 
 def proxy_scores_ref(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     """Proxy score (...,) of points (..., 3), summed as the kernels sum."""
     shape = xyz.shape[:-1]
     flat = xyz.reshape(-1, 3)
-    w1, b1 = packed["w1"].float(), packed["b1"]
     w2, b2 = packed["w2"].float(), packed["b2"]
     out = []
     for i in range(0, flat.shape[0], _SCORE_CHUNK):
-        emb = _bf16(positional_encoding(flat[i: i + _SCORE_CHUNK], PROXY_FREQS))
-        acc = torch.zeros((emb.shape[0], w1.shape[0]), dtype=torch.float32, device=xyz.device)
-        for j in range(PROXY_IN):
-            acc = acc + emb[:, j: j + 1] * w1[:, j]
-        h = _bf16(torch.relu(acc + b1))
-        score = torch.zeros(emb.shape[0], dtype=torch.float32, device=xyz.device)
+        h = _bf16(torch.relu(_pre_ref(packed, flat[i: i + _SCORE_CHUNK])[1]))
+        score = torch.zeros(h.shape[0], dtype=torch.float32, device=xyz.device)
         for k in range(w2.shape[0]):
             score = score + h[:, k] * w2[k]
         out.append(score + b2)
+    return torch.cat(out).reshape(shape)
+
+
+def proxy_score_bar(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
+    """(...,) how far a score of points (..., 3) summed in another order
+    than `proxy_scores_ref`'s may lie from it, given the same bf16
+    embedding and the same rounding points.
+
+    A pre-activation a_k = W1_k emb + b1_k moves by at most
+    D_k = d_k + 2^-21 (|a_k| + d_k), d_k = 2^-17 sum_j |emb_j W1_kj|: the
+    plain 33-term float32 sum of exact products rounds 32 times (at most
+    2^-19 of its terms' magnitude), the tensor cores' sum is allowed three
+    times that (their adds align to the largest term and may truncate), and
+    2^-21 |a_k| covers the b1 add's rounding in both and that of a_k +- D_k.
+    bf16(relu(.)) is monotone, so h_k moves by at most
+    m_k = max(bf16(relu(a_k + D_k)) - h_k, h_k - bf16(relu(a_k - D_k))):
+    0 unless a rounding point of h_k lies within D_k of a_k, else about one
+    bf16 step. The second sum's exact products h_k w2_k, summed in either
+    order (H <= 128 terms), move by at most 2^-17 of their magnitude each,
+    and b2's add by 2^-23 |score| each. So |d score| <= (1 + 2^-16)
+    sum_k |w2_k| m_k + 2^-16 sum_k |h_k w2_k| + 2^-22 |score|. A bar that
+    let every unit move by a bf16 step would also pass b1 rounded to bf16;
+    this one does not."""
+    shape = xyz.shape[:-1]
+    flat = xyz.reshape(-1, 3)
+    w1a, w2 = packed["w1"].float().abs(), packed["w2"].float()
+    out = []
+    for i in range(0, flat.shape[0], _SCORE_CHUNK):
+        emb, pre = _pre_ref(packed, flat[i: i + _SCORE_CHUNK])
+        h = _bf16(torch.relu(pre))
+        d = 2.0 ** -17 * (emb.abs() @ w1a.t())
+        dd = d + 2.0 ** -21 * (pre.abs() + d)
+        move = torch.maximum(_bf16(torch.relu(pre + dd)) - h, h - _bf16(torch.relu(pre - dd)))
+        hw = h * w2
+        out.append((1.0 + 2.0 ** -16) * (move * w2.abs()).sum(1) + 2.0 ** -16 * hw.abs().sum(1)
+                   + 2.0 ** -22 * (hw.sum(1) + packed["b2"]).abs())
     return torch.cat(out).reshape(shape)
 
 
@@ -94,17 +217,35 @@ def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.tensor(float(b), device=a.device)
 
 
-def _march_ref(packed: Packed, rays: torch.Tensor, n_candidates: int):
+def _spacing(rays: torch.Tensor, n_candidates: int) -> torch.Tensor:
+    return _div(rays[:, 7:8] - rays[:, 6:7], n_candidates - 1)
+
+
+def candidate_points(rays: torch.Tensor, n_candidates: int) -> torch.Tensor:
+    """(R, C, 3): the points o + d z_j, z_j = near + j * spacing, that the
+    march scores."""
+    z = rays[:, 6:7] + torch.arange(n_candidates, dtype=torch.float32,
+                                    device=rays.device) * _spacing(rays, n_candidates)
+    return rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]
+
+
+def proxy_march_scores_ref(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torch.Tensor:
+    """Plain version of `proxy_march_scores`: (R, C) the candidates' scores."""
+    return proxy_scores_ref(packed, candidate_points(rays, n_candidates))
+
+
+def _march_ref(packed: Packed, rays: torch.Tensor, n_candidates: int,
+               scores: Optional[torch.Tensor] = None):
     """(final transmittance (R, 1), running sums S (R, C-2) of the interior
-    weights + 1e-5, spacing (R, 1))."""
+    weights + 1e-5, spacing (R, 1)) under the candidates' scores (R, C),
+    given or from `proxy_march_scores_ref`."""
     c = n_candidates
-    o, d = rays[:, 0:3], rays[:, 3:6]
-    near, far = rays[:, 6:7], rays[:, 7:8]
-    spacing = _div(far - near, c - 1)
+    d = rays[:, 3:6]
+    near = rays[:, 6:7]
+    spacing = _spacing(rays, c)
     dn = torch.sqrt(d[:, 0:1] * d[:, 0:1] + d[:, 1:2] * d[:, 1:2] + d[:, 2:3] * d[:, 2:3])
     dz = spacing * dn
-    z = near + torch.arange(c, dtype=torch.float32, device=rays.device) * spacing
-    score = proxy_scores_ref(packed, o[:, None, :] + d[:, None, :] * z[..., None])
+    score = proxy_march_scores_ref(packed, rays, c) if scores is None else scores
     alpha = 1.0 - torch.exp(-(torch.expm1(torch.relu(score)) * dz))
     trans, run = torch.ones_like(near), torch.zeros_like(near)
     cum = []
@@ -117,9 +258,10 @@ def _march_ref(packed: Packed, rays: torch.Tensor, n_candidates: int):
     return trans, torch.cat(cum, dim=1), spacing
 
 
-def proxy_opacity_ref(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torch.Tensor:
+def proxy_opacity_ref(packed: Packed, rays: torch.Tensor, n_candidates: int,
+                      scores: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of `proxy_opacity`: (R,) 1 - final transmittance."""
-    return 1.0 - _march_ref(packed, rays, n_candidates)[0][:, 0]
+    return 1.0 - _march_ref(packed, rays, n_candidates, scores)[0][:, 0]
 
 
 def _u(n_keep: int, midpoint: bool, device) -> torch.Tensor:
@@ -128,11 +270,11 @@ def _u(n_keep: int, midpoint: bool, device) -> torch.Tensor:
 
 
 def proxy_march_select_ref(packed: Packed, rays: torch.Tensor, n_candidates: int,
-                           n_keep: int, midpoint: bool = False,
-                           return_density: bool = False) -> Tuple[torch.Tensor, ...]:
+                           n_keep: int, midpoint: bool = False, return_density: bool = False,
+                           scores: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Plain version of `proxy_march_select`."""
     r, c = rays.shape[0], n_candidates
-    _, cum, spacing = _march_ref(packed, rays, c)                  # cum (R, C-2)
+    _, cum, spacing = _march_ref(packed, rays, c, scores)          # cum (R, C-2)
     near = rays[:, 6:7]
     mass = cum[:, -1:]
     cdf = torch.cat([torch.zeros_like(mass), cum / mass], dim=1)   # (R, C-1)
@@ -160,8 +302,21 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.proxy_opacity_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p]
     lib.proxy_march_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, p, p, p]
-    lib.proxy_opacity_forward.restype = lib.proxy_march_select_forward.restype = i
+    lib.proxy_march_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p, p]
+    lib.proxy_march_shared_bytes.argtypes = [i, i]
+    for fn in (lib.proxy_opacity_forward, lib.proxy_march_select_forward,
+               lib.proxy_march_scores_forward, lib.proxy_march_shared_bytes):
+        fn.restype = i
     return lib
+
+
+def shared_bytes(hidden: int, n_candidates: int) -> int:
+    """Dynamic shared memory of one CTA of the kernel at these sizes, in
+    bytes (the smoke's build report)."""
+    n = _lib().proxy_march_shared_bytes(hidden, n_candidates)
+    if n < 0:
+        raise ValueError(f"proxy kernels do not take hidden {hidden}, C {n_candidates}")
+    return n
 
 
 def weight_args(packed: Packed, rays: torch.Tensor, n_candidates: int) -> list:
@@ -181,6 +336,16 @@ def weight_args(packed: Packed, rays: torch.Tensor, n_candidates: int) -> list:
     return [packed[k].data_ptr() for k in ("w1", "b1", "w2", "b2")] + [hidden]
 
 
+def k3_args(packed: Packed, rays: torch.Tensor, n_candidates: int) -> list:
+    """`weight_args` with K3's W1^T tile in place of w1."""
+    args = weight_args(packed, rays, n_candidates)
+    if "k3_w1t" not in packed:
+        raise ValueError("k3_w1t: missing from the pack (pack_proxy_params makes it)")
+    _check(packed["k3_w1t"], "k3_w1t", rays.device, torch.bfloat16,
+           (k3_width(args[-1]), K3_ROW))
+    return [packed["k3_w1t"].data_ptr()] + args[1:]
+
+
 def current_stream(device) -> int:
     with torch.cuda.device(device):
         return torch.cuda.current_stream().cuda_stream
@@ -191,7 +356,7 @@ def proxy_opacity(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torc
     prepass. rays: (R, 8) f32 [o, d, near, far]."""
     if rays.device.type == "cpu":
         return proxy_opacity_ref(packed, rays, n_candidates)
-    args = weight_args(packed, rays, n_candidates)
+    args = k3_args(packed, rays, n_candidates)
     out = torch.empty(rays.shape[0], dtype=torch.float32, device=rays.device)
     err = _lib().proxy_opacity_forward(*args, rays.data_ptr(), rays.shape[0], n_candidates,
                                        out.data_ptr(), current_stream(rays.device))
@@ -214,7 +379,7 @@ def proxy_march_select(packed: Packed, rays: torch.Tensor, n_candidates: int, n_
     if rays.device.type == "cpu":
         return proxy_march_select_ref(packed, rays, n_candidates, n_keep, midpoint,
                                       return_density)
-    args = weight_args(packed, rays, n_candidates)
+    args = k3_args(packed, rays, n_candidates)
     r, dev = rays.shape[0], rays.device
     z = torch.empty((r, n_keep), dtype=torch.float32, device=dev)
     xyz = torch.empty((r, n_keep, 3), dtype=torch.float32, device=dev)
@@ -228,3 +393,22 @@ def proxy_march_select(packed: Packed, rays: torch.Tensor, n_candidates: int, n_
         raise RuntimeError(f"proxy_march_select_forward failed: cudaError {err}")
     LAUNCHES["select"] += 1
     return (z, xyz, rho, mass) if return_density else (z, xyz)
+
+
+def proxy_march_scores(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torch.Tensor:
+    """The candidates' scores (R, C) as the kernel computes and marches them
+    (its opacity epilogue, built to store them too): a reading for the
+    tests and the smoke, not on the renderer's path and not counted in
+    LAUNCHES."""
+    if rays.device.type == "cpu":
+        return proxy_march_scores_ref(packed, rays, n_candidates)
+    args = k3_args(packed, rays, n_candidates)
+    r, dev = rays.shape[0], rays.device
+    scores = torch.empty((r, n_candidates), dtype=torch.float32, device=dev)
+    opacity = torch.empty(r, dtype=torch.float32, device=dev)
+    err = _lib().proxy_march_scores_forward(*args, rays.data_ptr(), r, n_candidates,
+                                            scores.data_ptr(), opacity.data_ptr(),
+                                            current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"proxy_march_scores_forward failed: cudaError {err}")
+    return scores

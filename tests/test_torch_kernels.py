@@ -324,14 +324,18 @@ def test_train_kernels_reject_what_they_do_not_take(cuda_device):
 
 
 # ---- K3 proxy march, K6 proxy top-K, K4 int8 field ----------------------------
-# Tolerances of kernel vs plain: the proxy kernels and their plain versions
-# round at the same points in the same order, so on an H100 they agree bit
-# for bit; the bars are still tests/test_proxy_march.py's (depths: median
+# Tolerances of kernel vs plain: K3 scores the proxy on the tensor cores, so
+# its float32 sums run in another order than the plain version's and its
+# scores lie within `proxy_score_bar` of the plain scores (a pre-activation
+# moved by float32 rounding may round its hidden activation to the
+# neighbouring bf16 value); given its own scores (`proxy_march_scores`) the
+# plain march equals its outputs bit for bit. Against the plain version
+# end to end the bars are tests/test_proxy_march.py's (depths: median
 # |dz| < 0.005 and 99th percentile < 0.05 of far - near; opacity: median
-# < 2e-3, max < 0.05), as a sinf/cosf of another library may round apart.
-# K6: per-ray set equality of depths (atol 1e-5). K4: rgb atol 2e-2, sigma
-# atol 5e-2 + rtol 2e-2 (tests/test_fused_int8.py), and under 1e-3 of the
-# int8 inputs of its layers rounded apart (0 on an H100).
+# < 2e-3, max < 0.05). K6 rounds as its plain version at every point: per-ray
+# set equality of depths (atol 1e-5). K4: rgb atol 2e-2, sigma atol 5e-2 +
+# rtol 2e-2 (tests/test_fused_int8.py), and under 1e-3 of the int8 inputs of
+# its layers rounded apart (0 on an H100).
 
 def _proxy_rays(n, seed=0):
     rng = np.random.default_rng(seed)
@@ -370,10 +374,14 @@ def test_proxy_and_int8_wrappers_run_plain_versions_on_the_cpu():
     assert (dict(k3.LAUNCHES), dict(k6.LAUNCHES), dict(k4.LAUNCHES)) == before
 
 
+K3_SHAPES = [(1, 16, 8, 48, False), (130, 32, 16, 96, True), (4099, 32, 16, 96, False),
+             (2048, 64, 5, 128, True), (77, 5, 4, 96, True), (301, 37, 16, 100, False),
+             (65, 256, 16, 1, True), (200, 256, 3, 128, False), (129, 96, 40, 96, True),
+             (70, 64, 300, 48, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,k,hidden,midpoint", [(1, 16, 8, 48, False), (130, 32, 16, 96, True),
-                                                   (4099, 32, 16, 96, False),
-                                                   (2048, 64, 5, 128, True)])
+@pytest.mark.parametrize("n,c,k,hidden,midpoint", K3_SHAPES)
 def test_proxy_march_kernels_match_plain(cuda_device, n, c, k, hidden, midpoint):
     from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
 
@@ -397,6 +405,70 @@ def test_proxy_march_kernels_match_plain(cuda_device, n, c, k, hidden, midpoint)
     torch.testing.assert_close(mass, rmass, atol=1e-5, rtol=1e-4)
     rel = (rho - rrho).abs() / rrho.abs().clamp_min(1e-3)
     assert float(rel.median()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,k,hidden,midpoint", K3_SHAPES)
+def test_proxy_march_scores_within_bar_and_plain_march_on_them_is_bit_equal(
+        cuda_device, n, c, k, hidden, midpoint):
+    """K3's scores read back lie within `proxy_score_bar` of the plain
+    scores; the plain march on them equals both kernels' outputs bit for
+    bit."""
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    pp, rays = _proxy_pack(hidden, cuda_device), _proxy_rays(n).to(cuda_device)
+    got = k3.proxy_march_scores(pp, rays, c)
+    ref = k3.proxy_march_scores_ref(pp, rays, c)
+    bar = k3.proxy_score_bar(pp, k3.candidate_points(rays, c))
+    d = (got - ref).abs()
+    over = torch.where(d > 0, d / bar, torch.zeros((), device=d.device))
+    print(f"\n[n={n} C={c} H={hidden}] scores: {int((got != ref).sum())} of {got.numel()} differ, "
+          f"max|d| {float(d.max()):.3e}, max |d| / bar {float(over.max()):.3e}")
+    assert got.shape == (n, c) and bool(torch.isfinite(got).all())
+    assert bool((d <= bar).all())
+    opac = k3.proxy_opacity(pp, rays, c)
+    assert torch.equal(opac, k3.proxy_opacity_ref(pp, rays, c, scores=got))
+    outs = k3.proxy_march_select(pp, rays, c, k, midpoint, True)
+    for a, b in zip(outs, k3.proxy_march_select_ref(pp, rays, c, k, midpoint, True,
+                                                    scores=got)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_proxy_march_rays_are_independent_of_their_batch(cuda_device):
+    """A ray's outputs do not depend on its place in the batch or on R: a
+    subset (another block and tile position for every ray) gives the same
+    bits as the full batch, and two calls give the same bits."""
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    pp, rays = _proxy_pack(96, cuda_device), _proxy_rays(5000, seed=7).to(cuda_device)
+    idx = torch.randperm(5000, generator=torch.Generator().manual_seed(0))[:1237].to(cuda_device)
+    sub = rays[idx].contiguous()
+    for c in (16, 37):
+        full = k3.proxy_march_select(pp, rays, c, 16, True, True)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(full, k3.proxy_march_select(pp, rays, c, 16, True, True)))
+        for a, b in zip(full, k3.proxy_march_select(pp, sub, c, 16, True, True)):
+            assert torch.equal(a[idx], b)
+        opac = k3.proxy_opacity(pp, rays, c)
+        assert torch.equal(opac, k3.proxy_opacity(pp, rays, c))
+        assert torch.equal(opac[idx], k3.proxy_opacity(pp, sub, c))
+        assert torch.equal(k3.proxy_march_scores(pp, rays, c)[idx],
+                           k3.proxy_march_scores(pp, sub, c))
+
+
+@pytest.mark.cuda
+def test_proxy_march_kernels_take_no_rays(cuda_device):
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    pp, rays = _proxy_pack(96, cuda_device), _proxy_rays(0).to(cuda_device)
+    before = dict(k3.LAUNCHES)
+    assert k3.proxy_opacity(pp, rays, 32).shape == (0,)
+    z, xyz, rho, mass = k3.proxy_march_select(pp, rays, 32, 16, True, True)
+    torch.cuda.synchronize()
+    assert (z.shape, xyz.shape, rho.shape, mass.shape) == ((0, 16), (0, 16, 3), (0, 16), (0,))
+    assert k3.proxy_march_scores(pp, rays, 32).shape == (0, 32)
+    assert k3.LAUNCHES == {"opacity": before["opacity"] + 1, "select": before["select"] + 1}
 
 
 @pytest.mark.cuda
@@ -507,6 +579,10 @@ def test_proxy_and_int8_kernels_reject_what_they_do_not_take(cuda_device):
         k3.proxy_opacity(pp, rays, 3)
     with pytest.raises(ValueError, match="w1"):
         k3.proxy_opacity({**pp, "w1": pp["w1"].float()}, rays, 16)
+    with pytest.raises(ValueError, match="k3_w1t"):
+        k3.proxy_march_select({k: v for k, v in pp.items() if k != "k3_w1t"}, rays, 16, 8)
+    with pytest.raises(ValueError, match="k3_w1t"):
+        k3.proxy_opacity({**pp, "k3_w1t": pp["k3_w1t"][:16].contiguous()}, rays, 16)
     p8 = k4.pack_nerf_params_int8(NeRF(NeRFConfig()).to(cuda_device))
     xyz = torch.zeros((4, 3), device=cuda_device)
     with pytest.raises(ValueError, match="q1"):
@@ -604,6 +680,23 @@ def test_triplane_gather_launch_plan_narrows_the_load_to_the_table_alignment():
     assert k5.launch_plan(32, f32, 10, table_ptr=4)[:2] == (1, 4)
     with pytest.raises(ValueError, match="exceed one grid"):
         k5.launch_plan(32, bf16, 2**40)
+
+
+def test_k3_ablation_variants_apply_to_the_kernel_source():
+    """Every text edit of the K3 ablation tool still finds its place in
+    csrc/proxy_march.cu, and each variant differs from the kernel."""
+    from nerf_siren_tpu_torch import k3_ablation
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "proxy_march.cu").read_text()
+    found = k3_ablation.variants(src)
+    assert found.pop("as built") == src
+    assert len(found) == 4 and all(text != src for text in found.values())
+    assert "sincosf(" not in found["no sincosf"]
+    assert "wgmma_rs<NT>(" not in found["no products"]
+    assert "wgmma_rs<8>(" not in found["no products"]
+    assert "march_block<EPI>(a" not in found["no march"]
+    assert k3_ablation.chunk_rays("cpu").shape == (k3_ablation.CHUNK, 8)
 
 
 def test_k5_ablation_variants_apply_to_the_kernel_source():

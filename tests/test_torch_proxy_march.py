@@ -2,8 +2,10 @@
 against the JAX package: `apply_proxy`, the proxy weights' round trip
 through `convert.py`, the proxy march (K3: `proxy_opacity`,
 `proxy_march_select` with its density aux) and the proxy top-K (K6:
-`proxy_select`). The JAX kernels run in Pallas interpret mode on the CPU,
-as tests/test_proxy_march.py and tests/test_fast_render.py run them: K3 on
+`proxy_select`); and, torch only, K3's pack (`k3_w1t`: its column
+permutation against its plain inverse) and the plain march on given
+scores. The JAX kernels run in Pallas interpret mode on the CPU, as
+tests/test_proxy_march.py and tests/test_fast_render.py run them: K3 on
 R = TILE_R = 2048 rays.
 
 Tolerances (the JAX kernel tests' own bars, which their kernels meet
@@ -157,6 +159,111 @@ def test_march_plain_matches_the_jnp_pdf_path(proxy):
     got = k3.proxy_march_select(tpack, torch.from_numpy(rays), C, K, True)[0].numpy()
     err = np.abs(got - z_ref)
     assert np.median(err) < 0.005 * SPAN and np.percentile(err, 99) < 0.05 * SPAN
+
+
+@pytest.mark.parametrize("hidden", [1, 48, 96, 100, 128])
+def test_k3_w1t_pack_and_its_plain_inverse(hidden):
+    """K3's W1^T tile: the plain inverse gives w1 back; the tile is the
+    permuted W1^T, zero in the padding columns and rows, in the 128-byte
+    swizzle (16-byte chunk j of row n at chunk j ^ (n % 8))."""
+    from nerf_siren_tpu_torch.render.fast import init_proxy
+
+    pp = k3.pack_proxy_params(init_proxy(hidden, generator=torch.Generator().manual_seed(hidden)))
+    tile = pp["k3_w1t"]
+    width = k3.k3_width(hidden)
+    assert width in k3.K3_WIDTHS and width >= hidden and tile.shape == (width, k3.K3_ROW)
+    assert tile.dtype == torch.bfloat16 and tile.is_contiguous()
+    assert torch.equal(k3.unpack_k3_w1t(tile, hidden), pp["w1"])
+    dense = tile.view(width, 8, 8)[torch.arange(width)[:, None],
+                                   torch.arange(8)[None, :] ^ (torch.arange(width) % 8)[:, None]]
+    dense = dense.reshape(width, k3.K3_ROW)
+    cols = k3.k3_columns()
+    for c in range(k3.K3_ROW):
+        want = (pp["w1"][:, cols[c]] if c < k3.K3_COLUMNS and cols[c] >= 0
+                else torch.zeros(hidden, dtype=torch.bfloat16))
+        assert torch.equal(dense[:hidden, c], want)
+    assert not dense[hidden:].any()
+    with pytest.raises(ValueError, match="k3_w1t"):
+        k3.unpack_k3_w1t(tile[:, :32], hidden)
+
+
+def test_k3_embedding_columns_each_held_by_one_thread_slot():
+    """Each of the 33 reference embedding columns is placed by exactly one
+    (thread of the quad, pair, half), at the A column wgmma's register
+    fragment gives that slot; every other slot of the 48 columns is zero;
+    and a thread places the sin and cos of an angle in one pair."""
+    slots = {}
+    for t in range(4):
+        for i in range(6):
+            for e in range(2):
+                col = k3.k3_column(t, i, e)
+                assert col not in slots.values() and 0 <= col < k3.K3_COLUMNS
+                slots[(t, i, e)] = col
+                ref = k3.k3_slot(t, i, e)
+                assert k3.k3_columns()[col] == ref
+    assert len(slots) == k3.K3_COLUMNS
+    placed = [c for c in k3.k3_columns() if c >= 0]
+    assert sorted(placed) == list(range(k3.PROXY_IN))
+    for t in range(4):
+        for i in range(4):
+            sin, cos = k3.k3_slot(t, i, 0), k3.k3_slot(t, i, 1)
+            if sin >= 3:
+                assert cos == sin + 3 and (sin - 3) % 6 < 3
+    # the embedding through the permuted columns gives the same pre-activations
+    pp = k3.pack_proxy_params(port_proxy(jfast.init_proxy(jax.random.PRNGKey(2), hidden=96)))
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-4, 4, (300, 3)).astype(np.float32))
+    emb = k3._pre_ref(pp, x)[0]
+    cols = torch.tensor(k3.k3_columns())
+    a = torch.where(cols >= 0, emb[:, cols.clamp_min(0)], torch.zeros(()))
+    w1t = k3.unpack_k3_w1t(pp["k3_w1t"], 96)
+    perm = torch.where(cols >= 0, w1t.float()[:, cols.clamp_min(0)], torch.zeros(()))
+    np.testing.assert_allclose((a @ perm.t()).numpy(), (emb @ pp["w1"].float().t()).numpy(),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("c,midpoint", [(5, False), (16, True), (37, True)])
+def test_plain_march_on_given_scores_equals_the_plain_march(proxy, c, midpoint):
+    """The plain march given `proxy_march_scores_ref`'s scores equals the
+    plain march that scores the candidates itself, bit for bit: opacity,
+    depths, survivors, densities and mass."""
+    tpack = proxy[2]
+    rays = torch.from_numpy(rays_np(333, seed=6))
+    scores = k3.proxy_march_scores_ref(tpack, rays, c)
+    assert scores.shape == (333, c)
+    assert torch.equal(scores, k3.proxy_scores_ref(tpack, k3.candidate_points(rays, c)))
+    assert torch.equal(k3.proxy_opacity_ref(tpack, rays, c, scores=scores),
+                       k3.proxy_opacity_ref(tpack, rays, c))
+    for a, b in zip(k3.proxy_march_select_ref(tpack, rays, c, 8, midpoint, True, scores=scores),
+                    k3.proxy_march_select_ref(tpack, rays, c, 8, midpoint, True)):
+        assert torch.equal(a, b)
+    assert torch.equal(k3.proxy_march_scores(tpack, rays, c), scores)   # CPU: the plain version
+    bar = k3.proxy_score_bar(tpack, k3.candidate_points(rays, c))
+    assert bar.shape == (333, c) and bool((bar > 0).all())
+
+
+@pytest.mark.parametrize("hidden", [48, 96, 128])
+def test_proxy_score_bar_holds_a_reordered_sum_and_rejects_b1_in_bf16(hidden):
+    """`proxy_score_bar` holds the plain scores summed in another order (both
+    products as matmuls) at every point, and rejects the scores with b1
+    rounded to bf16 (as a kernel folding b1 into its bf16 product would give
+    them) at many points."""
+    from nerf_siren_tpu_torch.ops.kernels.fused_mlp import _bf16
+    from nerf_siren_tpu_torch.render.fast import init_proxy
+
+    pp = k3.pack_proxy_params(init_proxy(hidden, generator=torch.Generator().manual_seed(7)))
+    x = torch.from_numpy(np.random.default_rng(8).uniform(-4, 4, (20000, 3)).astype(np.float32))
+    ref, bar = k3.proxy_scores_ref(pp, x), k3.proxy_score_bar(pp, x)
+    emb, _ = k3._pre_ref(pp, x)
+    h = _bf16(torch.relu(emb @ pp["w1"].float().t() + pp["b1"]))
+    reordered = h @ pp["w2"].float() + pp["b2"]
+    folded = k3.proxy_scores_ref({**pp, "b1": _bf16(pp["b1"])}, x)
+
+    def over(scores):
+        d = (scores - ref).abs()
+        return torch.where(d > 0, d / bar, torch.zeros(()))
+
+    assert float(over(reordered).max()) <= 1.0
+    assert float((over(folded) > 1.0).float().mean()) > 0.05
 
 
 @pytest.mark.parametrize("n,nc,nk", [(70, 32, 8), (64, 64, 16)])
