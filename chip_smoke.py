@@ -32,6 +32,11 @@ Run from the repository root. Phases, each printing a line:
      and cotangents on both sides; a ReLU mask that flips with a
      neighbouring bf16 value moves single elements). Each kernel timed
      beside its plain version, coarse + fine shapes (one step's work); the
+     forward also: its kernel's own device ms (`torch.profiler`) beside its
+     time before the redesign (EARLIER_K2_MS, another call), its registers,
+     spill bytes and dynamic shared memory from the build's `-Xptxas -v`
+     log, and as a reading only (never on the path) its products as a chain
+     of bf16 `torch.matmul` calls; the
      backward also: each of its three kernels' own device ms (tile, wgrad,
      reduce; `torch.profiler`) beside their times before the redesign
      (EARLIER_K2_MS, another call), their registers, spill bytes and
@@ -203,10 +208,11 @@ EARLIER_K1_MS = {"fused_nerf_sigma": 20.673, "fused_nerf_full": 68.704}
 # K4's times before its redesign (the mma.sync kernel, at phase 8's shapes on an H100 80GB
 # HBM3, 700 W)
 EARLIER_K4_MS = {"fused_nerf_sigma_int8": 42.806, "fused_nerf_full_int8": 11.652}
-# K2's backward before its redesign (the wmma tile kernel, the wmma weight-gradient kernel
-# and the whole backward, ms per step of 2 launches, at phase 5's shapes; another call on an
-# H100 80GB HBM3, 700 W)
-EARLIER_K2_MS = {"tile": 10.595, "wgrad": 6.679, "fused_train_bwd": 17.440}
+# K2 before its redesigns (the wmma tile kernel, the wmma weight-gradient kernel and the
+# whole backward; the wmma forward; ms per step of 2 launches, at phase 5's shapes; other
+# calls on an H100 80GB HBM3, 700 W)
+EARLIER_K2_MS = {"tile": 10.595, "wgrad": 6.679, "fused_train_bwd": 17.440,
+                 "fused_train_fwd": 2.822}
 # K3's times before its redesign (the CUDA-core kernel on an H100 80GB HBM3, 700 W: one
 # 32,768-ray chunk at C 32, K 16 from the fast frame's profile, 9.363 ms / 20; one launch
 # over a frame's 640,000 rays; the opacity prepass at 640,000 rays, C 16)
@@ -216,6 +222,7 @@ EARLIER_K3_MS = {"chunk": 0.468, "one launch": 5.537, "opacity": 2.662}
 K6_SASS_DIGEST = "0ce9c24cd4602700"
 K2_BWD_SYMBOLS = {"tile": "nerf_train_bwd_tile_kernel", "wgrad": "nerf_train_wgrad_kernel",
                   "reduce": "nerf_train_reduce_kernel"}
+K2_FWD_SYMBOL = "nerf_train_fwd_tile_kernel"
 K4_SYMBOLS = {"fused_nerf_sigma_int8": "nerf_field_int8_kernelILb0E",
               "fused_nerf_full_int8": "nerf_field_int8_kernelILb1E"}
 K1_SYMBOLS = {"fused_nerf_sigma": "nerf_field_kernelILb0E",   # mangled <false> / <true>
@@ -547,9 +554,33 @@ def check_train_kernels(model, frame_rays, device, card):
         results[name] = {"max_abs_err": fwd_err if name == "fused_train_fwd" else bwd_err,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
-        if name == "fused_train_bwd":
+        if name == "fused_train_fwd":
+            forward_readings(packed, kern, shapes, ms, bound_ms, flops, card)
+        else:
             backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card)
     return results
+
+
+def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
+    """Phase 5's readings of K2's forward at one step's shapes: its kernel's
+    own device ms, its build report and the matmul chain of its products."""
+    from nerf_siren_tpu_torch.card_bench import kernel_ms
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    regs, spills, stack = next(v for k, v in ptxas_report("fused_mlp_train").items()
+                               if K2_FWD_SYMBOL in k)
+    own = sum(v for k, v in kernel_ms(lambda: [f() for f in kern], 3).items()
+              if K2_FWD_SYMBOL in k)
+    chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes],
+                                     backward=False)
+    earlier = EARLIER_K2_MS["fused_train_fwd"]
+    print(f"[5/17] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
+          f"profiler, mean of 3; before the redesign {earlier} ms, another call; "
+          f"{earlier / own:.2f}x); operations bound {bound_ms:.3f} ms ({100 * bound_ms / own:.1f}% "
+          f"of it); build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes (stores + "
+          f"loads), {stack} bytes stack frame; {k2._lib().nerf_train_smem_bytes(2)} bytes dynamic "
+          f"shared memory; bf16 torch.matmul chain of the same products {chain_ms:.3f} ms "
+          f"({flops * 1e-12 / (chain_ms * 1e-3):.1f} TFLOP/s; a reading); {card}", flush=True)
 
 
 def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
@@ -585,12 +616,13 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
           f"a reading); {card}", flush=True)
 
 
-def train_matmul_chain_ms(packed, sizes):
+def train_matmul_chain_ms(packed, sizes, backward=True):
     """A reading only, never on the path: K2's backward products at each of
     `sizes` points as bf16 `torch.matmul` calls (random inputs; no
     embedding, bias, ReLU, mask or head nonlinearity): the recompute's
     layer products, the dgrad chain's (dz W), and the 14 weight gradients
-    (dz^T a); ms per chain over 3 runs."""
+    (dz^T a); ms per chain over 3 runs. With `backward` False, the
+    forward's: the recompute's layer products and the two heads'."""
     import torch
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
 
@@ -609,6 +641,9 @@ def train_matmul_chain_ms(packed, sizes):
                 hs.append(torch.addmm(y, e, w[f"w{i}e"].t()) if i == k2.SKIP else y)
             feat = hs[-1] @ w["w_feat"].t()
             hd = torch.addmm(feat @ w["w_dfeat"].t(), dd, w["w_ddir"].t())
+            if not backward:
+                hs[-1] @ packed["w_sigma"][:, None], hd @ w["w_rgb"].t()
+                continue
             dfeat = hd @ w["w_dfeat"]
             dz = [dfeat @ w["w_feat"]]                     # dz_7, then dz_6 .. dz_0
             for i in range(k2.DEPTH - 1, 0, -1):

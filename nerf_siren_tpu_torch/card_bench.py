@@ -10,7 +10,8 @@ of its design taken out:
 - `edit`: one text edit of a source, failing when its place is gone;
 - `build_variants`: each {label: source text} compiled like the kernel
   (`ops/kernels/_build.py`'s flags) into a temporary directory, one nvcc
-  each, all at once, and its C entry point loaded with ctypes;
+  each, all at once, and its C entry point loaded with ctypes
+  (`build_variant_libs`: the libraries, for more than one entry point);
 - `ptxas_props`: registers, spills and stack of each kernel in a build's
   `-Xptxas -v` report;
 - `card`: the card's name and power limit as nvidia-smi prints them.
@@ -89,8 +90,20 @@ def build_variants(variants: Dict[str, str], entry: str, argtypes: list) -> List
     """Each source text compiled (its includes found in csrc/) and loaded;
     in the order of `variants`. The libraries stay loaded after their files
     are deleted."""
+    out = []
+    for label, lib, log in build_variant_libs(variants):
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        out.append(Variant(label, fn, log))
+    return out
+
+
+def build_variant_libs(variants: Dict[str, str]) -> List[tuple]:
+    """(label, loaded library, nvcc's -Xptxas -v report) of each source
+    text, compiled as `build_variants` does."""
     with tempfile.TemporaryDirectory() as tmp:
-        def build(label: str, text: str) -> Variant:
+        def build(label: str, text: str) -> tuple:
             name = re.sub(r"\W", "_", label)
             src, lib = Path(tmp) / f"{name}.cu", Path(tmp) / f"lib{name}.so"
             src.write_text(text)
@@ -99,10 +112,7 @@ def build_variants(variants: Dict[str, str], entry: str, argtypes: list) -> List
                                   capture_output=True, text=True)
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on the {label!r} variant:\n{proc.stderr}")
-            fn = getattr(ctypes.CDLL(str(lib)), entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            return Variant(label, fn, proc.stdout + proc.stderr)
+            return label, ctypes.CDLL(str(lib)), proc.stdout + proc.stderr
 
         with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
             return list(pool.map(lambda kv: build(*kv), variants.items()))

@@ -17,10 +17,20 @@
 // alike); bias gradients sum the float32 cotangents, and every sum over
 // points is taken in a fixed order, so two calls give the same bits.
 //
-// Forward (nerf_train_fwd_kernel, unchanged since the first port): one CTA
-// of 8 warps owns TP = 128 points, keeps their embeddings and the current
-// activation in shared memory and runs every layer with wmma (bf16 in / f32
-// out), streaming the weights from L2; output (N, 4) [rgb, sigma].
+// Forward (nerf_train_fwd_tile_kernel): (N, 4) [rgb, sigma] for N points,
+// 593,408 multiply-adds a point, bound by its operations (0.315 ms a
+// training step of 65,536 + 196,608 points at the dense bf16 peak; the
+// weights are 1.2 MB, read from L2). It is the backward's tile kernel (1.
+// below) in its forward mode: the same persistent grid, producer and ring,
+// which streams only the recompute's prefix of `k2_stream` (39 slices) and
+// has a fourth stage in place of the ReLU masks; the consumers run the
+// recompute's own code (embeddings, layer products, epilogues), so h_l,
+// feat and hd are the backward's bit for bit, and the ReLU masks the
+// backward differentiates are those of the output the loss saw. The heads
+// stay in registers: sigma from layer 7's epilogue (each thread dots its
+// 64 columns of rows r and r + 8 with w_sigma; a quad sum closes the row),
+// rgb from the direction branch's; one float4 store a point. Nothing is
+// stashed, no mask is kept and no cotangent is formed.
 //
 // Backward: every parameter gradient for N points. Per point it recomputes
 // the forward (593,408 multiply-adds), runs the dgrad chain (557,696) and
@@ -80,9 +90,8 @@
 // (f % 8)) + p % 8 of the array.
 //
 // Plain C interface, loaded with ctypes; launchers return cudaGetLastError().
-// The tile shape and the forward's layer product are in
-// nerf_field_common.cuh, the ring's position in nerf_field_sm90.cuh, the PTX
-// wrappers in sm90_async.cuh.
+// The widths and the tile size are in nerf_field_common.cuh, the ring's
+// position in nerf_field_sm90.cuh, the PTX wrappers in sm90_async.cuh.
 
 #include "nerf_field_common.cuh"
 #include "nerf_field_sm90.cuh"
@@ -103,18 +112,7 @@ constexpr int B_DIR = B_FEAT + W;
 constexpr int B_HEAD = B_DIR + WD;
 constexpr int NB = B_HEAD + HEAD;
 
-// shared memory of the forward kernel, in bytes
-constexpr size_t OFF_H = 0;
-constexpr size_t OFF_X = OFF_H + size_t(TP) * LDH * 2;
-constexpr size_t OFF_D = OFF_X + size_t(TP) * LDX * 2;
-constexpr size_t OFF_STAGE = OFF_D + size_t(TP) * LDD * 2;
-constexpr size_t OFF_PTS = OFF_STAGE + size_t(THREADS / 32) * 256 * 4;
-constexpr size_t OFF_DIRS = OFF_PTS + size_t(TP) * 3 * 4;
-constexpr size_t OFF_SIG = OFF_DIRS + size_t(TP) * 3 * 4;
-constexpr size_t OFF_RGB = OFF_SIG + size_t(TP) * 4;
-constexpr size_t SMEM_FWD = OFF_RGB + size_t(TP) * 3 * 4;
-
-// ---- the backward tile kernel's shape --------------------------------------
+// ---- the tile kernel's shape (forward and backward) ---------------------------
 constexpr int KS = 64;                           // inputs per weight slice (one swizzle row)
 constexpr int SLICE_BYTES = W * KS * 2;          // a slice of 256 rows, 32 KB
 constexpr int DSLICE_BYTES = WD * KS * 2;        // a direction-branch slice of 128 rows
@@ -125,7 +123,9 @@ constexpr int BWD_SLICES = WD / KS + W / KS + (DEPTH - 1) * (W / KS);
 constexpr int STREAM_SLICES = FWD_SLICES + DIR_SLICES + BWD_SLICES;
 constexpr long long STREAM_ELEMS =
     (long long)(FWD_SLICES + BWD_SLICES) * W * KS + (long long)DIR_SLICES * WD * KS;
-constexpr int T_STAGES = 3;
+// the recompute's prefix of the stream, all that the forward reads
+constexpr long long FWD_STREAM_ELEMS =
+    (long long)FWD_SLICES * W * KS + (long long)DIR_SLICES * WD * KS;
 constexpr int CONSUMERS = 2;                     // consumer warpgroups of 64 points
 constexpr int T_THREADS = 128 * (CONSUMERS + 1);
 constexpr int ROW_BYTES = 128;                   // one feature of 64 points
@@ -135,10 +135,20 @@ constexpr int KSTEP_BYTES = 16 * ROW_BYTES;      // one k16 step of an M-major A
 constexpr int T_OFF_X = CONSUMERS * ACT_BYTES;
 constexpr int T_OFF_D = T_OFF_X + CONSUMERS * EMB_X * ROW_BYTES;
 constexpr int T_OFF_MASK = T_OFF_D + CONSUMERS * EMB_D * ROW_BYTES;
-constexpr int T_OFF_RING = T_OFF_MASK + DEPTH * CONSUMERS * 128 * 16;
-constexpr int T_OFF_BARS = T_OFF_RING + T_STAGES * SLICE_BYTES;
-constexpr int T_SMEM = 1024 /* alignment slack */ + T_OFF_BARS + 2 * T_STAGES * 8;
 constexpr int WARP_ROWS = CONSUMERS * 4;         // bias-partial rows per CTA: one per consumer warp
+
+// The tile kernel in its forward mode (FWD) or its backward mode: the slices
+// of the stream a tile takes, the ring's stages and the shared memory. The
+// forward keeps no ReLU masks (32 KB), so its ring has a fourth stage there.
+template <bool FWD>
+struct Tile {
+  static constexpr int SLICES = FWD ? FWD_SLICES + DIR_SLICES : STREAM_SLICES;
+  static constexpr int STAGES = FWD ? 4 : 3;
+  static constexpr int OFF_RING = T_OFF_MASK + (FWD ? 0 : DEPTH * CONSUMERS * 128 * 16);
+  static constexpr int OFF_BARS = OFF_RING + STAGES * SLICE_BYTES;
+  static constexpr int SMEM = 1024 /* alignment slack */ + OFF_BARS + 2 * STAGES * 8;
+  using Ring = StageRing<STAGES, SLICE_BYTES>;
+};
 
 // ---- the weight-gradient GEMM's shape --------------------------------------
 constexpr int G_STAGES = 4;
@@ -148,7 +158,8 @@ constexpr int G_STAGE_BYTES = G_A_BYTES + W * ROW_BYTES;
 constexpr int G_THREADS = 128 * (CONSUMERS + 1);
 constexpr int G_SMEM = 1024 + G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8;
 
-static_assert(T_SMEM <= 232448 && G_SMEM <= 232448, "shared memory per block");
+static_assert(Tile<true>::SMEM <= 232448 && Tile<false>::SMEM <= 232448 && G_SMEM <= 232448,
+              "shared memory per block");
 
 struct Weights {
   const bf16* w_h[DEPTH];  // (W, W) hidden-input columns; null for layer 0
@@ -214,150 +225,7 @@ struct GJobs {
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float round_bf(float v) { return bf(__float2bfloat16_rn(v)); }
 
-// ---- forward kernel (wmma) --------------------------------------------------
-
-// Visit the warp's (64, 16*FN) accumulator block element by element through
-// its 16x16 float staging tile: f(row, col, value) for rows m0 + .., columns
-// n0 + ...
-template <int FN, class F>
-__device__ __forceinline__ void visit(FragC (&acc)[4][FN], float* stage, int m0, int n0, int lane,
-                                      F f) {
-  const int c = lane & 15, rb = (lane >> 4) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f(m0 + 16 * i + rb + e, n0 + 16 * j + c, stage[(rb + e) * 16 + c]);
-      __syncwarp();
-    }
-  }
-}
-
-// The forward of one tile. Leaves raw sigma in sig and rgb in rgb (shared memory).
-__device__ __forceinline__ void forward_tile(const Weights& prm, const float* __restrict__ xyz,
-                                             const float* __restrict__ dirs,
-                                             long long samples_per_dir, long long n_points,
-                                             unsigned char* smem) {
-  bf16* sh = reinterpret_cast<bf16*>(smem + OFF_H);
-  bf16* sx = reinterpret_cast<bf16*>(smem + OFF_X);
-  bf16* sd = reinterpret_cast<bf16*>(smem + OFF_D);
-  float* stage = reinterpret_cast<float*>(smem + OFF_STAGE) + (threadIdx.x >> 5) * 256;
-  float* pts = reinterpret_cast<float*>(smem + OFF_PTS);
-  float* dsm = reinterpret_cast<float*>(smem + OFF_DIRS);
-  float* sig = reinterpret_cast<float*>(smem + OFF_SIG);
-  float* rgb = reinterpret_cast<float*>(smem + OFF_RGB);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = (warp >> 2) * 64;
-  const long long p0 = (long long)blockIdx.x * TP;
-
-  for (int i = tid; i < TP * 3; i += THREADS) {
-    const long long p = p0 + i / 3;
-    pts[i] = p < n_points ? xyz[p0 * 3 + i] : 0.0f;
-    dsm[i] = p < n_points ? dirs[(p / samples_per_dir) * 3 + i % 3] : 0.0f;
-  }
-  __syncthreads();
-  embed(pts, 10, sx, LDX, EMB_X);
-  embed(dsm, 4, sd, LDD, EMB_D);
-  __syncthreads();
-
-  {  // trunk
-    constexpr int FN = W / 64;
-    const int n0 = (warp & 3) * (W / 4);
-    FragC acc[4][FN];
-    for (int l = 0; l < DEPTH; ++l) {
-      zero(acc);
-      if (prm.w_h[l]) mma_segment<FN, false>(acc, sh, LDH, prm.w_h[l], W, W, m0, n0);
-      if (prm.w_e[l]) mma_segment<FN, false>(acc, sx, LDX, prm.w_e[l], EMB_X, EMB_X, m0, n0);
-      __syncthreads();  // every warp has read `sh` before it is overwritten
-      const float* bias = prm.b[l];
-      visit(acc, stage, m0, n0, lane, [&](int r, int c, float v) {
-        sh[r * LDH + c] = __float2bfloat16_rn(fmaxf(v + bias[c], 0.0f));
-      });
-      __syncthreads();
-    }
-  }
-
-  const int p = tid >> 1, half = tid & 1;
-  {  // sigma head: two threads per point, each over half of the width
-    const bf16* hp = sh + p * LDH + half * (W / 2);
-    const bf16* wp = prm.w_sigma + half * (W / 2);
-    float s = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < W / 2; ++k) s += bf(hp[k]) * bf(wp[k]);
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    if (half == 0) sig[p] = s + prm.b_sigma[0];
-  }
-
-  {  // feat = bf16(W_feat h + b_feat), no nonlinearity
-    constexpr int FN = W / 64;
-    const int n0 = (warp & 3) * (W / 4);
-    FragC acc[4][FN];
-    zero(acc);
-    mma_segment<FN, false>(acc, sh, LDH, prm.w_feat, W, W, m0, n0);
-    __syncthreads();
-    visit(acc, stage, m0, n0, lane, [&](int r, int c, float v) {
-      sh[r * LDH + c] = __float2bfloat16_rn(v + prm.b_feat[c]);
-    });
-    __syncthreads();
-  }
-
-  {  // hd = bf16(relu(W_dfeat feat + W_ddir demb + b_dir)) -> sh[:, :WD]
-    constexpr int FN = WD / 64;
-    const int n0 = (warp & 3) * (WD / 4);
-    FragC acc[4][FN];
-    zero(acc);
-    mma_segment<FN, false>(acc, sh, LDH, prm.w_dfeat, W, W, m0, n0);
-    mma_segment<FN, false>(acc, sd, LDD, prm.w_ddir, EMB_D, EMB_D, m0, n0);
-    __syncthreads();
-    visit(acc, stage, m0, n0, lane, [&](int r, int c, float v) {
-      sh[r * LDH + c] = __float2bfloat16_rn(fmaxf(v + prm.b_dir[c], 0.0f));
-    });
-    __syncthreads();
-  }
-
-  {  // rgb head: two threads per point, 3 sums each over half of WD
-    const bf16* hp = sh + p * LDH + half * (WD / 2);
-    float c[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int k = 0; k < WD / 2; ++k) {
-      const float h = bf(hp[k]);
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) c[ch] += h * bf(prm.w_rgb[ch * WD + half * (WD / 2) + k]);
-    }
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) c[ch] += __shfl_xor_sync(0xffffffffu, c[ch], 1);
-    if (half == 0) {
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
-        rgb[p * 3 + ch] = 1.0f / (1.0f + expf(-(c[ch] + prm.b_rgb[ch])));
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-    nerf_train_fwd_kernel(Weights prm, const float* __restrict__ xyz,
-                          const float* __restrict__ dirs, long long samples_per_dir,
-                          float* __restrict__ out, long long n_points) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  forward_tile(prm, xyz, dirs, samples_per_dir, n_points, smem);
-  const float* sig = reinterpret_cast<const float*>(smem + OFF_SIG);
-  const float* rgb = reinterpret_cast<const float*>(smem + OFF_RGB);
-  const long long p0 = (long long)blockIdx.x * TP;
-  for (int i = threadIdx.x; i < TP * 4; i += THREADS) {
-    const int p = i >> 2, c = i & 3;
-    if (p0 + p < n_points) out[p0 * 4 + i] = c < 3 ? rgb[p * 3 + c] : sig[p];
-  }
-}
-
-// ---- backward tile kernel: recompute + dgrad --------------------------------
-
-using TRing = StageRing<T_STAGES, SLICE_BYTES>;
+// ---- the tile kernel: the forward, or the backward's recompute + dgrad ------
 
 __device__ __forceinline__ void st_v4(uint32_t addr, const uint32_t (&v)[4]) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "r"(v[0]), "r"(v[1]),
@@ -428,8 +296,8 @@ __device__ __forceinline__ void embed_col(uint32_t rows, const float (&x)[3], in
 // a_rows(j), read M-major) x slice_j; the last slice takes k_last k16
 // steps. Keeps two slices' products in flight and releases each stage once
 // its products have retired; on return every product has completed.
-template <int N, typename ARows>
-__device__ __forceinline__ void run_slot(float (&acc)[N / 2], TRing& ring, int n_slices,
+template <int N, typename Ring, typename ARows>
+__device__ __forceinline__ void run_slot(float (&acc)[N / 2], Ring& ring, int n_slices,
                                          ARows a_rows, int k_last, int lane) {
   int held = -1;
 #pragma unroll
@@ -501,12 +369,16 @@ __device__ __forceinline__ void colsum_out(float (&cs)[C], float* __restrict__ b
 }
 
 // Forward epilogue of a 64 x W fragment: bf16(acc + bias), after ReLU when
-// RELU (whose mask bits, bit 4 (g % 8) + e of word g / 8 for element 4 g + e,
-// go to this thread's 16 bytes at mask_slot), stored feature-major at `act`.
-template <bool RELU>
+// RELU, stored feature-major at `act`. MASKS: the ReLU mask bits (bit
+// 4 (g % 8) + e of word g / 8 for element 4 g + e) go to this thread's 16
+// bytes at mask_slot. SIGMA: s0 / s1 gain the dot of the thread's columns of
+// its rows r and r + 8 (the stored bf16 values) with w_sigma.
+template <bool RELU, bool MASKS, bool SIGMA>
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[W / 2],
                                              const float* __restrict__ bias, uint32_t act,
-                                             uint32_t mask_slot, int warp, int lane) {
+                                             uint32_t mask_slot, const bf16* __restrict__ w_sigma,
+                                             float& s0, float& s1, int warp, int lane) {
+  static_assert(RELU || !MASKS, "masks are those of a ReLU");
   const int cq = 2 * (lane & 3);
   uint32_t m[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -525,7 +397,12 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[W / 2],
         x3 = fmaxf(x3, 0.0f);
       }
       const __nv_bfloat162 h0 = __floats2bfloat162_rn(x0, x1), h1 = __floats2bfloat162_rn(x2, x3);
-      if (RELU) {
+      if (SIGMA) {
+        const float2 ws = ldg_bf162(w_sigma + 8 * gg + cq);
+        s0 += __low2float(h0) * ws.x + __high2float(h0) * ws.y;
+        s1 += __low2float(h1) * ws.x + __high2float(h1) * ws.y;
+      }
+      if (MASKS) {
         const uint32_t bits = uint32_t(__low2float(h0) > 0.0f) |
                               (uint32_t(__high2float(h0) > 0.0f) << 1) |
                               (uint32_t(__low2float(h1) > 0.0f) << 2) |
@@ -537,7 +414,7 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[W / 2],
     }
     sm90::stmatrix_x4_trans(stm_addr(act, g, warp, lane), r[0], r[1], r[2], r[3]);
   }
-  if (RELU) st_v4(mask_slot, m);
+  if (MASKS) st_v4(mask_slot, m);
 }
 
 // Dgrad epilogue of a 64 x W fragment: dz = v masked by the bits at
@@ -587,19 +464,22 @@ __device__ __forceinline__ void bwd_epilogue(const float (&acc)[W / 2], uint32_t
 
 struct TileArgs {
   Weights prm;
-  Stash st;
+  Stash st;                // the backward's
   const float* xyz;
   const float* dirs;
-  const float* dy;
+  const float* dy;         // the backward's
+  float* out;              // the forward's (n_points, 4) [rgb, sigma]
   long long samples_per_dir, n_points, n_tiles;
 };
 
-__device__ __forceinline__ void produce_tile(const unsigned char* __restrict__ stream, TRing ring,
-                                             long long n_tiles) {
+// The first `slices` slices of the stream, for every tile of this CTA.
+template <typename Ring>
+__device__ __forceinline__ void produce_tile(const unsigned char* __restrict__ stream, Ring ring,
+                                             long long n_tiles, int slices) {
   const uint64_t keep = sm90::policy_evict_last();  // every CTA reads the stream every tile
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const unsigned char* src = stream;
-    for (int j = 0; j < STREAM_SLICES; ++j) {
+    for (int j = 0; j < slices; ++j) {
       const uint32_t bytes =
           j >= FWD_SLICES && j < FWD_SLICES + DIR_SLICES ? DSLICE_BYTES : SLICE_BYTES;
       sm90::mbar_wait(ring.empty(ring.stage), ring.phase ^ 1u);
@@ -611,7 +491,11 @@ __device__ __forceinline__ void produce_tile(const unsigned char* __restrict__ s
   }
 }
 
-__device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint32_t base) {
+// A consumer warpgroup's tiles. FWD: the forward (the recompute without the
+// masks, with the heads, to A.out); else the backward's recompute and dgrad
+// chain, to the stash and the bias partials.
+template <bool FWD, typename Ring>
+__device__ __forceinline__ void consume_tile(const TileArgs& A, Ring ring, uint32_t base) {
   const Weights& prm = A.prm;
   const Stash& st = A.st;
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
@@ -625,8 +509,9 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
   const int er = t >> 1, half = t & 1;          // embedding: two threads per point
   const int r = warp * 16 + (lane >> 2);        // accumulator rows r and r + 8
   const int cq = 2 * (lane & 3);
-  const bool issuer = t == 0;                   // issues this warpgroup's bulk stores
-  float* brow = st.bias_part + ((long long)blockIdx.x * WARP_ROWS + wg * 4 + warp) * NB;
+  const bool issuer = !FWD && t == 0;           // issues this warpgroup's bulk stores
+  float* brow = FWD ? nullptr
+                    : st.bias_part + ((long long)blockIdx.x * WARP_ROWS + wg * 4 + warp) * NB;
 
   // The two warpgroups take their epilogues independently: ordered turns (as
   // in csrc/fused_mlp.cu) made this kernel slower (k2_ablation).
@@ -652,7 +537,7 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
   for (long long tile = blockIdx.x; tile < A.n_tiles; tile += gridDim.x) {
     const long long blk = tile * CONSUMERS + wg;  // this warpgroup's 64-point stash block
     if (issuer) sm90::bulk_wait_read<0>();
-    wg_sync();  // the last tile's stores have read the embeddings
+    wg_sync();  // the last tile's products and stores have read the embeddings
     {
       const long long pe = blk * 64 + er;
       float x[3];
@@ -663,19 +548,26 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
     }
     sm90::fence_proxy_async();
     wg_sync();
-    if (issuer) {
+    if (issuer) {  // the backward's only, as every store below
       store(st.emb + blk * EMB_X * 64, xemb, EMB_X * ROW_BYTES);
       store(st.demb + blk * EMB_D * 64, demb, EMB_D * ROW_BYTES);
       sm90::bulk_commit();
     }
 
-    // recompute: h_l = bf16(relu(W_l h_{l-1} (+ W_le emb) + b_l)), masks kept as bits
+    // recompute: h_l = bf16(relu(W_l h_{l-1} (+ W_le emb) + b_l)), the
+    // backward's masks kept as bits; the forward's sigma partials from h_7
+    float sig0 = 0.0f, sig1 = 0.0f;
     for (int l = 0; l < DEPTH; ++l) {
       const int n_h = l ? W / KS : 0;
       run_slot<W>(acc, ring, n_h + int(l == 0 || l == SKIP),
                   [&](int j) { return j < n_h ? act + j * KSLICE_BYTES : xemb; }, KS / 16, lane);
       begin_epilogue();
-      fwd_epilogue<true>(acc, prm.b[l], act, mask_slot(l), warp, lane);
+      if (FWD && l == DEPTH - 1)
+        fwd_epilogue<true, false, true>(acc, prm.b[l], act, 0u, prm.w_sigma, sig0, sig1, warp,
+                                        lane);
+      else
+        fwd_epilogue<true, !FWD, false>(acc, prm.b[l], act, mask_slot(l), prm.w_sigma, sig0,
+                                        sig1, warp, lane);
       end_epilogue();
       if (issuer) {
         store(st.h[l] + blk * W * 64, act, ACT_BYTES);
@@ -685,22 +577,24 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
     // feat = bf16(W_feat h_7 + b_feat)
     run_slot<W>(acc, ring, W / KS, [&](int j) { return act + j * KSLICE_BYTES; }, KS / 16, lane);
     begin_epilogue();
-    fwd_epilogue<false>(acc, prm.b_feat, act, 0u, warp, lane);
+    fwd_epilogue<false, false, false>(acc, prm.b_feat, act, 0u, prm.w_sigma, sig0, sig1, warp,
+                                      lane);
     end_epilogue();
     if (issuer) {
       store(st.feat + blk * W * 64, act, ACT_BYTES);
       sm90::bulk_commit();
     }
 
-    // hd = bf16(relu(W_dfeat feat + W_ddir demb + b_dir)), then the heads and
-    // the first cotangents: hd to rows WD.. of act, dz_hd to rows 0..WD
+    // hd = bf16(relu(W_dfeat feat + W_ddir demb + b_dir)) and the rgb head's
+    // sums; the backward then forms the first cotangents: hd to rows WD.. of
+    // act, dz_hd to rows 0..WD
     const long long p = blk * 64 + r;  // this thread's points p, p + 8
     {
       float acc2[WD / 2];
       run_slot<WD>(acc2, ring, DIR_SLICES,
                    [&](int j) { return j < W / KS ? act + j * KSLICE_BYTES : demb; }, EMB_D / 16,
                    lane);
-      begin_epilogue();
+      if (!FWD) begin_epilogue();
       uint32_t hm[2] = {0u, 0u};
       float c0[3] = {0.0f, 0.0f, 0.0f}, c1[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -714,11 +608,13 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
                                                           fmaxf(acc2[4 * gg + 1] + bb.y, 0.0f));
           const __nv_bfloat162 h1 = __floats2bfloat162_rn(fmaxf(acc2[4 * gg + 2] + bb.x, 0.0f),
                                                           fmaxf(acc2[4 * gg + 3] + bb.y, 0.0f));
-          const uint32_t bits = uint32_t(__low2float(h0) > 0.0f) |
-                                (uint32_t(__high2float(h0) > 0.0f) << 1) |
-                                (uint32_t(__low2float(h1) > 0.0f) << 2) |
-                                (uint32_t(__high2float(h1) > 0.0f) << 3);
-          hm[gg >> 3] |= bits << (4 * (gg & 7));
+          if (!FWD) {
+            const uint32_t bits = uint32_t(__low2float(h0) > 0.0f) |
+                                  (uint32_t(__high2float(h0) > 0.0f) << 1) |
+                                  (uint32_t(__low2float(h1) > 0.0f) << 2) |
+                                  (uint32_t(__high2float(h1) > 0.0f) << 3);
+            hm[gg >> 3] |= bits << (4 * (gg & 7));
+          }
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch) {
             const float2 w = ldg_bf162(prm.w_rgb + ch * WD + c);
@@ -728,8 +624,26 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
           rr[2 * h] = bf162_bits(h0);
           rr[2 * h + 1] = bf162_bits(h1);
         }
-        sm90::stmatrix_x4_trans(stm_addr(act + WD * ROW_BYTES, g, warp, lane), rr[0], rr[1], rr[2],
-                                rr[3]);
+        if (!FWD)
+          sm90::stmatrix_x4_trans(stm_addr(act + WD * ROW_BYTES, g, warp, lane), rr[0], rr[1],
+                                  rr[2], rr[3]);
+      }
+      if constexpr (FWD) {  // the output: a quad's first lane stores row r, its second r + 8
+        float v[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float b = __ldg(prm.b_rgb + ch);
+          const float g0 = 1.0f / (1.0f + expf(-(quad_sum(c0[ch]) + b)));
+          const float g1 = 1.0f / (1.0f + expf(-(quad_sum(c1[ch]) + b)));
+          v[ch] = lane & 1 ? g1 : g0;
+        }
+        const float bs = __ldg(prm.b_sigma);
+        const float s0 = quad_sum(sig0) + bs, s1 = quad_sum(sig1) + bs;
+        const long long q = p + 8 * (lane & 1);
+        if ((lane & 2) == 0 && q < A.n_points)
+          *reinterpret_cast<float4*>(A.out + 4 * q) =
+              make_float4(v[0], v[1], v[2], lane & 1 ? s1 : s0);
+        continue;  // the forward's tile ends here
       }
       // heads: dz_r = dy_rgb rgb (1 - rgb), dz_sigma = dy_sigma (zero past N)
       float dzr0[3], dzr1[3], dzs0, dzs1;
@@ -852,6 +766,7 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
       }
     }
   }
+  if (FWD) return;
   // the CTA's eight warp rows of bias partials summed into its first, in order
   __threadfence();  // this thread's reductions have landed
   sm90::named_bar_sync(3, CONSUMERS * 128);
@@ -865,26 +780,40 @@ __device__ __forceinline__ void consume_tile(const TileArgs& A, TRing ring, uint
   if (issuer) sm90::bulk_wait<0>();
 }
 
-__global__ void __launch_bounds__(T_THREADS, 1)
-    nerf_train_bwd_tile_kernel(const TileArgs args, const unsigned char* __restrict__ stream) {
-  extern __shared__ __align__(1024) unsigned char smem[];
+template <bool FWD>
+__device__ __forceinline__ void tile_kernel(const TileArgs& args,
+                                            const unsigned char* __restrict__ stream,
+                                            unsigned char* smem) {
+  using T = Tile<FWD>;
   const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
-  const TRing ring = {base + T_OFF_RING, base + T_OFF_BARS, 0, 0u};
+  const typename T::Ring ring = {base + T::OFF_RING, base + T::OFF_BARS, 0, 0u};
   if (threadIdx.x == 0) {
-    for (int s = 0; s < T_STAGES; ++s) {
+    for (int s = 0; s < T::STAGES; ++s) {
       sm90::mbar_init(ring.bars + 8 * s, 1);                            // the producer's arrival
-      sm90::mbar_init(ring.bars + 8 * (T_STAGES + s), CONSUMERS * 4);   // one per consumer warp
+      sm90::mbar_init(ring.bars + 8 * (T::STAGES + s), CONSUMERS * 4);  // one per consumer warp
     }
     sm90::fence_mbar_init();
   }
   __syncthreads();
   if (threadIdx.x >= CONSUMERS * 128) {
     sm90::reg_dealloc<40>();
-    if (threadIdx.x == CONSUMERS * 128) produce_tile(stream, ring, args.n_tiles);
+    if (threadIdx.x == CONSUMERS * 128) produce_tile(stream, ring, args.n_tiles, T::SLICES);
   } else {
     sm90::reg_alloc<232>();
-    consume_tile(args, ring, base);
+    consume_tile<FWD>(args, ring, base);
   }
+}
+
+__global__ void __launch_bounds__(T_THREADS, 1)
+    nerf_train_fwd_tile_kernel(const TileArgs args, const unsigned char* __restrict__ stream) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  tile_kernel<true>(args, stream, smem);
+}
+
+__global__ void __launch_bounds__(T_THREADS, 1)
+    nerf_train_bwd_tile_kernel(const TileArgs args, const unsigned char* __restrict__ stream) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  tile_kernel<false>(args, stream, smem);
 }
 
 // ---- weight-gradient GEMM ---------------------------------------------------
@@ -1113,30 +1042,51 @@ extern "C" {
 //   w_h[0..8) (0 for layer 0), w_e[0..8) (set for layers 0 and 4 only),
 //   b[0..8), w_sigma, b_sigma, w_feat, b_feat, w_dfeat, w_ddir, b_dir,
 //   w_rgb, b_rgb.
-// xyz: (n, 3) f32; dirs: (ceil(n / samples_per_dir), 3) f32, point p takes
-// dirs[p / samples_per_dir]; out: (n, 4) f32 [r, g, b, sigma].
-// Returns a cudaError_t value.
-int nerf_train_forward(const void* const* w, const float* xyz, const float* dirs,
-                       long long samples_per_dir, float* out, long long n, void* stream) {
+// k2_stream: the pack's weight stream of stream_elems bf16
+// (ops/kernels/fused_mlp_train.py::k2_schedule), of which the forward reads
+// the recompute's prefix (nerf_train_forward_stream_elems). xyz: (n, 3) f32;
+// dirs: (ceil(n / samples_per_dir), 3) f32, point p takes
+// dirs[p / samples_per_dir]; out: (n, 4) f32 [r, g, b, sigma], 16-byte
+// aligned. Returns a cudaError_t value.
+int nerf_train_forward(const void* const* w, const void* k2_stream, long long stream_elems,
+                       const float* xyz, const float* dirs, long long samples_per_dir,
+                       float* out, long long n, void* stream) {
   const Weights prm = read_weights(w);
-  if (!topology_ok(prm) || samples_per_dir < 1 || n < 0) return int(cudaErrorInvalidValue);
+  if (!topology_ok(prm) || samples_per_dir < 1 || n < 0 || stream_elems != STREAM_ELEMS ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return int(cudaErrorInvalidValue);
   if (n == 0) return int(cudaSuccess);
-  const long long blocks = pad_rows(n) / TP;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(nerf_train_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(SMEM_FWD));
+  int grid = 0;
+  cudaError_t err = tile_grid(n, &grid);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(nerf_train_fwd_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<true>::SMEM);
   if (err != cudaSuccess) return int(err);
-  nerf_train_fwd_kernel<<<unsigned(blocks), THREADS, SMEM_FWD, static_cast<cudaStream_t>(stream)>>>(
-      prm, xyz, dirs, samples_per_dir, out, n);
+  TileArgs args = {};
+  args.prm = prm;
+  args.xyz = xyz;
+  args.dirs = dirs;
+  args.out = out;
+  args.samples_per_dir = samples_per_dir;
+  args.n_points = n;
+  args.n_tiles = pad_rows(n) / TP;
+  nerf_train_fwd_tile_kernel<<<unsigned(grid), T_THREADS, Tile<true>::SMEM,
+                               static_cast<cudaStream_t>(stream)>>>(
+      args, static_cast<const unsigned char*>(k2_stream));
   return int(cudaGetLastError());
 }
 
 // Elements of the k2_stream the backward takes.
 long long nerf_train_stream_elems() { return STREAM_ELEMS; }
 
-// Dynamic shared memory of the backward's tile (0) and weight-gradient (1) kernels.
-int nerf_train_smem_bytes(int which) { return which ? G_SMEM : T_SMEM; }
+// Elements of its prefix that the forward reads.
+long long nerf_train_forward_stream_elems() { return FWD_STREAM_ELEMS; }
+
+// Dynamic shared memory of the backward's tile (0) and weight-gradient (1)
+// kernels and of the forward's tile kernel (2).
+int nerf_train_smem_bytes(int which) {
+  return which == 2 ? Tile<true>::SMEM : which ? G_SMEM : Tile<false>::SMEM;
+}
 
 // Bytes of device workspace nerf_train_backward needs for n points on the
 // current device; -1 if the device cannot be queried.
@@ -1233,15 +1183,15 @@ int nerf_train_backward(const void* const* w, void* const* g, const void* k2_str
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaFuncSetAttribute(nerf_train_bwd_tile_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<false>::SMEM);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(nerf_train_wgrad_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
   if (err != cudaSuccess) return int(err);
   err = cudaMemsetAsync(st.bias_part, 0, (size_t)grid * WARP_ROWS * NB * 4, s);
   if (err != cudaSuccess) return int(err);
-  const TileArgs args = {prm, st, xyz, dirs, dy, samples_per_dir, n, tiles};
-  nerf_train_bwd_tile_kernel<<<unsigned(grid), T_THREADS, T_SMEM, s>>>(
+  const TileArgs args = {prm, st, xyz, dirs, dy, nullptr, samples_per_dir, n, tiles};
+  nerf_train_bwd_tile_kernel<<<unsigned(grid), T_THREADS, Tile<false>::SMEM, s>>>(
       args, static_cast<const unsigned char*>(k2_stream));
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   nerf_train_wgrad_kernel<<<unsigned(jobs.n_tiles * jobs.splits), G_THREADS, G_SMEM, s>>>(

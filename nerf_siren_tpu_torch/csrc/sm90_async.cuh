@@ -3,7 +3,7 @@
 // 1-D bulk copies that complete on mbarriers, consumer warpgroups that run
 // wgmma on the stages, and setmaxnreg to move registers between the roles.
 // Used by the eval field kernels (csrc/fused_mlp.cu, csrc/fused_mlp_int8.cu)
-// and the training field's backward (csrc/fused_mlp_train.cu), which also
+// and the training field's tile kernel (csrc/fused_mlp_train.cu), which also
 // stores tiles back with bulk copies and stmatrix; wgmma with A in registers
 // for the proxy march (csrc/proxy_march.cu).
 //

@@ -15,13 +15,15 @@ everything around them:
   are separate parameters. The TPU layout (k-major permuted sin/cos rows,
   +pi/2 cos phase, 8-row padded heads, the (8, N) point layout, TILE_T)
   is not kept.
-- `k2_stream` (a key of the pack): the weights again, as the backward's
-  tile kernel streams them. One bf16 buffer of 64-input slices in the
-  order `k2_schedule` lists: every slice of the recompute (as K1's
-  `k1_stream` cuts them, unfolded heads), then every slice of the dgrad
-  chain, cut from W^T (its rows are the layer's inputs), each slice
-  (rows, 64) in the 128-byte swizzle wgmma reads. `unpack_k2_stream` is its
-  plain inverse.
+- `k2_stream` (a key of the pack): the weights again, as the tile kernel
+  streams them. One bf16 buffer of 64-input slices in the order
+  `k2_schedule` lists: every slice of the recompute (as K1's `k1_stream`
+  cuts them, unfolded heads), then every slice of the dgrad chain, cut
+  from W^T (its rows are the layer's inputs), each slice (rows, 64) in the
+  128-byte swizzle wgmma reads. The forward reads its first
+  `K2_FWD_SLICES` slices (`K2_FWD_STREAM_NUMEL` elements), the backward all
+  of it. `unpack_k2_stream` is its plain inverse, `unpack_k2_forward` that
+  of the forward's prefix.
 - the stash layout the backward's kernels share (`block_stash`, with its
   plain inverse `unblock_stash`), and the weight-gradient GEMM's plan
   (`wgrad_jobs`, `wgrad_split_plan`), mirrors of the CUDA source's.
@@ -150,6 +152,9 @@ def _slice_rows(key: str, transposed: bool) -> int:
 
 
 K2_STREAM_NUMEL = sum(_slice_rows(k, t) * SLICE for k, t, _ in k2_schedule())
+# the recompute's slices, which lead the stream: all that the forward reads
+K2_FWD_SLICES = next(j for j, (_, t, _) in enumerate(k2_schedule()) if t)
+K2_FWD_STREAM_NUMEL = sum(_slice_rows(k, t) * SLICE for k, t, _ in k2_schedule()[:K2_FWD_SLICES])
 
 
 def _slices(m: torch.Tensor) -> torch.Tensor:
@@ -173,12 +178,21 @@ def unpack_k2_stream(stream: torch.Tensor) -> Dict[tuple, torch.Tensor]:
     inverse of the pack): {(key, transposed): matrix}, the matrix W (rows
     out) or W^T (rows in) as the stream cut it; `w_ddir` keeps its 64
     zero-padded inputs."""
-    if stream.numel() != K2_STREAM_NUMEL:
-        raise ValueError(f"k2_stream: {stream.numel()} elements, the schedule holds "
-                         f"{K2_STREAM_NUMEL}")
+    return _unpack(stream, k2_schedule(), K2_STREAM_NUMEL)
+
+
+def unpack_k2_forward(prefix: torch.Tensor) -> Dict[tuple, torch.Tensor]:
+    """`unpack_k2_stream` of the stream's first `K2_FWD_STREAM_NUMEL`
+    elements: the weights the forward reads."""
+    return _unpack(prefix, k2_schedule()[:K2_FWD_SLICES], K2_FWD_STREAM_NUMEL)
+
+
+def _unpack(stream: torch.Tensor, schedule: list, numel: int) -> Dict[tuple, torch.Tensor]:
+    if stream.numel() != numel:
+        raise ValueError(f"k2_stream: {stream.numel()} elements, the schedule holds {numel}")
     parts: Dict[tuple, Dict[int, torch.Tensor]] = {}
     off = 0
-    for k, t, c in k2_schedule():
+    for k, t, c in schedule:
         rows = _slice_rows(k, t)
         s = _swizzle128(stream[off: off + rows * SLICE].view(rows, SLICE))
         parts.setdefault((k, t), {})[c] = s
@@ -371,7 +385,7 @@ def _lib():
     lib = _build.load("fused_mlp_train")
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     table = ctypes.POINTER(ctypes.c_void_p)
-    lib.nerf_train_forward.argtypes = [table, vp, vp, ll, vp, ll, vp]
+    lib.nerf_train_forward.argtypes = [table, vp, ll, vp, vp, ll, vp, ll, vp]
     lib.nerf_train_forward.restype = ctypes.c_int
     lib.nerf_train_workspace_bytes.argtypes = [ll]
     lib.nerf_train_workspace_bytes.restype = ll
@@ -379,6 +393,8 @@ def _lib():
     lib.nerf_train_backward.restype = ctypes.c_int
     lib.nerf_train_stream_elems.argtypes = []
     lib.nerf_train_stream_elems.restype = ll
+    lib.nerf_train_forward_stream_elems.argtypes = []
+    lib.nerf_train_forward_stream_elems.restype = ll
     lib.nerf_train_smem_bytes.argtypes = [ctypes.c_int]
     lib.nerf_train_smem_bytes.restype = ctypes.c_int
     lib.nerf_train_activation_offsets.argtypes = [ll, ctypes.POINTER(ll)]
@@ -433,17 +449,20 @@ def _check_points(xyz, dirs, samples_per_dir):
     return n
 
 
-def _launch_fwd(packed, xyz, dirs, samples_per_dir):
+def _launch_fwd(packed, xyz, dirs, samples_per_dir, entry=None):
+    """The forward's launch; `entry` replaces the library's
+    `nerf_train_forward` (a variant of it built by `k2_ablation`)."""
     n = _check_points(xyz, dirs, samples_per_dir)
-    _check_pack(packed, xyz.device)
+    _check_pack(packed, xyz.device, stream=True)
     out = torch.empty((n, 4), dtype=torch.float32, device=xyz.device)
     if n == 0:
         return out
     lib = _lib()
+    stream = packed["k2_stream"]
     with torch.cuda.device(xyz.device):
-        err = lib.nerf_train_forward(_table(packed), xyz.data_ptr(), dirs.data_ptr(),
-                                     samples_per_dir, out.data_ptr(), n,
-                                     torch.cuda.current_stream().cuda_stream)
+        err = (entry or lib.nerf_train_forward)(
+            _table(packed), stream.data_ptr(), stream.numel(), xyz.data_ptr(), dirs.data_ptr(),
+            samples_per_dir, out.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nerf_train_forward failed: cudaError {err}")
     LAUNCHES["fwd"] += 1

@@ -192,6 +192,27 @@ def test_k2_stream_unpacks_to_every_weight(field):
     assert not got[("w_ddir", False)][:, k2.EMB_D:].any()
 
 
+def test_k2_stream_forward_prefix_holds_the_forward_weights(field):
+    """The forward reads the stream's first K2_FWD_SLICES slices: exactly
+    the forward's weights (w0e, w1..w7, w4e, w_feat, w_dfeat and w_ddir
+    padded to 64 inputs), untransposed, and no slice of the dgrad chain;
+    the dgrad chain starts right after it."""
+    _, model = field
+    packed = k2.pack_train_params(model.state_dict())
+    stream = packed["k2_stream"]
+    got = k2.unpack_k2_forward(stream[:k2.K2_FWD_STREAM_NUMEL])
+    fwd = [f"w{i}" for i in range(1, k2.DEPTH)] + ["w0e", f"w{k2.SKIP}e", "w_feat", "w_dfeat"]
+    assert set(got) == {(k, False) for k in fwd + ["w_ddir"]}
+    for k in fwd:
+        assert torch.equal(got[(k, False)], packed[k]), k
+    assert torch.equal(got[("w_ddir", False)][:, :k2.EMB_D], packed["w_ddir"])
+    assert not got[("w_ddir", False)][:, k2.EMB_D:].any()
+    assert k2.K2_FWD_SLICES == 39 and k2.K2_FWD_STREAM_NUMEL == 34 * 256 * 64 + 5 * 128 * 64
+    assert all(t for _, t, _ in k2.k2_schedule()[k2.K2_FWD_SLICES:])
+    with pytest.raises(ValueError, match="k2_stream"):
+        k2.unpack_k2_forward(stream)
+
+
 def test_k2_stream_order_and_swizzle(field):
     """Slice j of the stream is its schedule entry's (rows, 64) block with
     8-element chunk c of row r at chunk c ^ (r % 8), in the order the tile

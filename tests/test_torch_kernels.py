@@ -173,7 +173,7 @@ def test_k2_ablation_variants_apply_to_the_kernel_source():
     src = (_build.CSRC_DIR / "fused_mlp_train.cu").read_text()
     found = k2_ablation.variants(src)
     assert found.pop("as built") == src
-    assert len(found) == 5 and all(text != src for text in found.values())
+    assert len(found) == 6 and all(text != src for text in found.values())
 
 
 @pytest.mark.cuda
@@ -321,6 +321,79 @@ def test_train_kernels_reject_what_they_do_not_take(cuda_device):
         k2.fused_train_bwd({**packed, "k2_stream": packed["k2_stream"].cpu()}, xyz, xyz, dy)
     with pytest.raises(ValueError, match="w3"):
         k2.fused_train_bwd({**packed, "w3": packed["w3"].t()}, xyz, xyz, dy)
+
+
+# The forward's heads against float64 heads on the backward's stashed h_7 and
+# hd. The products of bf16 values are exact in float32, so the kernel's
+# heads differ from the exact sums only by float32 rounding along its
+# summation chain, of depth d: each thread sums its 64 (sigma) or 32 (rgb
+# pre-activation) columns as pairs (2 roundings a pair), a quad sum adds 2
+# levels and the bias 1, so d = 67 for sigma and 35 for rgb. The bar is
+# gamma_d * S with gamma_d = d u / (1 - d u), u = 2^-24 and S the sum of the
+# terms' magnitudes; rgb's is a quarter of its pre-activation's (the
+# sigmoid's slope) plus 1e-6 for expf and the division. An activation that
+# differs by one bf16 step moves a head by |w h| 2^-8 for that term alone,
+# about four times the bar for a term of average size.
+HEAD_DEPTHS = {"sigma": 67, "rgb": 35}
+
+
+def _head_bar(depth, terms, bias):
+    u = 2.0 ** -24
+    return depth * u / (1 - depth * u) * (terms.abs().sum(-1) + bias.abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,samples_per_dir", [(65536, 64), (4099, 7), (129, 192)])
+def test_train_forward_heads_sit_on_the_backward_recompute(cuda_device, n, samples_per_dir):
+    """The forward runs the backward's recompute: its sigma and rgb lie
+    within the float32 reordering bar of the plain heads applied to the
+    h_7 and hd that the backward's tile kernel stashed."""
+    packed = _train_packed(cuda_device)
+    xyz, d = _points(n, -(-n // samples_per_dir))
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    dy = torch.ones((n, 4), device=cuda_device)
+    out = k2.fused_train_fwd(packed, xyz, d, samples_per_dir)
+    _, (_, hs, _, _, hd) = k2.fused_train_bwd_activations(packed, xyz, d, dy, samples_per_dir)
+    torch.cuda.synchronize()
+    f64 = {k: packed[k].double() for k in ("w_sigma", "b_sigma", "w_rgb", "b_rgb")}
+    s_terms = hs[-1].double() * f64["w_sigma"]
+    sigma = s_terms.sum(-1) + f64["b_sigma"]
+    s_bar = _head_bar(HEAD_DEPTHS["sigma"], s_terms, f64["b_sigma"])
+    r_terms = hd.double()[:, None, :] * f64["w_rgb"][None]          # (n, 3, WD)
+    rgb = torch.sigmoid(r_terms.sum(-1) + f64["b_rgb"])
+    r_bar = 0.25 * _head_bar(HEAD_DEPTHS["rgb"], r_terms, f64["b_rgb"]) + 1e-6
+    s_d = (out[:, 3].double() - sigma).abs()
+    r_d = (out[:, :3].double() - rgb).abs()
+    print(f"\n[n={n}] forward heads vs float64 heads on the stashed h_7, hd: sigma worst "
+          f"{float((s_d / s_bar).max()):.3f} of its bar, rgb {float((r_d / r_bar).max()):.3f}")
+    assert bool((s_d <= s_bar).all()), float((s_d / s_bar).max())
+    assert bool((r_d <= r_bar).all()), float((r_d / r_bar).max())
+
+
+@pytest.mark.cuda
+def test_train_forward_is_deterministic_and_counts_launches(cuda_device):
+    packed = _train_packed(cuda_device)
+    xyz, d = _points(20_000, 20_000 // 64 + 1)
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    before = dict(k2.LAUNCHES)
+    a = k2.fused_train_fwd(packed, xyz, d, 64)
+    b = k2.fused_train_fwd(packed, xyz, d, 64)
+    assert torch.equal(a, b)
+    assert k2.LAUNCHES["fwd"] == before["fwd"] + 2
+
+
+@pytest.mark.cuda
+def test_train_forward_reads_the_stream_prefix_it_is_given(cuda_device):
+    """The forward takes the pack's k2_stream or raises naming it, and both
+    sides hold one prefix length."""
+    packed = _train_packed(cuda_device)
+    xyz = torch.zeros((8, 3), device=cuda_device)
+    assert k2._lib().nerf_train_forward_stream_elems() == k2.K2_FWD_STREAM_NUMEL
+    with pytest.raises(ValueError, match="k2_stream"):
+        k2.fused_train_fwd({k: v for k, v in packed.items() if k != "k2_stream"}, xyz, xyz)
+    with pytest.raises(ValueError, match="k2_stream"):
+        k2.fused_train_fwd({**packed, "k2_stream": packed["k2_stream"][:k2.K2_FWD_STREAM_NUMEL]},
+                           xyz, xyz)
 
 
 # ---- K3 proxy march, K6 proxy top-K, K4 int8 field ----------------------------
