@@ -79,13 +79,23 @@ Run from the repository root. Phases, each printing a line:
      chunk's time queued behind a device-side sleep, as K5's, and
      unqueued: it is about as long as its wrapper's host time); both
      K3 kernels' registers, spills, stack (`-Xptxas -v`) and dynamic shared
-     memory; K6's SASS digest beside the
-     previous tree's (K6_SASS_DIGEST, a reading); K4 at N = 1,000,003 and
+     memory; the SASS digests of K3's select and opacity instantiations at
+     width 96 beside the tree's before K6 joined their source
+     (K3_SASS_DIGESTS, a reading that K3's code did not move); K4 at N =
+     1,000,003 and
      at one chunk's survivors (32768 rays x 16, one direction per ray) and
      coarse points (x 64): rgb atol 2e-2, sigma atol 5e-2 + rtol 2e-2, and
-     the int8 layer inputs that round apart counted; K6 at 65,536 rays, C
-     64, K 16: per-ray set equality of depths, atol 1e-5. Each timed beside
-     its plain version. K4 also: TOP/s and share of the bound, its earlier
+     the int8 layer inputs that round apart counted; K6 (the TOPK epilogue
+     of csrc/proxy_march.cu) at 65,536 rays of the frame, C 64, K 16: its
+     scores read back (`proxy_select_scores`) within `proxy_score_bar` of
+     the plain scores (the share that differ and the largest |d| / bar
+     printed), the plain selection on them equal to its depths bit for bit
+     and in order, and where a ray keeps another set than the plain
+     version every candidate swapped across the cut a near tie within the
+     two bars' sum (`cut_swaps`; the share of such rays printed); its
+     registers, spills, stack and dynamic shared memory at C 64, and the
+     CUDA-core kernel's time (EARLIER_K6_MS, another call). Each timed
+     beside its plain version. K4 also: TOP/s and share of the bound, its earlier
      kernel's times (EARLIER_K4_MS, another call), K1 on the bf16 pack of
      the same field at the same points in turns with it, the registers,
      spills, stack and dynamic shared memory of both instantiations, the
@@ -108,7 +118,8 @@ Run from the repository root. Phases, each printing a line:
  12. `--fast_edge_refine 0.04`: one frame, finite; the refined-ray count.
  13. K6, which has no CLI caller: `proxy_select` over one frame's rays at C
      64, K 16 with the distilled proxy, every depth finite and in its ray's
-     [near, far].
+     [near, far]; its time beside the tree's before the redesign
+     (EARLIER_K6_FRAME_S, another call).
   Phases 14-17 drive EG3D exact eval (`eval_eg3d.py`'s defaults: planes 3 x
   32 x 256² from a 512-wide StyleGAN2, 64 + 64 samples, ray 0.1 -> 10,
   box_warp 15, chunk 4096) on the triplane gather kernel K5:
@@ -200,8 +211,7 @@ K5_UNQUEUED = 4         # timings of K5 unqueued, as every other kernel is timed
 K3_QUEUED = 3           # queued timings of K3 select at one chunk (K5_REPS launches each)
 SAME_FRAME_ATOL = 1e-6  # kernel vs gather frames
 PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest magnitude
-SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "proxy_select",
-           "triplane_gather")
+SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "triplane_gather")
 PALLAS = "nerf_siren_tpu/ops/pallas"
 # K1's times before its redesign (the wmma kernel, at these shapes on an H100 80GB HBM3, 700 W)
 EARLIER_K1_MS = {"fused_nerf_sigma": 20.673, "fused_nerf_full": 68.704}
@@ -217,9 +227,16 @@ EARLIER_K2_MS = {"tile": 10.595, "wgrad": 6.679, "fused_train_bwd": 17.440,
 # 32,768-ray chunk at C 32, K 16 from the fast frame's profile, 9.363 ms / 20; one launch
 # over a frame's 640,000 rays; the opacity prepass at 640,000 rays, C 16)
 EARLIER_K3_MS = {"chunk": 0.468, "one launch": 5.537, "opacity": 2.662}
-# `sass_digest("proxy_select")` of the tree before K3's redesign, built with nvcc 12.8 on the
-# H100 machine: K6's code must not move with K3's
-K6_SASS_DIGEST = "0ce9c24cd4602700"
+# K6 before its redesign (a warp per ray on the CUDA cores, on an H100 80GB HBM3, 700 W): at
+# phase 8's shape, and phase 13's one call over a frame (0.0112 and 0.0111 s in two runs of
+# that tree's smoke in one call)
+EARLIER_K6_MS = 1.230
+EARLIER_K6_FRAME_S = 0.0111
+# `sass_digest("proxy_march", symbol)` of K3's instantiations at width 96 in the tree before K6
+# joined csrc/proxy_march.cu, built with nvcc 12.8 on the H100 machine: K3's code must not move
+K3_SASS_DIGESTS = {"proxy_march_kernelILi96ELi1ELb0E": "cc3a61b2d5fd3d46",   # select
+                   "proxy_march_kernelILi96ELi0ELb0E": "8c7db8f61114441f"}   # opacity
+TOPK_SYMBOL = "proxy_march_kernelILi96ELi2ELb0E"   # mangled <96, TOPK, false>
 K2_BWD_SYMBOLS = {"tile": "nerf_train_bwd_tile_kernel", "wgrad": "nerf_train_wgrad_kernel",
                   "reduce": "nerf_train_reduce_kernel"}
 K2_FWD_SYMBOL = "nerf_train_fwd_tile_kernel"
@@ -239,6 +256,8 @@ KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kern
     "proxy_select": ("proxy_select", "select", f"{PALLAS}/proxy_select.py:55"),
     "triplane_gather": ("triplane_gather", "gather", f"{PALLAS}/triplane_gather.py:76"),
 }
+# the wrappers whose kernel is in another source than their module's name
+SOURCE_OF = {"proxy_select": "proxy_march"}
 
 
 def fail(msg):
@@ -979,21 +998,23 @@ def k3_scores_reading(pp, rays8, c, control=False):
     return got
 
 
-def sass_digest(name):
-    """sha256 (16 hex digits) of the SASS instructions of every kernel in
-    csrc/<name>.cu's library (cuobjdump of the build; addresses, encodings
-    and the anonymous-namespace ids that name the source's path dropped),
-    or 'not taken' where the toolkit has no cuobjdump."""
+def sass_digest(name, symbol):
+    """sha256 (16 hex digits) of the SASS instructions of the kernel whose
+    mangled name holds `symbol` in csrc/<name>.cu's library (cuobjdump of
+    the build; addresses, encodings and the anonymous-namespace ids that
+    name the source's path dropped), 'not taken' where the toolkit has no
+    cuobjdump, 'not found' where no kernel holds `symbol`."""
     import hashlib
     import re
 
     sass = cuobjdump_sass(name)
     if sass is None:
         return "not taken"
-    lines = []
-    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);|Function : (\S+)", sass):
-        lines.append(re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_",
-                            m.group(1) or m.group(2)))
+    body = next((f for f in sass.split("Function : ")[1:] if symbol in f.split()[0]), None)
+    if body is None:
+        return "not found"
+    lines = [re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "_GLOBAL__N_", body.split()[0])]
+    lines += re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
     return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
 
 
@@ -1052,7 +1073,6 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
 
     pp = fast.packed_proxy
     k3_bytes = sum(pp[k].numel() * pp[k].element_size() for k in ("k3_w1t", "b1", "w2", "b2"))
-    k6_bytes = sum(pp[k].numel() * pp[k].element_size() for k in ("w1", "b1", "w2", "b2"))
     rays8 = clipped_rays(frame_rays, fast.aabb)
     r = rays8.shape[0]
     span = (rays8[:, 7] - rays8[:, 6]).clamp_min(1e-12)
@@ -1158,10 +1178,11 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
               f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
               f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
               f"{c}", flush=True)
-    digest = sass_digest("proxy_select")
-    print(f"[8/17] proxy_select SASS digest {digest}: "
-          f"{'unchanged from' if digest == K6_SASS_DIGEST else 'DIFFERS from'} the previous "
-          f"tree's build {K6_SASS_DIGEST} (nvcc 12.8; a reading)", flush=True)
+    for sym, before in K3_SASS_DIGESTS.items():
+        digest = sass_digest("proxy_march", sym)
+        print(f"[8/17] {sym} SASS digest {digest}: "
+              f"{'unchanged from' if digest == before else 'DIFFERS from'} the build of the tree "
+              f"before K6 joined csrc/proxy_march.cu, {before} (nvcc 12.8; a reading)", flush=True)
 
     # K4 at N_CHECK random points, then at one chunk's survivors and coarse points
     rng = np.random.default_rng(SEED + 4)
@@ -1251,23 +1272,49 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
               f"{int_mm_chain_ms(p8, n)} (a reading); {card}", flush=True)
         results[name] = res
 
-    # K6: 65,536 rays of the frame, C 64, K 16
+    # K6: 65,536 rays of the frame, C 64, K 16; its own scores within the bar,
+    # the plain selection on them its depths bit for bit, and every set that
+    # differs from the plain one a near tie within the bars
     rays6 = rays8[torch.as_tensor(rng.permutation(r)[:K6_RAYS], device=device)]
     got = k6.proxy_select(pp, rays6, K6_C, K6_K)
-    ref = k6.proxy_select_ref(pp, rays6, K6_C, K6_K)
+    scores, z_read = k6.proxy_select_scores(pp, rays6, K6_C, K6_K)
+    zc = k6.candidate_depths(rays6, K6_C)
+    pts = rays6[:, None, 0:3] + rays6[:, None, 3:6] * zc[..., None]
+    ref, bar = k3.proxy_scores_ref(pp, pts), k3.proxy_score_bar(pp, pts)
     torch.cuda.synchronize()
-    d = (got.sort(1).values - ref.sort(1).values).abs()
-    err = float(d.max())
-    print(f"[8/17] proxy_select vs plain at {K6_RAYS} rays, C {K6_C}, K {K6_K}: per-ray sorted "
-          f"depths max|d| {err:.3e} (atol 1e-5); {int((d > 1e-5).any(1).sum())} rays differ",
-          flush=True)
-    if not torch.isfinite(got).all() or err > 1e-5:
-        fail("proxy_select disagrees with its plain version")
-    results["proxy_select"] = timed_result(
+    d = (scores - ref).abs()
+    ratio = torch.where(d > 0, d / bar, torch.zeros((), device=device))
+    n_diff = int((d > 0).sum())
+    same = torch.equal(got, z_read) and torch.equal(
+        got, k6.proxy_select_ref(pp, rays6, K6_C, K6_K, scores=scores))
+    n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
+    err = float((got - k6.proxy_select_ref(pp, rays6, K6_C, K6_K)).abs().max())
+    print(f"[8/17] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
+          f"of {d.numel()} differ ({100 * n_diff / d.numel():.3f}%), max |d| / bar "
+          f"{float(ratio.max()):.3e} (bar: proxy_score_bar); the plain selection on the kernel's "
+          f"scores {'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} of {K6_RAYS} rays "
+          f"({100 * n_sets / K6_RAYS:.3f}%) keep another set than the plain version, worst swap "
+          f"/ its bars {worst:.3e}; depths max|d| vs plain {err:.3e}", flush=True)
+    if not torch.isfinite(scores).all() or float(ratio.max()) > 1.0:
+        fail("proxy_select's scores lie beyond proxy_score_bar of the plain scores")
+    if not same:
+        fail("the plain selection on proxy_select's own scores differs from the kernel")
+    if worst > 1.0:
+        fail("proxy_select keeps a set that differs from the plain one beyond a near tie")
+    del scores, z_read, zc, pts, ref, bar, d, ratio
+    res = timed_result(
         f"at {K6_RAYS} rays", "proxy_select", lambda: k6.proxy_select(pp, rays6, K6_C, K6_K),
         lambda: k6.proxy_select_ref(pp, rays6, K6_C, K6_K),
-        K6_RAYS * K6_C * proxy_flop_per_candidate(pp), K6_RAYS * (32 + 4 * K6_K) + k6_bytes, err,
+        K6_RAYS * K6_C * proxy_flop_per_candidate(pp), K6_RAYS * (32 + 4 * K6_K) + k3_bytes, err,
         card)
+    results["proxy_select"] = res
+    regs, spills, stack = next(v for k, v in ptxas_report("proxy_march").items()
+                               if TOPK_SYMBOL in k)
+    print(f"[8/17] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
+          f"CUDA-core kernel {EARLIER_K6_MS} ms (another call; {EARLIER_K6_MS / res['ms']:.2f}x); "
+          f"build (-Xptxas -v, {TOPK_SYMBOL}): {regs} registers, {spills} spill bytes, {stack} "
+          f"bytes stack frame; {k3.shared_bytes(hidden, K6_C)} bytes dynamic shared memory at C "
+          f"{K6_C}; {card}", flush=True)
     return results
 
 
@@ -1459,7 +1506,7 @@ def fast_phases(frames_rays, device, card, args):
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
     print(f"[13/17] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
-          f"({card}); "
+          f"({card}); the tree before the redesign {EARLIER_K6_FRAME_S} s (another call); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
         fail("proxy_select's depths are not finite or leave their rays' [near, far]")
@@ -1936,7 +1983,8 @@ def main():
     results["triplane_gather"], launches["triplane_gather"] = eg3d_phases(device, smi, args)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"nerf_siren_tpu_torch/csrc/{src}.cu",
+        {"name": name, "route": "cuda",
+         "source": f"nerf_siren_tpu_torch/csrc/{SOURCE_OF.get(name, src)}.cu",
          "replaces": replaces, "launches": launches[name], "timing": "unqueued",
          **results[name]}
         for name, (src, _, replaces) in KERNELS.items()]}), flush=True)

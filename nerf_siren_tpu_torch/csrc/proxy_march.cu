@@ -1,19 +1,25 @@
-// Proxy march (K3) for Hopper (sm_90a): the fast renderer's pre-model
-// pipeline, the density proxy scored on the tensor cores and each ray
-// marched from shared memory.
+// The density-proxy kernels for Hopper (sm_90a): the proxy scored on the
+// tensor cores over C uniform candidates per ray, then one of three
+// epilogues: the march (K3: its opacity prepass and its depth placement)
+// or the top-K (K6).
 //
 // Replaces the TPU Pallas kernels nerf_siren_tpu/ops/pallas/proxy_march.py::
 // _opacity_kernel (`proxy_opacity`, the culling prepass) and ::_march_kernel
-// (`proxy_march_select`). Per ray (o, d, near, far), as the plain PyTorch
-// version nerf_siren_tpu_torch/ops/kernels/proxy_march.py::
-// proxy_opacity_ref / proxy_march_select_ref:
-//   C uniform candidates z_j = near + j * spacing, spacing = (far - near) /
-//   (C - 1); the density proxy's score at o + d z_j: relu(W1 emb + b1) with
-//   the 5-frequency embedding emb (33 channels) and the hidden activations
-//   rounded to bf16, float32 sums, b1 added in float32 after the product,
-//   then w2 . h + b2;
-//   sigma = expm1(relu(score)), alpha = 1 - exp(-sigma * spacing * |d|),
-//   expected weight w_j = alpha * T, T *= 1 - alpha + 1e-10.
+// (`proxy_march_select`), and nerf_siren_tpu/ops/pallas/proxy_select.py::
+// _kernel (`proxy_select`). Per ray (o, d, near, far), as the plain PyTorch
+// versions nerf_siren_tpu_torch/ops/kernels/proxy_march.py::
+// proxy_opacity_ref / proxy_march_select_ref and ops/kernels/proxy_select.py::
+// proxy_select_ref:
+//   C uniform candidates: for the march z_j = near + j * spacing, spacing =
+//   (far - near) / (C - 1); for the top-K z_j = near (1 - t_j) + far t_j,
+//   t_j = j / (C - 1) (t = 0 at C = 1, as linspace(0, 1, 1));
+//   the density proxy's score at o + d z_j: relu(W1 emb + b1) with the
+//   5-frequency embedding emb (33 channels, reference order [x, sin(2^0 x),
+//   cos(2^0 x), ...]) and the hidden activations rounded to bf16, float32
+//   sums, b1 added in float32 after the product, then w2 . h + b2.
+//   The march (OPACITY, SELECT): sigma = expm1(relu(score)), alpha = 1 -
+//   exp(-sigma * spacing * |d|), expected weight w_j = alpha * T, T *= 1 -
+//   alpha + 1e-10.
 //   `proxy_opacity` writes 1 - T after the last candidate.
 //   `proxy_march_select` inverts the CDF of the interior weights w[1:-1]
 //   (each + 1e-5, cdf_i = S_i / S_total, cdf_0 = 0) over the bins
@@ -23,21 +29,24 @@
 //   ascending depths (R, K), the survivors o + d z (R, K, 3) ray-major (one
 //   direction per ray for the field kernel), and optionally the landing
 //   bin's normalised density dcdf / dz (R, K) and the mass S_total (R,).
-// The embedding and every step of the march round exactly as the plain
-// version's; only the order of the proxy's float32 sums differs (the
-// tensor cores' for W1 emb and for w2 . h). So a score may differ by
-// float32 rounding, or, where that moves a pre-activation across a bf16
-// rounding step, by one bf16 step of one hidden activation; given the
-// same scores the march is bit for bit the plain march
-// (`proxy_march_scores` reads the scores back to show it).
+//   `proxy_select` (TOPK) writes the depths of the K highest scores in
+//   score order (R, K), the lower index first among equal scores.
+// The embedding, the candidates and every step of the march and of the
+// top-K round exactly as the plain versions'; only the order of the
+// proxy's float32 sums differs (the tensor cores' for W1 emb and for
+// w2 . h). So a score may differ by float32 rounding, or, where that moves
+// a pre-activation across a bf16 rounding step, by one bf16 step of one
+// hidden activation; given the same scores the march and the top-K are
+// bit for bit the plain ones (`proxy_march_scores_forward` and
+// `proxy_select_scores_forward` read the scores back to show it).
 //
 // Bound: operations. A candidate costs 33 H + H multiply-adds of the proxy
 // (H = 96: ~6.5 kFLOP, ~7 us a 32,768-ray chunk at C 32 on the bf16
-// tensor cores) against 32 bytes in per ray and 16 K bytes out; what is
-// left beside the products is 15 precise sincosf a candidate, the bias and
-// conversion of H hidden units, and the march.
+// tensor cores) against 32 bytes in per ray and 16 K bytes out (4 K for
+// the top-K); what is left beside the products is 15 precise sincosf a
+// candidate, the bias and conversion of H hidden units, and the epilogue.
 //
-// Design: one template, two epilogues (OPACITY, SELECT).
+// Design: one template, three epilogues (OPACITY, SELECT, TOPK).
 // - A persistent CTA (one warpgroup; 4 CTAs per SM, 3 at width 128) walks
 //   blocks of B rays (64 up to C 64, then 32, 16: the block's rows fit in
 //   shared memory at C 256). Its B x C points are rows p = ray C + j,
@@ -66,10 +75,10 @@
 //   NT) x (NT x 8) with w2 as B's column 0 (m64n8k16; the product of two
 //   bf16 values is exact in float32, only the sum's order differs), + b2.
 //   Lanes 0 and 1 of a quad turn rows g and g + 8's scores into the
-//   candidates' alphas (expm1f, expf), into alpha[ray][j] in shared memory,
-//   at an odd row stride so that one thread per ray reads a row
-//   conflict-free. A warp's 16 points are placed once, by lanes 0-15, and
-//   shuffled to the quads that embed them.
+//   candidates' alphas (expm1f, expf; TOPK keeps the raw score), into
+//   row[ray][j] in shared memory, at an odd row stride so that one thread
+//   per ray reads a row conflict-free. A warp's 16 points are placed once,
+//   by lanes 0-15, and shuffled to the quads that embed them.
 // - The march, in three passes over the block, each as the plain march in
 //   order and rounding: one thread per ray scans its alphas for T and the
 //   running sums S_i (which overwrite the alphas already read); all threads
@@ -80,23 +89,40 @@
 //   threads at consecutive addresses. Only the scan is serial, and it is a
 //   multiply and an add a candidate; every exp, division and search runs in
 //   parallel.
+// - The top-K by rank: for each candidate j of its ray a thread counts
+//   rank_j = #{i : s_i > s_j or (s_i == s_j and i < j)} over the ray's row,
+//   and if rank_j < K stores z_j at z[ray][rank_j]. That is exactly K rounds
+//   of (take the highest score, the lowest index among equals, remove it)
+//   and a stable descending sort, with no serial rounds, shuffles or
+//   reduction order; the threads of a warp that share a ray read each s_i
+//   together (a broadcast). A thread ranks RANK_P candidates of one ray at
+//   once, so each s_i it reads serves RANK_P compares. C compares a
+//   candidate, beside its 33 H + H multiply-adds.
 // - A ray's outputs depend on that ray alone, never on its place in the
 //   batch: every row is scored by the same code, whatever tile it lands in.
 //
 // TPU layout tricks not kept: the (8, N) lane-major rays and TILE_R padding
 // (any R), the rotation recurrence for sin, the folded [W1s|W1x|b1] stack
-// (b1 stays float32), candidate-major survivor order.
+// (b1 stays float32), candidate-major survivor order, the (T*S, 4) flat
+// candidate block built outside the kernel, the one-hot selection by iota.
 //
 // Plain C interface, loaded with ctypes; the launcher returns
 // cudaGetLastError().
 
-#include "proxy_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "sm90_async.cuh"
 
 namespace {
 
-using namespace proxy;
+typedef __nv_bfloat16 bf16;
 
+constexpr int FREQS = 5;          // the proxy's embedding frequencies
+constexpr int MAX_HIDDEN = 128;
+constexpr int MAX_CANDIDATES = 256;
+constexpr int K3_MIN_CANDIDATES = 4;  // the march needs two interior candidates
 constexpr int THREADS = 128;  // one warpgroup
 // CTAs per SM the registers must allow: 4 (128 registers a thread) up to
 // width 96, 3 (168) at 128, whose 64 accumulators would spill under 128.
@@ -104,8 +130,9 @@ __host__ __device__ constexpr int min_ctas(int nt) { return nt > 96 ? 3 : 4; }
 constexpr int TILE = 64;      // rows of one wgmma
 constexpr int KSTEPS = 3;     // 48 embedding columns
 constexpr int W1T_ROW = 128;  // bytes of one hidden unit's row of the W1^T tile
+constexpr int RANK_P = 4;     // candidates a thread of the top-K ranks at once
 
-enum Epilogue { OPACITY = 0, SELECT = 1 };
+enum Epilogue { OPACITY = 0, SELECT = 1, TOPK = 2 };
 
 __host__ __device__ constexpr int rays_per_block(int c) {
   return c <= 64 ? 64 : c <= 128 ? 32 : 16;
@@ -117,7 +144,7 @@ __host__ __device__ constexpr int row_ld(int c) { return c | 1; }  // odd row st
 // the rest zero; K-major, 128-byte swizzle: 1024 bytes a 64-column block),
 // b1 (float32), b2, the block's rays (8 floats each), each ray's spacing,
 // spacing |d| and mass S, and its row of C alphas (then running sums, then
-// CDF).
+// CDF; the top-K's C scores).
 struct Layout {
   int w2t, b1, b2, rays, ray_terms, rows, bytes;
 };
@@ -147,7 +174,8 @@ struct Args {
   long long n_rays;
   int C, K, midpoint;
   float* opacity;  // OPACITY: (n_rays,)
-  float* z;        // SELECT: (n_rays, K), (n_rays, K, 3), and (n_rays, K), (n_rays,) or null
+  float* z;        // SELECT, TOPK: (n_rays, K); SELECT: (n_rays, K, 3), and (n_rays, K),
+                   // (n_rays,) or null
   float* xyz;
   float* rho;
   float* mass;
@@ -168,6 +196,18 @@ __device__ __forceinline__ uint32_t relu_bf16_pair(float lo, float hi) {
 
 // An output element to device memory.
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
+
+// o + d * t with two roundings (no contraction to fma), as PyTorch computes it.
+__device__ __forceinline__ float along(float o, float d, float t) {
+  return __fadd_rn(o, __fmul_rn(d, t));
+}
+
+// The top-K's candidate i: near (1 - t) + far t, t = i / max(C - 1, 1),
+// rounded as the plain version.
+__device__ __forceinline__ float depth_at(float near, float far, int i, int C) {
+  const float t = __fdiv_rn(float(i), float(C > 1 ? C - 1 : 1));
+  return __fadd_rn(__fmul_rn(near, __fsub_rn(1.0f, t)), __fmul_rn(far, t));
+}
 
 // alpha = 1 - exp(-expm1(relu(score)) * spacing |d|), rounded as the plain march.
 __device__ __forceinline__ float alpha_of(float score, float dz) {
@@ -195,9 +235,10 @@ __device__ __forceinline__ void embed_pairs(float x, float y, float z, int t, ui
   pr[5] = 0u;
 }
 
-// The block's nr x C candidates scored and turned into alphas, rows_s[ray *
-// ld + j]; with SCORES the scores also go to device memory.
-template <int NT, bool SCORES>
+// The block's nr x C candidates scored into rows_s[ray * ld + j]: as alphas
+// for the march, as they are for the top-K; with SCORES the scores also go
+// to device memory.
+template <int NT, int EPI, bool SCORES>
 __device__ __forceinline__ void score_block(const Args& a, long long r0, const float* rays_s,
                                             const float* terms_s, float* rows_s, int nr,
                                             uint32_t w1t_addr, uint32_t w2t_addr,
@@ -214,7 +255,8 @@ __device__ __forceinline__ void score_block(const Args& a, long long r0, const f
       ray = p / C;
       j = p - ray * C;
       const float* ry = rays_s + ray * 8;
-      const float zj = along(ry[6], float(j), terms_s[ray * 4]);
+      const float zj = EPI == TOPK ? depth_at(ry[6], ry[7], j, C)
+                                   : along(ry[6], float(j), terms_s[ray * 4]);
 #pragma unroll
       for (int c = 0; c < 3; ++c) pt[c] = along(ry[c], ry[3 + c], zj);
     }
@@ -271,7 +313,8 @@ __device__ __forceinline__ void score_block(const Args& a, long long r0, const f
     if (t < 2 && ray_t >= 0) {
       const float sc = __fadd_rn(t == 0 ? acc2[0] : up, b2);
       if (SCORES) a.scores[(r0 + ray_t) * C + j_t] = sc;
-      rows_s[ray_t * ld + j_t] = alpha_of(sc, terms_s[ray_t * 4 + 1]);
+      if constexpr (EPI == TOPK) rows_s[ray_t * ld + j_t] = sc;
+      else rows_s[ray_t * ld + j_t] = alpha_of(sc, terms_s[ray_t * 4 + 1]);
     }
   }
 }
@@ -337,6 +380,39 @@ __device__ __forceinline__ void march_block(const Args& a, long long r0, const f
   }
 }
 
+// The top-K of the block's nr rows of C scores: candidate j's rank is the
+// count of candidates before it (a higher score, or an equal one at a lower
+// index), and the K of rank < K store their depths at their rank. A thread
+// ranks RANK_P candidates of one ray at once (j = g + G p), so that each
+// score it reads serves RANK_P compares and RANK_P independent counts.
+__device__ __forceinline__ void topk_block(const Args& a, long long r0, const float* rays_s,
+                                           const float* rows_s, int nr, int tid) {
+  const int C = a.C, K = a.K, ld = row_ld(C), G = (C + RANK_P - 1) / RANK_P;
+  for (int i = tid; i < nr * G; i += THREADS) {
+    const int ray = i / G, g = i - ray * G;
+    const float* row = rows_s + ray * ld;
+    float s[RANK_P];
+    int rank[RANK_P];
+#pragma unroll
+    for (int p = 0; p < RANK_P; ++p) {
+      s[p] = g + G * p < C ? row[g + G * p] : 0.0f;  // past C: ranked, never stored
+      rank[p] = 0;
+    }
+#pragma unroll 4
+    for (int m = 0; m < C; ++m) {
+      const float v = row[m];
+#pragma unroll
+      for (int p = 0; p < RANK_P; ++p) rank[p] += int(v > s[p]) | int(v == s[p] && m < g + G * p);
+    }
+    const float near = rays_s[ray * 8 + 6], far = rays_s[ray * 8 + 7];
+#pragma unroll
+    for (int p = 0; p < RANK_P; ++p) {
+      const int j = g + G * p;
+      if (j < C && rank[p] < K) put(a.z + (r0 + ray) * K + rank[p], depth_at(near, far, j, C));
+    }
+  }
+}
+
 template <int NT, int EPI, bool SCORES>
 __global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(const Args a) {
   extern __shared__ unsigned char smem_raw[];
@@ -372,7 +448,8 @@ __global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(cons
     const int nr = int(a.n_rays - r0 < B ? a.n_rays - r0 : B);
     for (int i = tid; i < nr * 8; i += THREADS) rays_s[i] = __ldg(a.rays + r0 * 8 + i);
     __syncthreads();
-    if (tid < nr) {  // spacing = (far - near) / (C - 1) and spacing |d|, as the plain march
+    // the march's spacing = (far - near) / (C - 1) and spacing |d|, as the plain march
+    if (EPI != TOPK && tid < nr) {
       const float* ry = rays_s + tid * 8;
       const float spacing = __fdiv_rn(__fsub_rn(ry[7], ry[6]), float(C - 1));
       const float dn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(ry[3], ry[3]), __fmul_rn(ry[4], ry[4])),
@@ -381,10 +458,14 @@ __global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(cons
       terms_s[tid * 4 + 1] = __fmul_rn(spacing, dn);
     }
     __syncthreads();
-    score_block<NT, SCORES>(a, r0, rays_s, terms_s, rows_s, nr, w1t_addr, w2t_addr, b1s, b2,
-                            warp, lane);
+    score_block<NT, EPI, SCORES>(a, r0, rays_s, terms_s, rows_s, nr, w1t_addr, w2t_addr, b1s,
+                                 b2, warp, lane);
     __syncthreads();
-    march_block<EPI>(a, r0, rays_s, terms_s, rows_s, nr, tid);
+    if constexpr (EPI == TOPK) {
+      topk_block(a, r0, rays_s, rows_s, nr, tid);
+    } else {
+      march_block<EPI>(a, r0, rays_s, terms_s, rows_s, nr, tid);
+    }
     __syncthreads();  // the next block's rays and rows overwrite these
   }
 }
@@ -441,9 +522,25 @@ Args weights(const void* w1t, const void* b1, const void* w2, const void* b2, in
   return a;
 }
 
-bool valid(int hidden, int n_candidates, long long n_rays) {
-  return hidden >= 1 && hidden <= MAX_HIDDEN && n_candidates >= 4 && n_candidates <= 256 &&
-         n_rays >= 0;
+// The march takes K3_MIN_CANDIDATES..MAX_CANDIDATES candidates, the top-K
+// 1..MAX_CANDIDATES.
+bool valid(int hidden, int n_candidates, long long n_rays, int least = K3_MIN_CANDIDATES) {
+  return hidden >= 1 && hidden <= MAX_HIDDEN && n_candidates >= least &&
+         n_candidates <= MAX_CANDIDATES && n_rays >= 0;
+}
+
+template <bool SCORES>
+int select_top_k(const void* w1t, const void* b1, const void* w2, const void* b2, int hidden,
+                 const float* rays, long long n_rays, int n_candidates, int n_keep,
+                 float* scores, float* z, void* stream) {
+  if (!valid(hidden, n_candidates, n_rays, 1) || n_keep < 1 || n_keep > n_candidates)
+    return int(cudaErrorInvalidValue);
+  if (n_rays == 0) return int(cudaSuccess);
+  Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
+  a.K = n_keep;
+  a.z = z;
+  a.scores = scores;
+  return launch<TOPK, SCORES>(a, stream);
 }
 
 }  // namespace
@@ -499,10 +596,30 @@ int proxy_march_scores_forward(const void* w1t, const void* b1, const void* w2, 
   return launch<OPACITY, true>(a, stream);
 }
 
-// The dynamic shared memory of one CTA of either kernel at these sizes, in
-// bytes (a reading for the smoke's build report).
+// z: (n_rays, n_keep) f32, the depths of the n_keep highest scores in score
+// order; 1 <= n_keep <= n_candidates.
+int proxy_select_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
+                         int hidden, const float* rays, long long n_rays, int n_candidates,
+                         int n_keep, float* z, void* stream) {
+  return select_top_k<false>(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates, n_keep,
+                             nullptr, z, stream);
+}
+
+// The top-K kernel that also stores the scores it selected from: scores
+// (n_rays, n_candidates) f32, z (n_rays, n_keep) f32. A reading for the
+// tests, not on any path.
+int proxy_select_scores_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
+                                int hidden, const float* rays, long long n_rays,
+                                int n_candidates, int n_keep, float* scores, float* z,
+                                void* stream) {
+  return select_top_k<true>(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates, n_keep,
+                            scores, z, stream);
+}
+
+// The dynamic shared memory of one CTA of any of the kernels at these
+// sizes, in bytes (a reading for the smoke's build report).
 int proxy_march_shared_bytes(int hidden, int n_candidates) {
-  if (!valid(hidden, n_candidates, 0)) return -1;
+  if (!valid(hidden, n_candidates, 0, 1)) return -1;
   return shared_bytes(hidden_width(hidden), n_candidates);
 }
 

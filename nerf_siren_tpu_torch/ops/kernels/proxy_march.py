@@ -1,14 +1,15 @@
 """Density-proxy march (K3): pack, plain PyTorch version, and the CUDA kernel's wrappers.
 
 Counterpart of `nerf_siren_tpu/ops/pallas/proxy_march.py` (the TPU kernels
-`_opacity_kernel` / `_march_kernel`). The kernel is `csrc/proxy_march.cu`;
-this module owns everything around it:
+`_opacity_kernel` / `_march_kernel`). The kernel is `csrc/proxy_march.cu`,
+whose third epilogue is the proxy top-K (K6, `proxy_select.py`); this
+module owns everything around the march and the library's binding:
 
 - `pack_proxy_params`: the proxy's weights as the proxy kernels read them
   (K3 here and K6 in `proxy_select.py`): ``w1`` (H, 33) bf16 in torch layout
   with the embedding columns in reference order, ``b1`` (H,) float32,
-  ``w2`` (H,) bf16, ``b2`` (1,) float32; H <= 128; and K3's ``k3_w1t``:
-  W1^T as the kernel's wgmma reads it (`pack_k3_w1t`, plain inverse
+  ``w2`` (H,) bf16, ``b2`` (1,) float32; H <= 128; and ``k3_w1t``:
+  W1^T as the kernels' wgmma reads it (`pack_k3_w1t`, plain inverse
   `unpack_k3_w1t`): (NT, 64) bf16, NT = H rounded up to a width the kernel
   has (`k3_width`), its 48 embedding columns in the order in which the
   kernel's threads build the embedding in registers (`k3_columns`), in the
@@ -56,6 +57,7 @@ PROXY_FREQS = 5
 PROXY_IN = 3 * (2 * PROXY_FREQS + 1)   # 33
 MAX_HIDDEN = 128
 MAX_CANDIDATES = 256   # blocks of 16 rays at C 256 keep the scores in shared memory
+K3_MIN_CANDIDATES = 4  # the march needs two interior candidates (JAX asserts C >= 4)
 K3_WIDTHS = (16, 32, 64, 96, 128)   # hidden widths of the kernel's wgmma wrappers
 K3_COLUMNS = 48        # embedding columns of the kernel's A: 33, padded to three k16 steps
 K3_ROW = 64            # bf16 per row of `k3_w1t`: one 128-byte swizzle row
@@ -303,15 +305,18 @@ def _lib():
     lib.proxy_opacity_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p]
     lib.proxy_march_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, p, p, p]
     lib.proxy_march_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p, p]
+    lib.proxy_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p]
+    lib.proxy_select_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p, p]
     lib.proxy_march_shared_bytes.argtypes = [i, i]
     for fn in (lib.proxy_opacity_forward, lib.proxy_march_select_forward,
-               lib.proxy_march_scores_forward, lib.proxy_march_shared_bytes):
+               lib.proxy_march_scores_forward, lib.proxy_select_forward,
+               lib.proxy_select_scores_forward, lib.proxy_march_shared_bytes):
         fn.restype = i
     return lib
 
 
 def shared_bytes(hidden: int, n_candidates: int) -> int:
-    """Dynamic shared memory of one CTA of the kernel at these sizes, in
+    """Dynamic shared memory of one CTA of the kernels at these sizes, in
     bytes (the smoke's build report)."""
     n = _lib().proxy_march_shared_bytes(hidden, n_candidates)
     if n < 0:
@@ -319,16 +324,19 @@ def shared_bytes(hidden: int, n_candidates: int) -> int:
     return n
 
 
-def weight_args(packed: Packed, rays: torch.Tensor, n_candidates: int) -> list:
+def check_range(what: str, name: str, value: int, least: int, most: int) -> None:
+    """Raise a ValueError that names `value` unless least <= value <= most."""
+    if not least <= value <= most:
+        raise ValueError(f"{what} takes {least}..{most} {name}, got {value}")
+
+
+def weight_args(packed: Packed, rays: torch.Tensor) -> list:
     """Validate rays and pack for the proxy kernels; their pointers and H."""
     if rays.device.type != "cuda":
         raise ValueError(f"proxy kernels: unsupported device {rays.device}")
     _check(rays, "rays", rays.device, torch.float32, (rays.shape[0], 8))
     hidden = packed["w1"].shape[0]
-    if not 1 <= hidden <= MAX_HIDDEN:
-        raise ValueError(f"proxy kernels take hidden 1..{MAX_HIDDEN}, got {hidden}")
-    if not 4 <= n_candidates <= MAX_CANDIDATES:
-        raise ValueError(f"proxy kernels take 4..{MAX_CANDIDATES} candidates, got {n_candidates}")
+    check_range("proxy kernels", "hidden", hidden, 1, MAX_HIDDEN)
     bf, f32 = torch.bfloat16, torch.float32
     for k, dtype, shape in (("w1", bf, (hidden, PROXY_IN)), ("b1", f32, (hidden,)),
                             ("w2", bf, (hidden,)), ("b2", f32, (1,))):
@@ -336,9 +344,9 @@ def weight_args(packed: Packed, rays: torch.Tensor, n_candidates: int) -> list:
     return [packed[k].data_ptr() for k in ("w1", "b1", "w2", "b2")] + [hidden]
 
 
-def k3_args(packed: Packed, rays: torch.Tensor, n_candidates: int) -> list:
-    """`weight_args` with K3's W1^T tile in place of w1."""
-    args = weight_args(packed, rays, n_candidates)
+def k3_args(packed: Packed, rays: torch.Tensor) -> list:
+    """`weight_args` with the W1^T tile in place of w1."""
+    args = weight_args(packed, rays)
     if "k3_w1t" not in packed:
         raise ValueError("k3_w1t: missing from the pack (pack_proxy_params makes it)")
     _check(packed["k3_w1t"], "k3_w1t", rays.device, torch.bfloat16,
@@ -356,7 +364,8 @@ def proxy_opacity(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torc
     prepass. rays: (R, 8) f32 [o, d, near, far]."""
     if rays.device.type == "cpu":
         return proxy_opacity_ref(packed, rays, n_candidates)
-    args = k3_args(packed, rays, n_candidates)
+    check_range("proxy_opacity", "candidates", n_candidates, K3_MIN_CANDIDATES, MAX_CANDIDATES)
+    args = k3_args(packed, rays)
     out = torch.empty(rays.shape[0], dtype=torch.float32, device=rays.device)
     err = _lib().proxy_opacity_forward(*args, rays.data_ptr(), rays.shape[0], n_candidates,
                                        out.data_ptr(), current_stream(rays.device))
@@ -379,7 +388,9 @@ def proxy_march_select(packed: Packed, rays: torch.Tensor, n_candidates: int, n_
     if rays.device.type == "cpu":
         return proxy_march_select_ref(packed, rays, n_candidates, n_keep, midpoint,
                                       return_density)
-    args = k3_args(packed, rays, n_candidates)
+    check_range("proxy_march_select", "candidates", n_candidates, K3_MIN_CANDIDATES,
+                MAX_CANDIDATES)
+    args = k3_args(packed, rays)
     r, dev = rays.shape[0], rays.device
     z = torch.empty((r, n_keep), dtype=torch.float32, device=dev)
     xyz = torch.empty((r, n_keep, 3), dtype=torch.float32, device=dev)
@@ -402,7 +413,9 @@ def proxy_march_scores(packed: Packed, rays: torch.Tensor, n_candidates: int) ->
     LAUNCHES."""
     if rays.device.type == "cpu":
         return proxy_march_scores_ref(packed, rays, n_candidates)
-    args = k3_args(packed, rays, n_candidates)
+    check_range("proxy_march_scores", "candidates", n_candidates, K3_MIN_CANDIDATES,
+                MAX_CANDIDATES)
+    args = k3_args(packed, rays)
     r, dev = rays.shape[0], rays.device
     scores = torch.empty((r, n_candidates), dtype=torch.float32, device=dev)
     opacity = torch.empty(r, dtype=torch.float32, device=dev)

@@ -3,7 +3,7 @@ NeRF field (K1, csrc/fused_mlp.cu), the fused training field's forward
 and backward (K2, csrc/fused_mlp_train.cu), the proxy march (K3,
 csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu), the
 triplane gather (K5, csrc/triplane_gather.cu) and the proxy top-K (K6,
-csrc/proxy_select.cu).
+the TOPK epilogue of csrc/proxy_march.cu).
 
 Imports torch only, so it also runs where JAX is not installed. Tests marked
 `cuda` need a CUDA card and skip without one; on the card run
@@ -405,8 +405,12 @@ def test_train_forward_reads_the_stream_prefix_it_is_given(cuda_device):
 # plain march equals its outputs bit for bit. Against the plain version
 # end to end the bars are tests/test_proxy_march.py's (depths: median
 # |dz| < 0.005 and 99th percentile < 0.05 of far - near; opacity: median
-# < 2e-3, max < 0.05). K6 rounds as its plain version at every point: per-ray
-# set equality of depths (atol 1e-5). K4: rgb atol 2e-2, sigma atol 5e-2 +
+# < 2e-3, max < 0.05). K6 scores on K3's stage: its scores (read back by
+# `proxy_select_scores`) lie within `proxy_score_bar` of the plain ones, the
+# plain selection on them equals its depths bit for bit and in order, and
+# where a ray keeps another set than the plain version every candidate
+# swapped across the cut is a near tie: the plain scores of the two lie
+# within their bars' sum (`cut_swaps`). K4: rgb atol 2e-2, sigma atol 5e-2 +
 # rtol 2e-2 (tests/test_fused_int8.py), and under 1e-3 of the int8 inputs of
 # its layers rounded apart (0 on an H100).
 
@@ -544,27 +548,96 @@ def test_proxy_march_kernels_take_no_rays(cuda_device):
     assert k3.LAUNCHES == {"opacity": before["opacity"] + 1, "select": before["select"] + 1}
 
 
+# (R, C, K, H): C 1-256, K from 1 to C, every wgmma width (H 1 and 16 -> 16,
+# 48 -> 64, 96, 100 and 128 -> 128); "edge": one ray past the blocks of a
+# full persistent grid at C 64, H 96 (4 CTAs an SM, 64 rays a block)
+K6_SHAPES = [(1, 1, 1, 48), (70, 1, 1, 1), (70, 2, 2, 16), (70, 3, 1, 100), (4099, 3, 3, 96),
+             (4099, 8, 8, 128), (4099, 32, 16, 96), (70, 32, 1, 48), (4099, 64, 16, 48),
+             ("edge", 64, 16, 96), (1, 64, 64, 100), (257, 256, 3, 128), (70, 256, 256, 16),
+             (301, 37, 5, 1)]
+
+
+def _k6_rays(n, device):
+    if n == "edge":
+        n = torch.cuda.get_device_properties(device).multi_processor_count * 4 * 64 + 1
+    return _proxy_rays(n, seed=2).to(device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,k", [(1, 8, 8), (70, 32, 8), (4099, 64, 16), (257, 256, 3)])
-def test_proxy_select_kernel_matches_plain(cuda_device, n, c, k):
+@pytest.mark.parametrize("n,c,k,hidden", K6_SHAPES)
+def test_proxy_select_kernel_matches_plain(cuda_device, n, c, k, hidden):
+    """K6 against its plain version: (a) its scores, read back, within
+    `proxy_score_bar` of the plain scores; (b) the plain selection on its
+    own scores equal to its depths bit for bit and in order (and the
+    readback kernel's depths to `proxy_select`'s); (c) where a ray keeps
+    another set than the plain version, every swap across the cut a near
+    tie within the two bars' sum. One launch counted a call, none for the
+    readback."""
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
     from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
 
-    pp, rays = _proxy_pack(48, cuda_device, seed=1), _proxy_rays(n, seed=2).to(cuda_device)
+    pp, rays = _proxy_pack(hidden, cuda_device, seed=1), _k6_rays(n, cuda_device)
     before = k6.LAUNCHES["select"]
     got = k6.proxy_select(pp, rays, c, k)
+    scores, z = k6.proxy_select_scores(pp, rays, c, k)
     torch.cuda.synchronize()
     assert k6.LAUNCHES["select"] == before + 1
-    ref = k6.proxy_select_ref(pp, rays, c, k)
-    bad = ((got.sort(1).values - ref.sort(1).values).abs() > 1e-5).any(1).nonzero()[:, 0]
-    if len(bad):   # show whether the rays that differ hold near-equal scores
-        z = k6._depths(rays, c)
-        s = k6.proxy_scores_ref(pp, rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None])
-        for r in bad[:4].tolist():
-            top = torch.sort(s[r], descending=True, stable=True)
-            print(f"\n[C={c} K={k}] ray {r}: plain top scores {top.values[:k + 2].tolist()} at "
-                  f"{top.indices[:k + 2].tolist()}; kernel depths {got[r].tolist()}, plain "
-                  f"{ref[r].tolist()}")
-    torch.testing.assert_close(got.sort(1).values, ref.sort(1).values, atol=1e-5, rtol=0)
+    assert got.shape == (rays.shape[0], k) and scores.shape == (rays.shape[0], c)
+    zc = k6.candidate_depths(rays, c)
+    pts = rays[:, None, 0:3] + rays[:, None, 3:6] * zc[..., None]
+    ref, bar = k3.proxy_scores_ref(pp, pts), k3.proxy_score_bar(pp, pts)
+    d = (scores - ref).abs()
+    over = torch.where(d > 0, d / bar, torch.zeros((), device=d.device))
+    n_sets, worst = k6.cut_swaps(ref, bar, scores, k)
+    print(f"\n[n={rays.shape[0]} C={c} K={k} H={hidden}] scores: {int((d > 0).sum())} of "
+          f"{d.numel()} differ, max |d| / bar {float(over.max()):.3e}; {n_sets} rays keep "
+          f"another set, worst swap / bars {worst:.3e}")
+    assert bool(torch.isfinite(scores).all()) and bool((d <= bar).all())
+    assert torch.equal(z, got)
+    assert torch.equal(got, k6.proxy_select_ref(pp, rays, c, k, scores=scores))
+    assert worst <= 1.0
+    if c == 1:
+        assert torch.equal(got, rays[:, 6:7])
+
+
+@pytest.mark.cuda
+def test_proxy_select_is_deterministic_and_rays_independent_of_their_batch(cuda_device):
+    """(d) Two calls give the same bits, and a ray's depths (and scores) do
+    not depend on its place in the batch: a subset lands every ray in
+    another block and tile."""
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    pp, rays = _proxy_pack(96, cuda_device), _proxy_rays(5000, seed=7).to(cuda_device)
+    idx = torch.randperm(5000, generator=torch.Generator().manual_seed(0))[:1237].to(cuda_device)
+    sub = rays[idx].contiguous()
+    for c, k in ((3, 2), (64, 16), (200, 7)):
+        full = k6.proxy_select(pp, rays, c, k)
+        assert torch.equal(full, k6.proxy_select(pp, rays, c, k))
+        assert torch.equal(full[idx], k6.proxy_select(pp, sub, c, k))
+        scores = k6.proxy_select_scores(pp, rays, c, k)[0]
+        assert torch.equal(scores[idx], k6.proxy_select_scores(pp, sub, c, k)[0])
+
+
+@pytest.mark.cuda
+def test_proxy_select_takes_no_rays_and_refuses_what_it_does_not_take(cuda_device):
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    pp = _proxy_pack(48, cuda_device)
+    before = k6.LAUNCHES["select"]
+    assert k6.proxy_select(pp, _proxy_rays(0).to(cuda_device), 32, 16).shape == (0, 16)
+    assert k6.LAUNCHES["select"] == before + 1
+    rays = _proxy_rays(8).to(cuda_device)
+    with pytest.raises(ValueError, match="1..256 candidates, got 257"):
+        k6.proxy_select(pp, rays, 257, 16)
+    with pytest.raises(ValueError, match="n_keep 17 of 16"):
+        k6.proxy_select(pp, rays, 16, 17)
+    with pytest.raises(ValueError, match="n_keep 0 of 16"):
+        k6.proxy_select(pp, rays, 16, 0)
+    with pytest.raises(ValueError, match="k3_w1t"):
+        k6.proxy_select({k: v for k, v in pp.items() if k != "k3_w1t"}, rays, 16, 4)
+    with pytest.raises(ValueError, match="rays"):
+        k6.proxy_select(pp, rays[:, :7].contiguous(), 16, 4)
+    assert k6.LAUNCHES["select"] == before + 1
 
 
 @pytest.mark.cuda
@@ -770,6 +843,13 @@ def test_k3_ablation_variants_apply_to_the_kernel_source():
     assert "wgmma_rs<8>(" not in found["no products"]
     assert "march_block<EPI>(a" not in found["no march"]
     assert k3_ablation.chunk_rays("cpu").shape == (k3_ablation.CHUNK, 8)
+    k6 = k3_ablation.k6_variants(src)
+    assert k6.pop("as built") == src
+    assert len(k6) == 4 and all(text != src for text in k6.values())
+    assert "RANK_P = 1;" in k6["one rank a thread"]
+    assert k6["no sincosf"] == found["no sincosf"] and k6["no products"] == found["no products"]
+    assert "topk_block(a" not in k6["no top-K"] and "march_block<EPI>(a" in k6["no top-K"]
+    assert k3_ablation.chunk_rays("cpu", 1000).shape == (1000, 8)
 
 
 def test_k5_ablation_variants_apply_to_the_kernel_source():

@@ -2,9 +2,11 @@
 against the JAX package: `apply_proxy`, the proxy weights' round trip
 through `convert.py`, the proxy march (K3: `proxy_opacity`,
 `proxy_march_select` with its density aux) and the proxy top-K (K6:
-`proxy_select`); and, torch only, K3's pack (`k3_w1t`: its column
-permutation against its plain inverse) and the plain march on given
-scores. The JAX kernels run in Pallas interpret mode on the CPU, as
+`proxy_select`, down to one candidate); and, torch only, K3's pack
+(`k3_w1t`: its column permutation against its plain inverse), the plain
+march on given scores, and the plain top-K on given scores against a
+numpy transcription of the JAX kernel's rounds and against the kernel's
+rank rule (`rank_select_ref`). The JAX kernels run in Pallas interpret mode on the CPU, as
 tests/test_proxy_march.py and tests/test_fast_render.py run them: K3 on
 R = TILE_R = 2048 rays.
 
@@ -266,11 +268,13 @@ def test_proxy_score_bar_holds_a_reordered_sum_and_rejects_b1_in_bf16(hidden):
     assert float((over(folded) > 1.0).float().mean()) > 0.05
 
 
-@pytest.mark.parametrize("n,nc,nk", [(70, 32, 8), (64, 64, 16)])
+@pytest.mark.parametrize("n,nc,nk", [(70, 32, 8), (64, 64, 16), (5, 1, 1), (9, 2, 2),
+                                     (9, 3, 2)])
 def test_proxy_select_matches_jax(n, nc, nk):
     """K6's plain version against the JAX kernel (tests/test_fast_render.py's
     rays): the same depths per ray, atol 1e-5; JAX's tie order may differ,
-    so both are sorted."""
+    so both are sorted. At one candidate both give near (linspace(0, 1, 1)
+    is 0)."""
     tree = jfast.init_proxy(jax.random.PRNGKey(1))
     rng = np.random.default_rng(0)
     d = rng.normal(size=(n, 3)).astype(np.float32)
@@ -287,3 +291,88 @@ def test_proxy_select_matches_jax(n, nc, nk):
     scores = k3.proxy_scores_ref(packed, torch.from_numpy(rays[:, None, :3])
                                  + torch.from_numpy(rays[:, None, 3:6]) * z[..., None])
     assert bool((scores[:, 1:] <= scores[:, :-1]).all())
+
+
+def jax_rounds_np(scores, z, n_keep):
+    """A numpy transcription of the JAX kernel's selection
+    (nerf_siren_tpu/ops/pallas/proxy_select.py::_kernel): K rounds of the
+    highest score, the lowest index among equals, its depth, and -inf in
+    its place."""
+    scores = scores.copy()
+    lane = np.arange(scores.shape[1])[None, :]
+    out = np.zeros((scores.shape[0], n_keep), np.float32)
+    for kk in range(n_keep):
+        m = scores.max(1, keepdims=True)
+        idx = np.where(scores == m, lane, scores.shape[1]).min(1, keepdims=True)
+        sel = lane == idx
+        out[:, kk] = np.where(sel, z, 0.0).sum(1)
+        scores = np.where(sel, -np.inf, scores)
+    return out
+
+
+def _tied_scores(rng, r, c):
+    """Scores of a few values (many ties), with +0.0 and -0.0 (equal) among
+    them."""
+    s = rng.integers(-2, 3, (r, c)).astype(np.float32) * 0.5
+    s[s == 0] = np.where(rng.random(int((s == 0).sum())) < 0.5, -0.0, 0.0)
+    return s
+
+
+@pytest.mark.parametrize("c,k", [(1, 1), (2, 2), (3, 2), (16, 5), (37, 37)])
+def test_plain_selection_on_given_scores_equals_the_jax_rounds(proxy, c, k):
+    """`proxy_select_ref(..., scores=)` on scores with planted ties and equal
+    values gives the JAX kernel's rounds' depths, in order."""
+    _, _, tpack = proxy
+    rng = np.random.default_rng(c)
+    rays = torch.from_numpy(rays_np(40, seed=c))
+    scores = _tied_scores(rng, 40, c)
+    scores[:8] = rng.normal(size=(8, c)).astype(np.float32)   # and some without ties
+    z = k6.candidate_depths(rays, c).numpy()
+    got = k6.proxy_select_ref(tpack, rays, c, k, scores=torch.from_numpy(scores)).numpy()
+    np.testing.assert_array_equal(got, jax_rounds_np(scores, z, k))
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_rank_rule_equals_the_stable_descending_sort(tied):
+    """The kernel's rank rule (`rank_select_ref`) keeps the same candidates
+    in the same order as the plain version's stable descending sort, for
+    every K."""
+    rng = np.random.default_rng(11)
+    for c in (1, 2, 3, 8, 33, 64):
+        s = _tied_scores(rng, 50, c) if tied else rng.normal(size=(50, c)).astype(np.float32)
+        s = torch.from_numpy(s)
+        for k in sorted({1, (c + 1) // 2, c}):
+            assert torch.equal(k6.rank_select_ref(s, k), k6.select_order(s, k)), (c, k)
+
+
+def test_cut_swaps_measures_the_swaps_against_their_bars():
+    """`cut_swaps` counts the rays whose kept sets differ and gives the
+    largest gap between swapped candidates' plain scores over their bars'
+    sum; a reordering within the kept set is no swap."""
+    ref = torch.tensor([[3.0, 2.0, 1.0, 0.5], [1.0, 2.0, 3.0, 4.0]])
+    bar = torch.full_like(ref, 0.25)
+    assert k6.cut_swaps(ref, bar, ref, 2) == (0, 0.0)
+    assert k6.cut_swaps(ref, bar, torch.tensor([[2.0, 3.0, 1.0, 0.5], [1.0, 2.0, 3.0, 4.0]]),
+                        2) == (0, 0.0)
+    # ray 0 keeps candidate 2 (plain 1.0) in place of 1 (plain 2.0): a gap of 1.0 over 0.5
+    got = torch.tensor([[3.0, 0.9, 1.0, 0.5], [1.0, 2.0, 3.0, 4.0]])
+    assert k6.cut_swaps(ref, bar, got, 2) == (1, 2.0)
+
+
+def test_proxy_select_at_one_candidate_gives_near_without_a_launch(proxy):
+    """On the CPU `proxy_select` runs its plain version and counts no
+    launch; at C 1 every depth is its ray's near, as JAX's
+    linspace(0, 1, 1) gives, and none is NaN; `proxy_select_scores` gives
+    the plain scores and the same depths."""
+    _, _, tpack = proxy
+    rays = torch.from_numpy(rays_np(21, seed=4))
+    rays[:, 6] = torch.linspace(0.5, 2.5, 21)
+    before = dict(k6.LAUNCHES)
+    z = k6.proxy_select(tpack, rays, 1, 1)
+    assert torch.equal(z, rays[:, 6:7])
+    scores, z2 = k6.proxy_select_scores(tpack, rays, 3, 2)
+    assert torch.equal(scores, k6.candidate_scores_ref(tpack, rays, 3))
+    assert torch.equal(z2, k6.proxy_select(tpack, rays, 3, 2))
+    assert k6.LAUNCHES == before
+    with pytest.raises(ValueError, match="n_keep 3 of 2"):
+        k6.proxy_select(tpack, rays, 2, 3)
