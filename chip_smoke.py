@@ -54,7 +54,27 @@ Run from the repository root. Phases, each printing a line:
      lego cameras with phase 4's renders of the seed-0 field as targets:
      every loss finite, the mean of the last 10 below the mean of the first
      10, each K2 kernel launched at least twice per step; ms per step, and
-     the `jnp` backend's ms per step on the same batches.
+     the `jnp` backend's ms per step on the same batches; (c) grouped steps
+     (`train_scan_batches`, one captured CUDA graph of GROUP_STEPS = 10
+     steps) on `fused` and on `jnp`, from (b)'s weights and batches, against
+     as many eager `train_step`s from the same weights, seed and batches:
+     each step's loss within a relative GROUP_LOSS_RTOL and each
+     parameter's change from the start within GROUP_CHANGE_GAP of the
+     eager steps' (`change_gap`: the norm of the difference of the two
+     changes over the norm of the eager change), after the first group and
+     again after four replays on the next batches, the largest differences
+     printed. Both run the same device-scalar update and the same kernels,
+     and read bit-equal on an H100; the bars leave room for a last bit
+     that a reduction might order otherwise, and sit three orders below
+     the control, which must fail them (the eager run without its last
+     update reads 0.26-0.28); K2's wrappers called 2 GROUP_STEPS + 2 times (twice a step at
+     capture, twice in the warm-up step before it) and not at all by a
+     replay; the capture's seconds and the first group's (warm-up,
+     capture, replay), the peak device memory of the eager steps, of a
+     group of 1 and of GROUP_STEPS steps, and ms per step grouped and eager
+     in turns (eager, grouped, grouped, eager, twice). K2's launches in the
+     kernels line count (b): a call at capture records its kernels into the
+     graph and launches nothing, and a replay calls no wrapper.
   7. a field with empty space: an 8x256 pair whose weights draw a ball
      (density 15 (1 - |x| / 0.6) inside radius 0.6, about one colour; every weight
      with Gaussian noise from a numpy seed, `ball_nerf_params`). Its exact
@@ -158,7 +178,7 @@ Run from the repository root. Phases, each printing a line:
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
   device time per kernel, the device's idle share and the peak device
-  memory.
+  memory; it also profiles one group of phase 6(c)'s grouped `fused` steps.
 Then one JSON line of kernels (launches counted over the one path that
 runs each: K1 phase 4, K2 phase 6, K3 select phase 9, K3 opacity phase 10,
 K4 phase 11, K6 phase 13, K5 the 128² frames of phase 16; `timing` says
@@ -191,6 +211,7 @@ RENDER_ATOL = 5e-3
 CHECK_RAYS = slice(400 * W, 400 * W + 2048)   # rays through the image centre rows
 TRAIN_RAYS, TRAIN_STEPS, TRAIN_WARMUP, JNP_STEPS, LR = 1024, 60, 10, 12, 5e-4
 TRAIN_LOSS_RTOL = 2e-2
+GROUP_STEPS, GROUP_LOSS_RTOL, GROUP_CHANGE_GAP = 10, 1e-6, 1e-4
 GRAD_REL_L2, GRAD_ELEM = 1e-2, 5e-2
 FIELD_SEED, FIELD_NOISE = SEED + 20, 0.05
 BALL_R, BALL_SIGMA, BALL_RGB = 0.6, 15.0, (0.8, 0.35, 0.2)
@@ -707,8 +728,10 @@ def train_system(backend, perturb, noise_std, steps_per_epoch, device):
 
 
 def train_phase(pool_rays, pool_rgbs, device, card):
-    """Phase 6: one step on each backend, then TRAIN_STEPS fused steps.
-    Returns (K2 launches of the fused run, ms per step)."""
+    """Phase 6: one step on each backend, TRAIN_STEPS fused steps, then the
+    grouped steps. Returns (K2 launches over (b), (b)'s ms per step,
+    (b)'s system, state and last batch, and (c)'s fused system, state and
+    batches of a group)."""
     import torch
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
 
@@ -775,7 +798,142 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     print(f"[6/17] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
-    return launches, ms, (system, state, batches[-1])
+
+    # (c) grouped steps on a captured graph against eager steps
+    group = grouped_phase("fused", state.models, batches, steps_per_epoch, device, card)
+    grouped_phase("jnp", state.models, batches, steps_per_epoch, device, card)
+    return launches, ms, (system, state, batches[-1]), group
+
+
+def stacked(batches):
+    import torch
+
+    return (torch.stack([b["rays"] for b in batches]), torch.stack([b["rgbs"] for b in batches]))
+
+
+def k2_calls_since(before):
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    return {k: k2.LAUNCHES[k] - before[k] for k in before}
+
+
+def param_list(state):
+    from nerf_siren_tpu_torch.training.system import parameters
+
+    return [p.detach().clone() for _, _, p in parameters(state.models)]
+
+
+def change_gap(start, got, want):
+    """The largest, over the parameters, of ||(got - start) - (want - start)||
+    / ||want - start||: how far the change a run made from `start` lies
+    from the change the reference run made, relative to that change."""
+    return max(float((g - w).norm() / (w - s).norm().clamp_min(1e-30))
+               for s, g, w in zip(start, got, want))
+
+
+def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
+    """Phase 6(c) on one backend: GROUP_STEPS steps as one captured graph
+    against as many eager steps, from the same weights, seed and batches."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    n, seed = GROUP_STEPS, SEED + 2
+    system = train_system(backend, 1.0, 1.0, steps_per_epoch, device)
+    eager = system.state_for(copy.deepcopy(models))
+    grouped = system.state_for(copy.deepcopy(models))
+    start = param_list(eager)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses = []
+    for i, b in enumerate(batches[:n]):
+        if i == n - 1:
+            short = param_list(eager)   # the control: without the last update
+        eager, metrics = system.train_step(eager, b, seed=seed)
+        eager_losses.append(metrics["train/loss"])
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(k2.LAUNCHES)
+    t0 = time.perf_counter()
+    grouped, _ = system.train_scan_batches(grouped, *stacked(batches[:n]), seed=seed)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    group_peak = torch.cuda.max_memory_allocated()
+    capture_s = system.last_group.capture_s
+    capture_launches = k2_calls_since(before)
+    got = system.last_group.steps[:, 0].tolist()
+    want = [float(v) for v in eager_losses]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    eager_params = param_list(eager)
+    gap = change_gap(start, param_list(grouped), eager_params)
+    control = change_gap(start, short, eager_params)
+    print(f"[6/17] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
+          f"same weights, seed and batches: max relative loss difference {loss_rel:.3e} "
+          f"(bar {GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the "
+          f"control without the last update {control:.3e}, must exceed it); losses eager "
+          f"{[f'{v:.6e}' for v in want]}, grouped {[f'{v:.6e}' for v in got]}", flush=True)
+    if not loss_rel <= GROUP_LOSS_RTOL or not gap <= GROUP_CHANGE_GAP:
+        fail(f"{backend}: grouped steps disagree with eager steps")
+    if not control > GROUP_CHANGE_GAP:
+        fail(f"{backend}: the change gap does not see a missing last update")
+    expect = 2 * n + 2 if backend == "fused" else 0
+    if capture_launches != {"fwd": expect, "bwd": expect}:
+        fail(f"{backend}: K2 wrappers called {capture_launches} times at the first group, "
+             f"expected {expect} each (2 a step at capture, 2 in the warm-up step)")
+
+    # the peak of a one-step group beside the GROUP_STEPS one (its own graph)
+    one = system.state_for(copy.deepcopy(models))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    system.train_scan_batches(one, *stacked(batches[:1]), seed=seed)
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated()
+
+    # ms per step, eager and grouped in turns, on the next group's batches
+    rays_b, rgbs_b = stacked(batches[n:2 * n])
+    before = dict(k2.LAUNCHES)
+    times = {"eager": [], "grouped": []}
+    for _ in range(2):
+        for mode in ("eager", "grouped", "grouped", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "eager":
+                eager_losses = []
+                for b in batches[n:2 * n]:
+                    eager, metrics = system.train_step(eager, b, seed=seed)
+                    eager_losses.append(metrics["train/loss"])
+            else:
+                grouped, _ = system.train_scan_batches(grouped, rays_b, rgbs_b, seed=seed)
+            torch.cuda.synchronize()
+            times[mode].append(1e3 * (time.perf_counter() - t0) / n)
+    calls = k2_calls_since(before)
+    expect = 4 * 2 * n if backend == "fused" else 0
+    if calls != {"fwd": expect, "bwd": expect}:
+        fail(f"K2's wrappers called {calls} times over 4 eager groups and 4 replays: a "
+             f"replay must call them not at all")
+    # both runs took the same 5 groups of steps: the replays against the eager steps
+    got = system.last_group.steps[:, 0].tolist()
+    want = [float(v) for v in eager_losses]
+    replay_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    replay_gap = change_gap(start, param_list(grouped), param_list(eager))
+    print(f"[6/17] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
+          f"relative loss difference of the last group {replay_rel:.3e} (bar "
+          f"{GROUP_LOSS_RTOL}), change gap over the {5 * n} steps {replay_gap:.3e} (bar "
+          f"{GROUP_CHANGE_GAP})", flush=True)
+    if not replay_rel <= GROUP_LOSS_RTOL or not replay_gap <= GROUP_CHANGE_GAP:
+        fail(f"{backend}: replayed groups disagree with eager steps")
+    replay_ms = float(np.median(times["grouped"])) * n
+    print(f"[6/17] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
+          f"(median {np.median(times['grouped']):.3f}), eager "
+          f"{[round(v, 3) for v in times['eager']]} (median {np.median(times['eager']):.3f}), "
+          f"in turns; the capture of {n} steps {capture_s:.3f} s (the first group with its "
+          f"warm-up step and a replay {first_s:.3f} s; a replay of the group "
+          f"{replay_ms:.1f} ms); K2 wrapper calls at the "
+          f"first group {capture_launches}; peak device memory: eager steps "
+          f"{eager_peak / 2**30:.3f} GiB, a group of {n} {group_peak / 2**30:.3f} GiB, a group "
+          f"of 1 {one_peak / 2**30:.3f} GiB; {card}", flush=True)
+    return system, grouped, (rays_b, rgbs_b)
 
 
 # ---- the fast path (phases 7-13) --------------------------------------------
@@ -1964,12 +2122,17 @@ def main():
     pool_rays = torch.cat(frames_rays)
     pool_rgbs = torch.cat([o["rgb_fine"] for o in outs])
     del outs
-    train_launches, step_ms, (system, state, last) = train_phase(pool_rays, pool_rgbs, device, smi)
+    train_launches, step_ms, (system, state, last), group = train_phase(pool_rays, pool_rgbs,
+                                                                        device, smi)
     launches.update(fused_train_fwd=train_launches["fwd"], fused_train_bwd=train_launches["bwd"])
     if args.profile:
         profile("train step", lambda: system.train_step(state, last, seed=SEED + 1), smi)
+        g_system, g_state, g_batches = group
+        profile(f"grouped train steps ({GROUP_STEPS} steps, one graph)",
+                lambda: g_system.train_scan_batches(g_state, *g_batches, seed=SEED + 2), smi)
+        del g_system, g_state, g_batches
 
-    del system, state, last, pool_rays, pool_rgbs
+    del system, state, last, group, pool_rays, pool_rgbs
     torch.cuda.empty_cache()
 
     # ---- 7-13. the fast renderer's path ---------------------------------------

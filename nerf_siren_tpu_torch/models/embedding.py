@@ -14,8 +14,9 @@ def embedding_out_channels(in_channels: int, n_freqs: int) -> int:
 
 def _freq_bands(n_freqs: int, logscale: bool, dtype, device) -> torch.Tensor:
     if logscale:
-        # exact powers of two (a float pow may round 2^k)
-        return torch.tensor([2.0 ** k for k in range(n_freqs)], dtype=dtype, device=device)
+        # exact powers of two (a float pow may round 2^k), made on the device:
+        # a copy from a host list cannot be captured into a CUDA graph
+        return (1 << torch.arange(n_freqs, device=device)).to(dtype)
     return torch.linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs, dtype=dtype, device=device)
 
 

@@ -26,6 +26,7 @@ def sample_pdf(
     eps: float = 1e-5,
     midpoint: bool = False,
     return_density: bool = False,
+    u: Optional[torch.Tensor] = None,
 ):
     """Draw `n_importance` samples per row from the piecewise-constant pdf.
 
@@ -34,6 +35,8 @@ def sample_pdf(
         N_weights + 1 are unreachable and ignored.
       weights: (N_rays, N_bins - 1) unnormalised interval weights.
       generator: source of u when `det` is False.
+      u: (N_rays, n_importance) uniform draws made beforehand, in place of
+        the generator's.
       det: evenly spaced u instead of uniform random u.
       midpoint: with `det`, strata-centred u = (i + .5) / N.
       return_density: also return the normalised pdf density dcdf/dz of
@@ -55,9 +58,9 @@ def sample_pdf(
         else:
             u = torch.linspace(0.0, 1.0, n_importance, **kw)
         u = u.expand(n_rays, n_importance).contiguous()
-    else:
+    elif u is None:
         if generator is None:
-            raise ValueError("sample_pdf: a generator is required when det=False")
+            raise ValueError("sample_pdf: a generator (or u) is required when det=False")
         u = torch.rand(n_rays, n_importance, generator=generator, **kw)
 
     inds = searchsorted(cdf.detach(), u, side="right")

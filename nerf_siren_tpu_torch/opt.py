@@ -82,8 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "culled / culled_fused come with ROADMAP "
                              "slice 6")
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
-                        help="1: one step per call; grouped steps are "
-                             "not ported yet (ROADMAP)")
+                        help="training steps per group: > 1 runs each group of the "
+                             "epoch's batches as one captured CUDA graph on the card "
+                             "(NeRFSystem.train_scan_batches); 1: one eager step a batch")
     parser.add_argument('--num_chips', '--num_gpus', dest='num_chips', type=int, default=0,
                         help='devices to train on (0 or 1: one; more '
                              'comes with ROADMAP slice 6)')
@@ -165,9 +166,6 @@ def get_opts(args=None):
         if getattr(opts, flag) in values:
             parser.error(f"--{flag} {getattr(opts, flag)} is not ported yet: it comes "
                          f"with ROADMAP {slice_}")
-    if opts.steps_per_dispatch > 1:
-        parser.error("--steps_per_dispatch > 1 (grouped steps) is not ported yet "
-                     "(ROADMAP Queue 1, slice 2 leftovers)")
     if opts.num_chips > 1:
         parser.error(f"--num_chips {opts.num_chips}: the port trains on one device; "
                      f"multi-GPU comes with ROADMAP slice 6 (multi-GPU)")

@@ -6,7 +6,11 @@ compositing with the cumprod transmittance recurrence (last delta 1e10,
 ``+1e-10`` inside the product), white background, the test-time sigma-only
 coarse pass, and hierarchical `sample_pdf` on the interval midpoints with
 the two edge weights dropped. Random draws come from an explicit
-`torch.Generator`; without one the render is deterministic.
+`torch.Generator`; without one the render is deterministic. A training
+step may instead hand `render_rays` its draws made beforehand (a
+`StepNoise` from `draw_noise`: the same generator calls in the same order
+at the same shapes, so the render is bit-equal), which a captured CUDA
+graph needs: it cannot make a generator per step.
 """
 from __future__ import annotations
 
@@ -18,6 +22,55 @@ from nerf_siren_tpu_torch.config import RenderConfig
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.ops.sample_pdf import sample_pdf
 
+# One render's random draws by name: 'strat_u' (R, n_samples) uniform,
+# 'sigma_coarse' (R, n_samples) and 'sigma_fine' (R, n_samples +
+# n_importance) standard normal, 'pdf_u' (R, n_importance) uniform; only
+# those the config draws (`noise_shapes`).
+StepNoise = Dict[str, torch.Tensor]
+
+
+def noise_shapes(n_rays: int, cfg: RenderConfig) -> Dict[str, tuple]:
+    """name -> (shape, `torch.rand` or `torch.randn`) of the draws
+    `render_rays` makes from a generator under `cfg`, in its order."""
+    s, i = cfg.n_samples, cfg.n_importance
+    spec = {}
+    if cfg.perturb > 0.0:
+        spec["strat_u"] = ((n_rays, s), torch.rand)
+    if cfg.noise_std > 0.0:
+        spec["sigma_coarse"] = ((n_rays, s), torch.randn)
+    if i > 0 and cfg.perturb != 0.0:
+        spec["pdf_u"] = ((n_rays, i), torch.rand)
+    if i > 0 and cfg.noise_std > 0.0:
+        spec["sigma_fine"] = ((n_rays, s + i), torch.randn)
+    return spec
+
+
+def draw_noise(generator: torch.Generator, n_rays: int, cfg: RenderConfig) -> StepNoise:
+    """The draws `render_rays(..., generator)` makes for `n_rays` float32
+    rays under `cfg`, made now, from `generator` (on its device)."""
+    return {name: fn(shape, generator=generator, dtype=torch.float32,
+                     device=generator.device)
+            for name, (shape, fn) in noise_shapes(n_rays, cfg).items()}
+
+
+class _Transmittance(torch.autograd.Function):
+    """`torch.cumprod` along the last axis, with cumprod's own backward for
+    an input without zeros (the reversed cumulative sum of output * grad,
+    over the input) but not its check for zeros, which reads a flag on the
+    host and so cannot be captured into a CUDA graph. The factors here,
+    1 - alpha + 1e-10 with alpha in [0, 1], are never zero."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, y = ctx.saved_tensors
+        return (y * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
 
 def composite(
     sigmas: torch.Tensor,
@@ -28,8 +81,11 @@ def composite(
     noise_std: float = 0.0,
     generator: Optional[torch.Generator] = None,
     white_back: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Alpha-composite raw sigma (R, S) (and rgb (R, S, 3)) along each ray.
+    The sigma noise is drawn from `generator`, or is `noise` (R, S), standard
+    normal, drawn beforehand.
 
     Returns 'weights' (R, S), 'opacity' (R,), and with `rgbs` also
     'rgb' (R, 3) and 'depth' (R,).
@@ -39,11 +95,13 @@ def composite(
     deltas = torch.cat([deltas, delta_inf], dim=-1) * dir_norm
 
     if noise_std > 0.0 and generator is not None:
-        sigmas = sigmas + torch.randn(sigmas.shape, generator=generator, dtype=sigmas.dtype,
-                                      device=sigmas.device) * noise_std
+        noise = torch.randn(sigmas.shape, generator=generator, dtype=sigmas.dtype,
+                            device=sigmas.device)
+    if noise_std > 0.0 and noise is not None:
+        sigmas = sigmas + noise * noise_std
 
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))
-    trans = torch.cumprod(1.0 - alphas + 1e-10, dim=-1)
+    trans = _Transmittance.apply(1.0 - alphas + 1e-10)
     trans = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=-1)
     weights = alphas * trans
     opacity = weights.sum(dim=-1)
@@ -66,9 +124,11 @@ def stratified_z_vals(
     use_disp: bool = False,
     perturb: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Coarse depths (R, n_samples) between near/far (R, 1), linear in depth
-    or disparity, jittered within strata when `perturb` > 0."""
+    or disparity, jittered within strata when `perturb` > 0 by uniform draws
+    from `generator`, or by `u` (R, n_samples) drawn beforehand."""
     z_steps = torch.linspace(0.0, 1.0, n_samples, dtype=near.dtype, device=near.device)
     if not use_disp:
         z_vals = near * (1.0 - z_steps) + far * z_steps
@@ -76,12 +136,13 @@ def stratified_z_vals(
         z_vals = 1.0 / (1.0 / near * (1.0 - z_steps) + 1.0 / far * z_steps)
 
     if perturb > 0.0 and generator is not None:
+        u = torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype,
+                       device=z_vals.device)
+    if perturb > 0.0 and u is not None:
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
         upper = torch.cat([z_mid, z_vals[:, -1:]], dim=-1)
         lower = torch.cat([z_vals[:, :1], z_mid], dim=-1)
-        t = perturb * torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype,
-                                 device=z_vals.device)
-        z_vals = lower + (upper - lower) * t
+        z_vals = lower + (upper - lower) * (perturb * u)
     return z_vals
 
 
@@ -106,6 +167,7 @@ def render_rays(
     *,
     compute_dtype: Optional[torch.dtype] = None,
     field_fn: Optional[Callable] = None,
+    noise: Optional[StepNoise] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render (R, 8) rays = [origin(3), direction(3), near, far].
 
@@ -118,7 +180,16 @@ def render_rays(
     or (R, S, 4+) [rgb, sigma(, cls)]; the `fused` training backend passes
     one backed by K2. The fine depths are detached: only the fields'
     parameters get gradients through the sample positions' values.
+    `noise` (from `draw_noise`) takes the place of `generator`.
     """
+    if noise is not None:
+        want = noise_shapes(rays.shape[0], cfg)
+        if generator is not None or {k: tuple(v.shape) for k, v in noise.items()} != \
+                {k: shape for k, (shape, _) in want.items()}:
+            raise ValueError(f"noise: expected the draws {list(want)} at their shapes "
+                             "(`draw_noise`) and no generator")
+    else:
+        noise = {}
     if field_fn is None:
         def field_fn(model, xyz, d_emb):
             return _field(model, xyz, d_emb, compute_dtype)
@@ -129,20 +200,21 @@ def render_rays(
     dir_emb = positional_encoding(rays_d, _n_freqs(models["coarse"].cfg.in_channels_dir))
 
     z_vals = stratified_z_vals(near, far, cfg.n_samples, use_disp=cfg.use_disp,
-                               perturb=cfg.perturb, generator=generator)
+                               perturb=cfg.perturb, generator=generator,
+                               u=noise.get("strat_u"))
     xyz_coarse = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
 
     result: Dict[str, torch.Tensor] = {}
     if cfg.test_time:
         sigmas = field_fn(models["coarse"], xyz_coarse, None)[..., 0]
         comp = composite(sigmas, z_vals, dir_norm, noise_std=cfg.noise_std,
-                         generator=generator)
+                         generator=generator, noise=noise.get("sigma_coarse"))
         result["opacity_coarse"] = comp["opacity"]
     else:
         raw = field_fn(models["coarse"], xyz_coarse, dir_emb)
         comp = composite(raw[..., 3], z_vals, dir_norm, raw[..., :3],
                          noise_std=cfg.noise_std, generator=generator,
-                         white_back=cfg.white_back)
+                         white_back=cfg.white_back, noise=noise.get("sigma_coarse"))
         result["rgb_coarse"] = comp["rgb"]
         result["depth_coarse"] = comp["depth"]
         result["opacity_coarse"] = comp["opacity"]
@@ -153,14 +225,15 @@ def render_rays(
     if cfg.n_importance > 0:
         z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
         z_fine = sample_pdf(z_mid, weights_coarse[:, 1:-1], cfg.n_importance,
-                            generator=generator, det=(cfg.perturb == 0.0)).detach()
+                            generator=generator, det=(cfg.perturb == 0.0),
+                            u=noise.get("pdf_u")).detach()
         z_all, _ = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1)
         xyz_fine = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
 
         raw = field_fn(models["fine"], xyz_fine, dir_emb)
         comp = composite(raw[..., 3], z_all, dir_norm, raw[..., :3],
                          noise_std=cfg.noise_std, generator=generator,
-                         white_back=cfg.white_back)
+                         white_back=cfg.white_back, noise=noise.get("sigma_fine"))
         result["rgb_fine"] = comp["rgb"]
         result["depth_fine"] = comp["depth"]
         result["opacity_fine"] = comp["opacity"]

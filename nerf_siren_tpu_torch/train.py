@@ -2,16 +2,19 @@
 
 Counterpart of the JAX package's root `train.py` in `--mode normal` with
 the MLP field: builds the dataset and the `NeRFSystem`, runs the epoch
-loop (`epoch_iterator` batches, one `train_step` each), validates on the
-`val` split (loss and PSNR of the first image, plain renderer), keeps the
-best `--save_topk` checkpoints by validation loss, and supports a full
-resume (`--ckpt_path`, a checkpoint this CLI wrote) and a warm start of the
-weights (`--pretrained`, a checkpoint of either package). TensorBoard
-scalars are written when `tensorboardX` imports. It runs on `--device`
-(default `cuda`, which fails when no card is visible; the tests pass
-`--device cpu`); `--train_backend fused` runs the field on K2 there.
-Not ported yet (ROADMAP): the depth image of validation (needs cv2's
-`visualize_depth`), `--steps_per_dispatch`, multi-GPU.
+loop (`epoch_iterator` batches, one `train_step` each, or with
+`--steps_per_dispatch` N > 1 groups of N batches through
+`train_scan_batches`, a captured CUDA graph on the card, the epoch's tail
+as one smaller group), validates on the `val` split (loss and PSNR of the
+first image, plain renderer; the GT | prediction | depth image to
+TensorBoard), keeps the best `--save_topk` checkpoints by validation loss,
+and supports a full resume (`--ckpt_path`, a checkpoint this CLI wrote; the
+weights load into the same tensors, so a captured graph stays valid) and a
+warm start of the weights (`--pretrained`, a checkpoint of either
+package). TensorBoard scalars are written when `tensorboardX` imports. It
+runs on `--device` (default `cuda`, which fails when no card is visible;
+the tests pass `--device cpu`); `--train_backend fused` runs the field on
+K2 there. Not ported yet (ROADMAP): multi-GPU.
 """
 from __future__ import annotations
 
@@ -47,8 +50,10 @@ def build_system(hparams, white_back: bool, steps_per_epoch: int, device):
 
 def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int = 1):
     """Mean loss and PSNR (over the valid mask, when the split has one) of
-    the first `max_images` validation images."""
+    the first `max_images` validation images; the first image's GT,
+    prediction and depth side by side to `writer`."""
     from nerf_siren_tpu_torch.training.metrics import psnr as psnr_fn
+    from nerf_siren_tpu_torch.utils.visualization import visualize_depth
 
     w, h = img_wh
     losses, psnrs = [], []
@@ -63,6 +68,12 @@ def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int =
                  if mask is not None else None)
         losses.append(float(((pred - gt) ** 2).mean()))
         psnrs.append(float(psnr_fn(pred, gt, mask3)))
+        if writer is not None and i == 0:
+            depth = out[key.replace("rgb", "depth")].float().cpu().reshape(h, w)
+            depth_vis = visualize_depth(depth.numpy()).astype(np.float32) / 255.0
+            triplet = np.concatenate([gt.numpy(), pred.numpy(), depth_vis], axis=1)
+            writer.add_image("val/GT_pred_depth", np.clip(triplet, 0, 1), step,
+                             dataformats="HWC")
     val_loss, val_psnr = float(np.mean(losses)), float(np.mean(psnrs))
     if writer is not None:
         writer.add_scalar("val/loss", val_loss, step)
@@ -113,13 +124,28 @@ def main(hparams):
     os.makedirs(ckpt_dir, exist_ok=True)
     saved: list = []  # (val_loss, path)
     checkpointer = ckpt_lib.AsyncCheckpointer()
+    spd = max(1, hparams.steps_per_dispatch)
+
+    def flush_group(state, group):
+        return system.train_scan_batches(state, np.stack([b["rays"] for b in group]),
+                                         np.stack([b["rgbs"] for b in group]), hparams.seed + 1)
+
     try:
         for epoch in range(start_epoch, hparams.num_epochs):
             t0 = time.time()
             metrics: Dict = {}
+            group: list = []
             for batch in epoch_iterator(train_ds.all_rays, train_ds.all_rgbs,
                                         hparams.batch_size, hparams.seed, epoch):
-                state, metrics = system.train_step(state, batch, hparams.seed + 1)
+                if spd == 1:
+                    state, metrics = system.train_step(state, batch, hparams.seed + 1)
+                    continue
+                group.append(batch)
+                if len(group) == spd:
+                    state, metrics = flush_group(state, group)
+                    group = []
+            if group:   # the epoch's tail: one smaller group (its own graph)
+                state, metrics = flush_group(state, group)
             step = state.step
             if writer is not None:
                 for k, v in metrics.items():

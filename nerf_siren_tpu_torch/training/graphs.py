@@ -1,0 +1,161 @@
+"""Grouped training steps: N steps of a `NeRFSystem` as one captured CUDA graph.
+
+Counterpart of the JAX package's scanned programs (`lax.scan` over the pure
+step in `nerf_siren_tpu/training/system.py`: `train_scan`,
+`train_scan_batches`, `train_scan_importance`, `make_scan_importance`,
+`make_scan_batches`). On the card a training step is mostly host launches
+(hundreds of small kernels around K2), so a group of N steps is captured
+once into a `torch.cuda.CUDAGraph` and then only replayed: per group the
+host copies in the inputs and calls `replay()`.
+
+A `StepGroup` owns the graph, its static inputs and the step body. Inputs
+by name, each with the group's N steps stacked on the first axis:
+- kind 'batches': 'rays' (N, B, 8) and 'rgbs' (N, B, 3);
+- kind 'pool': 'pool_rays' (P, 8), 'pool_rgbs' (P, 3) and 'idx' (N, B),
+  the steps' ray indices into the pool;
+- kind 'importance': the pool, 'u_cat' (N, B) uniform draws for the
+  inverse-CDF pick, 'idx_uni' (N, B) uniform indices and 'take_uni'
+  (N, B) bool, where the uniform floor wins;
+- every kind: 'noise:<name>' for each of the steps' `StepNoise` draws
+  (`render.rendering.noise_shapes`) and 'table' (N, 5), the rows of
+  `Optimizer.scalar_table`.
+
+The body, for step i: read the step's slices (gather its rays from the
+pool inside the graph), run `loss_and_grads` on the system's backend,
+apply `Optimizer.step_device` in place, and write the step's loss and PSNR
+into row i of the (N, 2) output. With 'importance' a per-ray error buffer
+over the pool starts at ones; each step draws its rays with probability
+proportional to (err + 1e-8)^alpha by inverse CDF (a cumulative sum and a
+search over the pool, not JAX's (B, P) Gumbel slab) unless the uniform
+floor takes them, and writes its rays' errors back (duplicate indices land
+in any order, as in JAX).
+
+On a CUDA device the body is captured once, after one eager forward and
+backward of step 0 on a side stream (it builds K2, sets its kernels'
+attributes and warms autograd; the state is not updated), and is only
+replayed after that. Every tensor the body allocates comes from the
+graph's private pool; only the static inputs, the output and the state's
+own tensors (updated in place, so their addresses hold across replays and
+an in-place checkpoint load) cross the capture. A failed capture raises:
+there is no eager fallback. On the CPU the same body runs as a plain loop
+over the caller's tensors (`loop`), the plain version the tests hold
+against N `train_step`s, and on a card against the graph.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+from nerf_siren_tpu_torch.training.metrics import psnr
+
+NOISE = "noise:"
+
+
+def importance_indices(err: torch.Tensor, u_cat: torch.Tensor, idx_uni: torch.Tensor,
+                       take_uni: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Pool indices (B,) drawn with probability proportional to (err +
+    1e-8)^alpha over the pool's errors `err` (P,), by inverse CDF on the
+    uniform draws `u_cat` (B,), except where `take_uni` picks the uniform
+    index `idx_uni` instead."""
+    cdf = torch.cumsum((err + 1e-8) ** alpha, 0)
+    picked = torch.searchsorted(cdf, u_cat * cdf[-1], right=True).clamp_max(err.shape[0] - 1)
+    return torch.where(take_uni, idx_uni, picked)
+
+
+def _step_noise(x: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    return {k[len(NOISE):]: v[i] for k, v in x.items() if k.startswith(NOISE)}
+
+
+class StepGroup:
+    """N steps of `system` on `state`'s tensors, B rays each (see the module
+    docstring for the kinds and inputs)."""
+
+    def __init__(self, system, state, kind: str, n: int, alpha: float = 1.0):
+        self.system, self.state, self.kind, self.n, self.alpha = system, state, kind, n, alpha
+        self.graph = None
+        self.static: Dict[str, torch.Tensor] = {}
+        self.out = None
+        self.steps: Optional[torch.Tensor] = None   # the last run's (N, 2) loss, PSNR
+        self.capture_s: Optional[float] = None      # host seconds of the capture alone
+
+    def _rays(self, x, i, buf):
+        """Step i's rays and rgbs (and their pool indices, or None)."""
+        if self.kind == "batches":
+            return x["rays"][i], x["rgbs"][i], None
+        if self.kind == "pool":
+            idx = x["idx"][i]
+        else:
+            idx = importance_indices(buf, x["u_cat"][i], x["idx_uni"][i], x["take_uni"][i],
+                                     self.alpha)
+        return x["pool_rays"][idx], x["pool_rgbs"][idx], idx
+
+    def _body(self, x: Dict[str, torch.Tensor], out: torch.Tensor) -> None:
+        from nerf_siren_tpu_torch.training.system import parameters
+
+        system, state = self.system, self.state
+        params = [p for _, _, p in parameters(state.models)]
+        buf = None
+        if self.kind == "importance":
+            buf = x["buf"]
+            buf.fill_(1.0)
+        for i in range(self.n):
+            rays, rgbs, idx = self._rays(x, i, buf)
+            losses, res, grads = system.loss_and_grads(state, rays, rgbs, None,
+                                                       noise=_step_noise(x, i))
+            system.optimizer.step_device(params, grads, state.opt_state, x["table"][i])
+            pred = res["rgb_fine" if "rgb_fine" in res else "rgb_coarse"].detach()
+            out[i, 0] = losses["sum"].detach()
+            out[i, 1] = psnr(pred, rgbs)
+            if buf is not None:
+                buf[idx] = ((pred - rgbs) ** 2).mean(dim=-1)
+
+    def _capture(self, inputs: Dict[str, torch.Tensor]) -> None:
+        device = inputs["table"].device
+        self.static = {k: v.clone() for k, v in inputs.items()}
+        if self.kind == "importance":
+            self.static["buf"] = torch.ones(inputs["pool_rays"].shape[0], device=device)
+        self.out = torch.zeros((self.n, 2), device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):   # warm-up: step 0's forward and backward only
+            rays, rgbs, _ = self._rays(self.static, 0, self.static.get("buf"))
+            self.system.loss_and_grads(self.state, rays, rgbs, None,
+                                       noise=_step_noise(self.static, 0))
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body(self.static, self.out)
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+
+    def loop(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The body as a plain loop over `inputs`, uncaptured: the CPU's
+        route, and on a card the plain version a graph is held against.
+        Returns `steps`, the (N, 2) losses and PSNRs."""
+        device = inputs["table"].device
+        x = dict(inputs)
+        if self.kind == "importance":
+            x["buf"] = torch.ones(inputs["pool_rays"].shape[0], device=device)
+        self.steps = torch.empty((self.n, 2), device=device)
+        self._body(x, self.steps)
+        return self.steps
+
+    def run(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The group's N steps on `inputs` (on the state's device): the state
+        is updated in place (its counts are the caller's); returns `steps`,
+        the (N, 2) losses and PSNRs. On a card: the captured graph, made at
+        the first call."""
+        if inputs["table"].device.type != "cuda":
+            return self.loop(inputs)
+        if self.graph is None:
+            self._capture(inputs)
+        else:
+            for k, v in inputs.items():
+                self.static[k].copy_(v)
+        self.graph.replay()
+        self.steps = self.out.clone()
+        return self.steps

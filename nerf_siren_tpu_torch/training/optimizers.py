@@ -13,6 +13,14 @@ out so that the port matches them step for step:
   momentum alone;
 - ranger: every 6th step the weights move to slow + 0.5 (fast - slow).
 
+The update reads the step's scalars (the learning rate, the moments' bias
+corrections, RAdam's rectification, ranger's sync) from a row of a small
+float32 tensor on the parameters' device (`scalar_table`, columns
+`SCALARS`, filled on the host in float32 as optax computes them) and takes
+RAdam's and ranger's branches with `torch.where`, so a captured CUDA graph
+replays it with new values (`training/graphs.py`): `step_device` applies
+one row, `step` is `step_device` on the next step's row.
+
 The state is a dict of plain values and lists of tensors, one entry per
 parameter in the order the optimizer was given them:
   {"count": int, "mu": [...], "nu": [...]}     adam, radam
@@ -37,6 +45,7 @@ LOOKAHEAD_PERIOD, LOOKAHEAD_STEP = 6, 0.5
 
 State = Dict[str, Any]
 F32 = np.float32
+SCALARS = ("lr", "mu_corr", "nu_corr", "rect", "sync")   # columns of `scalar_table`
 
 
 def _pow_f32(base: float, n: int) -> np.float32:
@@ -115,44 +124,69 @@ class Optimizer:
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
              state: State) -> None:
-        """Apply one update to `params` (in place) and advance `state`."""
+        """Apply one update to `params` (in place) and advance `state`:
+        `step_device` on this step's row of `scalar_table`."""
+        row = torch.from_numpy(self.scalar_table(state, 1)[0])
+        if params[0].is_cuda:   # a pinned copy does not wait for the queued step
+            row = row.pin_memory().to(params[0].device, non_blocking=True)
+        self.step_device(params, grads, state, row)
+        self.advance(state, 1)
+
+    def scalar_table(self, state: State, n: int) -> np.ndarray:
+        """(n, len(SCALARS)) float32: the scalars the next n updates from
+        `state` read, one row a step (the lr, bias corrections 1 - b^t,
+        RAdam's rectification or 0, and 1.0 where ranger syncs its slow
+        weights). `state` is not advanced."""
+        rows = np.zeros((n, len(SCALARS)), np.float32)
+        for k in range(n):
+            t = state["count"] + k + 1
+            rows[k, 0] = self.schedule(t - 1)
+            rows[k, 1] = F32(1) - _pow_f32(B1, t)
+            rows[k, 2] = F32(1) - _pow_f32(B2, t)
+            if self.cfg.optimizer in ("radam", "ranger"):
+                rows[k, 3] = _radam_rect_f32(t)
+            if self.cfg.optimizer == "ranger":
+                rows[k, 4] = (state["la_count"] + k + 1) % LOOKAHEAD_PERIOD == 0
+        return rows
+
+    def advance(self, state: State, n: int) -> None:
+        """Count n updates that `step_device` applied."""
+        state["count"] += n
+        if self.cfg.optimizer == "ranger":
+            state["la_count"] += n
+
+    @torch.no_grad()
+    def step_device(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                    state: State, row: torch.Tensor) -> None:
+        """One update with its scalars taken from `row` (one row of
+        `scalar_table`, on the parameters' device) and no host branch on
+        them: the parameters and moments are updated in place, the counts
+        are left to `advance`."""
         cfg = self.cfg
-        lr = self.schedule(state["count"])
+        neg_lr, mu_corr, nu_corr, rect, sync = -row[0], row[1], row[2], row[3], row[4] > 0.5
         grads = [g + cfg.weight_decay * p if cfg.weight_decay else g
                  for p, g in zip(params, grads)]
-        state["count"] += 1
-        t = state["count"]
         if cfg.optimizer == "sgd":
             updates: List[torch.Tensor] = []
             for g, tr in zip(grads, state["trace"]):
                 tr.mul_(cfg.momentum).add_(g)
-                updates.append(-lr * tr)
+                updates.append(neg_lr * tr)
         else:
-            # the scalar factors in float32, as optax computes them: RAdam's
-            # rectification near rho_t = 5 is sensitive to the last bit
-            mu_corr = float(F32(1) - _pow_f32(B1, t))
-            nu_corr = float(F32(1) - _pow_f32(B2, t))
-            rect = None
-            if cfg.optimizer in ("radam", "ranger"):
-                rect = _radam_rect_f32(t)
             updates = []
             for g, mu, nu in zip(grads, state["mu"], state["nu"]):
                 mu.mul_(B1).add_(g, alpha=1 - B1)
                 nu.mul_(B2).addcmul_(g, g, value=1 - B2)
                 m_hat = mu / mu_corr
-                if rect == 0.0:
-                    u = m_hat
-                else:
-                    u = m_hat / ((nu / nu_corr).sqrt() + _EPS)
-                    if rect is not None:
-                        u = rect * u
-                updates.append(-lr * u)
+                u = m_hat / ((nu / nu_corr).sqrt() + _EPS)
+                if cfg.optimizer in ("radam", "ranger"):
+                    u = torch.where(rect > 0, rect * u, m_hat)
+                updates.append(neg_lr * u)
         if cfg.optimizer == "ranger":
-            state["la_count"] += 1
-            if state["la_count"] % LOOKAHEAD_PERIOD == 0:
-                for p, u, slow in zip(params, updates, state["slow"]):
-                    slow.add_(p + u - slow, alpha=LOOKAHEAD_STEP)
-                    p.copy_(slow)
-                return
+            for p, u, slow in zip(params, updates, state["slow"]):
+                fast = p + u
+                synced = torch.add(slow, fast - slow, alpha=LOOKAHEAD_STEP)
+                slow.copy_(torch.where(sync, synced, slow))
+                p.copy_(torch.where(sync, synced, fast))
+            return
         for p, u in zip(params, updates):
             p.add_(u)

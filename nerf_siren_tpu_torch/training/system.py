@@ -2,7 +2,7 @@
 
 Counterpart of `nerf_siren_tpu/training/system.py` (`TrainState`,
 `NeRFSystem`, `epoch_iterator`) for `--mode normal` with the MLP field.
-A system owns the configs, parameter init, the train step and the
+A system owns the configs, parameter init, the train steps and the
 validation render. State is an explicit `TrainState`: the coarse and fine
 `NeRF`s, the optimizer state and the step. PyTorch runs eagerly, so a step
 updates the models and the optimizer state in place and returns the same
@@ -15,11 +15,28 @@ Two training backends:
   bf16 operands with float32 accumulation, forward and backward kernels
   on a CUDA device; reference 8x256 topology only.
 
+The steps:
+- `train_step`: one update, eagerly;
+- `train_step_accum`: one update from micro-batches, gradients averaged;
+- `train_scan_batches`: N pre-batched steps, exactly what N `train_step`s
+  with the same seed give;
+- `train_scan`: N steps on batches drawn uniformly from a ray pool on the
+  device;
+- `train_scan_importance`: `train_scan` with loss-guided ray sampling.
+The three grouped steps run as one `training/graphs.py::StepGroup`: a
+captured CUDA graph of the N steps on a card (cached per kind, N, B, pool
+size and state), a plain loop on the CPU. They return the state and the
+last step's loss and PSNR, as the JAX package's scans do; every step's
+are in `last_group.steps` (N, 2) until the next group.
+
 Random draws (stratified perturbation, sigma noise, the fine pass's
 sample_pdf) come from a `torch.Generator` on the rays' device, seeded from
-(seed, step), so a resumed run draws what the uninterrupted one would.
-The JAX package's scanned and accumulating steps (`train_scan*`,
-`train_step_accum`) and `render_sharded` are not ported yet (ROADMAP).
+(seed, step), so a resumed run draws what the uninterrupted one would. A
+grouped step draws the same values beforehand (`draw_step_noise`; the pool
+steps draw their indices first from the same generator), outside the
+graph. `jax.random` and torch streams cannot match, so parity with JAX
+holds at perturb 0 and noise 0, and for `train_scan*` in distribution.
+`render_sharded` is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -31,7 +48,9 @@ import torch
 
 from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
-from nerf_siren_tpu_torch.render.rendering import render_rays, render_rays_chunked
+from nerf_siren_tpu_torch.render.rendering import (StepNoise, draw_noise, render_rays,
+                                                   render_rays_chunked)
+from nerf_siren_tpu_torch.training.graphs import NOISE, StepGroup
 from nerf_siren_tpu_torch.training.losses import loss_dict
 from nerf_siren_tpu_torch.training.metrics import psnr
 from nerf_siren_tpu_torch.training.optimizers import Optimizer
@@ -58,6 +77,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
+def draw_step_noise(seed: int, step: int, n_rays: int, cfg: RenderConfig,
+                    device) -> StepNoise:
+    """The draws `render_rays` makes from `step_generator(seed, step)` for
+    `n_rays` rays under `cfg`, made beforehand, with the same generator, in
+    the same order and at the same shapes."""
+    return draw_noise(step_generator(seed, step, device), n_rays, cfg)
+
+
 class NeRFSystem:
     """Vanilla NeRF trainer: two embeddings (10/4 frequencies), coarse and
     fine NeRF, MSE loss (or the semantic losses), PSNR logging."""
@@ -82,6 +109,8 @@ class NeRFSystem:
         self.device = torch.device(device)
         self.optimizer = Optimizer(train_cfg, steps_per_epoch)
         self.loss_fn = loss_dict[train_cfg.loss_type]
+        self._groups: Dict[tuple, StepGroup] = {}
+        self.last_group: Optional[StepGroup] = None   # of the last grouped call
 
     # -- state ----------------------------------------------------------------
 
@@ -114,14 +143,17 @@ class NeRFSystem:
 
     def loss_and_grads(self, state: TrainState, rays: torch.Tensor, rgbs: torch.Tensor,
                        generator: Optional[torch.Generator],
-                       cls_target: Optional[torch.Tensor] = None):
+                       cls_target: Optional[torch.Tensor] = None,
+                       noise: Optional[StepNoise] = None):
         """The step's losses, outputs and parameter gradients (the
-        parameters are not changed)."""
+        parameters are not changed); the draws come from `generator` or are
+        `noise`."""
         cfg = self.render_cfg.replace(test_time=False)
         params = [p for _, _, p in parameters(state.models)]
         for p in params:
             p.grad = None
-        out = render_rays(state.models, rays, cfg, generator, field_fn=self._field_fn(rays))
+        out = render_rays(state.models, rays, cfg, generator, field_fn=self._field_fn(rays),
+                          noise=noise)
         losses = self.loss_fn(out, rgbs, cls_target=cls_target)
         losses["sum"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -150,6 +182,117 @@ class NeRFSystem:
         metrics["train/psnr"] = psnr(out[rgb_key].detach(), rgbs)
         state.step += 1
         return state, metrics
+
+    def train_step_accum(self, state: TrainState, batch: Dict[str, Any], seed: int,
+                         n_micro: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer update from `n_micro` sequential micro-batches of
+        `batch` (its rays must divide by n_micro): the gradients are averaged,
+        loss and PSNR are micro-batch means. Each micro-batch draws from
+        `step_generator(seed, state.step)`, as JAX folds the step into one key
+        for all of them."""
+        rays = torch.as_tensor(batch["rays"], dtype=torch.float32, device=self.device)
+        rgbs = torch.as_tensor(batch["rgbs"], dtype=torch.float32, device=self.device)
+        if rays.shape[0] % n_micro:
+            raise ValueError(f"batch of {rays.shape[0]} rays does not divide by "
+                             f"n_micro {n_micro}")
+        params = [p for _, _, p in parameters(state.models)]
+        acc = [torch.zeros_like(p) for p in params]
+        loss = torch.zeros((), device=self.device)
+        mpsnr = torch.zeros((), device=self.device)
+        for r, c in zip(rays.chunk(n_micro), rgbs.chunk(n_micro)):
+            gen = step_generator(seed, state.step, self.device)
+            losses, out, grads = self.loss_and_grads(state, r, c, gen)
+            acc = [a + g / n_micro for a, g in zip(acc, grads)]
+            pred = out["rgb_fine" if "rgb_fine" in out else "rgb_coarse"].detach()
+            loss = loss + losses["sum"].detach() / n_micro
+            mpsnr = mpsnr + psnr(pred, c) / n_micro
+        self.optimizer.step(params, acc, state.opt_state)
+        state.step += 1
+        return state, {"train/loss": loss, "train/psnr": mpsnr}
+
+    def train_scan_batches(self, state: TrainState, rays_b, rgbs_b,
+                           seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """A group of pre-batched steps, `rays_b` (N, B, 8) and `rgbs_b` (N, B,
+        3): exactly the N `train_step`s on those batches with the same seed
+        (each step draws from `step_generator(seed, step)`), as one captured
+        graph on a card. Returns the state and the last step's metrics."""
+        rays_b = torch.as_tensor(rays_b, dtype=torch.float32, device=self.device)
+        rgbs_b = torch.as_tensor(rgbs_b, dtype=torch.float32, device=self.device)
+        return self._grouped(state, "batches", {"rays": rays_b, "rgbs": rgbs_b}, seed,
+                             rays_b.shape[0], rays_b.shape[1])
+
+    def train_scan(self, state: TrainState, pool_rays, pool_rgbs, seed: int, n_steps: int,
+                   batch_size: Optional[int] = None):
+        """`n_steps` steps, each on `batch_size` rays drawn uniformly from the
+        pool (moved to the device) with the step's generator; the gather runs
+        inside the graph. Returns the state and the last step's metrics."""
+        return self._grouped(state, "pool", self._pool(pool_rays, pool_rgbs), seed, n_steps,
+                             batch_size or self.train_cfg.batch_size)
+
+    def train_scan_importance(self, state: TrainState, pool_rays, pool_rgbs, seed: int,
+                              n_steps: int, batch_size: Optional[int] = None,
+                              alpha: float = 1.0, uniform_frac: float = 0.2):
+        """`train_scan` with loss-guided ray sampling: a per-ray error buffer
+        over the pool (ones at the start of the call) draws each step's rays
+        with probability proportional to (err + 1e-8)^alpha, a `uniform_frac`
+        share of them uniformly instead, and takes each step's fresh errors
+        of its rays. Returns the state and the last step's metrics."""
+        return self._grouped(state, "importance", self._pool(pool_rays, pool_rgbs), seed,
+                             n_steps, batch_size or self.train_cfg.batch_size,
+                             float(alpha), float(uniform_frac))
+
+    def _pool(self, pool_rays, pool_rgbs) -> Dict[str, torch.Tensor]:
+        return {"pool_rays": torch.as_tensor(pool_rays, dtype=torch.float32,
+                                             device=self.device),
+                "pool_rgbs": torch.as_tensor(pool_rgbs, dtype=torch.float32,
+                                             device=self.device)}
+
+    def _grouped(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
+                 seed: int, n: int, b: int, alpha: float = 1.0, uniform_frac: float = 0.0
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Run the group's `StepGroup` on its inputs (`group_inputs`) and
+        advance the counts by n."""
+        inputs = self.group_inputs(state, kind, inputs, seed, n, b, uniform_frac)
+        tensors = [p for _, _, p in parameters(state.models)] + [
+            t for v in state.opt_state.values() if isinstance(v, list) for t in v]
+        n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
+        key = (kind, n, b, n_pool, alpha, tuple(t.data_ptr() for t in tensors))
+        if key not in self._groups:
+            self._groups[key] = StepGroup(self, state, kind, n, alpha)
+        self.last_group = self._groups[key]
+        out = self.last_group.run(inputs)
+        self.optimizer.advance(state.opt_state, n)
+        state.step += n
+        return state, {"train/loss": out[-1, 0], "train/psnr": out[-1, 1]}
+
+    def group_inputs(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
+                     seed: int, n: int, b: int, uniform_frac: float = 0.0
+                     ) -> Dict[str, torch.Tensor]:
+        """`inputs` (the batches or the pool) with the next n steps' draws from
+        `state`: their indices and noise from each step's generator, and the
+        optimizer's scalar table (see `training/graphs.py`)."""
+        cfg = self.render_cfg.replace(test_time=False)
+        n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
+        draws: Dict[str, list] = {}
+
+        def add(name, value):
+            draws.setdefault(name, []).append(value)
+
+        dev = self.device
+        for k in range(n):
+            gen = step_generator(seed, state.step + k, dev)
+            if kind == "pool":
+                add("idx", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
+            elif kind == "importance":
+                add("u_cat", torch.rand(b, generator=gen, device=dev))
+                add("idx_uni", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
+                add("take_uni", torch.rand(b, generator=gen, device=dev) < uniform_frac)
+            for name, v in draw_noise(gen, b, cfg).items():
+                add(NOISE + name, v)
+        inputs = dict(inputs, **{k: torch.stack(v) for k, v in draws.items()})
+        inputs["table"] = torch.from_numpy(
+            self.optimizer.scalar_table(state.opt_state, n)).to(self.device)
+        return inputs
 
     # -- inference ------------------------------------------------------------
 

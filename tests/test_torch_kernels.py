@@ -961,3 +961,153 @@ def test_eg3d_render_on_the_kernel_matches_the_gather_route(cuda_device):
     for k in want:
         assert torch.equal(got[k], want[k]), k
         torch.testing.assert_close(got[k].cpu(), cpu[k], atol=1e-4, rtol=0, msg=k)
+
+
+# A group's graph and the eager steps run the same kernels and the same
+# device-scalar update and read bit-equal on an H100; the bars leave room
+# for a last bit that a reduction might order otherwise, three orders below
+# a group without its last update (0.17).
+GROUP_LOSS_RTOL = 1e-6   # each grouped step's loss against the eager step's
+GROUP_CHANGE_GAP = 1e-4  # change_gap of a group's weights against the eager steps'
+
+
+def change_gap(start, got, want):
+    """The largest, over the parameters, of ||(got - start) - (want - start)||
+    / ||want - start||: how far the change a run made from `start` lies
+    from the change the reference run made, relative to that change."""
+    return max(float((g - w).norm() / (w - s).norm().clamp_min(1e-30))
+               for s, g, w in zip(start, got, want))
+
+
+def _param_list(state):
+    from nerf_siren_tpu_torch.training.system import parameters
+
+    return [p.detach().clone() for _, _, p in parameters(state.models)]
+
+
+def _train_system(device, n_samples=64, n_importance=128, perturb=1.0, batch_size=1024):
+    from nerf_siren_tpu_torch.config import RenderConfig, TrainConfig
+    from nerf_siren_tpu_torch.training.system import NeRFSystem
+
+    return NeRFSystem(RenderConfig(n_samples=n_samples, n_importance=n_importance,
+                                   perturb=perturb, noise_std=perturb, white_back=True),
+                      TrainConfig(lr=5e-4, decay_step=(20,), decay_gamma=0.1,
+                                  batch_size=batch_size), NeRFConfig(), 1000, "fused", device)
+
+
+def _copy_state(system, state, device):
+    other = system.state_for({k: NeRF(NeRFConfig()).to(device) for k in state.models})
+    for k, m in other.models.items():
+        m.load_state_dict(state.models[k].state_dict())
+    return other
+
+
+def _synthetic_rays(shape, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = torch.nn.functional.normalize(torch.randn(*shape, 3, generator=g, device=device), dim=-1)
+    o = -4.0 * d + 0.3 * torch.randn(*shape, 3, generator=g, device=device)
+    near_far = torch.tensor([2.0, 6.0], device=device).expand(*shape, 2)
+    return torch.cat([o, d, near_far], -1), torch.rand(*shape, 3, generator=g, device=device)
+
+
+@pytest.mark.cuda
+def test_grouped_fused_steps_on_a_graph_match_eager_steps(cuda_device):
+    """Two groups of 7 `fused` steps (1024 rays, 64 + 128 samples, perturb 1,
+    noise 1, Adam) as one captured CUDA graph replayed twice, against 14
+    eager `train_step`s from the same weights, seed and batches. K2 runs
+    inside the graph: each wrapper is called twice a step at capture (and
+    twice in the warm-up step before it), never at a replay. Bars: each
+    step's loss within a relative GROUP_LOSS_RTOL, and after each group
+    every parameter's change within GROUP_CHANGE_GAP of the eager steps'
+    (`change_gap`); the eager step runs the same device-scalar update as
+    the graph. A control must fail the same bar: a group whose last update
+    has lr 0 (the last row of its scalar table)."""
+    n = 7
+    system = _train_system(cuda_device)
+    eager = system.init_state(0)
+    grouped, control = _copy_state(system, eager, cuda_device), _copy_state(system, eager,
+                                                                             cuda_device)
+    start = _param_list(eager)
+    rays, rgbs = _synthetic_rays((2 * n, 1024), cuda_device)
+    want, want_params = [], []
+    for i in range(2 * n):
+        eager, m = system.train_step(eager, {"rays": rays[i], "rgbs": rgbs[i]}, seed=7)
+        want.append(float(m["train/loss"]))
+        if i % n == n - 1:
+            want_params.append(_param_list(eager))
+    got, gaps = [], []
+    for grp in range(2):
+        before = dict(k2.LAUNCHES)
+        sl = slice(grp * n, (grp + 1) * n)
+        grouped, m = system.train_scan_batches(grouped, rays[sl], rgbs[sl], seed=7)
+        launched = {k: k2.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"fwd": 2 * n + 2, "bwd": 2 * n + 2} if grp == 0
+                            else {"fwd": 0, "bwd": 0}), launched
+        assert float(m["train/loss"]) == float(system.last_group.steps[-1, 0])
+        got += system.last_group.steps[:, 0].tolist()
+        gaps.append(change_gap(start, _param_list(grouped), want_params[grp]))
+    assert grouped.step == eager.step == 2 * n
+    loss_rel = max(abs(b - a) / abs(a) for a, b in zip(want, got))
+
+    table = system.optimizer.scalar_table
+
+    def last_lr_zero(state, k):
+        rows = table(state, k)
+        rows[-1, 0] = 0.0
+        return rows
+
+    system.optimizer.scalar_table = last_lr_zero
+    try:
+        system.train_scan_batches(control, rays[:n], rgbs[:n], seed=7)
+    finally:
+        system.optimizer.scalar_table = table
+    control_gap = change_gap(start, _param_list(control), want_params[0])
+    print(f"grouped vs eager: max relative loss difference {loss_rel:.3e} (bar "
+          f"{GROUP_LOSS_RTOL}), change gap after each group {gaps} (bar {GROUP_CHANGE_GAP}), "
+          f"the control's {control_gap:.3e}")
+    assert loss_rel <= GROUP_LOSS_RTOL, loss_rel
+    assert max(gaps) <= GROUP_CHANGE_GAP, gaps
+    assert control_gap > GROUP_CHANGE_GAP, control_gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pool", "importance"])
+def test_pool_groups_on_a_graph_match_their_loop_on_the_card(cuda_device, kind):
+    """`train_scan` (perturb 1, noise 1) and `train_scan_importance`
+    (perturb 0, noise 0, so that rays drawn twice in a batch write back the
+    same error whichever lands) on a pool of 16384 rays, two groups of 5
+    steps of 1024 rays: the captured graph, whose gather from the pool (and
+    cumulative sum, search and error write-back) runs inside it, against
+    the same `StepGroup` body run as a plain loop on the card on the same
+    draws. Bars: those of the batches' graph; the second group is a replay
+    and calls no K2 wrapper."""
+    from nerf_siren_tpu_torch.training.graphs import StepGroup
+
+    n, b, alpha, frac = 5, 1024, 1.0, 0.2
+    system = _train_system(cuda_device, 32, 32, 1.0 if kind == "pool" else 0.0, b)
+    looped = system.init_state(0)
+    grouped = _copy_state(system, looped, cuda_device)
+    start = _param_list(looped)
+    pool_rays, pool_rgbs = _synthetic_rays((16384,), cuda_device, seed=5)
+    pool = {"pool_rays": pool_rays, "pool_rgbs": pool_rgbs}
+    run = (system.train_scan if kind == "pool" else
+           lambda *a, **kw: system.train_scan_importance(*a, alpha=alpha, uniform_frac=frac,
+                                                         **kw))
+    loss_rel, gaps = 0.0, []
+    for grp in range(2):
+        inputs = system.group_inputs(looped, kind, pool, 11, n, b, frac)
+        want = StepGroup(system, looped, kind, n, alpha).loop(inputs)[:, 0].tolist()
+        system.optimizer.advance(looped.opt_state, n)
+        looped.step += n
+        before = dict(k2.LAUNCHES)
+        grouped, _ = run(grouped, pool_rays, pool_rgbs, 11, n_steps=n, batch_size=b)
+        launched = {k: k2.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"fwd": 2 * n + 2, "bwd": 2 * n + 2} if grp == 0
+                            else {"fwd": 0, "bwd": 0}), launched
+        got = system.last_group.steps[:, 0].tolist()
+        loss_rel = max([loss_rel] + [abs(g - w) / abs(w) for g, w in zip(got, want)])
+        gaps.append(change_gap(start, _param_list(grouped), _param_list(looped)))
+    print(f"{kind}: graph vs loop: max relative loss difference {loss_rel:.3e}, change gap "
+          f"after each group {gaps}")
+    assert loss_rel <= GROUP_LOSS_RTOL, loss_rel
+    assert max(gaps) <= GROUP_CHANGE_GAP, gaps
