@@ -174,6 +174,34 @@ Run from the repository root. Phases, each printing a line:
      card's table (atol 5e-3, as phase 4), and the card's float32 planes
      against a CPU float32 synthesis from the same weights (max |d| within
      1e-3 of the planes' largest magnitude; cuDNN TF32 is off, phase 1).
+  Phases 18-20 drive the SIREN field and the semantic stack (`--mode d3`)
+  at the published widths, weights from numpy seeds:
+ 18. SIREN steps: the 8x256 FiLM field with its mapping network (100 ->
+     256 -> 256 -> 9 x 256 x 2) and learnable z, coarse + fine, 1024 rays
+     of the lego cameras at 64 + 128 samples, perturb 1, noise 1, Adam 5e-4
+     (`NeRFSystem(field_type='siren')`, the jnp backend): GROUP_STEPS eager
+     `train_step`s and one group of as many on a captured graph from the
+     same start, read as phase 6(c) (loss within GROUP_LOSS_RTOL, change
+     gap within GROUP_CHANGE_GAP), with a control group whose last row of
+     the scalar table has lr 0 (must exceed the gap); K2 never called; ms
+     per step of eager steps and replays in turns; a replay under
+     `torch.cuda.set_sync_debug_mode("error")`, where a host sync raises.
+ 19. d3 steps: NeRF 8x256 coarse + fine and PointNet (k 6, capacity
+     8192), msenll, no_grad_on_nerf (`NeRF3DSystem`), the same reading,
+     control and replay as phase 18; the NeRF parameters bit-unchanged and
+     at least half of PointNet's tensors moved in both runs; then 3 eager
+     steps with `--semantic_network conv3d` (the voxel UNet, res 32).
+ 20. d3 frames: the ball field of phase 7 with a numpy-seeded PointNet. One
+     800² frame through `eval.py::make_semantic_renderer` on the fast
+     renderer at the `--fast_*` defaults and `--cls_threshold 0` (after a
+     warm-up frame): latency, this phase's own K3 select and K1 full
+     launches (at least one per chunk), peak memory; the same frame with
+     K3 select and K1 replaced by their plain versions on the card: class
+     ids equal at every pixel whose plain top-two margin exceeds
+     CLS_MARGIN, rgb, depth and opacity within phase 9's bars; a control,
+     PointNet's conv4 columns rolled by one, must fail the class gate. One
+     200² d3 exact frame (`render_rays_3d`, bf16 field operands) with its
+     latency.
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
@@ -224,6 +252,12 @@ INT8_RGB_ATOL, INT8_SIGMA_TOL, INT8_VS_BF16 = 2e-2, (5e-2, 2e-2), 0.15
 PEAK_FLOPS, PEAK_INT8, PEAK_BYTES = 989e12, 1979e12, 3.35e12   # H100 SXM dense; HBM3
 EG3D_SEED, EG3D_WH, EG3D_BIG, N_EG3D = SEED + 30, 128, 800, 3
 EG3D_CHECK = slice(64 * 128, 64 * 128 + 2048)   # rays through the 128² frame's centre rows
+SEM_CLASSES, SEM_CAPACITY, D3_EXACT_WH = 6, 8192, 200
+# class ids must agree where the plain top-two margin exceeds CLS_MARGIN: on an H100 80GB
+# HBM3 (700 W) the d3 fast frame's ids differed from the plain versions' at 13 of 640,000
+# pixels, the largest margin among them 0.042 (a near tie at a cloud's capacity cut moves
+# PointNet's max-pool and so every ray of the tile a little)
+CLS_MARGIN = 0.1
 K5_RANDOM = 262_144
 K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
 K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
@@ -336,7 +370,7 @@ def cuda_ms(fn, reps, queued=False):
     return device_ms(fn, reps, queued)
 
 
-def compare(name, got, ref, where, phase="3/17"):
+def compare(name, got, ref, where, phase="3/20"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -409,7 +443,7 @@ def check_kernels(packed, device, card):
     report = ptxas_report("fused_mlp")
     for name, symbol in K1_SYMBOLS.items():
         regs, spills, stack = next(v for k, v in report.items() if symbol in k)
-        print(f"[3/17] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
+        print(f"[3/20] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
               f"(stores + loads), {stack} bytes stack frame; "
               f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
               f"memory", flush=True)
@@ -429,7 +463,7 @@ def check_kernels(packed, device, card):
         n_bytes += k1_weight_bytes(packed)
         bound_ms, bound_by = bound(flops, n_bytes)
         chain_ms = matmul_chain_ms(packed, n_pts, full)
-        print(f"[3/17] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/20] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
               f"bound), plain {plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms "
               f"({bound_by}); earlier wmma kernel {EARLIER_K1_MS[name]} ms (another call); bf16 "
@@ -558,12 +592,12 @@ def check_train_kernels(model, frame_rays, device, card):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/17"))
+                                       "5/20"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/17] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/20] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
@@ -587,7 +621,7 @@ def check_train_kernels(model, frame_rays, device, card):
              2 * bwd_macs * n_pts, in_bytes + n_pts * 16 + len(shapes) * g_bytes)):
         ms, plain_ms, (p1, k1, k2_, p2) = timed_pair(kern, plain)
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[5/17] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
+        print(f"[5/20] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
               f"({k1:.3f}, {k2_:.3f}; {flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}, "
               f"{flops * 1e-12:.3f} TFLOP); {card}", flush=True)
@@ -614,7 +648,7 @@ def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes],
                                      backward=False)
     earlier = EARLIER_K2_MS["fused_train_fwd"]
-    print(f"[5/17] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
+    print(f"[5/20] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
           f"profiler, mean of 3; before the redesign {earlier} ms, another call; "
           f"{earlier / own:.2f}x); operations bound {bound_ms:.3f} ms ({100 * bound_ms / own:.1f}% "
           f"of it); build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes (stores + "
@@ -639,7 +673,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
         k_ms = sum(v for k, v in own.items() if symbol in k)
         earlier = (f"; before the redesign {EARLIER_K2_MS[label]} ms (another call)"
                    if label in EARLIER_K2_MS else "")
-        print(f"[5/17] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
+        print(f"[5/20] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
               f"profiler, mean of 3){earlier}; build (-Xptxas -v): {regs} registers at entry, "
               f"{spills} spill bytes (stores + loads), {stack} bytes stack frame; "
               f"{smem.get(label, 0)} bytes dynamic shared memory", flush=True)
@@ -647,7 +681,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
     floor_ms = n_pts * (written + read) / PEAK_BYTES * 1e3
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes])
     earlier = EARLIER_K2_MS["fused_train_bwd"]
-    print(f"[5/17] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
+    print(f"[5/20] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
           f"another call; {earlier / ms:.2f}x); operations bound {bound_ms:.3f} ms "
           f"({100 * bound_ms / ms:.1f}% of it); the stash {written} bytes a point written + "
           f"{read} read = {n_pts * (written + read) / 1e9:.3f} GB, "
@@ -751,7 +785,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/17] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/20] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -773,7 +807,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/17] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/20] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -795,7 +829,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/17] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/20] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
 
@@ -868,7 +902,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     eager_params = param_list(eager)
     gap = change_gap(start, param_list(grouped), eager_params)
     control = change_gap(start, short, eager_params)
-    print(f"[6/17] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
+    print(f"[6/20] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
           f"same weights, seed and batches: max relative loss difference {loss_rel:.3e} "
           f"(bar {GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the "
           f"control without the last update {control:.3e}, must exceed it); losses eager "
@@ -917,14 +951,14 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     want = [float(v) for v in eager_losses]
     replay_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     replay_gap = change_gap(start, param_list(grouped), param_list(eager))
-    print(f"[6/17] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
+    print(f"[6/20] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
           f"relative loss difference of the last group {replay_rel:.3e} (bar "
           f"{GROUP_LOSS_RTOL}), change gap over the {5 * n} steps {replay_gap:.3e} (bar "
           f"{GROUP_CHANGE_GAP})", flush=True)
     if not replay_rel <= GROUP_LOSS_RTOL or not replay_gap <= GROUP_CHANGE_GAP:
         fail(f"{backend}: replayed groups disagree with eager steps")
     replay_ms = float(np.median(times["grouped"])) * n
-    print(f"[6/17] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
+    print(f"[6/20] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
           f"(median {np.median(times['grouped']):.3f}), eager "
           f"{[round(v, 3) for v in times['eager']]} (median {np.median(times['eager']):.3f}), "
           f"in turns; the capture of {n} steps {capture_s:.3f} s (the first group with its "
@@ -1138,7 +1172,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
 
     d, ratio = over(got)
     n_diff = int((d > 0).sum())
-    print(f"[8/17] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
+    print(f"[8/20] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
           f"differ ({100 * n_diff / d.numel():.3f}%), max|d| {float(d.max()):.3e}, max |d| / "
           f"bar {float(ratio.max()):.3e}, median over those that differ "
           f"{float(ratio[d > 0].median()) if n_diff else 0.0:.3e} (bar: proxy_score_bar)",
@@ -1148,7 +1182,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
     if control:
         _, ratio = over(k3.proxy_scores_ref({**pp, "b1": pp["b1"].bfloat16().float()}, pts))
         n_over = int((ratio > 1.0).sum())
-        print(f"[8/17] control, the plain scores with b1 rounded to bf16: {n_over} of "
+        print(f"[8/20] control, the plain scores with b1 rounded to bf16: {n_over} of "
               f"{ratio.numel()} ({100 * n_over / ratio.numel():.3f}%) beyond proxy_score_bar, max "
               f"|d| / bar {float(ratio.max()):.3e}", flush=True)
         if n_over == 0:
@@ -1180,7 +1214,7 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
     bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
-    print(f"[8/17] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+    print(f"[8/20] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
           f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
@@ -1245,7 +1279,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     dz = (z - rz).abs() / span[:, None]
     med, p99 = float(dz.median()), percentile(dz, 0.99)
     err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
-    print(f"[8/17] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+    print(f"[8/20] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
           f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
@@ -1262,7 +1296,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     scores = k3_scores_reading(pp, rays8, PREPASS_C)
     same_op = torch.equal(k3.proxy_opacity_ref(pp, rays8, PREPASS_C, scores=scores), op)
     del scores
-    print(f"[8/17] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
+    print(f"[8/20] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
           f"{FAST_C}, K {FAST_K}) {'bit-equal' if same_sel else 'DIFFERENT'}, opacity (C "
           f"{PREPASS_C}) {'bit-equal' if same_op else 'DIFFERENT'}", flush=True)
     if not (same_sel and same_op):
@@ -1278,7 +1312,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     crz, crxyz = k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True)
     err = float(torch.maximum((cz - crz).abs().amax(), (cxyz - crxyz).abs().amax()))
     same_chunk = torch.equal(cz, z[pick]) and torch.equal(cxyz, xyz[pick])
-    print(f"[8/17] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
+    print(f"[8/20] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
           f"frame's launch: {'bit-equal' if same_chunk else 'DIFFERENT'}; max|d| vs plain "
           f"{err:.3e}", flush=True)
     if not same_chunk:
@@ -1300,7 +1334,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_march_select"] = res
     one_ms = cuda_ms(lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True), 5)
     n_chunks = -(-r // CHUNK)
-    print(f"[8/17] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
+    print(f"[8/20] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
           f"(median of {[round(t, 4) for t in queued]}; unqueued {unqueued:.4f}), "
           f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; x {n_chunks} = "
           f"{n_chunks * res['ms']:.3f} ms a frame in chunks; beside one launch over all {r} "
@@ -1313,7 +1347,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (op - rop).abs()
     err = float(d.max())
-    print(f"[8/17] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+    print(f"[8/20] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
           f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
           f"{int((op != rop).sum())} of {r} differ", flush=True)
     if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
@@ -1325,20 +1359,20 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + k3_bytes, err, card,
         plain_reps=1)
     res = results["proxy_opacity"]
-    print(f"[8/17] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
+    print(f"[8/20] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
           f"earlier CUDA-core kernel {EARLIER_K3_MS['opacity']} ms (another call)", flush=True)
     hidden = pp["w1"].shape[0]
     report = ptxas_report("proxy_march")
     for name, epi, c in (("proxy_march_select", 1, FAST_C), ("proxy_opacity", 0, PREPASS_C)):
         sym = f"proxy_march_kernelILi{k3.k3_width(hidden)}ELi{epi}ELb0E"
         regs, spills, stack = next(v for k, v in report.items() if sym in k)
-        print(f"[8/17] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
+        print(f"[8/20] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
               f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
               f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
               f"{c}", flush=True)
     for sym, before in K3_SASS_DIGESTS.items():
         digest = sass_digest("proxy_march", sym)
-        print(f"[8/17] {sym} SASS digest {digest}: "
+        print(f"[8/20] {sym} SASS digest {digest}: "
               f"{'unchanged from' if digest == before else 'DIFFERS from'} the build of the tree "
               f"before K6 joined csrc/proxy_march.cu, {before} (nvcc 12.8; a reading)", flush=True)
 
@@ -1386,7 +1420,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
         rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
         errs[name] = max(errs[name], float(d.max()))
-        print(f"[8/17] {name} vs plain {where}: max|d| per column "
+        print(f"[8/20] {name} vs plain {where}: max|d| per column "
               f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
               f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
               f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
@@ -1394,14 +1428,14 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
             fail(f"{name} disagrees with its plain version {where}")
     n_flip = 65536
     flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
-    print(f"[8/17] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+    print(f"[8/20] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
     lib = _build.load("fused_mlp_int8")
     report = ptxas_report("fused_mlp_int8")
     n_emb = sum(1 for k in p8 if k[0] == "q" and k.endswith("x"))
     epi = sass_epilogue("fused_mlp_int8", K4_SYMBOLS["fused_nerf_sigma_int8"])
-    print("[8/17] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
+    print("[8/20] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
           (f"{epi[0]} instructions converting its 128 accumulators, {epi[1]} adding the bias, "
            f"ReLU and absmax and quantising them: {sum(epi) / 128:.2f} per element"
            if epi else "not found"), flush=True)
@@ -1417,7 +1451,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
                            card, int8_ops=n * i8)
         ms4, ms1, (a1, b1, b2, a2) = timed_pair([kern], [bf16_kern])   # K1, K4, K4, K1
         regs, spills, stack = next(v for k, v in report.items() if K4_SYMBOLS[name] in k)
-        print(f"[8/17] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
+        print(f"[8/20] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
               f"int8 + {n * f_bf16 * 1e-12 / (res['ms'] * 1e-3):.1f} TFLOP/s bf16, "
               f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound; earlier mma.sync kernel "
               f"{EARLIER_K4_MS[name]} ms (another call; {EARLIER_K4_MS[name] / res['ms']:.1f}x); "
@@ -1447,7 +1481,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         got, k6.proxy_select_ref(pp, rays6, K6_C, K6_K, scores=scores))
     n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
     err = float((got - k6.proxy_select_ref(pp, rays6, K6_C, K6_K)).abs().max())
-    print(f"[8/17] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
+    print(f"[8/20] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
           f"of {d.numel()} differ ({100 * n_diff / d.numel():.3f}%), max |d| / bar "
           f"{float(ratio.max()):.3e} (bar: proxy_score_bar); the plain selection on the kernel's "
           f"scores {'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} of {K6_RAYS} rays "
@@ -1468,7 +1502,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_select"] = res
     regs, spills, stack = next(v for k, v in ptxas_report("proxy_march").items()
                                if TOPK_SYMBOL in k)
-    print(f"[8/17] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
+    print(f"[8/20] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
           f"CUDA-core kernel {EARLIER_K6_MS} ms (another call; {EARLIER_K6_MS / res['ms']:.2f}x); "
           f"build (-Xptxas -v, {TOPK_SYMBOL}): {regs} registers, {spills} spill bytes, {stack} "
           f"bytes stack frame; {k3.shared_bytes(hidden, K6_C)} bytes dynamic shared memory at C "
@@ -1499,7 +1533,7 @@ def fast_phases(frames_rays, device, card, args):
     exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
     check_outputs(exact, "exact frame")
     empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
-    print(f"[7/17] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+    print(f"[7/20] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
           f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
           f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
           f"per frame {[round(e, 4) for e in empty]}", flush=True)
@@ -1532,7 +1566,7 @@ def fast_phases(frames_rays, device, card, args):
     t0 = time.perf_counter()
     cached = setup_fast_proxy(models, hp, bounds)
     t_cached = time.perf_counter() - t0
-    print(f"[7/17] proxy distilled ({hp.fast_distill_steps} steps, batch "
+    print(f"[7/20] proxy distilled ({hp.fast_distill_steps} steps, batch "
           f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
           f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
           f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
@@ -1556,7 +1590,7 @@ def fast_phases(frames_rays, device, card, args):
     counts = read_counts(names)
     launches["proxy_march_select"] = counts["proxy_march_select"]
     n_chunks = -(-H * W // CHUNK)
-    print(f"[9/17] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+    print(f"[9/20] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
           f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
           f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
           f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
@@ -1577,7 +1611,7 @@ def fast_phases(frames_rays, device, card, args):
     for k, v in ref.items():
         d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
-    print(f"[9/17] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+    print(f"[9/20] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
           f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
           flush=True)
     if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
@@ -1602,7 +1636,7 @@ def fast_phases(frames_rays, device, card, args):
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
             lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
-            print(f"[10/17] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+            print(f"[10/20] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
                   f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
                   f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
@@ -1629,7 +1663,7 @@ def fast_phases(frames_rays, device, card, args):
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/17] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
+    print(f"[11/20] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
           f"against the bf16 fast frames' {[round(t, 4) for t in lat]} (rgb max|d| vs the bf16 "
           f"fast frame {d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused "
           f"{[round(t, 4) for t in sec_x8]} against the bf16 exact frames' "
@@ -1648,7 +1682,7 @@ def fast_phases(frames_rays, device, card, args):
                          hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
     (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
     check_outputs([out_e], "edge-refined frame")
-    print(f"[12/17] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+    print(f"[12/20] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
           f"({card}); "
           f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
           f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
@@ -1663,7 +1697,7 @@ def fast_phases(frames_rays, device, card, args):
     sec6 = time.perf_counter() - t0
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
-    print(f"[13/17] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+    print(f"[13/20] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
           f"({card}); the tree before the redesign {EARLIER_K6_FRAME_S} s (another call); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
@@ -1745,7 +1779,7 @@ def eg3d_setup(device, card):
     model, t_load = synced_s(lambda: load_model(system, ckpt, device))
     n_params = sum(p.numel() for p in model.parameters())
     synth = [synced_s(lambda: system.frame_planes(model))[1] for _ in range(4)]
-    print(f"[14/17] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
+    print(f"[14/20] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
           f"{cfg.plane_channels} x {cfg.plane_resolution}², channel_base {cfg.channel_base}, "
           f"channel_max {cfg.channel_max}): checkpoint written in {t_save:.2f} s, read by the "
           f"CLI's load_model in {t_load:.2f} s; mapping + synthesis + bf16 packing ms "
@@ -1819,7 +1853,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         lib = library(planes32, grid(xyz))[:, :, 0].permute(0, 2, 1)
         lib_err = float((got - lib).abs().max())
         err = max(err, float((got - ref).abs().max()))
-        print(f"[15/17] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
+        print(f"[15/20] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
               f"{c}): {n_diff} of {got.numel()} elements differ; max|d| vs F.grid_sample on the "
               f"float32 planes {lib_err:.3e} (bar {K5_LIB_TOL} x {t_scale:.3f})", flush=True)
         if n_diff or lib_err > K5_LIB_TOL * t_scale:
@@ -1852,7 +1886,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         for k, v in got.items():
             runs[k] += v
         ratios.append(float(np.median(got["kernel"]) / np.median(got["f32"])))
-        print(f"[15/17] triplane_gather round {rnd} in turns (ms): kernel "
+        print(f"[15/20] triplane_gather round {rnd} in turns (ms): kernel "
               f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
               f"{[round(t, 4) for t in got['f32']]}, bf16 "
               f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}; kernel / "
@@ -1871,11 +1905,11 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
     elem = "13__nv_bfloat16" if table.dtype == torch.bfloat16 else "f"
     symbol = f"triplane_gather_kernelI{elem}Li{plan.vec}E"
     regs, spills, stack = next(v for k, v in ptxas_report("triplane_gather").items() if symbol in k)
-    print(f"[15/17] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
+    print(f"[15/20] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
           f"channels of {table.dtype}), {plan.groups} threads per point, {plan.blocks} blocks of "
           f"{plan.threads}; {regs} registers, {spills} spill bytes, {stack} bytes of stack",
           flush=True)
-    print(f"[15/17] triplane_gather at {n} points (one chunk's coarse pass), medians of "
+    print(f"[15/20] triplane_gather at {n} points (one chunk's coarse pass), medians of "
           f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
           f"counted bytes, {100 * bound_ms / ms:.1f}% of the bound), F.grid_sample float32 "
           f"{lib_ms:.4f} ms, bf16 {lib16_txt} (grid precomputed): kernel / float32 library "
@@ -1884,7 +1918,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
           f"{table_bytes / 1e6:.2f} MB of the table's texels the points read, output); "
           f"kernel unqueued {float(np.median(unqueued)):.4f} ms (median of "
           f"{[round(t, 4) for t in unqueued]}); {card}", flush=True)
-    print(f"[15/17] triplane_gather below F.grid_sample float32 in every round: "
+    print(f"[15/20] triplane_gather below F.grid_sample float32 in every round: "
           f"{'yes' if max(ratios) < 1 else 'no'} (kernel / float32 per round "
           f"{[round(r, 3) for r in ratios]})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1929,7 +1963,7 @@ def eg3d_phases(device, card, args):
         for k, v in out.items():
             if v.shape[0] != EG3D_WH * EG3D_WH or not torch.isfinite(v).all():
                 fail(f"EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
-    print(f"[16/17] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
+    print(f"[16/20] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
           f"{hp.N_importance} samples, chunk {hp.chunk}, --plane_sampler kernel): latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the "
           f"median frame, of which mapping + synthesis {1e3 * synth_s:.3f} ms ({card}); K5 "
@@ -1942,7 +1976,7 @@ def eg3d_phases(device, card, args):
     worst = {k: max(float((o[k] - g[k]).abs().max()) for o, g in zip(outs, g_outs))
              for k in outs[0]}
     n_diff = sum(int((o[k] != g[k]).sum()) for o, g in zip(outs, g_outs) for k in o)
-    print(f"[16/17] the same frames through --plane_sampler gather: latency s "
+    print(f"[16/20] the same frames through --plane_sampler gather: latency s "
           f"{[round(t, 4) for t in g_lat]}; {n_diff} output elements differ from the kernel "
           f"frames, max|d| {worst} (bar {SAME_FRAME_ATOL})", flush=True)
     if max(worst.values()) > SAME_FRAME_ATOL:
@@ -1956,7 +1990,7 @@ def eg3d_phases(device, card, args):
                                                  for v in out_big.values()):
         fail(f"the {EG3D_BIG}² frame: {big_launches} K5 launches (expected {2 * big_chunks}) "
              f"or non-finite outputs")
-    print(f"[16/17] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
+    print(f"[16/20] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
           f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
           f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
           f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
@@ -1975,7 +2009,7 @@ def eg3d_phases(device, card, args):
         cpu_planes = cpu_model.planes(cpu_model.mapping(cpu_model.z))
     worst = {k: float((outs[0][k][EG3D_CHECK].cpu() - v).abs().max()) for k, v in ref.items()}
     p_err, p_scale = float((planes - cpu_planes).abs().max()), float(cpu_planes.abs().max())
-    print(f"[17/17] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
+    print(f"[17/20] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
           f"a CPU re-render on the card's table: max|d| {worst} (atol {RENDER_ATOL}); the card's "
           f"float32 planes vs a CPU float32 synthesis (cuDNN TF32 "
           f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max|d| {p_err:.3e}, largest "
@@ -1985,6 +2019,410 @@ def eg3d_phases(device, card, args):
     if args.profile:
         profile("EG3D frame", lambda: render(frames_rays[1]), card)
     return result, launches
+
+
+# ---- the SIREN field and the semantic stack (phases 18-20) --------------------
+
+def numpy_siren_params(rng, hidden=256, n_layers=8, z_dim=100):
+    """A JAX-layout SIREN tree (`init_siren_nerf`'s shapes and
+    distributions) from a numpy generator."""
+    def lin(i, o, bound=None):
+        b = 1.0 / math.sqrt(i)
+        return {"kernel": rng.uniform(-(bound or b), bound or b, (i, o)).astype(np.float32),
+                "bias": rng.uniform(-b, b, (o,)).astype(np.float32)}
+
+    def film(i, o, first=False):
+        return lin(i, o, 1.0 / i if first else math.sqrt(6.0 / i) / 25.0)
+
+    return {"network": [film(3, hidden, True)] + [film(hidden, hidden)
+                                                  for _ in range(1, n_layers)],
+            "final_layer": film(hidden, 1), "color_layer_sine": film(hidden + 3, hidden),
+            "color_layer_linear": film(hidden, 3),
+            "mapping": [lin(z_dim, 256), lin(256, 256), lin(256, (n_layers + 1) * hidden * 2)],
+            "z": rng.normal(size=(1, z_dim)).astype(np.float32)}
+
+
+def numpy_points_params(rng, k=SEM_CLASSES):
+    """A JAX-layout PointNet tree (`init_pointnet_dense_cls(k, inc=6)`'s
+    shapes; linears with the torch-default init, BN scale 1 and bias 0)."""
+    def lin(i, o):
+        b = 1.0 / math.sqrt(i)
+        return {"kernel": rng.uniform(-b, b, (i, o)).astype(np.float32),
+                "bias": rng.uniform(-b, b, (o,)).astype(np.float32)}
+
+    def bn(c):
+        return {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+
+    stn = {"conv1": lin(3, 64), "conv2": lin(64, 128), "conv3": lin(128, 1024),
+           "fc1": lin(1024, 512), "fc2": lin(512, 256), "fc3": lin(256, 9)}
+    feat = {"stn": stn, "conv1": lin(6, 64), "conv2": lin(64, 128), "conv3": lin(128, 1024),
+            "bn1": bn(64), "bn2": bn(128), "bn3": bn(1024)}
+    return {"feat": feat, "conv1": lin(1088, 512), "conv2": lin(512, 256),
+            "conv3": lin(256, 128), "conv4": lin(128, k),
+            "bn1": bn(512), "bn2": bn(256), "bn3": bn(128)}
+
+
+def numpy_points(seed, device):
+    from nerf_siren_tpu_torch.convert import points_from_jax
+    from nerf_siren_tpu_torch.models.pointnet import PointNetDenseCls
+
+    net = PointNetDenseCls(k=SEM_CLASSES, inc=6)
+    net.load_state_dict(points_from_jax(numpy_points_params(np.random.default_rng(seed))))
+    return net.to(device)
+
+
+def state_copy(system, models):
+    return system.state_for({k: copy.deepcopy(m) for k, m in models.items()})
+
+
+def lr0_last_row(optimizer):
+    """Swap in a scalar table whose last row has lr 0 (the control group);
+    returns the original."""
+    table = optimizer.scalar_table
+
+    def last_lr_zero(state, k):
+        rows = table(state, k)
+        rows[-1, 0] = 0.0
+        return rows
+
+    optimizer.scalar_table = last_lr_zero
+    return table
+
+
+def group_vs_eager(phase, label, system, models, batches, seed, card):
+    """GROUP_STEPS eager `train_step`s against one grouped group
+    (`train_scan_batches`, a captured CUDA graph) from the same weights,
+    seed and batches, read as phase 6(c) reads them, with a control group
+    whose last row has lr 0 (must fail the change gap); then ms per step of
+    eager steps and of replays in turns, and a replay under
+    `torch.cuda.set_sync_debug_mode("error")` (any host sync raises).
+    Returns (start, eager state, grouped state)."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    n = len(batches)
+    extra = {"cls_b": torch.stack([b["cls"] for b in batches])} if "cls" in batches[0] else {}
+    rays_b, rgbs_b = stacked(batches)
+    eager, grouped, control = (state_copy(system, models) for _ in range(3))
+    start = param_list(eager)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want, eager_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        eager, metrics = system.train_step(eager, b, seed=seed)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        want.append(float(metrics[system.LOSS_KEY]))
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k2_before = dict(k2.LAUNCHES)
+    t0 = time.perf_counter()
+    grouped, _ = system.train_scan_batches(grouped, rays_b, rgbs_b, seed=seed, **extra)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    group_peak = torch.cuda.max_memory_allocated()
+    capture_s = system.last_group.capture_s
+    got = system.last_group.steps[:, 0].tolist()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    gap = change_gap(start, param_list(grouped), param_list(eager))
+    table = lr0_last_row(system.optimizer)
+    try:
+        system.train_scan_batches(control, rays_b, rgbs_b, seed=seed, **extra)
+    finally:
+        system.optimizer.scalar_table = table
+    control_gap = change_gap(start, param_list(control), param_list(eager))
+    k2_calls = k2_calls_since(k2_before)
+    print(f"[{phase}] {label}: {n} grouped steps on a captured graph vs {n} eager steps, same "
+          f"weights, seed and batches: max relative loss difference {loss_rel:.3e} (bar "
+          f"{GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the control "
+          f"with the last row's lr 0 {control_gap:.3e}, must exceed it); losses eager "
+          f"{[f'{v:.6e}' for v in want]}, grouped {[f'{v:.6e}' for v in got]}; K2 wrapper "
+          f"calls {k2_calls}", flush=True)
+    if not loss_rel <= GROUP_LOSS_RTOL or not gap <= GROUP_CHANGE_GAP:
+        fail(f"{label}: grouped steps disagree with eager steps")
+    if not control_gap > GROUP_CHANGE_GAP:
+        fail(f"{label}: the change gap does not see a last update with lr 0")
+    if any(k2_calls.values()):
+        fail(f"{label}: K2 was called on a path that trains the plain field")
+    del control
+
+    # ms per step: eager steps and replays on the same batches, in turns
+    times = {"eager": [], "grouped": []}
+    for mode in ("eager", "grouped", "grouped", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "eager":
+            for b in batches:
+                eager, _ = system.train_step(eager, b, seed=seed)
+        else:
+            grouped, _ = system.train_scan_batches(grouped, rays_b, rgbs_b, seed=seed, **extra)
+        torch.cuda.synchronize()
+        times[mode].append(1e3 * (time.perf_counter() - t0) / n)
+    inputs = system.group_inputs(grouped, "batches", {"rays": rays_b, "rgbs": rgbs_b,
+                                                      **({"cls": extra["cls_b"]} if extra
+                                                         else {})}, seed, n, rays_b.shape[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        system.last_group.run(inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    system.optimizer.advance(grouped.opt_state, n)   # the counts `_grouped` would advance
+    grouped.step += n
+    torch.cuda.synchronize()
+    print(f"[{phase}] {label}: ms per step eager {[round(v, 3) for v in times['eager']]}, "
+          f"grouped {[round(v, 3) for v in times['grouped']]} (in turns; eager steps of the "
+          f"check {[round(1e3 * v, 3) for v in eager_s]}); the capture of {n} steps "
+          f"{capture_s:.3f} s (the first group {first_s:.3f} s); a replay under sync debug "
+          f"mode 'error' ran without a host sync; peak device memory eager "
+          f"{eager_peak / 2**30:.3f} GiB, a group of {n} {group_peak / 2**30:.3f} GiB; {card}",
+          flush=True)
+    return start, eager, grouped
+
+
+def siren_phase(device, card, args):
+    """Phase 18: the full SIREN field's steps, eager and grouped."""
+    import torch
+    from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
+    from nerf_siren_tpu_torch.convert import siren_from_jax
+    from nerf_siren_tpu_torch.models.siren import SirenNeRF
+    from nerf_siren_tpu_torch.training.system import NeRFSystem
+
+    rng = np.random.default_rng(SEED + 50)
+    models = {}
+    for name in ("coarse", "fine"):
+        models[name] = SirenNeRF()
+        models[name].load_state_dict(siren_from_jax(numpy_siren_params(rng)))
+        models[name].to(device)
+    system = NeRFSystem(RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE,
+                                     perturb=1.0, noise_std=1.0, white_back=True),
+                        TrainConfig(lr=LR, decay_step=(20,), decay_gamma=0.1,
+                                    batch_size=TRAIN_RAYS),
+                        NeRFConfig(), 1000, device=device, field_type="siren")
+    batches = sem_batches(device, SEED + 51)
+    n_params = sum(p.numel() for m in models.values() for p in m.parameters())
+    print(f"[18/20] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
+          f"{9 * 256 * 2}, learnable z, box 51; coarse + fine {n_params} parameters; "
+          f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples, perturb 1, noise 1, "
+          f"Adam {LR}", flush=True)
+    _, eager, _ = group_vs_eager("18/20", "SIREN", system, models, batches, SEED + 52, card)
+    if args.profile:
+        profile("SIREN train step", lambda: system.train_step(eager, batches[0], seed=1), card)
+
+
+def sem_batches(device, seed, classes=False):
+    """GROUP_STEPS batches of TRAIN_RAYS rays of the lego cameras with
+    uniform rgb targets (and class targets in [0, SEM_CLASSES))."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pool = torch.cat([lego_rays(k, device, 200, 200) for k in range(N_FRAMES)])
+    out = []
+    for _ in range(GROUP_STEPS):
+        idx = torch.randint(0, pool.shape[0], (TRAIN_RAYS,), generator=gen, device=device)
+        b = {"rays": pool[idx],
+             "rgbs": torch.rand(TRAIN_RAYS, 3, generator=gen, device=device)}
+        if classes:
+            b["cls"] = torch.randint(0, SEM_CLASSES, (TRAIN_RAYS,), generator=gen, device=device)
+        out.append(b)
+    return out
+
+
+def d3_system(device, network):
+    from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
+    from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
+
+    return NeRF3DSystem(RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE,
+                                     perturb=1.0, noise_std=1.0, white_back=True),
+                        TrainConfig(lr=LR, decay_step=(20,), decay_gamma=0.1,
+                                    batch_size=TRAIN_RAYS, loss_type="msenll"),
+                        NeRFConfig(), 1000, semantic_network=network, n_classes=SEM_CLASSES,
+                        point_capacity=SEM_CAPACITY, device=device)
+
+
+def d3_steps_phase(device, card, args):
+    """Phase 19: d3 steps (NeRF 8x256 + PointNet), eager and grouped; the
+    voxel UNet's eager step."""
+    import torch
+    from nerf_siren_tpu_torch.training.semantic_system import make_points_network
+
+    models = numpy_models(SEED + 60, device)
+    models["points"] = numpy_points(SEED + 61, device)
+    system = d3_system(device, "pointnet")
+    batches = sem_batches(device, SEED + 62, classes=True)
+    print(f"[19/20] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
+          f"point feature) at capacity {SEM_CAPACITY}, msenll, no_grad_on_nerf; "
+          f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples", flush=True)
+    start, eager, grouped = group_vs_eager("19/20", "d3 pointnet", system, models, batches,
+                                           SEED + 63, card)
+    names = [(k, n) for k in sorted(eager.models) for n, _ in eager.models[k].named_parameters()]
+    for label, state in (("eager", eager), ("grouped", grouped)):
+        now = param_list(state)
+        nerf_same = all(torch.equal(a, b) for (k, _), a, b in zip(names, start, now)
+                        if k != "points")
+        moved = sum(not torch.equal(a, b) for (k, _), a, b in zip(names, start, now)
+                    if k == "points")
+        total = sum(k == "points" for k, _ in names)
+        print(f"[19/20] d3 {label} state after its {state.step} steps: NeRF parameters "
+              f"bit-unchanged {nerf_same}; PointNet tensors moved {moved} of {total}",
+              flush=True)
+        if not nerf_same or moved < total // 2:
+            fail(f"d3 {label}: the frozen NeRF moved or PointNet did not train")
+    if args.profile:
+        profile("d3 train step", lambda: system.train_step(eager, batches[0], seed=1), card)
+
+    unet = d3_system(device, "conv3d")
+    models = {k: v for k, v in models.items() if k != "points"}
+    models["points"] = make_points_network("conv3d", SEM_CLASSES,
+                                           torch.Generator().manual_seed(SEED + 64)).to(device)
+    state = state_copy(unet, models)
+    losses, step_s = [], []
+    for b in batches[:3]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = unet.train_step(state, b, seed=SEED + 63)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["train/total_loss"]))
+    print(f"[19/20] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
+          f"losses {[f'{v:.6e}' for v in losses]}, ms per step "
+          f"{[round(1e3 * v, 3) for v in step_s]}; {card}", flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail("d3 conv3d: a loss is not finite")
+
+
+class plain_fast_kernels:
+    """Within: the fast renderer runs K3 select's and the field kernels'
+    plain versions on the card in place of the kernels."""
+
+    def __enter__(self):
+        from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+        from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+        from nerf_siren_tpu_torch.render import fast as fast_mod
+
+        self.saved = fast_mod.proxy_march_select, fast_mod.field_kernels
+        fast_mod.proxy_march_select = k3.proxy_march_select_ref
+        fast_mod.field_kernels = lambda packed: (fm.fused_sigma_ref, fm.fused_full_ref)
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_siren_tpu_torch.render import fast as fast_mod
+
+        fast_mod.proxy_march_select, fast_mod.field_kernels = self.saved
+
+
+def class_margin(cls):
+    """Top-1 minus top-2 of each row of composited class log-probabilities."""
+    top = cls.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def d3_frames_phase(device, card, args):
+    """Phase 20: d3 frames of the ball field with a numpy-seeded PointNet."""
+    from pathlib import Path
+
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.eval import get_opts, make_semantic_renderer, setup_fast_proxy
+
+    models = numpy_models(FIELD_SEED, device, ball_nerf_params)
+    models["points"] = numpy_points(SEED + 70, device)
+    ckpt_dir = Path("ckpts") / "chip_smoke"
+    ckpt = str(ckpt_dir / "ball.msgpack")          # phase 7's checkpoint and proxy cache
+    hp = get_opts(["--root_dir", str(ckpt_dir), "--ckpt_path", ckpt, "--renderer", "fast",
+                   "--mode", "d3", "--cls_threshold", "0", "--chunk", str(CHUNK)])
+    fast = setup_fast_proxy({k: v for k, v in models.items() if k != "points"}, hp,
+                            np.array([NEAR, FAR], np.float32))
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    sem = dict(n_classes=SEM_CLASSES, point_capacity=hp.point_capacity,
+               point_norm=hp.point_norm, cls_threshold=hp.cls_threshold)
+    render = make_semantic_renderer(models, cfg, renderer="fast", fast=fast, hparams=hp, **sem)
+    rays = lego_rays(0, device)
+    names = ["proxy_march_select", "fused_nerf_full"]
+    render_frames(render, [rays])                  # warm-up
+    reset_counts(names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (out,), (lat,) = render_frames(render, [rays])
+    counts = read_counts(names)
+    peak = torch.cuda.max_memory_allocated()
+    key = fast.model_key
+    n_chunks = -(-H * W // CHUNK)
+    print(f"[20/20] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
+          f"capacity {hp.point_capacity}, cls_threshold 0, PointNet k {SEM_CLASSES}): latency "
+          f"{lat:.4f} s; launches {counts} (this phase's own); peak device memory "
+          f"{peak / 2**30:.3f} GiB; {card}", flush=True)
+    for name in names:
+        if counts[name] < n_chunks:
+            fail(f"d3 fast frame: {name} launched {counts[name]} times, expected >= {n_chunks}")
+    for k, v in out.items():
+        if v.shape[0] != H * W or not torch.isfinite(v).all():
+            fail(f"d3 fast frame {k}: shape {tuple(v.shape)} or non-finite values")
+    with plain_fast_kernels():
+        reset_counts(names)
+        (ref,), (ref_lat,) = render_frames(render, [rays])
+        if any(read_counts(names).values()):
+            fail("the plain versions launched a kernel")
+
+    def disagree(got):
+        """(pixels whose classes differ above the bar, the largest plain
+        margin among all pixels whose classes differ)."""
+        margin = class_margin(ref[f"cls_{key}"])
+        diff = got[f"cls_{key}"].argmax(-1) != ref[f"cls_{key}"].argmax(-1)
+        worst = float(margin[diff].max()) if bool(diff.any()) else 0.0
+        return int((diff & (margin > CLS_MARGIN)).sum()), int(diff.sum()), worst
+
+    above, n_diff, worst = disagree(out)
+    errs = {}
+    for k in (f"rgb_{key}", f"opacity_{key}", f"depth_{key}"):
+        d = (out[k] - ref[k]).abs() / max(1.0, float(ref[k].abs().max()))
+        errs[k] = (float(d.median()), percentile(d, 0.99))
+    margin = class_margin(ref[f"cls_{key}"])
+    print(f"[20/20] the same frame on the plain versions of K3 select and K1 on the card "
+          f"({ref_lat:.4f} s): class ids differ at {n_diff} of {H * W} pixels, the largest "
+          f"plain top-two margin among them {worst:.4e}; {above} differ above the bar "
+          f"{CLS_MARGIN} (pixels above it {int((margin > CLS_MARGIN).sum())}); (median, 99th "
+          f"pct) of |d| / scale {errs} (bars {FAST_BARS})", flush=True)
+    if above:
+        fail("d3 fast frame: class ids differ from the plain versions' above the margin bar")
+    if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
+        fail("d3 fast frame: rgb, depth or opacity disagree with the plain versions")
+
+    # the control: PointNet's conv4 columns permuted must fail the class gate
+    conv4 = models["points"].conv4
+    with torch.no_grad():
+        perm = torch.roll(torch.arange(SEM_CLASSES, device=device), 1)
+        conv4.weight.copy_(conv4.weight[perm])
+        conv4.bias.copy_(conv4.bias[perm])
+    (ctl,), _ = render_frames(render, [rays])
+    above_ctl, n_ctl, _ = disagree(ctl)
+    print(f"[20/20] control (PointNet's conv4 columns rolled by one): class ids differ at "
+          f"{n_ctl} pixels, {above_ctl} above the bar (must be > 0)", flush=True)
+    if not above_ctl:
+        fail("the class gate does not see a permuted class head")
+    if args.profile:
+        with torch.no_grad():
+            profile("d3 fast frame", lambda: render(rays), card)
+    with torch.no_grad():   # undo the roll
+        inv = torch.roll(torch.arange(SEM_CLASSES, device=device), -1)
+        conv4.weight.copy_(conv4.weight[inv])
+        conv4.bias.copy_(conv4.bias[inv])
+    del out, ref, ctl
+
+    exact = make_semantic_renderer(models, cfg, renderer="exact", compute_dtype=torch.bfloat16,
+                                   **sem)
+    small = lego_rays(0, device, D3_EXACT_WH, D3_EXACT_WH)
+    render_frames(exact, [small])                  # warm-up
+    (out,), (lat,) = render_frames(exact, [small])
+    for k, v in out.items():
+        if v.shape[0] != D3_EXACT_WH ** 2 or not torch.isfinite(v).all():
+            fail(f"d3 exact frame {k}: shape {tuple(v.shape)} or non-finite values")
+    classes = torch.bincount(out["cls_fine"].argmax(-1), minlength=SEM_CLASSES).tolist()
+    print(f"[20/20] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
+          f"bf16 field operands): latency {lat:.4f} s; pixels per class {classes}; {card}",
+          flush=True)
 
 
 def profile(label, fn, card):
@@ -2029,7 +2467,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one more exact frame, training step, fast frame, "
-                             "int8 fast and exact frame and EG3D frame of 128² and 800²")
+                             "int8 fast and exact frame, EG3D frame of 128² and 800², "
+                             "SIREN and d3 training step and d3 fast frame")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------
@@ -2042,7 +2481,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/17] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/20] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -2057,7 +2496,7 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/17] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/20] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
@@ -2083,7 +2522,7 @@ def main():
             lat.append(time.perf_counter() - t0)
     launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/17] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/20] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
@@ -2097,7 +2536,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/17] outputs finite; opacity_fine mean per frame "
+    print(f"[4/20] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -2106,7 +2545,7 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/17] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/20] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
@@ -2144,6 +2583,13 @@ def main():
 
     # ---- 14-17. EG3D exact eval on K5 ---------------------------------------------
     results["triplane_gather"], launches["triplane_gather"] = eg3d_phases(device, smi, args)
+    torch.cuda.empty_cache()
+
+    # ---- 18-20. the SIREN field and the semantic stack ------------------------------
+    siren_phase(device, smi, args)
+    d3_steps_phase(device, smi, args)
+    torch.cuda.empty_cache()
+    d3_frames_phase(device, smi, args)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

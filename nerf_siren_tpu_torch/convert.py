@@ -15,6 +15,18 @@ renderer's density proxy (`nerf_siren_tpu.render.fast.init_proxy`) is
 'decoder': {'fc1', 'fc2'}}``, its FC weights already (out, in): the
 port's `render.triplane.EG3DRenderer` names every tensor by its path in
 that tree, so the two maps only flatten and nest.
+
+The SIREN field (`nerf_siren_tpu.models.siren.init_siren_nerf`: 'network',
+'final_layer', 'color_layer_sine', 'color_layer_linear', 'mapping' and
+'parse' linears, the latent 'z') and the semantic point networks under a
+checkpoint's 'points' entry (`init_pointnet_dense_cls`: linears and BN
+{'scale', 'bias'}; `init_voxel_unet`: convolutions with DHWIO kernels)
+map through one walk, `module_from_jax` / `module_to_jax`: the port's
+modules (`models.siren.SirenNeRF`, `models.pointnet.PointNetDenseCls`,
+`models.voxel_unet.VoxelUNet`) name every tensor by its path in the JAX
+tree, a {'kernel', 'bias'} node as the `weight` and `bias` of a torch
+layer (a linear's kernel transposed, a convolution's DHWIO kernel as
+OIDHW).
 """
 from __future__ import annotations
 
@@ -118,13 +130,79 @@ def eg3d_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = value.detach().cpu().float().numpy().copy()
+    return _lists(tree)
 
-    def lists(node: Any) -> Any:
-        if not isinstance(node, dict):
-            return node
-        node = {k: lists(v) for k, v in node.items()}
-        if node and all(k.isdigit() for k in node):
-            return [node[str(i)] for i in range(len(node))]
+
+def _lists(node: Any) -> Any:
+    """A nested dict with its numbered children ("0", "1", ...) as lists."""
+    if not isinstance(node, dict):
         return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
-    return lists(tree)
+
+def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
+    """A JAX kernel, (in, out) or DHWIO, as a torch weight: (out, in) or OIDHW."""
+    return k.T if k.ndim == 2 else k.transpose(4, 3, 0, 1, 2)
+
+
+def _kernel_to_jax(w: np.ndarray) -> np.ndarray:
+    return w.T if w.ndim == 2 else w.transpose(2, 3, 4, 1, 0)
+
+
+def module_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX tree of a SIREN field or a point network -> the port module's
+    state_dict (float32 CPU tensors), keyed by the dotted tree path."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, (list, tuple)):
+            node = {str(i): v for i, v in enumerate(node)}
+        if isinstance(node, dict) and "kernel" in node:
+            kernel = _kernel_to_torch(np.array(node["kernel"], np.float32))
+            out[f"{prefix}weight"] = torch.from_numpy(np.ascontiguousarray(kernel))
+            out[f"{prefix}bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+        else:
+            out[prefix[:-1]] = torch.from_numpy(np.array(node, np.float32))
+
+    walk("", params)
+    return out
+
+
+def module_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of `module_from_jax`: the JAX tree of float32 numpy arrays
+    (numbered children as lists)."""
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        a = value.detach().cpu().float().numpy()
+        if leaf == "weight":
+            leaf, a = "kernel", _kernel_to_jax(a)
+        node[leaf] = np.ascontiguousarray(a).copy()
+    return _lists(tree)
+
+
+siren_from_jax = points_from_jax = module_from_jax
+siren_to_jax = points_to_jax = module_to_jax
+
+
+def from_jax_for(model: torch.nn.Module):
+    """The JAX-tree -> state_dict map of a model of the port."""
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+
+    return nerf_from_jax if isinstance(model, NeRF) else module_from_jax
+
+
+def to_jax(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A model's state_dict (or tensors keyed as it) -> its JAX tree."""
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+
+    return (nerf_to_jax if isinstance(model, NeRF) else module_to_jax)(state_dict)

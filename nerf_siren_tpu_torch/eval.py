@@ -1,9 +1,9 @@
 """Evaluation / rendering CLI of the port: `python -m nerf_siren_tpu_torch.eval`.
 
-The `--mode normal` eval of the JAX package's `eval.py` on one device:
-loads nerf_coarse / nerf_fine from a (JAX-written) msgpack checkpoint,
-renders every item of the split, and writes PNG frames, an animated GIF,
-optional depth dumps and the mean PSNR when ground truth exists. It runs on
+The JAX package's `eval.py` on one device: loads nerf_coarse / nerf_fine
+from a (JAX-written) msgpack checkpoint, renders every item of the split,
+and writes PNG frames, an animated GIF, optional depth dumps and the mean
+PSNR when ground truth exists. It runs on
 `--device` (default `cuda`, which fails when no card is visible; the tests
 pass `--device cpu`). Renderers:
 - `fused`: the exact coarse + fine math with both field passes on the
@@ -16,12 +16,27 @@ pass `--device cpu`). Renderers:
   cached beside the checkpoint as `<ckpt>.proxy.msgpack` keyed by the
   checkpoint's sha256 and the distillation settings: the same file the JAX
   CLI reads and writes.
-`--num_chips` > 1 and `--mode d3` are refused with the ROADMAP slice that
-brings them.
+On the card K3 takes at most 256 candidates a ray, so `--fast_candidates`
+and `--fast_prepass` above that are refused when the parser sees it would
+launch K3 (`--device cuda`, `--renderer fast` on its kernel route); on the
+CPU the plain march takes any count.
 
-`make_renderer` holds the ray tiling and the render call, so every caller
-(this CLI, `chip_smoke.py`) drives the same code. Datasets (PIL, cv2) and
-`imageio` are imported inside `main` only.
+`--mode d3` (semantic evaluation): the point network of `--semantic_network`
+loads from the checkpoint's 'points' entry (its class count from the
+checkpoint's head when `--n_classes` is 0; a count that differs from the
+head is refused, since the non-strict load would keep a random head), and
+every tile's point cloud gives the class maps (`render/rendering_3d.py`):
+on the exact `render_rays_3d` (`--renderer fused` renders there too: K1 has
+no class head), or with `--renderer fast` over the fast renderer's
+survivors (K3 then K1 on the card, `return_samples`), which refuses
+`--fast_cull` and `--fast_adaptive` as JAX does. Each frame adds the class
+map `r_<i>.png` (class id x 10) and the `color_cls` overlays in
+`<scene_name>_cls_map/`, and with labels the pixel accuracy and mIoU.
+`--num_chips` > 1 is refused with the ROADMAP slice that brings it.
+
+`make_renderer` and `make_semantic_renderer` hold the ray tiling and the
+render call, so every caller (this CLI, `chip_smoke.py`) drives the same
+code. Datasets (PIL, cv2) and `imageio` are imported inside `main` only.
 """
 from __future__ import annotations
 
@@ -41,12 +56,13 @@ from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import pack_model_params
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp_int8 import pack_model_params_int8
-from nerf_siren_tpu_torch.ops.kernels.proxy_march import pack_proxy_params
+from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES, pack_proxy_params
 from nerf_siren_tpu_torch.render.fast import (Proxy, distill_proxy, estimate_scene_aabb,
                                               make_auto_cull_renderer,
                                               make_edge_refined_renderer, render_rays_fast)
 from nerf_siren_tpu_torch.render.fused import render_rays_fused
 from nerf_siren_tpu_torch.render.rendering import map_chunks, render_rays_chunked
+from nerf_siren_tpu_torch.render.rendering_3d import render_rays_3d, semantic_from_weights
 from nerf_siren_tpu_torch.training.checkpoints import (extract_model_state, load_checkpoint,
                                                          save_checkpoint)
 
@@ -55,7 +71,8 @@ def get_opts(args=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--root_dir', type=str, required=True)
     parser.add_argument('--dataset_name', type=dataset_name, default='blender',
-                        help="a ported loader: 'blender' or 'llff'")
+                        help="'blender', 'llff', or a semantic loader "
+                             "('blender_cls_ib', 'llff_cls', 'llff_cls_ib', 'replica')")
     parser.add_argument('--scene_name', type=str, default='test',
                         help='scene name, used as output folder name')
     parser.add_argument('--split', type=str, default='test')
@@ -127,7 +144,21 @@ def get_opts(args=None):
     parser.add_argument('--num_chips', type=int, default=1,
                         help="only 1: multi-GPU eval comes with ROADMAP slice 6")
     parser.add_argument('--mode', type=str, default='normal', choices=['normal', 'd3'],
-                        help="only 'normal': 'd3' comes with ROADMAP slice 4")
+                        help="'d3': semantic evaluation, class maps from the "
+                             "checkpoint's point network over each tile's point cloud")
+    parser.add_argument('--semantic_network', type=str, default='pointnet',
+                        choices=['pointnet', 'conv3d'])
+    parser.add_argument('--n_classes', type=int, default=0,
+                        help="semantic class count; 0 (default) reads it from the "
+                             "checkpoint's point-network head")
+    parser.add_argument('--point_norm', type=str, default='frob', choices=['frob', 'rms'],
+                        help="semantic cloud normalization (as in training)")
+    parser.add_argument('--point_capacity', type=int, default=8192,
+                        help="points of a tile's semantic cloud (the top weights)")
+    parser.add_argument('--cls_threshold', type=float, default=None,
+                        help="weight threshold of a valid cloud point; default 0.5 with "
+                             "N_importance > 0 (test time), else 0; pass 0.0 for a "
+                             "field whose weights stay below 0.5")
     parser.add_argument('--device', type=str, default='cuda',
                         help="'cuda' (default; fails when no card is visible) "
                              "or 'cpu'")
@@ -135,9 +166,18 @@ def get_opts(args=None):
     if opts.num_chips != 1:
         parser.error(f"--num_chips {opts.num_chips}: the port renders on one device; "
                      f"multi-GPU eval comes with ROADMAP slice 6 (multi-GPU)")
-    if opts.mode == 'd3':
-        parser.error("--mode d3 is not ported yet: it comes with ROADMAP slice 4 "
-                     "(the semantic stack)")
+    k3_route = (opts.renderer == 'fast' and opts.fast_select == 'pdf'
+                and opts.fast_keep >= 2)
+    if k3_route and torch.device(opts.device).type == 'cuda':
+        for flag in ('fast_candidates', 'fast_prepass'):
+            if getattr(opts, flag) > MAX_CANDIDATES:
+                parser.error(f"--{flag} {getattr(opts, flag)}: K3, the proxy march kernel "
+                             f"(csrc/proxy_march.cu), takes at most {MAX_CANDIDATES} "
+                             f"candidates a ray on the card")
+    if opts.mode == 'd3' and opts.renderer == 'fast' and (
+            opts.fast_cull is not None or opts.fast_adaptive is not None):
+        parser.error("--mode d3 --renderer fast does not take --fast_cull or "
+                     "--fast_adaptive: the class head needs every ray's survivors")
     return opts
 
 
@@ -262,6 +302,17 @@ def field_packs(models: Dict[str, NeRF], field_dtype: str):
     return pack_model_params(models)
 
 
+def fast_kwargs(render_cfg: RenderConfig, fast: FastSetup, hparams,
+                compute_dtype: Optional[torch.dtype] = None) -> dict:
+    """The `render_rays_fast` arguments every fast path shares."""
+    h = hparams
+    return dict(n_candidates=h.fast_candidates, n_keep=h.fast_keep, model=fast.model_key,
+                white_back=render_cfg.white_back, compute_dtype=compute_dtype,
+                scene_aabb=fast.aabb, packed_params=fast.packed,
+                packed_proxy=fast.packed_proxy, placement=h.fast_placement,
+                quadrature=h.fast_quadrature)
+
+
 def make_fast_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, fast: FastSetup,
                        hparams, compute_dtype: Optional[torch.dtype] = None,
                        img_hw: Optional[Tuple[int, int]] = None):
@@ -270,11 +321,7 @@ def make_fast_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, fast: 
     `--fast_cull`), or the auto-cull frame driver (`--fast_cull auto`), then
     the edge refinement pass (`--fast_edge_refine`, needs `img_hw`)."""
     h = hparams
-    common = dict(n_candidates=h.fast_candidates, n_keep=h.fast_keep, model=fast.model_key,
-                  white_back=render_cfg.white_back, compute_dtype=compute_dtype,
-                  scene_aabb=fast.aabb, packed_params=fast.packed,
-                  packed_proxy=fast.packed_proxy, placement=h.fast_placement,
-                  quadrature=h.fast_quadrature)
+    common = fast_kwargs(render_cfg, fast, hparams, compute_dtype)
     if (h.fast_cull is not None or h.fast_adaptive is not None) and fast.packed_proxy is None:
         raise SystemExit('--fast_cull / --fast_adaptive need the kernel route '
                          '(--fast_select pdf, --fast_keep >= 2)')
@@ -336,13 +383,85 @@ def make_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, *, renderer
     raise ValueError(f"unknown renderer {renderer!r}")
 
 
+def make_semantic_renderer(models: Dict[str, torch.nn.Module], render_cfg: RenderConfig, *,
+                           renderer: str, n_classes: int, point_capacity: int = 8192,
+                           point_norm: str = 'frob', cls_threshold: Optional[float] = None,
+                           compute_dtype: Optional[torch.dtype] = None,
+                           fast: Optional[FastSetup] = None, hparams=None
+                           ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """`--mode d3`: a function of (N, 8) rays -> render outputs with
+    cls_<model> (log-probabilities), one point cloud per `render_cfg.chunk`
+    tile (the last one may be shorter: its cloud is the one JAX builds on
+    the tile padded with zero rays, whose samples all weigh 0 and are never
+    valid). 'exact' runs `render_rays_3d` at `compute_dtype`; 'fast' runs
+    `render_rays_fast` with `fast` and the CLI's options `hparams` and
+    composites the class maps over its survivors. `models` holds the fields
+    and 'points'."""
+    threshold = (0.5 if render_cfg.test_time else 0.0) if cls_threshold is None \
+        else cls_threshold
+    sem = dict(n_classes=n_classes, point_capacity=point_capacity, point_norm=point_norm)
+    if renderer == 'fast':
+        common = fast_kwargs(render_cfg, fast, hparams, compute_dtype)
+
+        def tile(t):
+            out = render_rays_fast(models, fast.proxy, t, select=hparams.fast_select,
+                                   return_samples=True, **common)
+            xyz = t[:, None, 0:3] + t[:, None, 3:6] * out.pop('z_samples')[..., None]
+            out[f'cls_{fast.model_key}'] = semantic_from_weights(
+                models['points'], xyz, out.pop('rgb_samples'), out.pop('w_samples'),
+                threshold=threshold, **sem)
+            return out
+    elif renderer == 'exact':
+        def tile(t):
+            return render_rays_3d(models, t, render_cfg, None, no_grad_on_nerf=False,
+                                  compute_dtype=compute_dtype, cls_threshold=threshold, **sem)
+    else:
+        raise ValueError(f"--mode d3 renders 'exact' or 'fast', not {renderer!r}")
+    return lambda rays: map_chunks(tile, rays, render_cfg.chunk)
+
+
+def infer_ckpt_classes(ckpt_path: str, semantic_network: str) -> Optional[int]:
+    """The class count of the checkpoint's point-network head (pointnet:
+    `conv4`'s kernel (128, k); conv3d: `head`'s (1, 1, 1, 16, k)), or None."""
+    tree = load_checkpoint(ckpt_path)
+    tree = tree.get('params', tree) if isinstance(tree, dict) else {}
+    pts = tree.get('points') if isinstance(tree, dict) else None
+    if not isinstance(pts, dict):
+        return None
+    try:
+        head = pts['conv4'] if semantic_network == 'pointnet' else pts['head']
+        return int(np.asarray(head['kernel']).shape[-1])
+    except (KeyError, TypeError):
+        return None
+
+
+def resolve_classes(hparams, dataset) -> int:
+    """`--n_classes`, or with 0 the checkpoint head's count (else the
+    dataset's, else 6); a count that differs from the head exits."""
+    ckpt_classes = infer_ckpt_classes(hparams.ckpt_path, hparams.semantic_network)
+    if hparams.n_classes == 0:
+        n = ckpt_classes or getattr(dataset, 'n_classes', 0) or 6
+        print(f'n_classes = {n} ({"checkpoint head" if ckpt_classes else "dataset"})',
+              flush=True)
+        return n
+    if ckpt_classes and ckpt_classes != hparams.n_classes:
+        raise SystemExit(
+            f"--n_classes {hparams.n_classes} does not match the checkpoint's "
+            f"{hparams.semantic_network} classifier head ({ckpt_classes} classes); the "
+            f"non-strict load would keep the random init. Pass --n_classes "
+            f"{ckpt_classes} or 0 (auto).")
+    return hparams.n_classes
+
+
 def main(hparams):
     import imageio
 
     from nerf_siren_tpu_torch.datasets import dataset_dict
     from nerf_siren_tpu_torch.datasets.depth_utils import save_pfm
     from nerf_siren_tpu_torch.training.checkpoints import load_ckpt
+    from nerf_siren_tpu_torch.training.metrics import miou as miou_fn
     from nerf_siren_tpu_torch.training.metrics import psnr as psnr_fn
+    from nerf_siren_tpu_torch.utils.color import color_cls
 
     device = resolve_device(hparams.device)
     w, h = hparams.img_wh
@@ -375,17 +494,36 @@ def main(hparams):
               '(test_time coarse pass); falling back to the exact renderer',
               flush=True)
         renderer = 'exact'
+    d3 = hparams.mode == 'd3'
+    if d3 and renderer == 'fused':
+        print('NOTE: --mode d3 renders through the exact render_rays_3d path (--renderer '
+              'fused has no semantic head); pass --renderer fast for the survivor path',
+              flush=True)
+        renderer = 'exact'
     fast = None
     if renderer == 'fast':
         fast = setup_fast_proxy(models, hparams, dataset.bounds)
-    render = make_renderer(models, render_cfg, renderer=renderer, compute_dtype=compute_dtype,
-                           field_dtype=hparams.fast_field_dtype, fast=fast, hparams=hparams,
-                           img_hw=(h, w))
+    if d3:
+        from nerf_siren_tpu_torch.training.semantic_system import make_points_network
+
+        n_classes = resolve_classes(hparams, dataset)
+        points = make_points_network(hparams.semantic_network, n_classes,
+                                     torch.Generator().manual_seed(2))
+        models['points'] = load_ckpt(points, hparams.ckpt_path, 'points').to(device)
+        render = make_semantic_renderer(
+            models, render_cfg, renderer=renderer, n_classes=n_classes,
+            point_capacity=hparams.point_capacity, point_norm=hparams.point_norm,
+            cls_threshold=hparams.cls_threshold, compute_dtype=compute_dtype, fast=fast,
+            hparams=hparams)
+    else:
+        render = make_renderer(models, render_cfg, renderer=renderer,
+                               compute_dtype=compute_dtype, field_dtype=hparams.fast_field_dtype,
+                               fast=fast, hparams=hparams, img_hw=(h, w))
 
     out_dir = os.path.join('results', hparams.dataset_name, hparams.scene_name)
     os.makedirs(out_dir, exist_ok=True)
 
-    imgs, psnrs = [], []
+    imgs, psnrs, cls_accs, mious, empty_frac = [], [], [], [], []
     with torch.no_grad():
         for i in range(len(dataset)):
             sample = dataset[i]
@@ -395,6 +533,22 @@ def main(hparams):
             img = (np.clip(pred, 0, 1) * 255).astype(np.uint8)
             imgs.append(img)
             imageio.imwrite(os.path.join(out_dir, f'{i:03d}.png'), img)
+
+            if d3:
+                raw_cls = out[key.replace('rgb', 'cls')].float().cpu()
+                cls_pred = raw_cls.argmax(-1).numpy().reshape(h, w)
+                # an all-zero row: the ray's samples had no valid cloud point
+                empty_frac.append(float((raw_cls == 0).all(-1).float().mean()))
+                imageio.imwrite(os.path.join(out_dir, f'r_{i}.png'),
+                                (cls_pred * 10).astype(np.uint8))
+                color_cls(img, cls_pred, prefix=str(i),
+                          savedir=os.path.join('results', hparams.dataset_name,
+                                               f'{hparams.scene_name}_cls_map'))
+                if 'cls' in sample:
+                    gt_cls = torch.as_tensor(np.asarray(sample['cls'])).reshape(-1)
+                    flat_pred = torch.from_numpy(cls_pred.reshape(-1))
+                    cls_accs.append(float((flat_pred == gt_cls).float().mean()))
+                    mious.append(float(miou_fn(flat_pred, gt_cls, n_classes)[0]))
 
             if hparams.save_depth:
                 depth = out[key.replace('rgb', 'depth')].float().cpu().numpy().reshape(h, w)
@@ -413,6 +567,14 @@ def main(hparams):
                     imgs, duration=1000 / 30)
     if psnrs:
         print(f'Mean PSNR: {np.mean(psnrs):.2f}')
+    if cls_accs:
+        print(f'Mean class accuracy: {np.mean(cls_accs):.4f} mIoU: {np.mean(mious):.4f}')
+    if empty_frac and np.mean(empty_frac) > 0.9:
+        thr = ('0.5 (reference test-time mask)' if hparams.cls_threshold is None
+               else hparams.cls_threshold)
+        print(f'WARNING: {np.mean(empty_frac):.0%} of rays had no point above the weight '
+              f'mask (threshold {thr}): the class maps are degenerate. For coarse-only or '
+              f'low-N_samples checkpoints pass --cls_threshold 0.0 (the training mask).')
     return np.mean(psnrs) if psnrs else None
 
 

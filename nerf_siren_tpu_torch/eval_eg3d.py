@@ -12,7 +12,8 @@ kernel K5 (`csrc/triplane_gather.cu`; its plain version on the CPU). It
 runs on `--device` (default `cuda`, which fails when no card is visible;
 the tests pass `--device cpu`). `--renderer fast` (with its `--fast_*`
 flags) and `--num_chips` other than 1 are refused with the ROADMAP slice
-that brings them; so is the `replica` dataset, by the datasets registry.
+that brings them. `--dataset_name` takes the JAX CLI's choices: blender,
+llff and replica.
 
 `make_renderer` holds the render call, so every caller (this CLI,
 `chip_smoke.py`) drives the same code. Datasets (PIL) and `imageio` are
@@ -27,7 +28,6 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from nerf_siren_tpu_torch.datasets import dataset_name
 from nerf_siren_tpu_torch.render.triplane import (EG3DRenderer, RenderingOptions,
                                                   TriPlaneConfig)
 from nerf_siren_tpu_torch.training.checkpoints import load_eg3d_ckpt
@@ -37,8 +37,8 @@ from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
 def get_opts(args=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--root_dir', type=str, required=True)
-    parser.add_argument('--dataset_name', type=dataset_name, default='blender',
-                        help="a ported loader: 'blender' or 'llff'")
+    parser.add_argument('--dataset_name', type=str, default='blender',
+                        choices=['blender', 'llff', 'replica'])
     parser.add_argument('--scene_name', type=str, default='test_eg3d')
     parser.add_argument('--split', type=str, default='test')
     parser.add_argument('--img_wh', nargs='+', type=int, default=[128, 128])

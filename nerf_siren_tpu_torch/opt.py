@@ -19,8 +19,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=['d3', 'd3_ib', 'normal', 'eg3d'],
                         help='which training system to use')
     parser.add_argument('--dataset_name', type=dataset_name, default='blender',
-                        help="which dataset to train/val: a ported loader, "
-                             "'blender' or 'llff'")
+                        help="which dataset to train/val: 'blender', 'llff', or a "
+                             "semantic one ('blender_cls_ib', 'llff_cls', "
+                             "'llff_cls_ib', 'replica'; --mode d3)")
     parser.add_argument('-sn', '--semantic_network', type=str, default='pointnet',
                         choices=['pointnet', 'conv3d'],
                         help='network for semantic features (d3 modes)')
@@ -80,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "backward kernels (bf16 operands, float32 "
                              "accumulation; reference 8x256 topology). "
                              "culled / culled_fused come with ROADMAP "
-                             "slice 6")
+                             "slice 6. The SIREN field and --mode d3 train "
+                             "on jnp")
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
                         help="training steps per group: > 1 runs each group of the "
                              "epoch's batches as one captured CUDA graph on the card "
@@ -151,9 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag values the port does not serve yet -> the ROADMAP slice that brings them
 NOT_YET = (
-    ("mode", ("d3", "d3_ib"), "slice 4 (the semantic stack)"),
     ("mode", ("eg3d",), "slice 5 (EG3D)"),
-    ("field", ("siren",), "slice 4 (SIREN)"),
     ("train_backend", ("culled", "culled_fused"), "slice 6 (culled training)"),
     ("multihost", (True,), "slice 6 (multi-GPU)"),
 )

@@ -168,6 +168,7 @@ def render_rays(
     compute_dtype: Optional[torch.dtype] = None,
     field_fn: Optional[Callable] = None,
     noise: Optional[StepNoise] = None,
+    cls_fn: Optional[Callable] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render (R, 8) rays = [origin(3), direction(3), near, far].
 
@@ -181,6 +182,9 @@ def render_rays(
     one backed by K2. The fine depths are detached: only the fields'
     parameters get gradients through the sample positions' values.
     `noise` (from `draw_noise`) takes the place of `generator`.
+    `cls_fn` (xyz (R, S, 3), rgb (R, S, 3), weights (R, S)) -> (R, C) gives
+    each rgb pass its cls_* output instead of the field's semantic head
+    (`render.rendering_3d` passes the point network's).
     """
     if noise is not None:
         want = noise_shapes(rays.shape[0], cfg)
@@ -218,7 +222,9 @@ def render_rays(
         result["rgb_coarse"] = comp["rgb"]
         result["depth_coarse"] = comp["depth"]
         result["opacity_coarse"] = comp["opacity"]
-        if raw.shape[-1] > 4:
+        if cls_fn is not None:
+            result["cls_coarse"] = cls_fn(xyz_coarse, raw[..., :3], comp["weights"])
+        elif raw.shape[-1] > 4:
             result["cls_coarse"] = (comp["weights"][..., None] * raw[..., 4:]).sum(dim=-2)
     weights_coarse = comp["weights"]
 
@@ -237,7 +243,9 @@ def render_rays(
         result["rgb_fine"] = comp["rgb"]
         result["depth_fine"] = comp["depth"]
         result["opacity_fine"] = comp["opacity"]
-        if raw.shape[-1] > 4:
+        if cls_fn is not None:
+            result["cls_fine"] = cls_fn(xyz_fine, raw[..., :3], comp["weights"])
+        elif raw.shape[-1] > 4:
             result["cls_fine"] = (comp["weights"][..., None] * raw[..., 4:]).sum(dim=-2)
     return result
 

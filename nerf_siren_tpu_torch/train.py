@@ -1,12 +1,16 @@
 """Training CLI of the port: `python -m nerf_siren_tpu_torch.train`.
 
-Counterpart of the JAX package's root `train.py` in `--mode normal` with
-the MLP field: builds the dataset and the `NeRFSystem`, runs the epoch
-loop (`epoch_iterator` batches, one `train_step` each, or with
-`--steps_per_dispatch` N > 1 groups of N batches through
-`train_scan_batches`, a captured CUDA graph on the card, the epoch's tail
-as one smaller group), validates on the `val` split (loss and PSNR of the
-first image, plain renderer; the GT | prediction | depth image to
+Counterpart of the JAX package's root `train.py` in `--mode normal` (the
+MLP field, or `--field siren`) and `--mode d3` / `d3_ib` (the semantic
+system, `--semantic_network pointnet|conv3d`, on a dataset with class
+labels): builds the dataset and the system, runs the epoch loop
+(`epoch_iterator` batches, with the dataset's 'cls' labels when it has
+them, one `train_step` each, or with `--steps_per_dispatch` N > 1 groups of
+N batches through `train_scan_batches`, a captured CUDA graph on the card,
+the epoch's tail as one smaller group), validates on the `val` split (loss
+and PSNR of the first image, plain renderer; with class maps also the
+pixel accuracy and mIoU, and the first image's class map written under
+`mid_results/<exp_name>/`; the GT | prediction | depth image to
 TensorBoard), keeps the best `--save_topk` checkpoints by validation loss,
 and supports a full resume (`--ckpt_path`, a checkpoint this CLI wrote; the
 weights load into the same tensors, so a captured graph stays valid) and a
@@ -14,10 +18,11 @@ warm start of the weights (`--pretrained`, a checkpoint of either
 package). TensorBoard scalars are written when `tensorboardX` imports. It
 runs on `--device` (default `cuda`, which fails when no card is visible;
 the tests pass `--device cpu`); `--train_backend fused` runs the field on
-K2 there. Not ported yet (ROADMAP): multi-GPU.
+K2 there. Not ported yet (ROADMAP): multi-GPU and `--mode eg3d`.
 """
 from __future__ import annotations
 
+import inspect
 import os
 import time
 from typing import Dict
@@ -28,7 +33,10 @@ import torch
 from nerf_siren_tpu_torch.opt import get_opts
 
 
-def build_system(hparams, white_back: bool, steps_per_epoch: int, device):
+def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
+                 n_classes: int = 0):
+    """The system of `--mode`: `NeRFSystem` (normal) or `NeRF3DSystem` (d3,
+    d3_ib; `n_classes` from the dataset, else 6)."""
     from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
     from nerf_siren_tpu_torch.training.system import NeRFSystem
 
@@ -44,19 +52,35 @@ def build_system(hparams, white_back: bool, steps_per_epoch: int, device):
         poly_exp=hparams.poly_exp, num_epochs=hparams.num_epochs,
         batch_size=hparams.batch_size, loss_type=hparams.loss_type, seed=hparams.seed)
     nerf_cfg = NeRFConfig(n_classes=hparams.n_classes or 0)
+    if hparams.mode in ("d3", "d3_ib"):
+        from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
+
+        if hparams.train_backend != "jnp":
+            print(f"NOTE: --mode {hparams.mode} trains the plain field (jnp), as the JAX "
+                  f"package does; --train_backend {hparams.train_backend} is not used",
+                  flush=True)
+        return NeRF3DSystem(render_cfg, train_cfg, nerf_cfg, steps_per_epoch,
+                            semantic_network=hparams.semantic_network,
+                            point_norm=hparams.point_norm, n_classes=n_classes or 6,
+                            device=device)
     return NeRFSystem(render_cfg, train_cfg, nerf_cfg, steps_per_epoch,
-                      train_backend=hparams.train_backend, device=device)
+                      train_backend=hparams.train_backend, device=device,
+                      field_type=hparams.field, siren_box_warp=hparams.siren_box_warp)
 
 
-def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int = 1):
+def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int = 1,
+             exp_name: str = "exp"):
     """Mean loss and PSNR (over the valid mask, when the split has one) of
     the first `max_images` validation images; the first image's GT,
-    prediction and depth side by side to `writer`."""
+    prediction and depth side by side to `writer`. With class maps and
+    labels also the pixel accuracy and mIoU, and the first image's class
+    map (`utils/color.py::color_cls`) under `mid_results/<exp_name>/`."""
+    from nerf_siren_tpu_torch.training.metrics import miou as miou_fn
     from nerf_siren_tpu_torch.training.metrics import psnr as psnr_fn
     from nerf_siren_tpu_torch.utils.visualization import visualize_depth
 
     w, h = img_wh
-    losses, psnrs = [], []
+    losses, psnrs, cls_accs, mious = [], [], [], []
     for i in range(min(len(val_ds), max_images)):
         sample = val_ds[i]
         out = system.render(state.models, sample["rays"])
@@ -68,6 +92,18 @@ def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int =
                  if mask is not None else None)
         losses.append(float(((pred - gt) ** 2).mean()))
         psnrs.append(float(psnr_fn(pred, gt, mask3)))
+        cls_key = key.replace("rgb", "cls")
+        if cls_key in out and "cls" in sample:
+            pred_cls = out[cls_key].float().cpu().argmax(-1)
+            gt_cls = torch.as_tensor(np.asarray(sample["cls"])).reshape(-1)
+            cls_accs.append(float((pred_cls == gt_cls).float().mean()))
+            mious.append(float(miou_fn(pred_cls, gt_cls, out[cls_key].shape[-1])[0]))
+            if i == 0:
+                from nerf_siren_tpu_torch.utils.color import color_cls
+
+                color_cls((np.clip(pred.numpy(), 0, 1) * 255).astype(np.uint8),
+                          pred_cls.numpy().reshape(h, w),
+                          savedir=os.path.join("mid_results", exp_name), prefix=f"step{step}_")
         if writer is not None and i == 0:
             depth = out[key.replace("rgb", "depth")].float().cpu().reshape(h, w)
             depth_vis = visualize_depth(depth.numpy()).astype(np.float32) / 255.0
@@ -78,6 +114,9 @@ def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int =
     if writer is not None:
         writer.add_scalar("val/loss", val_loss, step)
         writer.add_scalar("val/psnr", val_psnr, step)
+        if cls_accs:
+            writer.add_scalar("val/cls_acc", float(np.mean(cls_accs)), step)
+            writer.add_scalar("val/miou", float(np.mean(mious)), step)
     return val_loss, val_psnr
 
 
@@ -90,13 +129,16 @@ def main(hparams):
     device = resolve_device(hparams.device)
     dataset_cls = dataset_dict[hparams.dataset_name]
     kwargs = dict(root_dir=hparams.root_dir, img_wh=tuple(hparams.img_wh))
-    if hparams.dataset_name == "llff":
+    if hparams.dataset_name.startswith("llff"):
         kwargs["spheric_poses"] = hparams.spheric_poses
+    if hparams.dataset_name == "blender_cls_ib" and hparams.is_crop:
+        kwargs.update(is_crop=True, crop_size=hparams.crop_size)
     train_ds = dataset_cls(split="train", **kwargs)
     val_ds = dataset_cls(split="val", **kwargs)
 
     steps_per_epoch = max(1, len(train_ds.all_rays) // hparams.batch_size)
-    system = build_system(hparams, train_ds.white_back, steps_per_epoch, device)
+    system = build_system(hparams, train_ds.white_back, steps_per_epoch, device,
+                          getattr(train_ds, "n_classes", 0))
     optimizer = hparams.optimizer
 
     state = system.init_state(hparams.seed)
@@ -105,7 +147,8 @@ def main(hparams):
         state, start_epoch = ckpt_lib.restore_train_state(hparams.ckpt_path, state, optimizer)
         print(f"resumed from {hparams.ckpt_path} at epoch {start_epoch}, step {state.step}")
     elif hparams.pretrained:  # warm start of the weights only
-        for key, name in ckpt_lib.MODEL_NAMES.items():
+        for key in ("coarse", "fine"):   # the fields only, as JAX's warm start
+            name = ckpt_lib.MODEL_NAMES[key]
             if key in state.models:
                 ckpt_lib.load_ckpt(state.models[key], hparams.pretrained, name,
                                    hparams.prefixes_to_ignore)
@@ -124,11 +167,16 @@ def main(hparams):
     os.makedirs(ckpt_dir, exist_ok=True)
     saved: list = []  # (val_loss, path)
     checkpointer = ckpt_lib.AsyncCheckpointer()
+    extras = {"cls": train_ds.all_cls} if hasattr(train_ds, "all_cls") else None
     spd = max(1, hparams.steps_per_dispatch)
+    if extras and "cls_b" not in inspect.signature(system.train_scan_batches).parameters:
+        spd = 1   # as JAX: groups carry class targets on the semantic system only
 
     def flush_group(state, group):
+        kw = {"cls_b": np.stack([b["cls"] for b in group])} if "cls" in group[0] else {}
         return system.train_scan_batches(state, np.stack([b["rays"] for b in group]),
-                                         np.stack([b["rgbs"] for b in group]), hparams.seed + 1)
+                                         np.stack([b["rgbs"] for b in group]), hparams.seed + 1,
+                                         **kw)
 
     try:
         for epoch in range(start_epoch, hparams.num_epochs):
@@ -136,7 +184,7 @@ def main(hparams):
             metrics: Dict = {}
             group: list = []
             for batch in epoch_iterator(train_ds.all_rays, train_ds.all_rgbs,
-                                        hparams.batch_size, hparams.seed, epoch):
+                                        hparams.batch_size, hparams.seed, epoch, extras):
                 if spd == 1:
                     state, metrics = system.train_step(state, batch, hparams.seed + 1)
                     continue
@@ -156,7 +204,7 @@ def main(hparams):
 
             if (epoch + 1) % hparams.val_every == 0 or epoch == hparams.num_epochs - 1:
                 val_loss, val_psnr = validate(system, state, val_ds, writer, step,
-                                              tuple(hparams.img_wh))
+                                              tuple(hparams.img_wh), exp_name=hparams.exp_name)
                 line += f" val/loss={val_loss:.4f} val/psnr={val_psnr:.2f}"
                 path = os.path.join(ckpt_dir, f"epoch={epoch}-step={step}.msgpack")
                 checkpointer.save_train_state(path, state, epoch + 1, optimizer)

@@ -4,14 +4,16 @@ Counterpart of `nerf_siren_tpu/training/checkpoints.py`. The files are in
 flax's `msgpack_serialize` encoding, written and read here without flax:
 arrays are msgpack ext type 1 (numpy scalars ext type 3), each holding a
 packed ``(shape, dtype name, C-order bytes)`` triple. Models are keyed by
-name (`nerf_coarse`, `nerf_fine`, `eg3d_renderer`) with the JAX package's
-parameter trees (`convert.nerf_to_jax`, `convert.eg3d_to_jax`), and
+name (`nerf_coarse`, `nerf_fine`, `points`, `eg3d_renderer`) with the JAX
+package's parameter trees (`convert.nerf_to_jax`, `convert.siren_to_jax`
+for a SIREN field under the `nerf_*` names, `convert.points_to_jax` for the
+semantic point network, `convert.eg3d_to_jax`), and
 full-resume checkpoints nest them under 'params', so the JAX package's
 `load_ckpt` and `eval.py` read what the port trains, and the port reads
 what the JAX package trains.
 
 A full-resume file (`save_train_state`) holds
-  {"params": {"nerf_coarse": tree, "nerf_fine": tree},
+  {"params": {"nerf_coarse": tree, "nerf_fine": tree[, "points": tree]},
    "opt_state": {"optimizer": name, "count": int, <slot>: {model name: tree}, ...},
    "step": int64 array, "epoch": int64 array}
 where the slots are the port's optimizer state (`training/optimizers.py`:
@@ -30,10 +32,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerf_siren_tpu_torch.convert import eg3d_from_jax, nerf_from_jax, nerf_to_jax
+from nerf_siren_tpu_torch.convert import eg3d_from_jax, from_jax_for, to_jax
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
-MODEL_NAMES = {"coarse": "nerf_coarse", "fine": "nerf_fine"}
+MODEL_NAMES = {"coarse": "nerf_coarse", "fine": "nerf_fine", "points": "points"}
 
 
 def _encode_array(a: np.ndarray) -> bytes:
@@ -105,11 +107,12 @@ def extract_model_state(ckpt: Dict[str, Any], model_name: str,
 
 def load_ckpt(model: nn.Module, path: str, model_name: str,
               prefixes_to_ignore: Iterable[str] = ("loss",),
-              from_jax: Callable[[Dict[str, Any]], Dict[str, torch.Tensor]] = nerf_from_jax
+              from_jax: Optional[Callable[[Dict[str, Any]], Dict[str, torch.Tensor]]] = None
               ) -> nn.Module:
     """Warm-start `model` from the `model_name` tree of a checkpoint file,
-    mapped to its state_dict by `from_jax` (a `NeRF` by default;
-    `load_eg3d_ckpt` for the EG3D renderer).
+    mapped to its state_dict by `from_jax` (by default the map of the
+    model's type, `convert.from_jax_for`; `load_eg3d_ckpt` passes the EG3D
+    renderer's).
 
     Non-strict like the JAX `load_ckpt`: tensors whose name and shape match
     are taken, the rest keep their init, and a load that takes nothing is
@@ -123,7 +126,7 @@ def load_ckpt(model: nn.Module, path: str, model_name: str,
         return model
     state = model.state_dict()
     taken = skipped = 0
-    for k, v in from_jax(sub).items():
+    for k, v in (from_jax or from_jax_for(model))(sub).items():
         if k not in state:
             continue
         if state[k].shape != v.shape:
@@ -159,14 +162,14 @@ def _named_trees(models: Dict[str, nn.Module], tensors) -> Dict[str, Any]:
     per_model: Dict[str, Dict[str, torch.Tensor]] = {}
     for (key, name, _), t in zip(parameters(models), tensors):
         per_model.setdefault(key, {})[name] = t
-    return {MODEL_NAMES.get(k, k): nerf_to_jax(sd) for k, sd in per_model.items()}
+    return {MODEL_NAMES.get(k, k): to_jax(models[k], sd) for k, sd in per_model.items()}
 
 
 def _from_named_trees(models: Dict[str, nn.Module], trees: Dict[str, Any]):
     """Inverse of `_named_trees`: float32 CPU tensors in parameter order."""
     from nerf_siren_tpu_torch.training.system import parameters
 
-    sds = {k: nerf_from_jax(trees[MODEL_NAMES.get(k, k)]) for k in models}
+    sds = {k: from_jax_for(m)(trees[MODEL_NAMES.get(k, k)]) for k, m in models.items()}
     return [sds[key][name] for key, name, _ in parameters(models)]
 
 

@@ -10,7 +10,8 @@ host copies in the inputs and calls `replay()`.
 
 A `StepGroup` owns the graph, its static inputs and the step body. Inputs
 by name, each with the group's N steps stacked on the first axis:
-- kind 'batches': 'rays' (N, B, 8) and 'rgbs' (N, B, 3);
+- kind 'batches': 'rays' (N, B, 8) and 'rgbs' (N, B, 3), and for the
+  semantic system 'cls' (N, B), the steps' class targets;
 - kind 'pool': 'pool_rays' (P, 8), 'pool_rgbs' (P, 3) and 'idx' (N, B),
   the steps' ray indices into the pool;
 - kind 'importance': the pool, 'u_cat' (N, B) uniform draws for the
@@ -68,6 +69,11 @@ def _step_noise(x: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
     return {k[len(NOISE):]: v[i] for k, v in x.items() if k.startswith(NOISE)}
 
 
+def _cls(x: Dict[str, torch.Tensor], i: int) -> Optional[torch.Tensor]:
+    """Step i's class targets, or None."""
+    return x["cls"][i] if "cls" in x else None
+
+
 class StepGroup:
     """N steps of `system` on `state`'s tensors, B rays each (see the module
     docstring for the kinds and inputs)."""
@@ -103,6 +109,7 @@ class StepGroup:
         for i in range(self.n):
             rays, rgbs, idx = self._rays(x, i, buf)
             losses, res, grads = system.loss_and_grads(state, rays, rgbs, None,
+                                                       cls_target=_cls(x, i),
                                                        noise=_step_noise(x, i))
             system.optimizer.step_device(params, grads, state.opt_state, x["table"][i])
             pred = res["rgb_fine" if "rgb_fine" in res else "rgb_coarse"].detach()
@@ -122,6 +129,7 @@ class StepGroup:
         with torch.cuda.stream(side):   # warm-up: step 0's forward and backward only
             rays, rgbs, _ = self._rays(self.static, 0, self.static.get("buf"))
             self.system.loss_and_grads(self.state, rays, rgbs, None,
+                                       cls_target=_cls(self.static, 0),
                                        noise=_step_noise(self.static, 0))
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)

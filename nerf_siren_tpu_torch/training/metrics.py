@@ -1,4 +1,5 @@
-"""Image metrics (counterpart of `mse`, `psnr` and `ssim` in
+"""Image and class-map metrics (counterpart of `mse`, `psnr`, `ssim`,
+`confusion_matrix`, `miou` and `class_accuracy` in
 `nerf_siren_tpu/training/metrics.py`).
 
 SSIM follows the kornia convention the reference uses: per-pixel structural
@@ -57,3 +58,39 @@ def ssim(image_pred: torch.Tensor, image_gt: torch.Tensor, window_size: int = 3,
     if reduction == "mean":
         dssim = dssim.mean()
     return 1.0 - 2.0 * dssim
+
+
+def confusion_matrix(pred_cls: torch.Tensor, gt_cls: torch.Tensor, n_classes: int,
+                     ignore_index: Optional[int] = None) -> torch.Tensor:
+    """(n_classes, n_classes) int32 counts[gt, pred] over flat int labels."""
+    pred_cls, gt_cls = pred_cls.reshape(-1).long(), gt_cls.reshape(-1).long()
+    valid = torch.ones_like(gt_cls, dtype=torch.bool)
+    if ignore_index is not None:
+        valid = gt_cls != ignore_index
+    idx = torch.where(valid, gt_cls * n_classes + pred_cls, 0)
+    counts = torch.zeros(n_classes * n_classes, dtype=torch.int32, device=gt_cls.device)
+    counts.index_add_(0, idx, valid.to(torch.int32))
+    return counts.reshape(n_classes, n_classes)
+
+
+def miou(pred_cls: torch.Tensor, gt_cls: torch.Tensor, n_classes: int,
+         ignore_index: Optional[int] = None):
+    """(mean IoU, per-class IoU (n_classes,)); a class absent from both the
+    prediction and the ground truth has IoU nan and is left out of the
+    mean."""
+    cm = confusion_matrix(pred_cls, gt_cls, n_classes, ignore_index)
+    inter = torch.diag(cm).float()
+    union = (cm.sum(0) + cm.sum(1)).float() - inter
+    iou = torch.where(union > 0, inter / union.clamp_min(1), torch.nan)
+    return torch.nanmean(iou), iou
+
+
+def class_accuracy(pred_cls: torch.Tensor, gt_cls: torch.Tensor, n_classes: int,
+                   ignore_index: Optional[int] = None):
+    """(overall pixel accuracy, per-class recall (n_classes,))."""
+    cm = confusion_matrix(pred_cls, gt_cls, n_classes, ignore_index)
+    total = cm.sum().clamp_min(1).float()
+    overall = torch.diag(cm).sum().float() / total
+    rows = cm.sum(1)
+    per_class = torch.where(rows > 0, torch.diag(cm) / rows.clamp_min(1), torch.nan)
+    return overall, per_class

@@ -1,19 +1,21 @@
 """The NeRF training system of the port.
 
 Counterpart of `nerf_siren_tpu/training/system.py` (`TrainState`,
-`NeRFSystem`, `epoch_iterator`) for `--mode normal` with the MLP field.
-A system owns the configs, parameter init, the train steps and the
-validation render. State is an explicit `TrainState`: the coarse and fine
-`NeRF`s, the optimizer state and the step. PyTorch runs eagerly, so a step
-updates the models and the optimizer state in place and returns the same
-state with the step advanced.
+`NeRFSystem`, `epoch_iterator`) for `--mode normal`, with the MLP field or
+(`field_type='siren'`) the SIREN field of `models/siren.py`. A system owns
+the configs, parameter init, the train steps and the validation render.
+State is an explicit `TrainState`: the coarse and fine fields, the
+optimizer state and the step. PyTorch runs eagerly, so a step updates the
+models and the optimizer state in place and returns the same state with
+the step advanced. `training/semantic_system.py` derives the `--mode d3`
+system from it.
 
 Two training backends:
 - `jnp` (the flag value of the reference scripts): the plain PyTorch field
   in float32 under autograd;
 - `fused`: both field passes on K2 (`ops/kernels/fused_mlp_train.py`),
   bf16 operands with float32 accumulation, forward and backward kernels
-  on a CUDA device; reference 8x256 topology only.
+  on a CUDA device; reference 8x256 topology of the MLP field only.
 
 The steps:
 - `train_step`: one update, eagerly;
@@ -48,6 +50,7 @@ import torch
 
 from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.models.siren import SirenNeRF, siren_field_fn
 from nerf_siren_tpu_torch.render.rendering import (StepNoise, draw_noise, render_rays,
                                                    render_rays_chunked)
 from nerf_siren_tpu_torch.training.graphs import NOISE, StepGroup
@@ -56,16 +59,17 @@ from nerf_siren_tpu_torch.training.metrics import psnr
 from nerf_siren_tpu_torch.training.optimizers import Optimizer
 
 BACKENDS = ("jnp", "fused")
+FIELDS = ("mlp", "siren")
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
-    models: Dict[str, NeRF]          # 'coarse' and (with n_importance > 0) 'fine'
+    models: Dict[str, torch.nn.Module]   # 'coarse', (n_importance > 0) 'fine'[, 'points']
     opt_state: Dict[str, Any]        # `Optimizer` state over `parameters(models)`
 
 
-def parameters(models: Dict[str, NeRF]):
+def parameters(models: Dict[str, torch.nn.Module]):
     """(model key, parameter name, tensor) in the optimizer's fixed order."""
     return [(k, n, p) for k in sorted(models) for n, p in models[k].named_parameters()]
 
@@ -87,20 +91,35 @@ def draw_step_noise(seed: int, step: int, n_rays: int, cfg: RenderConfig,
 
 class NeRFSystem:
     """Vanilla NeRF trainer: two embeddings (10/4 frequencies), coarse and
-    fine NeRF, MSE loss (or the semantic losses), PSNR logging."""
+    fine NeRF (or SIREN fields: `field_type='siren'`, `siren_hidden` x
+    `siren_layers` FiLM layers, a `siren_z_dim` latent, coordinates scaled
+    by 2 / `siren_box_warp`), MSE loss (or the semantic losses), PSNR
+    logging."""
+
+    LOSS_KEY = "train/loss"   # the metric of the step's summed loss
 
     def __init__(self, render_cfg: RenderConfig = RenderConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
                  nerf_cfg: NeRFConfig = NeRFConfig(),
                  steps_per_epoch: int = 1000, train_backend: str = "jnp",
-                 device="cuda"):
+                 device="cuda", field_type: str = "mlp", siren_hidden: int = 256,
+                 siren_layers: int = 8, siren_z_dim: int = 100,
+                 siren_box_warp: float = 51.0):
         if train_backend not in BACKENDS:
             raise ValueError(f"train_backend {train_backend!r}: the port has {BACKENDS}; "
                              "'culled' and 'culled_fused' come with ROADMAP slice 6")
+        if field_type not in FIELDS:
+            raise ValueError(f"field_type {field_type!r}: one of {FIELDS}")
         if train_backend == "fused":
+            if field_type != "mlp":
+                raise ValueError("the fused backend trains the MLP field (K2), not "
+                                 f"{field_type!r}")
             from nerf_siren_tpu_torch.ops.kernels.fused_mlp_train import check_topology
 
             check_topology(nerf_cfg)
+        self.field_type = field_type
+        self.siren = dict(hidden_dim=siren_hidden, n_layers=siren_layers, z_dim=siren_z_dim,
+                          box_sidelength=siren_box_warp)
         self.render_cfg = render_cfg
         self.train_cfg = train_cfg
         self.nerf_cfg = nerf_cfg
@@ -114,24 +133,34 @@ class NeRFSystem:
 
     # -- state ----------------------------------------------------------------
 
-    def init_params(self, generator: torch.Generator) -> Dict[str, NeRF]:
+    def init_params(self, generator: torch.Generator) -> Dict[str, torch.nn.Module]:
         """Coarse (and fine) fields drawn from `generator` (a CPU generator:
         the weights are drawn on the CPU, then moved to the device)."""
-        models = {"coarse": NeRF(self.nerf_cfg, generator=generator)}
+        def field():
+            if self.field_type == "siren":
+                return SirenNeRF(n_classes=self.nerf_cfg.n_classes, cfg=self.nerf_cfg,
+                                 generator=generator, **self.siren)
+            return NeRF(self.nerf_cfg, generator=generator)
+
+        models = {"coarse": field()}
         if self.render_cfg.n_importance > 0:
-            models["fine"] = NeRF(self.nerf_cfg, generator=generator)
+            models["fine"] = field()
         return {k: m.to(self.device) for k, m in models.items()}
 
     def init_state(self, seed: int) -> TrainState:
         models = self.init_params(torch.Generator().manual_seed(seed))
         return self.state_for(models)
 
-    def state_for(self, models: Dict[str, NeRF], step: int = 0) -> TrainState:
+    def state_for(self, models: Dict[str, torch.nn.Module], step: int = 0) -> TrainState:
         """A fresh optimizer state around given models."""
         params = [p for _, _, p in parameters(models)]
         return TrainState(step=step, models=models, opt_state=self.optimizer.init(params))
 
     # -- steps ----------------------------------------------------------------
+
+    def _plain_field_fn(self):
+        """The field_fn of the plain field (None: the MLP's default)."""
+        return siren_field_fn if self.field_type == "siren" else None
 
     def _field_fn(self, rays: torch.Tensor):
         if self.train_backend == "fused":
@@ -139,7 +168,13 @@ class NeRFSystem:
                 make_fused_train_field_fn)
 
             return make_fused_train_field_fn(rays[:, 3:6])
-        return None
+        return self._plain_field_fn()
+
+    def _render_train(self, models, rays: torch.Tensor, cfg: RenderConfig,
+                      generator: Optional[torch.Generator], noise: Optional[StepNoise]):
+        """The training step's render."""
+        return render_rays(models, rays, cfg, generator, field_fn=self._field_fn(rays),
+                           noise=noise)
 
     def loss_and_grads(self, state: TrainState, rays: torch.Tensor, rgbs: torch.Tensor,
                        generator: Optional[torch.Generator],
@@ -152,8 +187,7 @@ class NeRFSystem:
         params = [p for _, _, p in parameters(state.models)]
         for p in params:
             p.grad = None
-        out = render_rays(state.models, rays, cfg, generator, field_fn=self._field_fn(rays),
-                          noise=noise)
+        out = self._render_train(state.models, rays, cfg, generator, noise)
         losses = self.loss_fn(out, rgbs, cls_target=cls_target)
         losses["sum"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -177,7 +211,7 @@ class NeRFSystem:
         self.optimizer.step(params, grads, state.opt_state)
 
         rgb_key = "rgb_fine" if "rgb_fine" in out else "rgb_coarse"
-        metrics = {f"train/{k}_loss" if k != "sum" else "train/loss": v.detach()
+        metrics = {f"train/{k}_loss" if k != "sum" else self.LOSS_KEY: v.detach()
                    for k, v in losses.items()}
         metrics["train/psnr"] = psnr(out[rgb_key].detach(), rgbs)
         state.step += 1
@@ -263,7 +297,7 @@ class NeRFSystem:
         out = self.last_group.run(inputs)
         self.optimizer.advance(state.opt_state, n)
         state.step += n
-        return state, {"train/loss": out[-1, 0], "train/psnr": out[-1, 1]}
+        return state, {self.LOSS_KEY: out[-1, 0], "train/psnr": out[-1, 1]}
 
     def group_inputs(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
                      seed: int, n: int, b: int, uniform_frac: float = 0.0
@@ -297,25 +331,31 @@ class NeRFSystem:
     # -- inference ------------------------------------------------------------
 
     @torch.no_grad()
-    def render(self, models: Dict[str, NeRF], rays, test_time: bool = False
+    def render(self, models: Dict[str, torch.nn.Module], rays, test_time: bool = False
                ) -> Dict[str, torch.Tensor]:
         """Chunked full-image render (the validation path), deterministic:
         perturb 0 and noise 0, on the plain field."""
         cfg = self.render_cfg.replace(test_time=test_time, perturb=0.0, noise_std=0.0)
         rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
-        return render_rays_chunked(models, rays, cfg, None)
+        return render_rays_chunked(models, rays, cfg, None, field_fn=self._plain_field_fn())
 
     def current_lr(self, state: TrainState) -> float:
         return float(self.optimizer.schedule(state.step))
 
 
 def epoch_iterator(all_rays: np.ndarray, all_rgbs: np.ndarray, batch_size: int,
-                   seed: int, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+                   seed: int, epoch: int, extras: Optional[Dict[str, np.ndarray]] = None
+                   ) -> Iterator[Dict[str, np.ndarray]]:
     """Host-side shuffled batches over the precomputed ray buffer, with the
     JAX package's single-process permutation (numpy
-    `SeedSequence([seed, epoch, 0])`); drops the ragged tail."""
+    `SeedSequence([seed, epoch, 0])`); drops the ragged tail. `extras`
+    (name -> per-ray array, e.g. the semantic datasets' 'cls') are batched
+    with the same indices."""
     n = all_rays.shape[0]
     perm = np.random.default_rng(np.random.SeedSequence([seed, epoch, 0])).permutation(n)
     for b in range(n // batch_size):
         idx = perm[b * batch_size:(b + 1) * batch_size]
-        yield {"rays": all_rays[idx], "rgbs": all_rgbs[idx]}
+        batch = {"rays": all_rays[idx], "rgbs": all_rgbs[idx]}
+        for k, v in (extras or {}).items():
+            batch[k] = v[idx]
+        yield batch

@@ -3,7 +3,9 @@ NeRF field (K1, csrc/fused_mlp.cu), the fused training field's forward
 and backward (K2, csrc/fused_mlp_train.cu), the proxy march (K3,
 csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu), the
 triplane gather (K5, csrc/triplane_gather.cu) and the proxy top-K (K6,
-the TOPK epilogue of csrc/proxy_march.cu).
+the TOPK epilogue of csrc/proxy_march.cu); and on the card, the grouped
+steps' CUDA graphs (the MLP field on K2, SIREN and d3) against eager or
+looped steps, and a d3 fast tile on K3 and K1 against their plain versions.
 
 Imports torch only, so it also runs where JAX is not installed. Tests marked
 `cuda` need a CUDA card and skip without one; on the card run
@@ -1111,3 +1113,160 @@ def test_pool_groups_on_a_graph_match_their_loop_on_the_card(cuda_device, kind):
           f"after each group {gaps}")
     assert loss_rel <= GROUP_LOSS_RTOL, loss_rel
     assert max(gaps) <= GROUP_CHANGE_GAP, gaps
+
+
+# ---- the SIREN field and the semantic stack ------------------------------------
+
+def _field_system(device, field):
+    """The jnp systems of the SIREN field and of d3 (PointNet, capacity
+    8192) at the published widths: 1024 rays, 64 + 128 samples, perturb 1,
+    noise 1, Adam."""
+    from nerf_siren_tpu_torch.config import RenderConfig, TrainConfig
+    from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
+    from nerf_siren_tpu_torch.training.system import NeRFSystem
+
+    render = RenderConfig(n_samples=64, n_importance=128, perturb=1.0, noise_std=1.0,
+                          white_back=True)
+    if field == "d3":
+        return NeRF3DSystem(render, TrainConfig(lr=5e-4, decay_step=(20,), batch_size=1024,
+                                                loss_type="msenll"),
+                            NeRFConfig(), 1000, point_capacity=8192, device=device)
+    return NeRFSystem(render, TrainConfig(lr=5e-4, decay_step=(20,), batch_size=1024),
+                      NeRFConfig(), 1000, device=device, field_type="siren")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["d3", "siren"])
+def test_grouped_steps_of_d3_and_siren_on_a_graph_match_their_loop(cuda_device, field):
+    """Two groups of 5 steps (d3: with class targets) as one captured CUDA
+    graph, against the same `StepGroup` body run as a plain loop on the
+    card on the same draws. The second group is a replay, run under
+    `torch.cuda.set_sync_debug_mode("error")` (a host sync raises). No K2
+    wrapper is called (both train the plain field). Bars: the batches'
+    graph's; a control group whose last row has lr 0 must fail the change
+    gap. d3 with no_grad_on_nerf: the NeRF parameters bit-unchanged in both
+    runs, PointNet's moved."""
+    import copy
+
+    from nerf_siren_tpu_torch.training.graphs import StepGroup
+
+    n, b = 5, 1024
+    system = _field_system(cuda_device, field)
+    looped = system.init_state(0)
+
+    def fresh():
+        return system.state_for({k: copy.deepcopy(m) for k, m in looped.models.items()})
+
+    grouped, control = fresh(), fresh()
+    start = _param_list(looped)
+    rays, rgbs = _synthetic_rays((2 * n, b), cuda_device)
+    cls = torch.randint(0, 6, (2 * n, b), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(2))
+    loss_rel, gaps = 0.0, []
+    for grp in range(2):
+        sl = slice(grp * n, (grp + 1) * n)
+        batch = {"rays": rays[sl], "rgbs": rgbs[sl], **({"cls": cls[sl]} if field == "d3"
+                                                        else {})}
+        inputs = system.group_inputs(looped, "batches", batch, 11, n, b)
+        want = StepGroup(system, looped, "batches", n).loop(inputs)[:, 0].tolist()
+        system.optimizer.advance(looped.opt_state, n)
+        looped.step += n
+        before = dict(k2.LAUNCHES)
+        if grp == 0:
+            kw = {"cls_b": cls[sl]} if field == "d3" else {}
+            grouped, _ = system.train_scan_batches(grouped, rays[sl], rgbs[sl], 11, **kw)
+        else:
+            inputs = system.group_inputs(grouped, "batches", batch, 11, n, b)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                system.last_group.run(inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            system.optimizer.advance(grouped.opt_state, n)
+            grouped.step += n
+        assert k2.LAUNCHES == before
+        got = system.last_group.steps[:, 0].tolist()
+        loss_rel = max([loss_rel] + [abs(g - w) / abs(w) for g, w in zip(got, want)])
+        gaps.append(change_gap(start, _param_list(grouped), _param_list(looped)))
+    table = system.optimizer.scalar_table
+
+    def last_lr_zero(state, k):
+        rows = table(state, k)
+        rows[-1, 0] = 0.0
+        return rows
+
+    system.optimizer.scalar_table = last_lr_zero
+    try:
+        kw = {"cls_b": cls[:n]} if field == "d3" else {}
+        system.train_scan_batches(control, rays[:n], rgbs[:n], 11, **kw)
+    finally:
+        system.optimizer.scalar_table = table
+    once = fresh()
+    system.train_scan_batches(once, rays[:n], rgbs[:n], 11, **kw)
+    control_gap = change_gap(start, _param_list(control), _param_list(once))
+    print(f"{field}: graph vs loop: max relative loss difference {loss_rel:.3e}, change gap "
+          f"after each group {gaps}, the control's {control_gap:.3e}")
+    assert loss_rel <= GROUP_LOSS_RTOL, loss_rel
+    assert max(gaps) <= GROUP_CHANGE_GAP, gaps
+    assert control_gap > GROUP_CHANGE_GAP, control_gap
+    if field == "d3":
+        from nerf_siren_tpu_torch.training.system import parameters
+
+        for state in (looped, grouped):
+            keys = [k for k, _, _ in parameters(state.models)]
+            same = [torch.equal(a, p) for a, p in zip(start, _param_list(state))]
+            assert all(s for k, s in zip(keys, same) if k != "points")
+            moved = [not s for k, s in zip(keys, same) if k == "points"]
+            assert sum(moved) >= len(moved) // 2, moved
+
+
+# class ids of a d3 fast tile on the kernels must equal the plain versions'
+# wherever the plain top-two margin of the composited log-probabilities
+# exceeds this (chip_smoke.py phase 20's bar: on an H100 the ids of its
+# 800² frame differed at 13 pixels, the largest margin among them 0.042)
+CLS_MARGIN = 0.1
+
+
+@pytest.mark.cuda
+def test_d3_fast_tile_on_the_kernels_matches_the_plain_versions(cuda_device, monkeypatch):
+    """One 2048-ray d3 fast tile (`eval.make_semantic_renderer`, C 32, K 16,
+    capacity 8192, threshold 0) on K3 select and K1 against the same tile
+    with both replaced by their plain versions on the card: class ids equal
+    wherever the plain top-two margin exceeds CLS_MARGIN, rgb within the
+    fast path's bars (median < 2e-3, 99th percentile < 0.05)."""
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.eval import FastSetup, get_opts, make_semantic_renderer
+    from nerf_siren_tpu_torch.models.pointnet import PointNetDenseCls
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.render import fast as fast_mod
+
+    models = {"fine": NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(4)),
+              "points": PointNetDenseCls(6, 6, generator=torch.Generator().manual_seed(5))}
+    models = {k: m.to(cuda_device) for k, m in models.items()}
+    rays = _proxy_rays(2048, seed=5).to(cuda_device)
+    hp = get_opts(["--root_dir", ".", "--ckpt_path", "x", "--renderer", "fast", "--mode", "d3",
+                   "--cls_threshold", "0", "--chunk", "2048"])
+    aabb = (np.full(3, -2.0, np.float32), np.full(3, 2.0, np.float32))
+    fast = FastSetup("fine", None, aabb, fused_mlp.pack_model_params(
+        {"fine": models["fine"]}, cuda_device), _proxy_pack(96, cuda_device))
+    render = make_semantic_renderer(models, RenderConfig(chunk=2048, test_time=True),
+                                    renderer="fast", n_classes=6, cls_threshold=0.0, fast=fast,
+                                    hparams=hp)
+    before = dict(k3.LAUNCHES), dict(fused_mlp.LAUNCHES)
+    with torch.no_grad():
+        got = render(rays)
+        assert k3.LAUNCHES["select"] == before[0]["select"] + 1
+        assert fused_mlp.LAUNCHES["full"] == before[1]["full"] + 1
+        monkeypatch.setattr(fast_mod, "proxy_march_select", k3.proxy_march_select_ref)
+        monkeypatch.setattr(fast_mod, "field_kernels",
+                            lambda packed: (fused_mlp.fused_sigma_ref, fused_mlp.fused_full_ref))
+        ref = render(rays)
+    top = ref["cls_fine"].topk(2, dim=-1).values
+    margin = top[:, 0] - top[:, 1]
+    diff = got["cls_fine"].argmax(-1) != ref["cls_fine"].argmax(-1)
+    print(f"d3 fast tile: class ids differ at {int(diff.sum())} of 2048 rays, the largest "
+          f"plain margin among them {float(margin[diff].max()) if diff.any() else 0.0:.3e}")
+    assert not bool((diff & (margin > CLS_MARGIN)).any())
+    err = (got["rgb_fine"] - ref["rgb_fine"]).abs()
+    assert float(err.median()) < 2e-3 and float(torch.quantile(err.flatten(), .99)) < .05
