@@ -202,6 +202,35 @@ Run from the repository root. Phases, each printing a line:
      PointNet's conv4 columns rolled by one, must fail the class gate. One
      200² d3 exact frame (`render_rays_3d`, bf16 field operands) with its
      latency.
+  Phases 21-22 drive EG3D training and the fast EG3D renderer:
+ 21. EG3D steps at the train CLI's `--mode eg3d` defaults (z = w = 512,
+     StyleGAN2 4² -> 256², channel_base 32768, channel_max 512, 3 x 32
+     planes, decoder 32 -> 64 -> 4; 1024 rays, 64 + 128 samples, ray 0.1 ->
+     10, box_warp 15, Adam 5e-4 steplr; `train.py::build_system`), weights
+     `numpy_eg3d_params` of another seed, on phase 16's rays with its
+     renders as targets: EG3D_TRAIN_STEPS eager steps (every loss finite,
+     the mean of the last EG3D_WINDOW below the first's), then GROUP_STEPS
+     grouped steps on a captured graph against as many eager steps, read as
+     phase 18 under `torch.use_deterministic_algorithms(True)` (loss within
+     GROUP_LOSS_RTOL, change gap and `w_avg`'s own within GROUP_CHANGE_GAP,
+     the lr-0 control), and again with the default algorithms, whose
+     atomics (cuDNN weight gradients, the plain gather's scatter-add) make
+     two eager runs differ: that reading is printed beside the spread of
+     two eager runs, ungated; ms per step in turns, the capture's seconds,
+     peak memory and a replay under sync debug mode for both.
+ 22. fast EG3D frames (`eval_eg3d.py::setup_fast_renderer` at the eval
+     CLI's defaults: C 32, K 16, mid, delta, 500 x 32,768 distillation) of
+     a scene with empty space (`eg3d_ball_params`: weights shaped so the
+     planes carry a disk and the decoder a ball at the origin): the
+     distillation's seconds; 3 frames of 128² and one of 800² in 4096-ray
+     chunks (latency, rays/s, K3 select launches: one per chunk), the
+     agreement of a 128² frame with the exact frame of the same scene; the
+     same frames with K3 replaced by its plain versions on the card (rgb,
+     depth, opacity within FAST_BARS, DEPTH_BARS, OPACITY_BARS), a control
+     with the proxy's first-layer columns rolled by one (must fail); 5
+     `--fast_cull auto` frames of one 800² pose (K3 opacity once per culled
+     frame, the active fraction below 1 after the first frame, rays within
+     the bars of the plain fast frame, depth where its opacity > 0.5).
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
@@ -258,6 +287,8 @@ SEM_CLASSES, SEM_CAPACITY, D3_EXACT_WH = 6, 8192, 200
 # pixels, the largest margin among them 0.042 (a near tie at a cloud's capacity cut moves
 # PointNet's max-pool and so every ray of the tile a little)
 CLS_MARGIN = 0.1
+EG3D_TRAIN_STEPS, EG3D_WINDOW = 30, 5   # phase 21's eager steps; the loss means compared
+EG3D_BALL_SIGMA = 20.0  # phase 22's ball: marcher density per unit depth inside it
 K5_RANDOM = 262_144
 K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
 K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
@@ -370,7 +401,7 @@ def cuda_ms(fn, reps, queued=False):
     return device_ms(fn, reps, queued)
 
 
-def compare(name, got, ref, where, phase="3/20"):
+def compare(name, got, ref, where, phase="3/22"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -443,7 +474,7 @@ def check_kernels(packed, device, card):
     report = ptxas_report("fused_mlp")
     for name, symbol in K1_SYMBOLS.items():
         regs, spills, stack = next(v for k, v in report.items() if symbol in k)
-        print(f"[3/20] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
+        print(f"[3/22] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
               f"(stores + loads), {stack} bytes stack frame; "
               f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
               f"memory", flush=True)
@@ -463,7 +494,7 @@ def check_kernels(packed, device, card):
         n_bytes += k1_weight_bytes(packed)
         bound_ms, bound_by = bound(flops, n_bytes)
         chain_ms = matmul_chain_ms(packed, n_pts, full)
-        print(f"[3/20] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/22] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
               f"bound), plain {plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms "
               f"({bound_by}); earlier wmma kernel {EARLIER_K1_MS[name]} ms (another call); bf16 "
@@ -592,12 +623,12 @@ def check_train_kernels(model, frame_rays, device, card):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/20"))
+                                       "5/22"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/20] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/22] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
@@ -621,7 +652,7 @@ def check_train_kernels(model, frame_rays, device, card):
              2 * bwd_macs * n_pts, in_bytes + n_pts * 16 + len(shapes) * g_bytes)):
         ms, plain_ms, (p1, k1, k2_, p2) = timed_pair(kern, plain)
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[5/20] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
+        print(f"[5/22] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
               f"({k1:.3f}, {k2_:.3f}; {flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain "
               f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}, "
               f"{flops * 1e-12:.3f} TFLOP); {card}", flush=True)
@@ -648,7 +679,7 @@ def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes],
                                      backward=False)
     earlier = EARLIER_K2_MS["fused_train_fwd"]
-    print(f"[5/20] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
+    print(f"[5/22] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
           f"profiler, mean of 3; before the redesign {earlier} ms, another call; "
           f"{earlier / own:.2f}x); operations bound {bound_ms:.3f} ms ({100 * bound_ms / own:.1f}% "
           f"of it); build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes (stores + "
@@ -673,7 +704,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
         k_ms = sum(v for k, v in own.items() if symbol in k)
         earlier = (f"; before the redesign {EARLIER_K2_MS[label]} ms (another call)"
                    if label in EARLIER_K2_MS else "")
-        print(f"[5/20] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
+        print(f"[5/22] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
               f"profiler, mean of 3){earlier}; build (-Xptxas -v): {regs} registers at entry, "
               f"{spills} spill bytes (stores + loads), {stack} bytes stack frame; "
               f"{smem.get(label, 0)} bytes dynamic shared memory", flush=True)
@@ -681,7 +712,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
     floor_ms = n_pts * (written + read) / PEAK_BYTES * 1e3
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes])
     earlier = EARLIER_K2_MS["fused_train_bwd"]
-    print(f"[5/20] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
+    print(f"[5/22] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
           f"another call; {earlier / ms:.2f}x); operations bound {bound_ms:.3f} ms "
           f"({100 * bound_ms / ms:.1f}% of it); the stash {written} bytes a point written + "
           f"{read} read = {n_pts * (written + read) / 1e9:.3f} GB, "
@@ -785,7 +816,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/20] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/22] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -807,7 +838,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/20] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/22] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -829,7 +860,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/20] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/22] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
 
@@ -902,7 +933,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     eager_params = param_list(eager)
     gap = change_gap(start, param_list(grouped), eager_params)
     control = change_gap(start, short, eager_params)
-    print(f"[6/20] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
+    print(f"[6/22] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
           f"same weights, seed and batches: max relative loss difference {loss_rel:.3e} "
           f"(bar {GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the "
           f"control without the last update {control:.3e}, must exceed it); losses eager "
@@ -951,14 +982,14 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     want = [float(v) for v in eager_losses]
     replay_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     replay_gap = change_gap(start, param_list(grouped), param_list(eager))
-    print(f"[6/20] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
+    print(f"[6/22] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
           f"relative loss difference of the last group {replay_rel:.3e} (bar "
           f"{GROUP_LOSS_RTOL}), change gap over the {5 * n} steps {replay_gap:.3e} (bar "
           f"{GROUP_CHANGE_GAP})", flush=True)
     if not replay_rel <= GROUP_LOSS_RTOL or not replay_gap <= GROUP_CHANGE_GAP:
         fail(f"{backend}: replayed groups disagree with eager steps")
     replay_ms = float(np.median(times["grouped"])) * n
-    print(f"[6/20] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
+    print(f"[6/22] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
           f"(median {np.median(times['grouped']):.3f}), eager "
           f"{[round(v, 3) for v in times['eager']]} (median {np.median(times['eager']):.3f}), "
           f"in turns; the capture of {n} steps {capture_s:.3f} s (the first group with its "
@@ -1172,7 +1203,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
 
     d, ratio = over(got)
     n_diff = int((d > 0).sum())
-    print(f"[8/20] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
+    print(f"[8/22] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
           f"differ ({100 * n_diff / d.numel():.3f}%), max|d| {float(d.max()):.3e}, max |d| / "
           f"bar {float(ratio.max()):.3e}, median over those that differ "
           f"{float(ratio[d > 0].median()) if n_diff else 0.0:.3e} (bar: proxy_score_bar)",
@@ -1182,7 +1213,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
     if control:
         _, ratio = over(k3.proxy_scores_ref({**pp, "b1": pp["b1"].bfloat16().float()}, pts))
         n_over = int((ratio > 1.0).sum())
-        print(f"[8/20] control, the plain scores with b1 rounded to bf16: {n_over} of "
+        print(f"[8/22] control, the plain scores with b1 rounded to bf16: {n_over} of "
               f"{ratio.numel()} ({100 * n_over / ratio.numel():.3f}%) beyond proxy_score_bar, max "
               f"|d| / bar {float(ratio.max()):.3e}", flush=True)
         if n_over == 0:
@@ -1214,7 +1245,7 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
     bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
-    print(f"[8/20] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+    print(f"[8/22] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
           f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
@@ -1279,7 +1310,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     dz = (z - rz).abs() / span[:, None]
     med, p99 = float(dz.median()), percentile(dz, 0.99)
     err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
-    print(f"[8/20] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+    print(f"[8/22] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
           f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
@@ -1296,7 +1327,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     scores = k3_scores_reading(pp, rays8, PREPASS_C)
     same_op = torch.equal(k3.proxy_opacity_ref(pp, rays8, PREPASS_C, scores=scores), op)
     del scores
-    print(f"[8/20] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
+    print(f"[8/22] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
           f"{FAST_C}, K {FAST_K}) {'bit-equal' if same_sel else 'DIFFERENT'}, opacity (C "
           f"{PREPASS_C}) {'bit-equal' if same_op else 'DIFFERENT'}", flush=True)
     if not (same_sel and same_op):
@@ -1312,7 +1343,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     crz, crxyz = k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True)
     err = float(torch.maximum((cz - crz).abs().amax(), (cxyz - crxyz).abs().amax()))
     same_chunk = torch.equal(cz, z[pick]) and torch.equal(cxyz, xyz[pick])
-    print(f"[8/20] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
+    print(f"[8/22] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
           f"frame's launch: {'bit-equal' if same_chunk else 'DIFFERENT'}; max|d| vs plain "
           f"{err:.3e}", flush=True)
     if not same_chunk:
@@ -1334,7 +1365,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_march_select"] = res
     one_ms = cuda_ms(lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True), 5)
     n_chunks = -(-r // CHUNK)
-    print(f"[8/20] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
+    print(f"[8/22] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
           f"(median of {[round(t, 4) for t in queued]}; unqueued {unqueued:.4f}), "
           f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; x {n_chunks} = "
           f"{n_chunks * res['ms']:.3f} ms a frame in chunks; beside one launch over all {r} "
@@ -1347,7 +1378,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (op - rop).abs()
     err = float(d.max())
-    print(f"[8/20] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+    print(f"[8/22] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
           f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
           f"{int((op != rop).sum())} of {r} differ", flush=True)
     if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
@@ -1359,20 +1390,20 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + k3_bytes, err, card,
         plain_reps=1)
     res = results["proxy_opacity"]
-    print(f"[8/20] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
+    print(f"[8/22] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
           f"earlier CUDA-core kernel {EARLIER_K3_MS['opacity']} ms (another call)", flush=True)
     hidden = pp["w1"].shape[0]
     report = ptxas_report("proxy_march")
     for name, epi, c in (("proxy_march_select", 1, FAST_C), ("proxy_opacity", 0, PREPASS_C)):
         sym = f"proxy_march_kernelILi{k3.k3_width(hidden)}ELi{epi}ELb0E"
         regs, spills, stack = next(v for k, v in report.items() if sym in k)
-        print(f"[8/20] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
+        print(f"[8/22] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
               f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
               f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
               f"{c}", flush=True)
     for sym, before in K3_SASS_DIGESTS.items():
         digest = sass_digest("proxy_march", sym)
-        print(f"[8/20] {sym} SASS digest {digest}: "
+        print(f"[8/22] {sym} SASS digest {digest}: "
               f"{'unchanged from' if digest == before else 'DIFFERS from'} the build of the tree "
               f"before K6 joined csrc/proxy_march.cu, {before} (nvcc 12.8; a reading)", flush=True)
 
@@ -1420,7 +1451,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
         rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
         errs[name] = max(errs[name], float(d.max()))
-        print(f"[8/20] {name} vs plain {where}: max|d| per column "
+        print(f"[8/22] {name} vs plain {where}: max|d| per column "
               f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
               f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
               f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
@@ -1428,14 +1459,14 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
             fail(f"{name} disagrees with its plain version {where}")
     n_flip = 65536
     flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
-    print(f"[8/20] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+    print(f"[8/22] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
     lib = _build.load("fused_mlp_int8")
     report = ptxas_report("fused_mlp_int8")
     n_emb = sum(1 for k in p8 if k[0] == "q" and k.endswith("x"))
     epi = sass_epilogue("fused_mlp_int8", K4_SYMBOLS["fused_nerf_sigma_int8"])
-    print("[8/20] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
+    print("[8/22] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
           (f"{epi[0]} instructions converting its 128 accumulators, {epi[1]} adding the bias, "
            f"ReLU and absmax and quantising them: {sum(epi) / 128:.2f} per element"
            if epi else "not found"), flush=True)
@@ -1451,7 +1482,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
                            card, int8_ops=n * i8)
         ms4, ms1, (a1, b1, b2, a2) = timed_pair([kern], [bf16_kern])   # K1, K4, K4, K1
         regs, spills, stack = next(v for k, v in report.items() if K4_SYMBOLS[name] in k)
-        print(f"[8/20] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
+        print(f"[8/22] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
               f"int8 + {n * f_bf16 * 1e-12 / (res['ms'] * 1e-3):.1f} TFLOP/s bf16, "
               f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound; earlier mma.sync kernel "
               f"{EARLIER_K4_MS[name]} ms (another call; {EARLIER_K4_MS[name] / res['ms']:.1f}x); "
@@ -1481,7 +1512,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         got, k6.proxy_select_ref(pp, rays6, K6_C, K6_K, scores=scores))
     n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
     err = float((got - k6.proxy_select_ref(pp, rays6, K6_C, K6_K)).abs().max())
-    print(f"[8/20] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
+    print(f"[8/22] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
           f"of {d.numel()} differ ({100 * n_diff / d.numel():.3f}%), max |d| / bar "
           f"{float(ratio.max()):.3e} (bar: proxy_score_bar); the plain selection on the kernel's "
           f"scores {'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} of {K6_RAYS} rays "
@@ -1502,7 +1533,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_select"] = res
     regs, spills, stack = next(v for k, v in ptxas_report("proxy_march").items()
                                if TOPK_SYMBOL in k)
-    print(f"[8/20] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
+    print(f"[8/22] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
           f"CUDA-core kernel {EARLIER_K6_MS} ms (another call; {EARLIER_K6_MS / res['ms']:.2f}x); "
           f"build (-Xptxas -v, {TOPK_SYMBOL}): {regs} registers, {spills} spill bytes, {stack} "
           f"bytes stack frame; {k3.shared_bytes(hidden, K6_C)} bytes dynamic shared memory at C "
@@ -1533,7 +1564,7 @@ def fast_phases(frames_rays, device, card, args):
     exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
     check_outputs(exact, "exact frame")
     empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
-    print(f"[7/20] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+    print(f"[7/22] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
           f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
           f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
           f"per frame {[round(e, 4) for e in empty]}", flush=True)
@@ -1566,7 +1597,7 @@ def fast_phases(frames_rays, device, card, args):
     t0 = time.perf_counter()
     cached = setup_fast_proxy(models, hp, bounds)
     t_cached = time.perf_counter() - t0
-    print(f"[7/20] proxy distilled ({hp.fast_distill_steps} steps, batch "
+    print(f"[7/22] proxy distilled ({hp.fast_distill_steps} steps, batch "
           f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
           f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
           f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
@@ -1590,7 +1621,7 @@ def fast_phases(frames_rays, device, card, args):
     counts = read_counts(names)
     launches["proxy_march_select"] = counts["proxy_march_select"]
     n_chunks = -(-H * W // CHUNK)
-    print(f"[9/20] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+    print(f"[9/22] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
           f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
           f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
           f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
@@ -1611,7 +1642,7 @@ def fast_phases(frames_rays, device, card, args):
     for k, v in ref.items():
         d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
-    print(f"[9/20] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+    print(f"[9/22] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
           f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
           flush=True)
     if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
@@ -1636,7 +1667,7 @@ def fast_phases(frames_rays, device, card, args):
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
             lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
-            print(f"[10/20] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+            print(f"[10/22] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
                   f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
                   f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
@@ -1663,7 +1694,7 @@ def fast_phases(frames_rays, device, card, args):
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/20] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
+    print(f"[11/22] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
           f"against the bf16 fast frames' {[round(t, 4) for t in lat]} (rgb max|d| vs the bf16 "
           f"fast frame {d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused "
           f"{[round(t, 4) for t in sec_x8]} against the bf16 exact frames' "
@@ -1682,7 +1713,7 @@ def fast_phases(frames_rays, device, card, args):
                          hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
     (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
     check_outputs([out_e], "edge-refined frame")
-    print(f"[12/20] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+    print(f"[12/22] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
           f"({card}); "
           f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
           f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
@@ -1697,7 +1728,7 @@ def fast_phases(frames_rays, device, card, args):
     sec6 = time.perf_counter() - t0
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
-    print(f"[13/20] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+    print(f"[13/22] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
           f"({card}); the tree before the redesign {EARLIER_K6_FRAME_S} s (another call); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
@@ -1779,7 +1810,7 @@ def eg3d_setup(device, card):
     model, t_load = synced_s(lambda: load_model(system, ckpt, device))
     n_params = sum(p.numel() for p in model.parameters())
     synth = [synced_s(lambda: system.frame_planes(model))[1] for _ in range(4)]
-    print(f"[14/20] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
+    print(f"[14/22] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
           f"{cfg.plane_channels} x {cfg.plane_resolution}², channel_base {cfg.channel_base}, "
           f"channel_max {cfg.channel_max}): checkpoint written in {t_save:.2f} s, read by the "
           f"CLI's load_model in {t_load:.2f} s; mapping + synthesis + bf16 packing ms "
@@ -1853,7 +1884,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         lib = library(planes32, grid(xyz))[:, :, 0].permute(0, 2, 1)
         lib_err = float((got - lib).abs().max())
         err = max(err, float((got - ref).abs().max()))
-        print(f"[15/20] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
+        print(f"[15/22] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
               f"{c}): {n_diff} of {got.numel()} elements differ; max|d| vs F.grid_sample on the "
               f"float32 planes {lib_err:.3e} (bar {K5_LIB_TOL} x {t_scale:.3f})", flush=True)
         if n_diff or lib_err > K5_LIB_TOL * t_scale:
@@ -1886,7 +1917,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         for k, v in got.items():
             runs[k] += v
         ratios.append(float(np.median(got["kernel"]) / np.median(got["f32"])))
-        print(f"[15/20] triplane_gather round {rnd} in turns (ms): kernel "
+        print(f"[15/22] triplane_gather round {rnd} in turns (ms): kernel "
               f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
               f"{[round(t, 4) for t in got['f32']]}, bf16 "
               f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}; kernel / "
@@ -1905,11 +1936,11 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
     elem = "13__nv_bfloat16" if table.dtype == torch.bfloat16 else "f"
     symbol = f"triplane_gather_kernelI{elem}Li{plan.vec}E"
     regs, spills, stack = next(v for k, v in ptxas_report("triplane_gather").items() if symbol in k)
-    print(f"[15/20] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
+    print(f"[15/22] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
           f"channels of {table.dtype}), {plan.groups} threads per point, {plan.blocks} blocks of "
           f"{plan.threads}; {regs} registers, {spills} spill bytes, {stack} bytes of stack",
           flush=True)
-    print(f"[15/20] triplane_gather at {n} points (one chunk's coarse pass), medians of "
+    print(f"[15/22] triplane_gather at {n} points (one chunk's coarse pass), medians of "
           f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
           f"counted bytes, {100 * bound_ms / ms:.1f}% of the bound), F.grid_sample float32 "
           f"{lib_ms:.4f} ms, bf16 {lib16_txt} (grid precomputed): kernel / float32 library "
@@ -1918,7 +1949,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
           f"{table_bytes / 1e6:.2f} MB of the table's texels the points read, output); "
           f"kernel unqueued {float(np.median(unqueued)):.4f} ms (median of "
           f"{[round(t, 4) for t in unqueued]}); {card}", flush=True)
-    print(f"[15/20] triplane_gather below F.grid_sample float32 in every round: "
+    print(f"[15/22] triplane_gather below F.grid_sample float32 in every round: "
           f"{'yes' if max(ratios) < 1 else 'no'} (kernel / float32 per round "
           f"{[round(r, 3) for r in ratios]})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1942,7 +1973,8 @@ def touched_table_bytes(table, xyz, scale):
 
 
 def eg3d_phases(device, card, args):
-    """Phases 14-17. Returns (result, launches) of K5."""
+    """Phases 14-17. Returns (result, launches) of K5 and phase 16's frames
+    as (rays, rgb) training targets."""
     import torch
     from nerf_siren_tpu_torch.eval_eg3d import make_renderer
     from nerf_siren_tpu_torch.ops.kernels import triplane_gather as k5
@@ -1963,7 +1995,7 @@ def eg3d_phases(device, card, args):
         for k, v in out.items():
             if v.shape[0] != EG3D_WH * EG3D_WH or not torch.isfinite(v).all():
                 fail(f"EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
-    print(f"[16/20] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
+    print(f"[16/22] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
           f"{hp.N_importance} samples, chunk {hp.chunk}, --plane_sampler kernel): latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the "
           f"median frame, of which mapping + synthesis {1e3 * synth_s:.3f} ms ({card}); K5 "
@@ -1976,7 +2008,7 @@ def eg3d_phases(device, card, args):
     worst = {k: max(float((o[k] - g[k]).abs().max()) for o, g in zip(outs, g_outs))
              for k in outs[0]}
     n_diff = sum(int((o[k] != g[k]).sum()) for o, g in zip(outs, g_outs) for k in o)
-    print(f"[16/20] the same frames through --plane_sampler gather: latency s "
+    print(f"[16/22] the same frames through --plane_sampler gather: latency s "
           f"{[round(t, 4) for t in g_lat]}; {n_diff} output elements differ from the kernel "
           f"frames, max|d| {worst} (bar {SAME_FRAME_ATOL})", flush=True)
     if max(worst.values()) > SAME_FRAME_ATOL:
@@ -1990,7 +2022,7 @@ def eg3d_phases(device, card, args):
                                                  for v in out_big.values()):
         fail(f"the {EG3D_BIG}² frame: {big_launches} K5 launches (expected {2 * big_chunks}) "
              f"or non-finite outputs")
-    print(f"[16/20] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
+    print(f"[16/22] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
           f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
           f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
           f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
@@ -2009,7 +2041,7 @@ def eg3d_phases(device, card, args):
         cpu_planes = cpu_model.planes(cpu_model.mapping(cpu_model.z))
     worst = {k: float((outs[0][k][EG3D_CHECK].cpu() - v).abs().max()) for k, v in ref.items()}
     p_err, p_scale = float((planes - cpu_planes).abs().max()), float(cpu_planes.abs().max())
-    print(f"[17/20] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
+    print(f"[17/22] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
           f"a CPU re-render on the card's table: max|d| {worst} (atol {RENDER_ATOL}); the card's "
           f"float32 planes vs a CPU float32 synthesis (cuDNN TF32 "
           f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max|d| {p_err:.3e}, largest "
@@ -2018,7 +2050,8 @@ def eg3d_phases(device, card, args):
         fail("the EG3D frame or planes disagree with the CPU")
     if args.profile:
         profile("EG3D frame", lambda: render(frames_rays[1]), card)
-    return result, launches
+    targets = (torch.cat(frames_rays), torch.cat([o["rgb_fine"] for o in outs]))
+    return result, launches, targets
 
 
 # ---- the SIREN field and the semantic stack (phases 18-20) --------------------
@@ -2089,16 +2122,34 @@ def lr0_last_row(optimizer):
     return table
 
 
-def group_vs_eager(phase, label, system, models, batches, seed, card):
+def gap_by_tensor(system, state, start, got, want):
+    """(name, gap) of the tensor whose change lies farthest from the
+    reference run's (`change_gap`'s argmax)."""
+    from nerf_siren_tpu_torch.training.system import parameters
+
+    gaps = [float((g - w).norm() / (w - s).norm().clamp_min(1e-30))
+            for s, g, w in zip(start, got, want)]
+    i = int(np.argmax(gaps))
+    return parameters(state.models)[i][1], gaps[i]
+
+
+def group_vs_eager(phase, label, system, models, batches, seed, card, gated=True, watch=(),
+                   floor=False):
     """GROUP_STEPS eager `train_step`s against one grouped group
     (`train_scan_batches`, a captured CUDA graph) from the same weights,
-    seed and batches, read as phase 6(c) reads them, with a control group
-    whose last row has lr 0 (must fail the change gap); then ms per step of
-    eager steps and of replays in turns, and a replay under
+    seed and batches, read as phase 6(c) reads them (losses within
+    GROUP_LOSS_RTOL, the change gap within GROUP_CHANGE_GAP; the tensors
+    whose names end with one of `watch` printed and held to it on their
+    own), with a control group whose last row has lr 0 (must fail the
+    change gap); `gated=False` prints the reading without the bars and the
+    control; with `floor`, a second eager run from the same start read the
+    same way against the first (the spread of two eager runs); then ms per
+    step of eager steps and of replays in turns, and a replay under
     `torch.cuda.set_sync_debug_mode("error")` (any host sync raises).
     Returns (start, eager state, grouped state)."""
     import torch
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+    from nerf_siren_tpu_torch.training.system import parameters
 
     n = len(batches)
     extra = {"cls_b": torch.stack([b["cls"] for b in batches])} if "cls" in batches[0] else {}
@@ -2115,6 +2166,19 @@ def group_vs_eager(phase, label, system, models, batches, seed, card):
         eager_s.append(time.perf_counter() - t0)
         want.append(float(metrics[system.LOSS_KEY]))
     eager_peak = torch.cuda.max_memory_allocated()
+    if floor:
+        again = state_copy(system, models)
+        twice = []
+        for b in batches:
+            again, metrics = system.train_step(again, b, seed=seed)
+            twice.append(float(metrics[system.LOSS_KEY]))
+        floor_rel = max(abs(a - b) / abs(b) for a, b in zip(twice, want))
+        floor_name, floor_gap = gap_by_tensor(system, again, start, param_list(again),
+                                              param_list(eager))
+        print(f"[{phase}] {label}: a second eager run from the same start against the first "
+              f"(the spread of eager runs): max relative loss difference {floor_rel:.3e}, "
+              f"change gap {floor_gap:.3e} (largest at {floor_name})", flush=True)
+        del again
     torch.cuda.reset_peak_memory_stats()
     k2_before = dict(k2.LAUNCHES)
     t0 = time.perf_counter()
@@ -2126,22 +2190,35 @@ def group_vs_eager(phase, label, system, models, batches, seed, card):
     got = system.last_group.steps[:, 0].tolist()
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     gap = change_gap(start, param_list(grouped), param_list(eager))
-    table = lr0_last_row(system.optimizer)
-    try:
-        system.train_scan_batches(control, rays_b, rgbs_b, seed=seed, **extra)
-    finally:
-        system.optimizer.scalar_table = table
-    control_gap = change_gap(start, param_list(control), param_list(eager))
+    gap_name = gap_by_tensor(system, grouped, start, param_list(grouped), param_list(eager))[0]
+    watched = [i for i, (_, name, _) in enumerate(parameters(eager.models))
+               if name.endswith(tuple(watch))] if watch else []
+    watch_gap = (change_gap(*([v[i] for i in watched] for v in (start, param_list(grouped),
+                                                                param_list(eager))))
+                 if watched else 0.0)
+    control_gap = None
+    if gated:
+        table = lr0_last_row(system.optimizer)
+        try:
+            system.train_scan_batches(control, rays_b, rgbs_b, seed=seed, **extra)
+        finally:
+            system.optimizer.scalar_table = table
+        control_gap = change_gap(start, param_list(control), param_list(eager))
     k2_calls = k2_calls_since(k2_before)
+    bars = (f" (bar {GROUP_LOSS_RTOL})", f"; bar {GROUP_CHANGE_GAP}; the control with the last "
+            f"row's lr 0 {control_gap:.3e}, must exceed it") if gated else ("", "; a reading")
     print(f"[{phase}] {label}: {n} grouped steps on a captured graph vs {n} eager steps, same "
-          f"weights, seed and batches: max relative loss difference {loss_rel:.3e} (bar "
-          f"{GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the control "
-          f"with the last row's lr 0 {control_gap:.3e}, must exceed it); losses eager "
+          f"weights, seed and batches: max relative loss difference {loss_rel:.3e}{bars[0]}, "
+          f"change gap {gap:.3e} (largest at {gap_name}{bars[1]})"
+          f"{f', of {watch} alone {watch_gap:.3e}' if watched else ''}; losses eager "
           f"{[f'{v:.6e}' for v in want]}, grouped {[f'{v:.6e}' for v in got]}; K2 wrapper "
           f"calls {k2_calls}", flush=True)
-    if not loss_rel <= GROUP_LOSS_RTOL or not gap <= GROUP_CHANGE_GAP:
+    if watch and not watched:
+        fail(f"{label}: no tensor named {watch}")
+    if gated and not (loss_rel <= GROUP_LOSS_RTOL and gap <= GROUP_CHANGE_GAP
+                      and watch_gap <= GROUP_CHANGE_GAP):
         fail(f"{label}: grouped steps disagree with eager steps")
-    if not control_gap > GROUP_CHANGE_GAP:
+    if gated and not control_gap > GROUP_CHANGE_GAP:
         fail(f"{label}: the change gap does not see a last update with lr 0")
     if any(k2_calls.values()):
         fail(f"{label}: K2 was called on a path that trains the plain field")
@@ -2202,11 +2279,11 @@ def siren_phase(device, card, args):
                         NeRFConfig(), 1000, device=device, field_type="siren")
     batches = sem_batches(device, SEED + 51)
     n_params = sum(p.numel() for m in models.values() for p in m.parameters())
-    print(f"[18/20] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
+    print(f"[18/22] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
           f"{9 * 256 * 2}, learnable z, box 51; coarse + fine {n_params} parameters; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples, perturb 1, noise 1, "
           f"Adam {LR}", flush=True)
-    _, eager, _ = group_vs_eager("18/20", "SIREN", system, models, batches, SEED + 52, card)
+    _, eager, _ = group_vs_eager("18/22", "SIREN", system, models, batches, SEED + 52, card)
     if args.profile:
         profile("SIREN train step", lambda: system.train_step(eager, batches[0], seed=1), card)
 
@@ -2251,10 +2328,10 @@ def d3_steps_phase(device, card, args):
     models["points"] = numpy_points(SEED + 61, device)
     system = d3_system(device, "pointnet")
     batches = sem_batches(device, SEED + 62, classes=True)
-    print(f"[19/20] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
+    print(f"[19/22] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
           f"point feature) at capacity {SEM_CAPACITY}, msenll, no_grad_on_nerf; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples", flush=True)
-    start, eager, grouped = group_vs_eager("19/20", "d3 pointnet", system, models, batches,
+    start, eager, grouped = group_vs_eager("19/22", "d3 pointnet", system, models, batches,
                                            SEED + 63, card)
     names = [(k, n) for k in sorted(eager.models) for n, _ in eager.models[k].named_parameters()]
     for label, state in (("eager", eager), ("grouped", grouped)):
@@ -2264,7 +2341,7 @@ def d3_steps_phase(device, card, args):
         moved = sum(not torch.equal(a, b) for (k, _), a, b in zip(names, start, now)
                     if k == "points")
         total = sum(k == "points" for k, _ in names)
-        print(f"[19/20] d3 {label} state after its {state.step} steps: NeRF parameters "
+        print(f"[19/22] d3 {label} state after its {state.step} steps: NeRF parameters "
               f"bit-unchanged {nerf_same}; PointNet tensors moved {moved} of {total}",
               flush=True)
         if not nerf_same or moved < total // 2:
@@ -2285,7 +2362,7 @@ def d3_steps_phase(device, card, args):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["train/total_loss"]))
-    print(f"[19/20] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
+    print(f"[19/22] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
           f"losses {[f'{v:.6e}' for v in losses]}, ms per step "
           f"{[round(1e3 * v, 3) for v in step_s]}; {card}", flush=True)
     if not all(math.isfinite(v) for v in losses):
@@ -2350,7 +2427,7 @@ def d3_frames_phase(device, card, args):
     peak = torch.cuda.max_memory_allocated()
     key = fast.model_key
     n_chunks = -(-H * W // CHUNK)
-    print(f"[20/20] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
+    print(f"[20/22] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"capacity {hp.point_capacity}, cls_threshold 0, PointNet k {SEM_CLASSES}): latency "
           f"{lat:.4f} s; launches {counts} (this phase's own); peak device memory "
           f"{peak / 2**30:.3f} GiB; {card}", flush=True)
@@ -2380,7 +2457,7 @@ def d3_frames_phase(device, card, args):
         d = (out[k] - ref[k]).abs() / max(1.0, float(ref[k].abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
     margin = class_margin(ref[f"cls_{key}"])
-    print(f"[20/20] the same frame on the plain versions of K3 select and K1 on the card "
+    print(f"[20/22] the same frame on the plain versions of K3 select and K1 on the card "
           f"({ref_lat:.4f} s): class ids differ at {n_diff} of {H * W} pixels, the largest "
           f"plain top-two margin among them {worst:.4e}; {above} differ above the bar "
           f"{CLS_MARGIN} (pixels above it {int((margin > CLS_MARGIN).sum())}); (median, 99th "
@@ -2398,7 +2475,7 @@ def d3_frames_phase(device, card, args):
         conv4.bias.copy_(conv4.bias[perm])
     (ctl,), _ = render_frames(render, [rays])
     above_ctl, n_ctl, _ = disagree(ctl)
-    print(f"[20/20] control (PointNet's conv4 columns rolled by one): class ids differ at "
+    print(f"[20/22] control (PointNet's conv4 columns rolled by one): class ids differ at "
           f"{n_ctl} pixels, {above_ctl} above the bar (must be > 0)", flush=True)
     if not above_ctl:
         fail("the class gate does not see a permuted class head")
@@ -2420,9 +2497,272 @@ def d3_frames_phase(device, card, args):
         if v.shape[0] != D3_EXACT_WH ** 2 or not torch.isfinite(v).all():
             fail(f"d3 exact frame {k}: shape {tuple(v.shape)} or non-finite values")
     classes = torch.bincount(out["cls_fine"].argmax(-1), minlength=SEM_CLASSES).tolist()
-    print(f"[20/20] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
+    print(f"[20/22] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
           f"bf16 field operands): latency {lat:.4f} s; pixels per class {classes}; {card}",
           flush=True)
+
+
+# ---- EG3D training and the fast EG3D renderer (phases 21-22) ------------------
+
+def eg3d_ball_params(rng, cfg):
+    """`numpy_eg3d_params` shaped into a scene with empty space: every
+    synthesis block but the last adds nothing to the planes (its ToRGB
+    weights 0), the last block's conv1 has weight 0 and a disk of radius
+    BALL_R (in the plane's [-box_warp/2, box_warp/2] coordinates) as its
+    noise_const at strength 1, and its ToRGB (styles 1) copies that disk
+    into all channels: the three planes carry the disk, their mean q(x) is
+    1 inside the ball of radius BALL_R at the origin and at most 2/3 outside
+    it. The decoder maps q to a marcher density softplus(sigma - 1) of
+    EG3D_BALL_SIGMA per unit inside and ~1e-4 outside, and to BALL_RGB."""
+    params = numpy_eg3d_params(rng, cfg)
+    syn = params["backbone"]["synthesis"]
+    top = cfg.plane_resolution
+    for res in cfg.backbone.synthesis.block_resolutions[:-1]:
+        syn[f"b{res}"]["torgb"]["weight"][:] = 0.0
+    last = syn[f"b{top}"]
+    uv = (np.arange(top, dtype=np.float32) + 0.5) / top * 2 - 1
+    r = np.sqrt(uv[:, None] ** 2 + uv[None, :] ** 2) * cfg.rendering.box_warp / 2
+    last["conv1"]["weight"][:] = 0.0
+    last["conv1"]["noise_const"] = (r <= BALL_R).astype(np.float32)
+    last["conv1"]["noise_strength"] = np.float32(1.0)
+    torgb = last["torgb"]
+    c = torgb["weight"].shape[1]
+    torgb["affine"]["weight"][:] = 0.0
+    torgb["affine"]["bias"][:] = 1.0
+    torgb["weight"][:] = 1.0 / math.sqrt(2 * c)          # x 1/sqrt(c) x sqrt(2): the disk
+    alpha, threshold = 20.0, 0.8                          # h = softplus(alpha (q - 0.8))
+    inside, outside = EG3D_BALL_SIGMA + 1.0, -8.0         # sigma at q = 1 and at q = 2/3
+    h_in = math.log1p(math.exp(alpha * (1 - threshold)))
+    h_out = math.log1p(math.exp(alpha * (2 / 3 - threshold)))
+    beta = (inside - outside) / (h_in - h_out)
+    dec = params["decoder"]
+    n_in, hidden = dec["fc1"]["weight"].shape[1], dec["fc1"]["weight"].shape[0]
+    dec["fc1"]["weight"][:] = alpha / math.sqrt(n_in)     # FullyConnected's 1/sqrt(fan_in)
+    dec["fc1"]["bias"][:] = -alpha * threshold
+    dec["fc2"]["weight"][:] = 0.0
+    dec["fc2"]["weight"][0] = beta * math.sqrt(hidden) / hidden
+    rgb = (np.asarray(BALL_RGB, np.float32) + 0.001) / 1.002
+    dec["fc2"]["bias"][:] = np.concatenate([[outside - beta * h_out], np.log(rgb / (1 - rgb))])
+    return params
+
+
+def eg3d_steps_phase(device, card, args, targets):
+    """Phase 21: EG3D training at the train CLI's EG3D defaults, eager and
+    grouped, on phase 16's frames as targets."""
+    import torch
+    from nerf_siren_tpu_torch.convert import eg3d_from_jax
+    from nerf_siren_tpu_torch.opt import get_opts
+    from nerf_siren_tpu_torch.train import build_system
+    from nerf_siren_tpu_torch.training.eg3d_system import MODEL
+
+    pool_rays, pool_rgbs = targets
+    hp = get_opts(["--root_dir", ".", "--mode", "eg3d"])
+    system = build_system(hp, white_back=True, steps_per_epoch=1000, device=device)
+    cfg = system.cfg
+    model = system.init_model()
+    model.load_state_dict(eg3d_from_jax(numpy_eg3d_params(np.random.default_rng(EG3D_SEED + 40),
+                                                          cfg)))
+    state = system.state_for({MODEL: model.to(device)})
+    gen = torch.Generator(device=device).manual_seed(EG3D_SEED + 41)
+
+    def batch():
+        idx = torch.randint(0, pool_rays.shape[0], (hp.batch_size,), generator=gen,
+                            device=device)
+        return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
+
+    n_tensors = sum(p.numel() for p in model.state_dict().values())
+    print(f"[21/22] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
+          f"{cfg.n_planes} x {cfg.plane_channels} x {cfg.plane_resolution}², channel_base "
+          f"{cfg.channel_base}, channel_max {cfg.channel_max}, decoder {cfg.plane_channels} -> 64 "
+          f"-> 4; {hp.batch_size} rays at {cfg.rendering.depth_resolution}+"
+          f"{cfg.rendering.depth_resolution_importance} samples, ray {cfg.rendering.ray_start} -> "
+          f"{cfg.rendering.ray_end}, box_warp {cfg.rendering.box_warp}; {hp.optimizer} {hp.lr} "
+          f"{hp.lr_scheduler}; {n_tensors} optimized elements (w_avg and noise_const included); "
+          f"targets: phase 16's {pool_rays.shape[0]} rays", flush=True)
+    losses, step_s = [], []
+    for _ in range(EG3D_TRAIN_STEPS):
+        b = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = system.train_step(state, b, seed=EG3D_SEED + 42)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["train/loss"]))
+    first = float(np.mean(losses[:EG3D_WINDOW]))
+    last = float(np.mean(losses[-EG3D_WINDOW:]))
+    print(f"[21/22] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
+          f"{[f'{v:.5f}' for v in losses]}; mean of the first {EG3D_WINDOW} {first:.6f}, of the "
+          f"last {last:.6f}; ms per step (after the first) "
+          f"{float(np.median(step_s[1:])) * 1e3:.3f} median; {card}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        fail("EG3D steps: a loss is not finite or the loss does not fall")
+    batches = [batch() for _ in range(GROUP_STEPS)]
+    # the gate: under deterministic algorithms the graph must equal the eager
+    # steps as phase 6(c)'s do; the default algorithms' atomics (cuDNN weight
+    # gradients, the plain gather's scatter-add) make even two eager runs
+    # differ, so their reading is printed with that spread, ungated
+    torch.use_deterministic_algorithms(True)
+    try:
+        group_vs_eager("21/22", "EG3D, deterministic algorithms", system, state.models, batches,
+                       EG3D_SEED + 43, card, watch=("w_avg",))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _, eager, _ = group_vs_eager("21/22", "EG3D, default algorithms", system, state.models,
+                                 batches, EG3D_SEED + 43, card, gated=False, watch=("w_avg",),
+                                 floor=True)
+    if args.profile:
+        profile("EG3D train step", lambda: system.train_step(eager, batches[0], seed=1), card)
+
+
+class plain_k3_eg3d:
+    """Within: the fast EG3D renderer runs K3's plain versions on the card."""
+
+    def __enter__(self):
+        from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+        from nerf_siren_tpu_torch.render import triplane_fast as tf
+
+        self.saved = tf.proxy_march_select, tf.proxy_opacity
+        tf.proxy_march_select, tf.proxy_opacity = k3.proxy_march_select_ref, k3.proxy_opacity_ref
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_siren_tpu_torch.render import triplane_fast as tf
+
+        tf.proxy_march_select, tf.proxy_opacity = self.saved
+
+
+def fast_frame_errors(got, ref, rays, opts, depth_mask=None):
+    """(median, 99th pct / max) of an EG3D fast frame's rgb, depth and
+    opacity against a reference frame: rgb over max(1, max|ref|), depth over
+    each ray's far - near (optionally only where `depth_mask`), opacity
+    absolute (median, max)."""
+    from nerf_siren_tpu_torch.render.triplane_fast import fast_rays8
+
+    r8 = fast_rays8(rays, opts)
+    d_rgb = (got["rgb_fine"] - ref["rgb_fine"]).abs() / max(1.0, float(ref["rgb_fine"].abs().max()))
+    d_z = (got["depth_fine"] - ref["depth_fine"]).abs() / (r8[:, 7] - r8[:, 6]).clamp_min(1e-6)
+    if depth_mask is not None:
+        d_z = d_z[depth_mask]
+    d_o = (got["opacity_fine"] - ref["opacity_fine"]).abs()
+    return {"rgb": (float(d_rgb.median()), percentile(d_rgb, 0.99)),
+            "depth": (float(d_z.median()), percentile(d_z, 0.99)) if d_z.numel() else (0.0, 0.0),
+            "opacity": (float(d_o.median()), float(d_o.max()))}
+
+
+def within_fast_bars(errs):
+    bars = {"rgb": FAST_BARS, "depth": DEPTH_BARS, "opacity": OPACITY_BARS}
+    return all(m < bars[k][0] and p < bars[k][1] for k, (m, p) in errs.items())
+
+
+def eg3d_fast_phase(device, card, args):
+    """Phase 22: fast EG3D frames of a scene with empty space through
+    eval_eg3d's fast renderer: plain frames, K3 against its plain version,
+    the control, agreement with the exact frame and the auto-cull frames."""
+    import torch
+    from nerf_siren_tpu_torch.convert import eg3d_from_jax
+    from nerf_siren_tpu_torch.eval_eg3d import (get_opts, make_renderer, setup_fast_renderer,
+                                                triplane_config)
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+    hp = get_opts(["--root_dir", ".", "--ckpt_path", "unused", "--renderer", "fast",
+                   "--plane_sampler", "kernel"])
+    cfg = triplane_config(hp, white_back=True)
+    system = EG3DSystem(cfg, hp.plane_sampler)
+    model = system.init_model()
+    model.load_state_dict(eg3d_from_jax(eg3d_ball_params(np.random.default_rng(EG3D_SEED + 50),
+                                                         cfg)))
+    model = model.to(device)
+    fast, distill_s = synced_s(lambda: setup_fast_renderer(system, model, hp))
+    print(f"[22/22] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
+          f"decoder a ball of radius {BALL_R} with density {EG3D_BALL_SIGMA} per unit); the "
+          f"fast renderer at the eval CLI's defaults (C {hp.fast_candidates}, K {hp.fast_keep}, "
+          f"{hp.fast_placement}, {hp.fast_quadrature}, chunk {hp.chunk}): planes synthesised "
+          f"and the proxy distilled ({hp.fast_distill_steps} steps x {hp.fast_distill_batch} "
+          f"points) in {distill_s:.3f} s ({card})", flush=True)
+    render = make_renderer(system, model, hp.chunk, fast)
+    small = [lego_rays(k, device, EG3D_WH, EG3D_WH) for k in range(N_EG3D)]
+    big = lego_rays(0, device, EG3D_BIG, EG3D_BIG)
+    n_chunks = {EG3D_WH: -(-EG3D_WH ** 2 // hp.chunk), EG3D_BIG: -(-EG3D_BIG ** 2 // hp.chunk)}
+    reset_counts(["proxy_march_select"])
+    outs, lat = render_frames(render, small)
+    small_launches = read_counts(["proxy_march_select"])["proxy_march_select"]
+    reset_counts(["proxy_march_select"])
+    (out_big,), (lat_big,) = render_frames(render, [big])
+    big_launches = read_counts(["proxy_march_select"])["proxy_march_select"]
+    for out, n in zip(outs + [out_big], [EG3D_WH ** 2] * N_EG3D + [EG3D_BIG ** 2]):
+        for k, v in out.items():
+            if v.shape[0] != n or not torch.isfinite(v).all():
+                fail(f"fast EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
+    exact, exact_lat = render_frames(make_renderer(system, model, hp.chunk), small)
+    print(f"[22/22] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
+          f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the median "
+          f"frame; K3 select launches {small_launches} ({n_chunks[EG3D_WH]} chunks a frame); one "
+          f"of {EG3D_BIG}²: {lat_big:.4f} s, {EG3D_BIG ** 2 / lat_big:.0f} rays/s, K3 select "
+          f"launches {big_launches} ({n_chunks[EG3D_BIG]} chunks); opacity_fine mean "
+          f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs + [out_big]]}; the exact "
+          f"{EG3D_WH}² frames of this scene (phase 16's renderer): latency s "
+          f"{[round(t, 4) for t in exact_lat]}, the median exact over the median fast frame "
+          f"{np.median(exact_lat) / np.median(lat):.2f}x; agreement (PSNR) of the fast frames "
+          f"with them {[round(psnr_vs(o, e), 2) for o, e in zip(outs, exact)]} dB; {card}",
+          flush=True)
+    if (small_launches != n_chunks[EG3D_WH] * N_EG3D or big_launches != n_chunks[EG3D_BIG]):
+        fail("the fast EG3D frames did not launch K3 select once per chunk")
+    del exact
+
+    with plain_k3_eg3d():
+        reset_counts(["proxy_march_select", "proxy_opacity"])
+        refs, ref_lat = render_frames(render, small + [big])
+        if any(read_counts(["proxy_march_select", "proxy_opacity"]).values()):
+            fail("the plain versions launched a kernel")
+    for i, (out, ref, rays) in enumerate(zip(outs + [out_big], refs, small + [big])):
+        errs = fast_frame_errors(out, ref, rays, cfg.rendering)
+        print(f"[22/22] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
+              f"(median, 99th pct | max) {errs} (bars rgb {FAST_BARS}, depth {DEPTH_BARS}, "
+              f"opacity {OPACITY_BARS})", flush=True)
+        if not within_fast_bars(errs):
+            fail("a fast EG3D frame on K3 disagrees with K3's plain version")
+    proxy = fast.proxy
+    rolled = copy.deepcopy(proxy)
+    with torch.no_grad():
+        rolled.l1.weight.copy_(torch.roll(rolled.l1.weight, 1, dims=1))
+    control = make_renderer(system, model, hp.chunk, setup_fast_renderer(system, model, hp,
+                                                                       proxy=rolled))
+    (ctl,), _ = render_frames(control, small[:1])
+    ctl_errs = fast_frame_errors(ctl, refs[0], small[0], cfg.rendering)
+    print(f"[22/22] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
+          f"fail the bars)", flush=True)
+    if within_fast_bars(ctl_errs):
+        fail("the fast EG3D bars do not see a rolled proxy")
+    del refs, ctl
+
+    auto = make_renderer(system, model, hp.chunk,
+                         setup_fast_renderer(system, model, get_opts(
+                             ["--root_dir", ".", "--ckpt_path", "unused", "--renderer", "fast",
+                              "--fast_cull", "auto"]), proxy=proxy), whole_frame=True)
+    visible = out_big["opacity_fine"] > 0.5
+    fracs = []
+    for i in range(N_AUTO):
+        reset_counts(["proxy_opacity", "proxy_march_select"])
+        (out,), (sec,) = render_frames(auto, [big])
+        counts = read_counts(["proxy_opacity", "proxy_march_select"])
+        fracs.append(auto.last_active_frac)
+        bg = ((out["rgb_fine"] == 1.0).all(-1) & (out["depth_fine"] == 0)
+              & (out["opacity_fine"] == 0))
+        lost = int((bg & (out_big["opacity_fine"] > 0.01)).sum())
+        errs = fast_frame_errors(out, out_big, big, cfg.rendering, depth_mask=visible)
+        print(f"[22/22] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
+              f"({EG3D_BIG ** 2 / sec:.0f} rays/s); active fraction {auto.last_active_frac:.4f}, "
+              f"bypass {auto.last_plain}, eps {float(auto.last_eps):.5f}; launches {counts}; "
+              f"{int(bg.sum())} rays culled to background ({lost} of them with opacity > 0.01 "
+              f"in the plain fast frame); vs the plain fast frame (depth where its opacity > "
+              f"0.5): {errs}; {card}", flush=True)
+        if counts["proxy_opacity"] != (0 if auto.last_plain else 1):
+            fail("K3 opacity was not launched once per culled frame")
+        if not within_fast_bars(errs):
+            fail("an auto-cull EG3D frame disagrees with the plain fast frame")
+    if not max(fracs[1:]) < 1.0:
+        fail(f"the auto-cull frames culled nothing after the first (fractions {fracs})")
 
 
 def profile(label, fn, card):
@@ -2462,13 +2802,18 @@ def profile(label, fn, card):
 
 
 def main():
+    import os
+
+    # cuBLAS's deterministic workspace, which phase 21's check under
+    # torch.use_deterministic_algorithms needs; set before CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one more exact frame, training step, fast frame, "
                              "int8 fast and exact frame, EG3D frame of 128² and 800², "
-                             "SIREN and d3 training step and d3 fast frame")
+                             "SIREN, d3 and EG3D training step and d3 fast frame")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------
@@ -2481,7 +2826,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/20] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/22] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -2496,7 +2841,7 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/20] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/22] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
@@ -2522,7 +2867,7 @@ def main():
             lat.append(time.perf_counter() - t0)
     launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/20] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/22] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
@@ -2536,7 +2881,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/20] outputs finite; opacity_fine mean per frame "
+    print(f"[4/22] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -2545,7 +2890,7 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/20] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/22] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
@@ -2582,7 +2927,8 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 14-17. EG3D exact eval on K5 ---------------------------------------------
-    results["triplane_gather"], launches["triplane_gather"] = eg3d_phases(device, smi, args)
+    results["triplane_gather"], launches["triplane_gather"], eg3d_targets = eg3d_phases(
+        device, smi, args)
     torch.cuda.empty_cache()
 
     # ---- 18-20. the SIREN field and the semantic stack ------------------------------
@@ -2590,6 +2936,13 @@ def main():
     d3_steps_phase(device, smi, args)
     torch.cuda.empty_cache()
     d3_frames_phase(device, smi, args)
+    torch.cuda.empty_cache()
+
+    # ---- 21-22. EG3D training and the fast EG3D renderer ------------------------------
+    eg3d_steps_phase(device, smi, args, eg3d_targets)
+    del eg3d_targets
+    torch.cuda.empty_cache()
+    eg3d_fast_phase(device, smi, args)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

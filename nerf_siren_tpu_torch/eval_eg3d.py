@@ -10,10 +10,16 @@ ground truth exists. `--plane_sampler gather` (the default, as in JAX)
 samples the planes with the plain PyTorch gather; `kernel` with the CUDA
 kernel K5 (`csrc/triplane_gather.cu`; its plain version on the CPU). It
 runs on `--device` (default `cuda`, which fails when no card is visible;
-the tests pass `--device cpu`). `--renderer fast` (with its `--fast_*`
-flags) and `--num_chips` other than 1 are refused with the ROADMAP slice
-that brings them. `--dataset_name` takes the JAX CLI's choices: blender,
-llff and replica.
+the tests pass `--device cpu`). `--renderer fast` renders with the
+proxy-culled fast renderer (`render/triplane_fast.py`, its `--fast_*`
+flags, the proxy distilled once from a generator seeded 7): K3 select
+places `--fast_keep` samples a ray from `--fast_candidates`, in `--chunk`
+tiles; with `--fast_cull auto` the frame renders whole (the culling ranks
+the whole frame) and K3 opacity is its prepass. On the card K3 takes at
+most 256 candidates a ray, so `--fast_candidates` and `--fast_prepass`
+above that are refused at parse time there. `--num_chips` other than 1 is
+refused with the ROADMAP slice that brings it. `--dataset_name` takes the
+JAX CLI's choices: blender, llff and replica.
 
 `make_renderer` holds the render call, so every caller (this CLI,
 `chip_smoke.py`) drives the same code. Datasets (PIL) and `imageio` are
@@ -28,8 +34,11 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
+from nerf_siren_tpu_torch.render.rendering import map_chunks
 from nerf_siren_tpu_torch.render.triplane import (EG3DRenderer, RenderingOptions,
                                                   TriPlaneConfig)
+from nerf_siren_tpu_torch.render.triplane_fast import make_fast_eg3d_renderer
 from nerf_siren_tpu_torch.training.checkpoints import load_eg3d_ckpt
 from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
 
@@ -62,9 +71,11 @@ def get_opts(args=None):
                              "gather; 'kernel' with the CUDA gather kernel "
                              "(csrc/triplane_gather.cu)")
     parser.add_argument('--renderer', type=str, default='exact', choices=['exact', 'fast'],
-                        help="only 'exact': the fast EG3D renderer comes with a later "
-                             "part of ROADMAP slice 5")
-    # the fast renderer's flags, accepted with the JAX CLI's names and defaults
+                        help="'fast': the proxy-culled renderer (render/triplane_fast.py): "
+                             "a density proxy distilled once per scene, K3 placing "
+                             "--fast_keep samples a ray, the planes sampled and decoded "
+                             "only there")
+    # the fast renderer's flags, with the JAX CLI's names and defaults
     parser.add_argument('--fast_candidates', type=int, default=32)
     parser.add_argument('--fast_keep', type=int, default=16)
     parser.add_argument('--fast_distill_steps', type=int, default=500)
@@ -82,9 +93,12 @@ def get_opts(args=None):
     if opts.num_chips != 1:
         parser.error(f"--num_chips {opts.num_chips}: the port renders on one device; "
                      f"multi-GPU eval comes with ROADMAP slice 6 (multi-GPU)")
-    if opts.renderer == 'fast':
-        parser.error("--renderer fast is not ported yet for EG3D: it comes with a later part "
-                     "of ROADMAP slice 5 (render/triplane_fast.py)")
+    if opts.renderer == 'fast' and torch.device(opts.device).type == 'cuda':
+        for flag in ('fast_candidates', 'fast_prepass'):
+            if getattr(opts, flag) > MAX_CANDIDATES:
+                parser.error(f"--{flag} {getattr(opts, flag)}: K3, the proxy march kernel "
+                             f"(csrc/proxy_march.cu), takes at most {MAX_CANDIDATES} "
+                             f"candidates a ray on the card")
     return opts
 
 
@@ -108,9 +122,32 @@ def load_model(system: EG3DSystem, ckpt_path: str, device: torch.device) -> EG3D
     return load_eg3d_ckpt(model, ckpt_path).to(device)
 
 
-def make_renderer(system: EG3DSystem, model: EG3DRenderer,
-                  chunk: int) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
-    """A function of one frame's (N, >= 6) rays -> render outputs."""
+def setup_fast_renderer(system: EG3DSystem, model: EG3DRenderer, hparams, proxy=None):
+    """The CLI's fast renderer of the scene at the `--fast_*` flags (its
+    proxy distilled from a generator seeded 7 on the model's device, unless
+    `proxy` is given)."""
+    eps = hparams.fast_opacity_eps
+    return make_fast_eg3d_renderer(
+        model, system.cfg, n_candidates=hparams.fast_candidates, n_keep=hparams.fast_keep,
+        distill_steps=hparams.fast_distill_steps, distill_batch=hparams.fast_distill_batch,
+        generator=torch.Generator(device=model.z.device).manual_seed(7),
+        cull=hparams.fast_cull, cull_margin=hparams.fast_cull_margin,
+        opacity_eps=eps if eps == 'auto' else float(eps),
+        prepass_candidates=hparams.fast_prepass, placement=hparams.fast_placement,
+        quadrature=hparams.fast_quadrature, proxy=proxy)
+
+
+def make_renderer(system: EG3DSystem, model: EG3DRenderer, chunk: int, fast=None,
+                  whole_frame: bool = False
+                  ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """A function of one frame's (N, >= 6) rays -> render outputs: the exact
+    renderer, or `fast` (`setup_fast_renderer`) in `chunk`-ray tiles, or on
+    the whole frame (`whole_frame`, the auto-cull renderer)."""
+    if fast is not None:
+        if whole_frame:
+            return fast
+        return lambda rays: map_chunks(fast, rays, chunk)
+
     def render(rays: torch.Tensor) -> Dict[str, torch.Tensor]:
         return system.render(model, rays, chunk=chunk)
     return render
@@ -131,7 +168,12 @@ def main(hparams):
     dataset = dataset_dict[hparams.dataset_name](**kwargs)
 
     system = EG3DSystem(triplane_config(hparams, dataset.white_back), hparams.plane_sampler)
-    render = make_renderer(system, load_model(system, hparams.ckpt_path, device), hparams.chunk)
+    model = load_model(system, hparams.ckpt_path, device)
+    fast = None
+    if hparams.renderer == 'fast':
+        print('distilling density proxy ...', flush=True)
+        fast = setup_fast_renderer(system, model, hparams)
+    render = make_renderer(system, model, hparams.chunk, fast, hparams.fast_cull == 'auto')
 
     out_dir = os.path.join('results', hparams.dataset_name, hparams.scene_name)
     os.makedirs(out_dir, exist_ok=True)

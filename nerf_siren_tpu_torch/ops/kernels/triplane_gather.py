@@ -69,8 +69,10 @@ def launch_plan(c: int, dtype: torch.dtype, m: int, table_ptr: int = 0) -> Launc
 
 
 def project_to_planes(q: torch.Tensor) -> torch.Tensor:
-    """(..., 3) scaled points -> (3, ..., 2) plane-local (u, v)."""
-    return torch.stack([q[..., list(axes)] for axes in PLANE_AXES])
+    """(..., 3) scaled points -> (3, ..., 2) plane-local (u, v). Built from
+    slices, with no index tensor: a list index would copy it from the host,
+    which a captured CUDA graph (the EG3D training step) refuses."""
+    return torch.stack([torch.stack([q[..., a] for a in axes], dim=-1) for axes in PLANE_AXES])
 
 
 def triplane_gather_ref(table: torch.Tensor, xyz: torch.Tensor, scale: float) -> torch.Tensor:

@@ -86,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
                         help="training steps per group: > 1 runs each group of the "
                              "epoch's batches as one captured CUDA graph on the card "
-                             "(NeRFSystem.train_scan_batches); 1: one eager step a batch")
+                             "(train_scan_batches, every --mode); 1: one eager step a batch")
     parser.add_argument('--num_chips', '--num_gpus', dest='num_chips', type=int, default=0,
                         help='devices to train on (0 or 1: one; more '
                              'comes with ROADMAP slice 6)')
@@ -153,7 +153,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag values the port does not serve yet -> the ROADMAP slice that brings them
 NOT_YET = (
-    ("mode", ("eg3d",), "slice 5 (EG3D)"),
     ("train_backend", ("culled", "culled_fused"), "slice 6 (culled training)"),
     ("multihost", (True,), "slice 6 (multi-GPU)"),
 )

@@ -12,16 +12,21 @@ eg3d_training/triplane.py, eg3d_renderer.py):
 - `OSGDecoder`: mean over planes -> FC(32 -> 64) softplus -> FC(64 -> 4);
   rgb = sigmoid(x) * 1.002 - 0.001, raw sigma;
 - `mip_ray_march`: midpoint colours/densities/depths, softplus(sigma - 1),
-  alpha compositing, depth = weighted mean -> nan -> inf -> clamped to the
-  min/max depth of the whole chunk, optional white background;
+  alpha compositing (the transmittance through `render/rendering.py::
+  _Transmittance`, whose backward a CUDA graph can capture), depth =
+  weighted mean -> nan -> inf -> clamped to the min/max depth of the whole
+  chunk, optional white background;
 - `importance_render`: ray-box limits for ray_start='auto', stratified
   coarse depths, coarse march, max- then avg-pooled weights + 0.01 ->
-  deterministic `sample_pdf` -> depth-sorted union -> fine march;
+  `sample_pdf` -> depth-sorted union -> fine march. Deterministic without
+  draws (the eval path); a training step passes its draws made beforehand
+  (`eg3d_noise_shapes`, `draw_eg3d_noise`): the strata's uniforms
+  (times each interval), the pdf's u and, with `density_noise`, the
+  sigma noise of both passes: the four draws of the JAX key split;
 - `TriPlaneGenerator` (StyleGAN2 backbone, 96 channels = 3 x 32 planes,
   mapping with c-conditioning) and `EG3DRenderer` (a learnable latent z),
-  `eg3d_render`, `eg3d_sample`.
-Deterministic only (the eval path): the stochastic strata, density noise
-and random StyleGAN noise come with EG3D training.
+  `eg3d_render` (differentiable through the float32 planes and the plain
+  `grid_sample_2d`, as JAX trains), `eg3d_sample`.
 """
 from __future__ import annotations
 
@@ -39,6 +44,13 @@ from nerf_siren_tpu_torch.ops.grid_sample import (grid_sample_2d, grid_sample_2d
 from nerf_siren_tpu_torch.ops.kernels.triplane_gather import (PLANE_AXES, project_to_planes,
                                                               triplane_gather)
 from nerf_siren_tpu_torch.ops.sample_pdf import sample_pdf
+from nerf_siren_tpu_torch.render.rendering import _Transmittance
+
+# One importance render's draws by name (N the batch of scenes, R rays, S
+# coarse and I fine samples): 'strat_u' (N, R, S) uniform, 'pdf_u' (N * R, I)
+# uniform, and with density_noise 'sigma_coarse' (N, R * S) and 'sigma_fine'
+# (N, R * I) standard normal.
+Draws = Dict[str, torch.Tensor]
 
 
 # -- math utils (reference: volumetric_rendering/math_utils.py) ----------------
@@ -173,7 +185,7 @@ def mip_ray_march(colors: torch.Tensor, densities: torch.Tensor, depths: torch.T
     densities_mid = F.softplus(densities_mid - 1.0)
     alpha = 1.0 - torch.exp(-densities_mid * deltas)
     shifted = torch.cat([torch.ones_like(alpha[:, :, :1]), 1 - alpha + 1e-10], dim=-1)
-    weights = alpha * torch.cumprod(shifted, dim=-1)[:, :, :-1]
+    weights = alpha * _Transmittance.apply(shifted)[:, :, :-1]
 
     composite_rgb = (weights[..., None] * colors_mid).sum(dim=-2)
     weight_total = weights.sum(dim=-1, keepdim=True)
@@ -201,24 +213,35 @@ class RenderingOptions:
 
 
 def sample_stratified(ray_origins: torch.Tensor, ray_start, ray_end, depth_resolution: int,
-                      disparity: bool = False) -> torch.Tensor:
-    """(N, R, S, 1) deterministic depths (reference renderer.py:172-195)."""
+                      disparity: bool = False, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, R, S, 1) depths (reference renderer.py:172-195); with `u` (N, R,
+    S) uniform draws each depth moves by u times its interval."""
     n, r, _ = ray_origins.shape
     kw = dict(dtype=torch.float32, device=ray_origins.device)
+    jitter = None if u is None else u[..., None]
     if disparity:
         d = torch.linspace(0, 1, depth_resolution, **kw).reshape(1, 1, -1, 1)
         d = d.expand(n, r, depth_resolution, 1)
+        if jitter is not None:
+            d = d + jitter * (1.0 / (depth_resolution - 1))
         return 1.0 / (1.0 / ray_start * (1 - d) + 1.0 / ray_end * d)
     if isinstance(ray_start, torch.Tensor) and ray_start.ndim > 0:
-        d = batched_linspace(ray_start, ray_end, depth_resolution)     # (S, N, R, 1)
-        return d.permute(1, 2, 0, 3)
+        d = batched_linspace(ray_start, ray_end, depth_resolution).permute(1, 2, 0, 3)
+        if jitter is not None:
+            d = d + jitter * ((ray_end - ray_start) / (depth_resolution - 1))[..., None]
+        return d
     d = torch.linspace(ray_start, ray_end, depth_resolution, **kw).reshape(1, 1, -1, 1)
-    return d.expand(n, r, depth_resolution, 1)
+    d = d.expand(n, r, depth_resolution, 1)
+    if jitter is not None:
+        d = d + jitter * ((ray_end - ray_start) / (depth_resolution - 1))
+    return d
 
 
-def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor,
-                      n_importance: int) -> torch.Tensor:
-    """Pool-smoothed deterministic resampling (reference renderer.py:217-239)."""
+def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor, n_importance: int,
+                      u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pool-smoothed resampling (reference renderer.py:217-239): the pdf's
+    deterministic u, or the uniform draws `u` (N * R, n_importance); the
+    samples are detached."""
     n, r, s, _ = z_vals.shape
     z = z_vals.reshape(n * r, s)
     w = weights.reshape(n * r, -1)
@@ -227,7 +250,7 @@ def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor,
     w_max = torch.maximum(w_pad[:, :-1], w_pad[:, 1:])
     w_s = 0.5 * (w_max[:, :-1] + w_max[:, 1:]) + 0.01
     z_mid = 0.5 * (z[:, :-1] + z[:, 1:])
-    samples = sample_pdf(z_mid, w_s[:, 1:-1], n_importance, det=True)
+    samples = sample_pdf(z_mid, w_s[:, 1:-1], n_importance, det=u is None, u=u)
     return samples.detach().reshape(n, r, n_importance, 1)
 
 
@@ -245,27 +268,55 @@ def unify_samples(d1, c1, s1, d2, c2, s2):
 
 def run_model(planes: torch.Tensor, decoder: OSGDecoder, sample_coordinates: torch.Tensor,
               options: RenderingOptions, packed: bool = False,
-              sampler: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+              sampler: Optional[Callable] = None,
+              sigma_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """(reference renderer.py:144-150). packed=True: `planes` is a
     pack_planes_for_sampling table; `sampler` (make_kernel_plane_sampler)
-    overrides both. Deterministic: density_noise is a training option."""
+    overrides both. `sigma_noise` (N, M) standard normal draws add
+    density_noise x them to sigma."""
     if sampler is not None:
         feats = sampler(sample_coordinates)
     else:
         sample = sample_from_packed_planes if packed else sample_from_planes
         feats = sample(planes, sample_coordinates, options.box_warp)
-    return decoder(feats)
+    out = decoder(feats)
+    if options.density_noise > 0 and sigma_noise is not None:
+        out["sigma"] = out["sigma"] + sigma_noise[..., None] * options.density_noise
+    return out
+
+
+def eg3d_noise_shapes(n: int, r: int, options: RenderingOptions) -> Dict[str, Tuple]:
+    """name -> (shape, `torch.rand` or `torch.randn`) of the draws of one
+    importance render of n x r rays under `options`, in the order of the
+    JAX key split (strata, pdf, noise 1, noise 2)."""
+    s, i = options.depth_resolution, options.depth_resolution_importance
+    spec = {"strat_u": ((n, r, s), torch.rand), "pdf_u": ((n * r, i), torch.rand)}
+    if options.density_noise > 0:
+        spec["sigma_coarse"] = ((n, r * s), torch.randn)
+        spec["sigma_fine"] = ((n, r * i), torch.randn)
+    return spec
+
+
+def draw_eg3d_noise(generator: torch.Generator, n: int, r: int,
+                    options: RenderingOptions) -> Draws:
+    """The draws of `eg3d_noise_shapes`, made now from `generator` (on its
+    device)."""
+    return {k: fn(shape, generator=generator, dtype=torch.float32, device=generator.device)
+            for k, (shape, fn) in eg3d_noise_shapes(n, r, options).items()}
 
 
 def importance_render(planes: torch.Tensor, decoder: OSGDecoder, ray_origins: torch.Tensor,
                       ray_directions: torch.Tensor, options: RenderingOptions,
-                      packed: bool = False, sampler: Optional[Callable] = None):
+                      packed: bool = False, sampler: Optional[Callable] = None,
+                      draws: Optional[Draws] = None):
     """Coarse + fine triplane render (reference renderer.py:88-142).
 
     planes (N, 3, C, H, W), or a pack_planes_for_sampling table when
-    packed=True; rays (N, R, 3). Returns (rgb_coarse, depth_coarse,
-    opacity_coarse, rgb_fine, depth_fine, opacity_fine), the opacities
-    summed over samples."""
+    packed=True; rays (N, R, 3). `draws` (see `Draws`) make the render
+    stochastic, as JAX's with an rng; without them it is deterministic.
+    Returns (rgb_coarse, depth_coarse, opacity_coarse, rgb_fine,
+    depth_fine, opacity_fine), the opacities summed over samples."""
+    draws = draws or {}
     if options.ray_start == "auto":
         ray_start, ray_end = get_ray_limits_box(ray_origins, ray_directions, options.box_warp)
         valid = (ray_end > ray_start)[..., 0]
@@ -273,28 +324,26 @@ def importance_render(planes: torch.Tensor, decoder: OSGDecoder, ray_origins: to
         safe_max = torch.where(valid, ray_start[..., 0], float("-inf")).max()
         ray_start = torch.where(valid[..., None], ray_start, safe_min)
         ray_end = torch.where(valid[..., None], ray_end, safe_max)
-        depths_coarse = sample_stratified(ray_origins, ray_start, ray_end,
-                                          options.depth_resolution,
-                                          options.disparity_space_sampling)
     else:
-        depths_coarse = sample_stratified(ray_origins, options.ray_start, options.ray_end,
-                                          options.depth_resolution,
-                                          options.disparity_space_sampling)
+        ray_start, ray_end = options.ray_start, options.ray_end
+    depths_coarse = sample_stratified(ray_origins, ray_start, ray_end, options.depth_resolution,
+                                      options.disparity_space_sampling, draws.get("strat_u"))
 
     n, r, s, _ = depths_coarse.shape
     coords = (ray_origins[:, :, None, :]
               + depths_coarse * ray_directions[:, :, None, :]).reshape(n, -1, 3)
-    out = run_model(planes, decoder, coords, options, packed, sampler)
+    out = run_model(planes, decoder, coords, options, packed, sampler,
+                    draws.get("sigma_coarse"))
     colors_coarse = out["rgb"].reshape(n, r, s, -1)
     densities_coarse = out["sigma"].reshape(n, r, s, 1)
     rgb_coarse, depth_coarse, weights_coarse = mip_ray_march(
         colors_coarse, densities_coarse, depths_coarse, options.white_back)
 
     n_imp = options.depth_resolution_importance
-    depths_fine = sample_importance(depths_coarse, weights_coarse, n_imp)
+    depths_fine = sample_importance(depths_coarse, weights_coarse, n_imp, draws.get("pdf_u"))
     coords = (ray_origins[:, :, None, :]
               + depths_fine * ray_directions[:, :, None, :]).reshape(n, -1, 3)
-    out = run_model(planes, decoder, coords, options, packed, sampler)
+    out = run_model(planes, decoder, coords, options, packed, sampler, draws.get("sigma_fine"))
     colors_fine = out["rgb"].reshape(n, r, n_imp, -1)
     densities_fine = out["sigma"].reshape(n, r, n_imp, 1)
 
@@ -353,18 +402,32 @@ class TriPlaneGenerator(nn.Module):
             c = c * self.cfg.c_scale
         return self.backbone.mapping(z, c, truncation_psi=truncation_psi)
 
-    def planes(self, ws: torch.Tensor, noise_mode: str = "const") -> torch.Tensor:
-        """ws -> (N, 3, C, H, W) feature planes."""
-        img = self.backbone.synthesis(ws, noise_mode=noise_mode)
+    def mapping_pre_broadcast(self, z: torch.Tensor,
+                              c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The mapping output before the ws broadcast (N, w_dim): what the
+        `w_avg` EMA reads."""
+        if c is not None and self.cfg.c_gen_conditioning_zero:
+            c = torch.zeros_like(c)
+        if c is not None:
+            c = c * self.cfg.c_scale
+        return self.backbone.mapping.pre_broadcast(z, c)
+
+    def planes(self, ws: torch.Tensor, noise_mode: str = "const",
+               noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """ws -> (N, 3, C, H, W) feature planes; `noise`: the synthesis
+        layers' draws for noise_mode 'random' (`SynthesisNetwork.noise_shapes`)."""
+        img = self.backbone.synthesis(ws, noise_mode=noise_mode, noise=noise)
         return img.reshape(img.shape[0], self.cfg.n_planes, self.cfg.plane_channels,
                            img.shape[-2], img.shape[-1])
 
     def synthesis(self, ws: torch.Tensor, ray_origins: torch.Tensor,
-                  ray_directions: torch.Tensor,
-                  noise_mode: str = "const") -> Dict[str, torch.Tensor]:
-        """(reference triplane.py:57-68 synthesis2)."""
-        out = importance_render(self.planes(ws, noise_mode), self.decoder, ray_origins,
-                                ray_directions, self.cfg.rendering)
+                  ray_directions: torch.Tensor, noise_mode: str = "const",
+                  draws: Optional[Draws] = None,
+                  noise: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """(reference triplane.py:57-68 synthesis2): `draws` are the
+        importance render's, `noise` the synthesis layers' ('random')."""
+        out = importance_render(self.planes(ws, noise_mode, noise), self.decoder, ray_origins,
+                                ray_directions, self.cfg.rendering, draws=draws)
         return dict(zip(("rgb_coarse", "depth_coarse", "opacity_coarse",
                          "rgb_fine", "depth_fine", "opacity_fine"), out))
 
@@ -378,7 +441,11 @@ class TriPlaneGenerator(nn.Module):
 
 class EG3DRenderer(TriPlaneGenerator):
     """The single-scene EG3D renderer: a learnable latent z (reference
-    eg3d_renderer.py:39), N(0, 1) from numpy's RandomState(seed) as in JAX."""
+    eg3d_renderer.py:39), N(0, 1) from numpy's RandomState(seed) as in JAX.
+    Its optimizer takes the whole tree, buffers included, as JAX's does
+    (`training/system.py::parameters`)."""
+
+    OPTIMIZES_BUFFERS = True
 
     def __init__(self, cfg: TriPlaneConfig = TriPlaneConfig(), seed: int = 0, *,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -388,10 +455,19 @@ class EG3DRenderer(TriPlaneGenerator):
 
 
 def eg3d_render(model: EG3DRenderer, ray_origins: torch.Tensor, ray_directions: torch.Tensor,
-                noise_mode: str = "const") -> Dict[str, torch.Tensor]:
-    """(reference eg3d_renderer.py:47-63): rays (R, 3) -> dict of (R, ...)."""
-    out = model.synthesis(model.mapping(model.z), ray_origins[None], ray_directions[None],
-                          noise_mode)
+                noise_mode: str = "const", draws: Optional[Draws] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None,
+                w_pre: Optional[list] = None) -> Dict[str, torch.Tensor]:
+    """(reference eg3d_renderer.py:47-63): rays (R, 3) -> dict of (R, ...).
+    `draws` (N = 1) and `noise` as `TriPlaneGenerator.synthesis`; a list
+    `w_pre` receives the mapping output before the ws broadcast, detached
+    (the step's `w_avg` EMA reads it)."""
+    x = model.mapping_pre_broadcast(model.z)
+    if w_pre is not None:
+        w_pre.append(x.detach())
+    mapping = model.backbone.mapping
+    ws = x[:, None, :].expand(x.shape[0], mapping.cfg.num_ws, mapping.cfg.w_dim)
+    out = model.synthesis(ws, ray_origins[None], ray_directions[None], noise_mode, draws, noise)
     return {k: v[0] for k, v in out.items()}
 
 

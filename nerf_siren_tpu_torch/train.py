@@ -1,9 +1,11 @@
 """Training CLI of the port: `python -m nerf_siren_tpu_torch.train`.
 
 Counterpart of the JAX package's root `train.py` in `--mode normal` (the
-MLP field, or `--field siren`) and `--mode d3` / `d3_ib` (the semantic
+MLP field, or `--field siren`), `--mode d3` / `d3_ib` (the semantic
 system, `--semantic_network pointnet|conv3d`, on a dataset with class
-labels): builds the dataset and the system, runs the epoch loop
+labels) and `--mode eg3d` (the single-scene EG3D renderer,
+`training/eg3d_system.py`, sized by the `--eg3d_*` flags, `--N_samples` +
+`--N_importance` samples): builds the dataset and the system, runs the epoch loop
 (`epoch_iterator` batches, with the dataset's 'cls' labels when it has
 them, one `train_step` each, or with `--steps_per_dispatch` N > 1 groups of
 N batches through `train_scan_batches`, a captured CUDA graph on the card,
@@ -18,7 +20,8 @@ warm start of the weights (`--pretrained`, a checkpoint of either
 package). TensorBoard scalars are written when `tensorboardX` imports. It
 runs on `--device` (default `cuda`, which fails when no card is visible;
 the tests pass `--device cpu`); `--train_backend fused` runs the field on
-K2 there. Not ported yet (ROADMAP): multi-GPU and `--mode eg3d`.
+K2 there. Not ported yet (ROADMAP slice 6): multi-GPU and the culled
+training backends.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ from nerf_siren_tpu_torch.opt import get_opts
 
 def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
                  n_classes: int = 0):
-    """The system of `--mode`: `NeRFSystem` (normal) or `NeRF3DSystem` (d3,
-    d3_ib; `n_classes` from the dataset, else 6)."""
+    """The system of `--mode`: `NeRFSystem` (normal), `NeRF3DSystem` (d3,
+    d3_ib; `n_classes` from the dataset, else 6) or `EG3DSystem` (eg3d: the
+    `--eg3d_*` flags, N_importance floored at 1, the dataset's background)."""
     from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
     from nerf_siren_tpu_torch.training.system import NeRFSystem
 
@@ -52,6 +56,12 @@ def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
         poly_exp=hparams.poly_exp, num_epochs=hparams.num_epochs,
         batch_size=hparams.batch_size, loss_type=hparams.loss_type, seed=hparams.seed)
     nerf_cfg = NeRFConfig(n_classes=hparams.n_classes or 0)
+    if hparams.mode == "eg3d":
+        from nerf_siren_tpu_torch.eval_eg3d import triplane_config
+        from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+        return EG3DSystem(triplane_config(hparams, white_back), train_cfg=train_cfg,
+                          steps_per_epoch=steps_per_epoch, device=device)
     if hparams.mode in ("d3", "d3_ib"):
         from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
 
@@ -81,9 +91,12 @@ def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int =
 
     w, h = img_wh
     losses, psnrs, cls_accs, mious = [], [], [], []
+    # the EG3D system renders its one model, the others their dict of models
+    models = state.models.get("eg3d_renderer", state.models)
     for i in range(min(len(val_ds), max_images)):
         sample = val_ds[i]
-        out = system.render(state.models, sample["rays"])
+        rays = torch.as_tensor(np.asarray(sample["rays"], np.float32), device=system.device)
+        out = system.render(models, rays)
         key = "rgb_fine" if "rgb_fine" in out else "rgb_coarse"
         pred = out[key].float().cpu().reshape(h, w, 3)
         gt = torch.from_numpy(np.asarray(sample["rgbs"], np.float32).reshape(h, w, 3))
@@ -147,6 +160,8 @@ def main(hparams):
         state, start_epoch = ckpt_lib.restore_train_state(hparams.ckpt_path, state, optimizer)
         print(f"resumed from {hparams.ckpt_path} at epoch {start_epoch}, step {state.step}")
     elif hparams.pretrained:  # warm start of the weights only
+        if "eg3d_renderer" in state.models:
+            ckpt_lib.load_eg3d_ckpt(state.models["eg3d_renderer"], hparams.pretrained)
         for key in ("coarse", "fine"):   # the fields only, as JAX's warm start
             name = ckpt_lib.MODEL_NAMES[key]
             if key in state.models:

@@ -13,7 +13,9 @@ full-resume checkpoints nest them under 'params', so the JAX package's
 what the JAX package trains.
 
 A full-resume file (`save_train_state`) holds
-  {"params": {"nerf_coarse": tree, "nerf_fine": tree[, "points": tree]},
+  {"params": {"nerf_coarse": tree, "nerf_fine": tree[, "points": tree]}
+             (or {"eg3d_renderer": tree}: the whole renderer, `w_avg`,
+             the `noise_const`s and z included),
    "opt_state": {"optimizer": name, "count": int, <slot>: {model name: tree}, ...},
    "step": int64 array, "epoch": int64 array}
 where the slots are the port's optimizer state (`training/optimizers.py`:

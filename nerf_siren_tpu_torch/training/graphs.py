@@ -1,4 +1,4 @@
-"""Grouped training steps: N steps of a `NeRFSystem` as one captured CUDA graph.
+"""Grouped training steps: N steps of a system as one captured CUDA graph.
 
 Counterpart of the JAX package's scanned programs (`lax.scan` over the pure
 step in `nerf_siren_tpu/training/system.py`: `train_scan`,
@@ -21,10 +21,14 @@ by name, each with the group's N steps stacked on the first axis:
   (`render.rendering.noise_shapes`) and 'table' (N, 5), the rows of
   `Optimizer.scalar_table`.
 
-The body, for step i: read the step's slices (gather its rays from the
-pool inside the graph), run `loss_and_grads` on the system's backend,
-apply `Optimizer.step_device` in place, and write the step's loss and PSNR
-into row i of the (N, 2) output. With 'importance' a per-ray error buffer
+The systems are `training/system.py::NeRFSystem` (and its semantic
+subclass) and `training/eg3d_system.py::EG3DSystem`, each through the
+`GroupedSteps` interface. The body, for step i: read the step's slices
+(gather its rays from the pool inside the graph), run `loss_and_grads` on
+the system's backend with the step's draws, apply `Optimizer.step_device`
+in place, run the system's `after_update` where it has one (EG3D's `w_avg`
+EMA, from the outputs of the step's forward), and write the step's loss
+and PSNR into row i of the (N, 2) output. With 'importance' a per-ray error buffer
 over the pool starts at ones; each step draws its rays with probability
 proportional to (err + 1e-8)^alpha by inverse CDF (a cumulative sum and a
 search over the pool, not JAX's (B, P) Gumbel slab) unless the uniform
@@ -44,6 +48,7 @@ against N `train_step`s, and on a card against the graph.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, Optional
 
@@ -102,6 +107,7 @@ class StepGroup:
 
         system, state = self.system, self.state
         params = [p for _, _, p in parameters(state.models)]
+        after_update = getattr(system, "after_update", None)
         buf = None
         if self.kind == "importance":
             buf = x["buf"]
@@ -112,6 +118,8 @@ class StepGroup:
                                                        cls_target=_cls(x, i),
                                                        noise=_step_noise(x, i))
             system.optimizer.step_device(params, grads, state.opt_state, x["table"][i])
+            if after_update is not None:
+                after_update(state, res)
             pred = res["rgb_fine" if "rgb_fine" in res else "rgb_coarse"].detach()
             out[i, 0] = losses["sum"].detach()
             out[i, 1] = psnr(pred, rgbs)
@@ -133,10 +141,21 @@ class StepGroup:
                                        noise=_step_noise(self.static, 0))
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
+        # A dead graph (the group of an unreachable system: a group and its
+        # system refer to each other) that a garbage collection frees inside
+        # this capture is reset there, which the capture refuses: collect
+        # now, and none during the capture.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body(self.static, self.out)
+        try:
+            with torch.cuda.graph(graph):
+                self._body(self.static, self.out)
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
 

@@ -70,8 +70,17 @@ class TrainState:
 
 
 def parameters(models: Dict[str, torch.nn.Module]):
-    """(model key, parameter name, tensor) in the optimizer's fixed order."""
-    return [(k, n, p) for k in sorted(models) for n, p in models[k].named_parameters()]
+    """(model key, tensor name, tensor) in the optimizer's fixed order: each
+    model's parameters, or, for a model whose optimizer runs over its whole
+    tree (`OPTIMIZES_BUFFERS`: the EG3D renderer, whose JAX optimizer also
+    decays `w_avg` and the `noise_const`s), every tensor of its state_dict."""
+    out = []
+    for k in sorted(models):
+        m = models[k]
+        items = (m.state_dict(keep_vars=True).items()
+                 if getattr(m, "OPTIMIZES_BUFFERS", False) else m.named_parameters())
+        out += [(k, n, p) for n, p in items]
+    return out
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -89,14 +98,111 @@ def draw_step_noise(seed: int, step: int, n_rays: int, cfg: RenderConfig,
     return draw_noise(step_generator(seed, step, device), n_rays, cfg)
 
 
-class NeRFSystem:
+class GroupedSteps:
+    """The grouped training steps of a system: `train_scan_batches`,
+    `train_scan` and `train_scan_importance` as one `StepGroup` each. The
+    system provides `device`, `optimizer`, `train_cfg`, `LOSS_KEY`,
+    `loss_and_grads(state, rays, rgbs, generator, cls_target=None,
+    noise=None)`, `step_draws(generator, n_rays)` and optionally
+    `after_update(state, outputs)` (run after each optimizer update, inside
+    the graph)."""
+
+    LOSS_KEY = "train/loss"   # the metric of the step's summed loss
+
+    def __init__(self):
+        self._groups: Dict[tuple, StepGroup] = {}
+        self.last_group: Optional[StepGroup] = None   # of the last grouped call
+
+    def train_scan_batches(self, state: TrainState, rays_b, rgbs_b,
+                           seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """A group of pre-batched steps, `rays_b` (N, B, 8) and `rgbs_b` (N, B,
+        3): exactly the N `train_step`s on those batches with the same seed
+        (each step draws from `step_generator(seed, step)`), as one captured
+        graph on a card. Returns the state and the last step's metrics."""
+        rays_b = torch.as_tensor(rays_b, dtype=torch.float32, device=self.device)
+        rgbs_b = torch.as_tensor(rgbs_b, dtype=torch.float32, device=self.device)
+        return self._grouped(state, "batches", {"rays": rays_b, "rgbs": rgbs_b}, seed,
+                             rays_b.shape[0], rays_b.shape[1])
+
+    def train_scan(self, state: TrainState, pool_rays, pool_rgbs, seed: int, n_steps: int,
+                   batch_size: Optional[int] = None):
+        """`n_steps` steps, each on `batch_size` rays drawn uniformly from the
+        pool (moved to the device) with the step's generator; the gather runs
+        inside the graph. Returns the state and the last step's metrics."""
+        return self._grouped(state, "pool", self._pool(pool_rays, pool_rgbs), seed, n_steps,
+                             batch_size or self.train_cfg.batch_size)
+
+    def train_scan_importance(self, state: TrainState, pool_rays, pool_rgbs, seed: int,
+                              n_steps: int, batch_size: Optional[int] = None,
+                              alpha: float = 1.0, uniform_frac: float = 0.2):
+        """`train_scan` with loss-guided ray sampling: a per-ray error buffer
+        over the pool (ones at the start of the call) draws each step's rays
+        with probability proportional to (err + 1e-8)^alpha, a `uniform_frac`
+        share of them uniformly instead, and takes each step's fresh errors
+        of its rays. Returns the state and the last step's metrics."""
+        return self._grouped(state, "importance", self._pool(pool_rays, pool_rgbs), seed,
+                             n_steps, batch_size or self.train_cfg.batch_size,
+                             float(alpha), float(uniform_frac))
+
+    def _pool(self, pool_rays, pool_rgbs) -> Dict[str, torch.Tensor]:
+        return {"pool_rays": torch.as_tensor(pool_rays, dtype=torch.float32,
+                                             device=self.device),
+                "pool_rgbs": torch.as_tensor(pool_rgbs, dtype=torch.float32,
+                                             device=self.device)}
+
+    def _grouped(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
+                 seed: int, n: int, b: int, alpha: float = 1.0, uniform_frac: float = 0.0
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Run the group's `StepGroup` on its inputs (`group_inputs`) and
+        advance the counts by n."""
+        inputs = self.group_inputs(state, kind, inputs, seed, n, b, uniform_frac)
+        tensors = [p for _, _, p in parameters(state.models)] + [
+            t for v in state.opt_state.values() if isinstance(v, list) for t in v]
+        n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
+        key = (kind, n, b, n_pool, alpha, tuple(t.data_ptr() for t in tensors))
+        if key not in self._groups:
+            self._groups[key] = StepGroup(self, state, kind, n, alpha)
+        self.last_group = self._groups[key]
+        out = self.last_group.run(inputs)
+        self.optimizer.advance(state.opt_state, n)
+        state.step += n
+        return state, {self.LOSS_KEY: out[-1, 0], "train/psnr": out[-1, 1]}
+
+    def group_inputs(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
+                     seed: int, n: int, b: int, uniform_frac: float = 0.0
+                     ) -> Dict[str, torch.Tensor]:
+        """`inputs` (the batches or the pool) with the next n steps' draws from
+        `state`: their indices and noise from each step's generator, and the
+        optimizer's scalar table (see `training/graphs.py`)."""
+        n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
+        draws: Dict[str, list] = {}
+
+        def add(name, value):
+            draws.setdefault(name, []).append(value)
+
+        dev = self.device
+        for k in range(n):
+            gen = step_generator(seed, state.step + k, dev)
+            if kind == "pool":
+                add("idx", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
+            elif kind == "importance":
+                add("u_cat", torch.rand(b, generator=gen, device=dev))
+                add("idx_uni", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
+                add("take_uni", torch.rand(b, generator=gen, device=dev) < uniform_frac)
+            for name, v in self.step_draws(gen, b).items():
+                add(NOISE + name, v)
+        inputs = dict(inputs, **{k: torch.stack(v) for k, v in draws.items()})
+        inputs["table"] = torch.from_numpy(
+            self.optimizer.scalar_table(state.opt_state, n)).to(self.device)
+        return inputs
+
+
+class NeRFSystem(GroupedSteps):
     """Vanilla NeRF trainer: two embeddings (10/4 frequencies), coarse and
     fine NeRF (or SIREN fields: `field_type='siren'`, `siren_hidden` x
     `siren_layers` FiLM layers, a `siren_z_dim` latent, coordinates scaled
     by 2 / `siren_box_warp`), MSE loss (or the semantic losses), PSNR
     logging."""
-
-    LOSS_KEY = "train/loss"   # the metric of the step's summed loss
 
     def __init__(self, render_cfg: RenderConfig = RenderConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
@@ -128,8 +234,7 @@ class NeRFSystem:
         self.device = torch.device(device)
         self.optimizer = Optimizer(train_cfg, steps_per_epoch)
         self.loss_fn = loss_dict[train_cfg.loss_type]
-        self._groups: Dict[tuple, StepGroup] = {}
-        self.last_group: Optional[StepGroup] = None   # of the last grouped call
+        super().__init__()
 
     # -- state ----------------------------------------------------------------
 
@@ -244,89 +349,10 @@ class NeRFSystem:
         state.step += 1
         return state, {"train/loss": loss, "train/psnr": mpsnr}
 
-    def train_scan_batches(self, state: TrainState, rays_b, rgbs_b,
-                           seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """A group of pre-batched steps, `rays_b` (N, B, 8) and `rgbs_b` (N, B,
-        3): exactly the N `train_step`s on those batches with the same seed
-        (each step draws from `step_generator(seed, step)`), as one captured
-        graph on a card. Returns the state and the last step's metrics."""
-        rays_b = torch.as_tensor(rays_b, dtype=torch.float32, device=self.device)
-        rgbs_b = torch.as_tensor(rgbs_b, dtype=torch.float32, device=self.device)
-        return self._grouped(state, "batches", {"rays": rays_b, "rgbs": rgbs_b}, seed,
-                             rays_b.shape[0], rays_b.shape[1])
-
-    def train_scan(self, state: TrainState, pool_rays, pool_rgbs, seed: int, n_steps: int,
-                   batch_size: Optional[int] = None):
-        """`n_steps` steps, each on `batch_size` rays drawn uniformly from the
-        pool (moved to the device) with the step's generator; the gather runs
-        inside the graph. Returns the state and the last step's metrics."""
-        return self._grouped(state, "pool", self._pool(pool_rays, pool_rgbs), seed, n_steps,
-                             batch_size or self.train_cfg.batch_size)
-
-    def train_scan_importance(self, state: TrainState, pool_rays, pool_rgbs, seed: int,
-                              n_steps: int, batch_size: Optional[int] = None,
-                              alpha: float = 1.0, uniform_frac: float = 0.2):
-        """`train_scan` with loss-guided ray sampling: a per-ray error buffer
-        over the pool (ones at the start of the call) draws each step's rays
-        with probability proportional to (err + 1e-8)^alpha, a `uniform_frac`
-        share of them uniformly instead, and takes each step's fresh errors
-        of its rays. Returns the state and the last step's metrics."""
-        return self._grouped(state, "importance", self._pool(pool_rays, pool_rgbs), seed,
-                             n_steps, batch_size or self.train_cfg.batch_size,
-                             float(alpha), float(uniform_frac))
-
-    def _pool(self, pool_rays, pool_rgbs) -> Dict[str, torch.Tensor]:
-        return {"pool_rays": torch.as_tensor(pool_rays, dtype=torch.float32,
-                                             device=self.device),
-                "pool_rgbs": torch.as_tensor(pool_rgbs, dtype=torch.float32,
-                                             device=self.device)}
-
-    def _grouped(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
-                 seed: int, n: int, b: int, alpha: float = 1.0, uniform_frac: float = 0.0
-                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Run the group's `StepGroup` on its inputs (`group_inputs`) and
-        advance the counts by n."""
-        inputs = self.group_inputs(state, kind, inputs, seed, n, b, uniform_frac)
-        tensors = [p for _, _, p in parameters(state.models)] + [
-            t for v in state.opt_state.values() if isinstance(v, list) for t in v]
-        n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
-        key = (kind, n, b, n_pool, alpha, tuple(t.data_ptr() for t in tensors))
-        if key not in self._groups:
-            self._groups[key] = StepGroup(self, state, kind, n, alpha)
-        self.last_group = self._groups[key]
-        out = self.last_group.run(inputs)
-        self.optimizer.advance(state.opt_state, n)
-        state.step += n
-        return state, {self.LOSS_KEY: out[-1, 0], "train/psnr": out[-1, 1]}
-
-    def group_inputs(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
-                     seed: int, n: int, b: int, uniform_frac: float = 0.0
-                     ) -> Dict[str, torch.Tensor]:
-        """`inputs` (the batches or the pool) with the next n steps' draws from
-        `state`: their indices and noise from each step's generator, and the
-        optimizer's scalar table (see `training/graphs.py`)."""
-        cfg = self.render_cfg.replace(test_time=False)
-        n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
-        draws: Dict[str, list] = {}
-
-        def add(name, value):
-            draws.setdefault(name, []).append(value)
-
-        dev = self.device
-        for k in range(n):
-            gen = step_generator(seed, state.step + k, dev)
-            if kind == "pool":
-                add("idx", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
-            elif kind == "importance":
-                add("u_cat", torch.rand(b, generator=gen, device=dev))
-                add("idx_uni", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
-                add("take_uni", torch.rand(b, generator=gen, device=dev) < uniform_frac)
-            for name, v in draw_noise(gen, b, cfg).items():
-                add(NOISE + name, v)
-        inputs = dict(inputs, **{k: torch.stack(v) for k, v in draws.items()})
-        inputs["table"] = torch.from_numpy(
-            self.optimizer.scalar_table(state.opt_state, n)).to(self.device)
-        return inputs
+    def step_draws(self, generator: torch.Generator, n_rays: int) -> StepNoise:
+        """The draws `train_step` makes for `n_rays` rays from the step's
+        generator, made beforehand (`draw_noise` under the training config)."""
+        return draw_noise(generator, n_rays, self.render_cfg.replace(test_time=False))
 
     # -- inference ------------------------------------------------------------
 

@@ -175,19 +175,23 @@ def test_eval_eg3d_cli_matches_jax(tmp_path, scene, jax_frames, sampler):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--renderer", "fast"], "slice 5"),
+    # slice 5 brought the fast renderer: it parses now, under its old id
+    pytest.param(["--renderer", "fast"], None, id="args0-slice 5"),
     (["--num_chips", "2"], "slice 6"),
     # the JAX CLI's datasets are blender, llff and replica: replica parses
     # (slice 4 brought its loader), a semantic loader is refused
     pytest.param(["--dataset_name", "replica"], None, id="args2-slice 4"),
     (["--dataset_name", "blender_cls_ib"], "invalid choice: 'blender_cls_ib'"),
+    # K3 takes at most 256 candidates a ray on the card (the default device)
+    (["--renderer", "fast", "--fast_candidates", "300"], "takes at most 256"),
+    (["--renderer", "fast", "--fast_prepass", "300"], "takes at most 256"),
 ])
 def test_eval_eg3d_cli_refuses_what_later_slices_bring(args, message, capsys):
     from nerf_siren_tpu_torch.eval_eg3d import get_opts
 
     if message is None:
-        assert get_opts(["--root_dir", ".", "--ckpt_path", "x.msgpack"] + args).dataset_name \
-            == args[1]
+        opts = get_opts(["--root_dir", ".", "--ckpt_path", "x.msgpack"] + args)
+        assert getattr(opts, args[0][2:]) == args[1]
         return
     with pytest.raises(SystemExit):
         get_opts(["--root_dir", ".", "--ckpt_path", "x.msgpack"] + args)

@@ -5,7 +5,9 @@ csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu), the
 triplane gather (K5, csrc/triplane_gather.cu) and the proxy top-K (K6,
 the TOPK epilogue of csrc/proxy_march.cu); and on the card, the grouped
 steps' CUDA graphs (the MLP field on K2, SIREN and d3) against eager or
-looped steps, and a d3 fast tile on K3 and K1 against their plain versions.
+looped steps, a d3 fast tile on K3 and K1 against their plain versions,
+EG3D's grouped steps on a graph against their loop and a fast EG3D tile
+on K3 against K3's plain version.
 
 Imports torch only, so it also runs where JAX is not installed. Tests marked
 `cuda` need a CUDA card and skip without one; on the card run
@@ -1270,3 +1272,128 @@ def test_d3_fast_tile_on_the_kernels_matches_the_plain_versions(cuda_device, mon
     assert not bool((diff & (margin > CLS_MARGIN)).any())
     err = (got["rgb_fine"] - ref["rgb_fine"]).abs()
     assert float(err.median()) < 2e-3 and float(torch.quantile(err.flatten(), .99)) < .05
+
+
+# ---- EG3D training and the fast EG3D renderer ------------------------------------
+
+def _eg3d_cfg():
+    """A narrowed EG3D renderer (planes 64² x 3 x 32, channel_base 4096,
+    channel_max 128, z 64, 32 + 32 samples) at the CLI's ray range and box."""
+    from nerf_siren_tpu_torch.render.triplane import RenderingOptions, TriPlaneConfig
+
+    return TriPlaneConfig(z_dim=64, w_dim=64, plane_resolution=64, channel_base=4096,
+                          channel_max=128, rendering=RenderingOptions(
+                              depth_resolution=32, depth_resolution_importance=32,
+                              white_back=True))
+
+
+@pytest.fixture
+def deterministic():
+    """torch.use_deterministic_algorithms within the test (warnings only
+    where cuBLAS's workspace is unset: one stream's GEMMs repeat anyway)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*deterministic.*")
+        yield
+    torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_grouped_eg3d_steps_on_a_graph_match_their_loop(cuda_device, deterministic):
+    """Two groups of 5 EG3D steps (512 rays, Adam with weight decay, so the
+    buffers move too) as one captured CUDA graph, against the same
+    `StepGroup` body run as a plain loop on the card on the same draws; the
+    second group is a replay under `torch.cuda.set_sync_debug_mode("error")`
+    (a host sync raises). Under `torch.use_deterministic_algorithms`: the
+    default algorithms' atomics (cuDNN weight gradients, the plain gather's
+    scatter-add) make even two loops differ (chip_smoke.py phase 21 prints
+    that spread). Bars: the batches' graph's, over every optimized tensor,
+    `w_avg` included."""
+    import copy
+
+    from nerf_siren_tpu_torch.config import TrainConfig
+    from nerf_siren_tpu_torch.training.eg3d_system import MODEL, EG3DSystem
+    from nerf_siren_tpu_torch.training.graphs import StepGroup
+    from nerf_siren_tpu_torch.training.system import parameters
+
+    n, b = 5, 512
+    system = EG3DSystem(_eg3d_cfg(), train_cfg=TrainConfig(lr=5e-4, weight_decay=1e-4),
+                        device=cuda_device)
+    looped = system.init_state(0)
+    grouped = system.state_for({MODEL: copy.deepcopy(looped.models[MODEL])})
+    start = _param_list(looped)
+    rays, rgbs = _synthetic_rays((2 * n, b), cuda_device)
+    loss_rel, gaps = 0.0, []
+    for grp in range(2):
+        sl = slice(grp * n, (grp + 1) * n)
+        batch = {"rays": rays[sl], "rgbs": rgbs[sl]}
+        inputs = system.group_inputs(looped, "batches", batch, 11, n, b)
+        want = StepGroup(system, looped, "batches", n).loop(inputs)[:, 0].tolist()
+        system.optimizer.advance(looped.opt_state, n)
+        looped.step += n
+        if grp == 0:
+            grouped, _ = system.train_scan_batches(grouped, rays[sl], rgbs[sl], 11)
+        else:
+            inputs = system.group_inputs(grouped, "batches", batch, 11, n, b)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                system.last_group.run(inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            system.optimizer.advance(grouped.opt_state, n)
+            grouped.step += n
+        got = system.last_group.steps[:, 0].tolist()
+        loss_rel = max([loss_rel] + [abs(g - w) / abs(w) for g, w in zip(got, want)])
+        gaps.append(change_gap(start, _param_list(grouped), _param_list(looped)))
+    w_avg = [i for i, (_, name, _) in enumerate(parameters(looped.models))
+             if name.endswith("w_avg")]
+    w_gap = change_gap([start[i] for i in w_avg], [_param_list(grouped)[i] for i in w_avg],
+                       [_param_list(looped)[i] for i in w_avg])
+    names = [name for _, name, _ in parameters(looped.models)]
+    now_g, now_l = _param_list(grouped), _param_list(looped)
+    worst = max(range(len(start)), key=lambda i: float(
+        (now_g[i] - now_l[i]).norm() / (now_l[i] - start[i]).norm().clamp_min(1e-30)))
+    print(f"eg3d: graph vs loop: max relative loss difference {loss_rel:.3e}, change gap "
+          f"after each group {gaps} (largest at {names[worst]}), w_avg's {w_gap:.3e}")
+    assert loss_rel <= GROUP_LOSS_RTOL, loss_rel
+    assert max(gaps) <= GROUP_CHANGE_GAP and w_gap <= GROUP_CHANGE_GAP, (gaps, w_gap)
+
+
+@pytest.mark.cuda
+def test_fast_eg3d_tile_on_k3_matches_the_plain_version(cuda_device, monkeypatch):
+    """One 4096-ray fast EG3D tile (C 32, K 16, mid, delta) on K3 select
+    against the same tile with K3 select's plain version on the card, within
+    chip_smoke.py phase 22's bars: rgb median < 2e-3 and 99th percentile <
+    5e-2 of max(1, max|ref|); depth median < 5e-3 and 99th percentile < 5e-2
+    of each ray's far - near; opacity median < 2e-3, max < 5e-2."""
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.render import triplane_fast as tf
+    from nerf_siren_tpu_torch.render.fast import init_proxy
+    from nerf_siren_tpu_torch.render.triplane import EG3DRenderer
+
+    cfg = _eg3d_cfg()
+    model = EG3DRenderer(cfg, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    proxy = init_proxy(96, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    render = tf.make_fast_eg3d_renderer(model, cfg, proxy=proxy)
+    rays = _proxy_rays(4096, seed=6).to(cuda_device)
+    before = k3.LAUNCHES["select"]
+    got = render(rays)
+    assert k3.LAUNCHES["select"] == before + 1
+    monkeypatch.setattr(tf, "proxy_march_select", k3.proxy_march_select_ref)
+    ref = render(rays)
+    assert k3.LAUNCHES["select"] == before + 1
+    rays8 = tf.fast_rays8(rays, cfg.rendering)
+    span = (rays8[:, 7] - rays8[:, 6]).clamp_min(1e-6)
+    d_rgb = ((got["rgb_fine"] - ref["rgb_fine"]).abs()
+             / max(1.0, float(ref["rgb_fine"].abs().max()))).flatten()
+    d_z = (got["depth_fine"] - ref["depth_fine"]).abs() / span
+    d_o = (got["opacity_fine"] - ref["opacity_fine"]).abs()
+    print(f"fast EG3D tile: rgb {float(d_rgb.median()):.3e} / {float(d_rgb.quantile(.99)):.3e}, "
+          f"depth {float(d_z.median()):.3e} / {float(d_z.quantile(.99)):.3e}, opacity "
+          f"{float(d_o.median()):.3e} / {float(d_o.max()):.3e}")
+    assert float(d_rgb.median()) < 2e-3 and float(d_rgb.quantile(.99)) < 5e-2
+    assert float(d_z.median()) < 5e-3 and float(d_z.quantile(.99)) < 5e-2
+    assert float(d_o.median()) < 2e-3 and float(d_o.max()) < 5e-2

@@ -125,7 +125,8 @@ def test_pretrained_warm_starts_from_a_jax_checkpoint(tmp_path, scene):
 @pytest.mark.parametrize("flags,names", [
     # slice 4 ported these: they parse now (names None), under their old ids
     pytest.param(["--mode", "d3"], None, id="flags0-slice 4"),
-    (["--mode", "eg3d"], "slice 5"),
+    # slice 5 ported EG3D training: it parses now, under its old id
+    pytest.param(["--mode", "eg3d"], None, id="flags1-slice 5"),
     pytest.param(["--field", "siren"], None, id="flags2-slice 4"),
     (["--train_backend", "culled_fused"], "slice 6 (culled"),
     (["--multihost"], "slice 6"),
@@ -134,7 +135,7 @@ def test_pretrained_warm_starts_from_a_jax_checkpoint(tmp_path, scene):
 ])
 def test_unported_flags_name_their_roadmap_slice(capsys, flags, names):
     """A flag value that a later slice brings is refused with that slice's
-    name; the values slice 4 brought parse."""
+    name; the values slices 4 and 5 brought parse."""
     if names is None:
         assert getattr(train_opts(["--root_dir", "unused", *flags]), flags[0][2:]) == flags[1]
         return
