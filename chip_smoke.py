@@ -231,17 +231,53 @@ Run from the repository root. Phases, each printing a line:
      `--fast_cull auto` frames of one 800² pose (K3 opacity once per culled
      frame, the active fraction below 1 after the first frame, rays within
      the bars of the plain fast frame, depth where its opacity > 0.5).
+  Phase 23 drives culled training (`--train_backend culled_fused`), 24-25
+  the two mesh CLIs:
+ 23. culled training at opt.py's defaults (8x256, 1024 rays, C 32, n_sel 16
+     + n_uni 8, perturb 1, noise 1, Adam 5e-4, the online proxy of hidden
+     64) on phase 6's targets, from phase 6(b)'s trained fields and a fresh
+     proxy: (a) K2 against its plain version at the culled step's shapes
+     (1024 rays x 24 = 24,576 points, samples_per_dir 24, the coarse and
+     the fine field; phase 5's bars), each timed over both launches beside
+     its plain version and its bound at this shape;
+     (b) one `culled_fused` and one `culled` step from the same weights and
+     batch at perturb 0, noise 0: losses within TRAIN_LOSS_RTOL; (c)
+     TRAIN_STEPS eager `culled_fused` steps: every loss finite, the
+     photometric and the proxy loss each with the mean of its last 10 below
+     its first 10, each K2 wrapper called exactly twice a step; ms per step
+     beside the `fused` step's in turns; (d) GROUP_STEPS grouped steps
+     against as many eager ones (`group_vs_eager`, phase 6(c)'s bars, the
+     proxy in `change_gap`, the lr-0 control, K2 called twice a step at each
+     capture), the capture's seconds, peak memory and ms per step in turns,
+     and the grouped step against phase 6(c)'s grouped `fused` step.
+ 24. the NeRF mesh CLI's stages (`extract_color_mesh.py`: `load_fine`,
+     `predict_sigma_grid`, marching tetrahedra, `fuse_colors`, the PLY) on
+     phase 7's ball field at N_grid 256 and sigma threshold 5 (the ball
+     peaks at 15; the CLI's default 20 gives no surface): the grid's
+     seconds, MESH_CHECK grid points against the CPU's float32 plain field
+     (atol 1e-3), marching's seconds, fusion colours from phase 7's three
+     exact frames held in memory with their lego poses; the PLY written
+     and read back: vertices and faces as written, more than 0, colours
+     finite and in [0, 1].
+ 25. the EG3D mesh CLI's stages (`extract_color_mesh_eg3d.py`: `load_model`
+     from a checkpoint of phase 22's ball scene, the planes synthesised
+     once, `sigma_grid` at N_grid 256, the default threshold 10, marching
+     tetrahedra, `--colorize`): each stage's seconds, MESH_CHECK interior
+     grid points against the card's planes sampled and decoded on the CPU,
+     and phase 24's PLY checks.
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
   device time per kernel, the device's idle share and the peak device
   memory; it also profiles one group of phase 6(c)'s grouped `fused` steps.
-Then one JSON line of kernels (launches counted over the one path that
-runs each: K1 phase 4, K2 phase 6, K3 select phase 9, K3 opacity phase 10,
-K4 phase 11, K6 phase 13, K5 the 128² frames of phase 16; `timing` says
-how `ms` was taken: "queued" for K5 and K3 select, "unqueued" for the
-rest), the nvidia-smi line, and the JSON result as the last line. Any
-failure exits non-zero before the result is printed.
+Then one JSON line of kernels (launches counted over the path that runs
+each: K1 phase 4, K2 phases 6(b) and 23(c) (`launches_by_path`; its
+readings at the culled shape under `culled_shape`), K3 select phase 9,
+K3 opacity phase 10, K4 phase 11, K6 phase 13, K5 the 128² frames of
+phase 16; `timing` says how `ms` was taken: "queued" for K5 and K3
+select, "unqueued" for the rest), the nvidia-smi line, and the JSON
+result as the last line. Any failure exits non-zero before the result is
+printed.
 Bounds: the larger of the operations over the dense tensor-core peak of
 their type (bf16 989 TFLOP/s, int8 1,979 TOP/s) and the bytes (inputs read
 once, outputs written once) over the memory rate of an H100 SXM (3.35 TB/s).
@@ -251,6 +287,7 @@ import concurrent.futures
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -289,6 +326,9 @@ SEM_CLASSES, SEM_CAPACITY, D3_EXACT_WH = 6, 8192, 200
 CLS_MARGIN = 0.1
 EG3D_TRAIN_STEPS, EG3D_WINDOW = 30, 5   # phase 21's eager steps; the loss means compared
 EG3D_BALL_SIGMA = 20.0  # phase 22's ball: marcher density per unit depth inside it
+CULLED_K = 24           # phase 23: samples a ray of the culled step (n_sel 16 + n_uni 8)
+MESH_GRID, MESH_SIGMA = 256, 5.0   # phases 24-25: the grid; phase 24's threshold (< 15)
+MESH_CHECK, MESH_ATOL = 2048, 1e-3  # grid points held against the CPU, float32 both sides
 K5_RANDOM = 262_144
 K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
 K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
@@ -346,6 +386,9 @@ KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kern
 SOURCE_OF = {"proxy_select": "proxy_march"}
 
 
+STEP_MS = {}   # label -> (eager, grouped) ms per step, medians of turns (phases 6, 23)
+
+
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -370,18 +413,25 @@ def numpy_nerf_params(rng, cfg):
             "rgb": lin(cfg.width // 2, 3)}
 
 
-def lego_rays(k, device, h=H, w=W):
-    """(h*w, 8) rays of camera k of N_FRAMES on the radius-4 sphere, looking
-    at the origin (OpenGL camera, -z forward), near 2, far 6."""
-    import torch
-
+def lego_pose(k):
+    """(3, 4) camera-to-world matrix [R | eye] of camera k of N_FRAMES on the
+    radius-4 sphere, looking at the origin (OpenGL camera, -z forward)."""
     theta, phi = 2 * math.pi * k / N_FRAMES, math.radians(30.0)
     eye = RADIUS * np.array([math.cos(phi) * math.cos(theta),
                              math.cos(phi) * math.sin(theta), math.sin(phi)])
     z = eye / np.linalg.norm(eye)
     x = np.cross([0.0, 0.0, 1.0], z)
     x /= np.linalg.norm(x)
-    c2w = torch.tensor(np.stack([x, np.cross(z, x), z], 1), dtype=torch.float32, device=device)
+    return np.concatenate([np.stack([x, np.cross(z, x), z], 1), eye[:, None]], 1)
+
+
+def lego_rays(k, device, h=H, w=W):
+    """(h*w, 8) rays of camera k (`lego_pose`), near 2, far 6."""
+    import torch
+
+    pose = lego_pose(k)
+    eye = pose[:, 3]
+    c2w = torch.tensor(pose[:, :3], dtype=torch.float32, device=device)
     f = FOCAL * w / 800
     j, i = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
                           torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
@@ -401,7 +451,7 @@ def cuda_ms(fn, reps, queued=False):
     return device_ms(fn, reps, queued)
 
 
-def compare(name, got, ref, where, phase="3/22"):
+def compare(name, got, ref, where, phase="3/25"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -474,7 +524,7 @@ def check_kernels(packed, device, card):
     report = ptxas_report("fused_mlp")
     for name, symbol in K1_SYMBOLS.items():
         regs, spills, stack = next(v for k, v in report.items() if symbol in k)
-        print(f"[3/22] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
+        print(f"[3/25] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
               f"(stores + loads), {stack} bytes stack frame; "
               f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
               f"memory", flush=True)
@@ -494,7 +544,7 @@ def check_kernels(packed, device, card):
         n_bytes += k1_weight_bytes(packed)
         bound_ms, bound_by = bound(flops, n_bytes)
         chain_ms = matmul_chain_ms(packed, n_pts, full)
-        print(f"[3/22] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/25] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
               f"bound), plain {plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms "
               f"({bound_by}); earlier wmma kernel {EARLIER_K1_MS[name]} ms (another call); bf16 "
@@ -623,47 +673,68 @@ def check_train_kernels(model, frame_rays, device, card):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/22"))
+                                       "5/25"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/22] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/25] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
 
+    results, kerns = time_train_kernels(
+        "5/25", "one step's shapes", model, [(packed, p, d, s) for s, p, d in shapes], dirs,
+        fwd_err, bwd_err, card)
     n_pts = sum(pts.shape[0] for _, pts, _ in shapes)
+    forward_readings(packed, kerns["fused_train_fwd"], shapes, results["fused_train_fwd"]["ms"],
+                     results["fused_train_fwd"]["bound_ms"], kerns["fwd_flops"], card)
+    backward_readings(packed, kerns["fused_train_bwd"], shapes, results["fused_train_bwd"]["ms"],
+                      results["fused_train_bwd"]["bound_ms"], kerns["bwd_flops"], n_pts, card)
+    return results
+
+
+def time_train_kernels(phase, what, model, calls, dirs, fwd_err, bwd_err, card):
+    """K2's forward and backward over `calls` ((pack, points, cotangents,
+    samples_per_dir), each one launch), timed against their plain versions
+    in turns, with the bound of that work: the operations from the field's
+    weight shapes, the bytes of the points, directions and each distinct
+    pack read and of the outputs (and, backward, the cotangents read and
+    the gradients written). Returns ({wrapper: readings}, {wrapper: the
+    kernel callables, and the FLOP counts})."""
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    n_pts = sum(pts.shape[0] for _, pts, _, _ in calls)
     fwd_macs, bwd_macs = train_macs_per_point(model)
-    w_bytes = sum(t.numel() * t.element_size() for k, t in packed.items() if k != "k2_stream")
+    packs = list({id(p): p for p, _, _, _ in calls}.values())
+    w_bytes = sum(t.numel() * t.element_size() for p in packs for k, t in p.items()
+                  if k != "k2_stream")
     g_bytes = sum(p.numel() * 4 for p in model.parameters())
-    in_bytes = n_pts * 12 + len(shapes) * dirs.numel() * 4 + w_bytes
-    results = {}
-    for name, kern, plain, flops, n_bytes in (
+    in_bytes = n_pts * 12 + len(calls) * dirs.numel() * 4 + w_bytes
+    results, kerns = {}, {}
+    for name, kern, plain, flops, n_bytes, err in (
             ("fused_train_fwd",
-             [lambda s=s, p=p: k2.fused_train_fwd(packed, p, dirs, s) for s, p, _ in shapes],
-             [lambda s=s, p=p: k2.fused_train_fwd_ref(packed, p, dirs, s) for s, p, _ in shapes],
-             2 * fwd_macs * n_pts, in_bytes + n_pts * 16),
+             [lambda p=p, x=x, s=s: k2.fused_train_fwd(p, x, dirs, s) for p, x, _, s in calls],
+             [lambda p=p, x=x, s=s: k2.fused_train_fwd_ref(p, x, dirs, s)
+              for p, x, _, s in calls],
+             2 * fwd_macs * n_pts, in_bytes + n_pts * 16, fwd_err),
             ("fused_train_bwd",
-             [lambda s=s, p=p, d=d: k2.fused_train_bwd(packed, p, dirs, d, s)
-              for s, p, d in shapes],
-             [lambda s=s, p=p, d=d: k2.fused_train_bwd_ref(packed, p, dirs, d, s)
-              for s, p, d in shapes],
-             2 * bwd_macs * n_pts, in_bytes + n_pts * 16 + len(shapes) * g_bytes)):
+             [lambda p=p, x=x, d=d, s=s: k2.fused_train_bwd(p, x, dirs, d, s)
+              for p, x, d, s in calls],
+             [lambda p=p, x=x, d=d, s=s: k2.fused_train_bwd_ref(p, x, dirs, d, s)
+              for p, x, d, s in calls],
+             2 * bwd_macs * n_pts, in_bytes + n_pts * 16 + len(calls) * g_bytes, bwd_err)):
         ms, plain_ms, (p1, k1, k2_, p2) = timed_pair(kern, plain)
         bound_ms, bound_by = bound(flops, n_bytes)
-        print(f"[5/22] {name}, one step's shapes ({n_pts} points): kernel {ms:.3f} ms "
-              f"({k1:.3f}, {k2_:.3f}; {flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s), plain "
-              f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms ({bound_by}, "
-              f"{flops * 1e-12:.3f} TFLOP); {card}", flush=True)
-        results[name] = {"max_abs_err": fwd_err if name == "fused_train_fwd" else bwd_err,
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": None}
-        if name == "fused_train_fwd":
-            forward_readings(packed, kern, shapes, ms, bound_ms, flops, card)
-        else:
-            backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card)
-    return results
+        print(f"[{phase}] {name}, {what} ({n_pts} points in {len(calls)} launches): kernel "
+              f"{ms:.3f} ms ({k1:.3f}, {k2_:.3f}; {flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, "
+              f"{100 * bound_ms / ms:.1f}% of the bound), plain {plain_ms:.3f} ms ({p1:.3f}, "
+              f"{p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}, {flops * 1e-12:.4f} TFLOP, "
+              f"{n_bytes / 1e6:.2f} MB); {card}", flush=True)
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        kerns[name], kerns[name[-3:] + "_flops"] = kern, flops
+    return results, kerns
 
 
 def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
@@ -679,7 +750,7 @@ def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes],
                                      backward=False)
     earlier = EARLIER_K2_MS["fused_train_fwd"]
-    print(f"[5/22] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
+    print(f"[5/25] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
           f"profiler, mean of 3; before the redesign {earlier} ms, another call; "
           f"{earlier / own:.2f}x); operations bound {bound_ms:.3f} ms ({100 * bound_ms / own:.1f}% "
           f"of it); build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes (stores + "
@@ -704,7 +775,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
         k_ms = sum(v for k, v in own.items() if symbol in k)
         earlier = (f"; before the redesign {EARLIER_K2_MS[label]} ms (another call)"
                    if label in EARLIER_K2_MS else "")
-        print(f"[5/22] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
+        print(f"[5/25] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
               f"profiler, mean of 3){earlier}; build (-Xptxas -v): {regs} registers at entry, "
               f"{spills} spill bytes (stores + loads), {stack} bytes stack frame; "
               f"{smem.get(label, 0)} bytes dynamic shared memory", flush=True)
@@ -712,7 +783,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
     floor_ms = n_pts * (written + read) / PEAK_BYTES * 1e3
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes])
     earlier = EARLIER_K2_MS["fused_train_bwd"]
-    print(f"[5/22] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
+    print(f"[5/25] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
           f"another call; {earlier / ms:.2f}x); operations bound {bound_ms:.3f} ms "
           f"({100 * bound_ms / ms:.1f}% of it); the stash {written} bytes a point written + "
           f"{read} read = {n_pts * (written + read) / 1e9:.3f} GB, "
@@ -816,7 +887,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/22] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/25] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -838,7 +909,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/22] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/25] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -860,7 +931,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/22] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/25] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
 
@@ -933,7 +1004,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     eager_params = param_list(eager)
     gap = change_gap(start, param_list(grouped), eager_params)
     control = change_gap(start, short, eager_params)
-    print(f"[6/22] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
+    print(f"[6/25] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
           f"same weights, seed and batches: max relative loss difference {loss_rel:.3e} "
           f"(bar {GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the "
           f"control without the last update {control:.3e}, must exceed it); losses eager "
@@ -982,14 +1053,15 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     want = [float(v) for v in eager_losses]
     replay_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     replay_gap = change_gap(start, param_list(grouped), param_list(eager))
-    print(f"[6/22] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
+    print(f"[6/25] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
           f"relative loss difference of the last group {replay_rel:.3e} (bar "
           f"{GROUP_LOSS_RTOL}), change gap over the {5 * n} steps {replay_gap:.3e} (bar "
           f"{GROUP_CHANGE_GAP})", flush=True)
     if not replay_rel <= GROUP_LOSS_RTOL or not replay_gap <= GROUP_CHANGE_GAP:
         fail(f"{backend}: replayed groups disagree with eager steps")
     replay_ms = float(np.median(times["grouped"])) * n
-    print(f"[6/22] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
+    STEP_MS[backend] = (float(np.median(times["eager"])), float(np.median(times["grouped"])))
+    print(f"[6/25] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
           f"(median {np.median(times['grouped']):.3f}), eager "
           f"{[round(v, 3) for v in times['eager']]} (median {np.median(times['eager']):.3f}), "
           f"in turns; the capture of {n} steps {capture_s:.3f} s (the first group with its "
@@ -1203,7 +1275,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
 
     d, ratio = over(got)
     n_diff = int((d > 0).sum())
-    print(f"[8/22] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
+    print(f"[8/25] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
           f"differ ({100 * n_diff / d.numel():.3f}%), max|d| {float(d.max()):.3e}, max |d| / "
           f"bar {float(ratio.max()):.3e}, median over those that differ "
           f"{float(ratio[d > 0].median()) if n_diff else 0.0:.3e} (bar: proxy_score_bar)",
@@ -1213,7 +1285,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
     if control:
         _, ratio = over(k3.proxy_scores_ref({**pp, "b1": pp["b1"].bfloat16().float()}, pts))
         n_over = int((ratio > 1.0).sum())
-        print(f"[8/22] control, the plain scores with b1 rounded to bf16: {n_over} of "
+        print(f"[8/25] control, the plain scores with b1 rounded to bf16: {n_over} of "
               f"{ratio.numel()} ({100 * n_over / ratio.numel():.3f}%) beyond proxy_score_bar, max "
               f"|d| / bar {float(ratio.max()):.3e}", flush=True)
         if n_over == 0:
@@ -1245,7 +1317,7 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
     bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
-    print(f"[8/22] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+    print(f"[8/25] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
           f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
@@ -1310,7 +1382,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     dz = (z - rz).abs() / span[:, None]
     med, p99 = float(dz.median()), percentile(dz, 0.99)
     err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
-    print(f"[8/22] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+    print(f"[8/25] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
           f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
@@ -1327,7 +1399,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     scores = k3_scores_reading(pp, rays8, PREPASS_C)
     same_op = torch.equal(k3.proxy_opacity_ref(pp, rays8, PREPASS_C, scores=scores), op)
     del scores
-    print(f"[8/22] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
+    print(f"[8/25] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
           f"{FAST_C}, K {FAST_K}) {'bit-equal' if same_sel else 'DIFFERENT'}, opacity (C "
           f"{PREPASS_C}) {'bit-equal' if same_op else 'DIFFERENT'}", flush=True)
     if not (same_sel and same_op):
@@ -1343,7 +1415,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     crz, crxyz = k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True)
     err = float(torch.maximum((cz - crz).abs().amax(), (cxyz - crxyz).abs().amax()))
     same_chunk = torch.equal(cz, z[pick]) and torch.equal(cxyz, xyz[pick])
-    print(f"[8/22] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
+    print(f"[8/25] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
           f"frame's launch: {'bit-equal' if same_chunk else 'DIFFERENT'}; max|d| vs plain "
           f"{err:.3e}", flush=True)
     if not same_chunk:
@@ -1365,7 +1437,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_march_select"] = res
     one_ms = cuda_ms(lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True), 5)
     n_chunks = -(-r // CHUNK)
-    print(f"[8/22] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
+    print(f"[8/25] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
           f"(median of {[round(t, 4) for t in queued]}; unqueued {unqueued:.4f}), "
           f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; x {n_chunks} = "
           f"{n_chunks * res['ms']:.3f} ms a frame in chunks; beside one launch over all {r} "
@@ -1378,7 +1450,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (op - rop).abs()
     err = float(d.max())
-    print(f"[8/22] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+    print(f"[8/25] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
           f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
           f"{int((op != rop).sum())} of {r} differ", flush=True)
     if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
@@ -1390,20 +1462,20 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + k3_bytes, err, card,
         plain_reps=1)
     res = results["proxy_opacity"]
-    print(f"[8/22] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
+    print(f"[8/25] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
           f"earlier CUDA-core kernel {EARLIER_K3_MS['opacity']} ms (another call)", flush=True)
     hidden = pp["w1"].shape[0]
     report = ptxas_report("proxy_march")
     for name, epi, c in (("proxy_march_select", 1, FAST_C), ("proxy_opacity", 0, PREPASS_C)):
         sym = f"proxy_march_kernelILi{k3.k3_width(hidden)}ELi{epi}ELb0E"
         regs, spills, stack = next(v for k, v in report.items() if sym in k)
-        print(f"[8/22] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
+        print(f"[8/25] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
               f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
               f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
               f"{c}", flush=True)
     for sym, before in K3_SASS_DIGESTS.items():
         digest = sass_digest("proxy_march", sym)
-        print(f"[8/22] {sym} SASS digest {digest}: "
+        print(f"[8/25] {sym} SASS digest {digest}: "
               f"{'unchanged from' if digest == before else 'DIFFERS from'} the build of the tree "
               f"before K6 joined csrc/proxy_march.cu, {before} (nvcc 12.8; a reading)", flush=True)
 
@@ -1451,7 +1523,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
         rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
         errs[name] = max(errs[name], float(d.max()))
-        print(f"[8/22] {name} vs plain {where}: max|d| per column "
+        print(f"[8/25] {name} vs plain {where}: max|d| per column "
               f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
               f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
               f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
@@ -1459,14 +1531,14 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
             fail(f"{name} disagrees with its plain version {where}")
     n_flip = 65536
     flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
-    print(f"[8/22] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+    print(f"[8/25] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
     lib = _build.load("fused_mlp_int8")
     report = ptxas_report("fused_mlp_int8")
     n_emb = sum(1 for k in p8 if k[0] == "q" and k.endswith("x"))
     epi = sass_epilogue("fused_mlp_int8", K4_SYMBOLS["fused_nerf_sigma_int8"])
-    print("[8/22] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
+    print("[8/25] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
           (f"{epi[0]} instructions converting its 128 accumulators, {epi[1]} adding the bias, "
            f"ReLU and absmax and quantising them: {sum(epi) / 128:.2f} per element"
            if epi else "not found"), flush=True)
@@ -1482,7 +1554,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
                            card, int8_ops=n * i8)
         ms4, ms1, (a1, b1, b2, a2) = timed_pair([kern], [bf16_kern])   # K1, K4, K4, K1
         regs, spills, stack = next(v for k, v in report.items() if K4_SYMBOLS[name] in k)
-        print(f"[8/22] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
+        print(f"[8/25] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
               f"int8 + {n * f_bf16 * 1e-12 / (res['ms'] * 1e-3):.1f} TFLOP/s bf16, "
               f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound; earlier mma.sync kernel "
               f"{EARLIER_K4_MS[name]} ms (another call; {EARLIER_K4_MS[name] / res['ms']:.1f}x); "
@@ -1512,7 +1584,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         got, k6.proxy_select_ref(pp, rays6, K6_C, K6_K, scores=scores))
     n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
     err = float((got - k6.proxy_select_ref(pp, rays6, K6_C, K6_K)).abs().max())
-    print(f"[8/22] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
+    print(f"[8/25] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
           f"of {d.numel()} differ ({100 * n_diff / d.numel():.3f}%), max |d| / bar "
           f"{float(ratio.max()):.3e} (bar: proxy_score_bar); the plain selection on the kernel's "
           f"scores {'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} of {K6_RAYS} rays "
@@ -1533,7 +1605,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_select"] = res
     regs, spills, stack = next(v for k, v in ptxas_report("proxy_march").items()
                                if TOPK_SYMBOL in k)
-    print(f"[8/22] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
+    print(f"[8/25] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
           f"CUDA-core kernel {EARLIER_K6_MS} ms (another call; {EARLIER_K6_MS / res['ms']:.2f}x); "
           f"build (-Xptxas -v, {TOPK_SYMBOL}): {regs} registers, {spills} spill bytes, {stack} "
           f"bytes stack frame; {k3.shared_bytes(hidden, K6_C)} bytes dynamic shared memory at C "
@@ -1542,7 +1614,9 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
 
 
 def fast_phases(frames_rays, device, card, args):
-    """Phases 7-13. Returns (results, launches) of K3, K4 and K6."""
+    """Phases 7-13. Returns (results, launches) of K3, K4 and K6, and the
+    ball field's checkpoint and exact rgb frames (H, W, 3) of the lego
+    cameras (phase 24's views)."""
     import os
     from pathlib import Path
 
@@ -1564,7 +1638,7 @@ def fast_phases(frames_rays, device, card, args):
     exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
     check_outputs(exact, "exact frame")
     empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
-    print(f"[7/22] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+    print(f"[7/25] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
           f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
           f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
           f"per frame {[round(e, 4) for e in empty]}", flush=True)
@@ -1597,7 +1671,7 @@ def fast_phases(frames_rays, device, card, args):
     t0 = time.perf_counter()
     cached = setup_fast_proxy(models, hp, bounds)
     t_cached = time.perf_counter() - t0
-    print(f"[7/22] proxy distilled ({hp.fast_distill_steps} steps, batch "
+    print(f"[7/25] proxy distilled ({hp.fast_distill_steps} steps, batch "
           f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
           f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
           f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
@@ -1621,7 +1695,7 @@ def fast_phases(frames_rays, device, card, args):
     counts = read_counts(names)
     launches["proxy_march_select"] = counts["proxy_march_select"]
     n_chunks = -(-H * W // CHUNK)
-    print(f"[9/22] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+    print(f"[9/25] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
           f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
           f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
           f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
@@ -1642,7 +1716,7 @@ def fast_phases(frames_rays, device, card, args):
     for k, v in ref.items():
         d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
-    print(f"[9/22] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+    print(f"[9/25] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
           f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
           flush=True)
     if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
@@ -1667,7 +1741,7 @@ def fast_phases(frames_rays, device, card, args):
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
             lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
-            print(f"[10/22] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+            print(f"[10/25] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
                   f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
                   f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
@@ -1694,7 +1768,7 @@ def fast_phases(frames_rays, device, card, args):
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/22] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
+    print(f"[11/25] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
           f"against the bf16 fast frames' {[round(t, 4) for t in lat]} (rgb max|d| vs the bf16 "
           f"fast frame {d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused "
           f"{[round(t, 4) for t in sec_x8]} against the bf16 exact frames' "
@@ -1713,7 +1787,7 @@ def fast_phases(frames_rays, device, card, args):
                          hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
     (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
     check_outputs([out_e], "edge-refined frame")
-    print(f"[12/22] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+    print(f"[12/25] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
           f"({card}); "
           f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
           f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
@@ -1728,12 +1802,12 @@ def fast_phases(frames_rays, device, card, args):
     sec6 = time.perf_counter() - t0
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
-    print(f"[13/22] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+    print(f"[13/25] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
           f"({card}); the tree before the redesign {EARLIER_K6_FRAME_S} s (another call); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
         fail("proxy_select's depths are not finite or leave their rays' [near, far]")
-    return results, launches
+    return results, launches, (ckpt, [o["rgb_fine"].reshape(H, W, 3) for o in exact])
 
 
 # ---- EG3D exact eval on K5 (phases 14-17) ---------------------------------------
@@ -1810,7 +1884,7 @@ def eg3d_setup(device, card):
     model, t_load = synced_s(lambda: load_model(system, ckpt, device))
     n_params = sum(p.numel() for p in model.parameters())
     synth = [synced_s(lambda: system.frame_planes(model))[1] for _ in range(4)]
-    print(f"[14/22] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
+    print(f"[14/25] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
           f"{cfg.plane_channels} x {cfg.plane_resolution}², channel_base {cfg.channel_base}, "
           f"channel_max {cfg.channel_max}): checkpoint written in {t_save:.2f} s, read by the "
           f"CLI's load_model in {t_load:.2f} s; mapping + synthesis + bf16 packing ms "
@@ -1884,7 +1958,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         lib = library(planes32, grid(xyz))[:, :, 0].permute(0, 2, 1)
         lib_err = float((got - lib).abs().max())
         err = max(err, float((got - ref).abs().max()))
-        print(f"[15/22] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
+        print(f"[15/25] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
               f"{c}): {n_diff} of {got.numel()} elements differ; max|d| vs F.grid_sample on the "
               f"float32 planes {lib_err:.3e} (bar {K5_LIB_TOL} x {t_scale:.3f})", flush=True)
         if n_diff or lib_err > K5_LIB_TOL * t_scale:
@@ -1917,7 +1991,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         for k, v in got.items():
             runs[k] += v
         ratios.append(float(np.median(got["kernel"]) / np.median(got["f32"])))
-        print(f"[15/22] triplane_gather round {rnd} in turns (ms): kernel "
+        print(f"[15/25] triplane_gather round {rnd} in turns (ms): kernel "
               f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
               f"{[round(t, 4) for t in got['f32']]}, bf16 "
               f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}; kernel / "
@@ -1936,11 +2010,11 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
     elem = "13__nv_bfloat16" if table.dtype == torch.bfloat16 else "f"
     symbol = f"triplane_gather_kernelI{elem}Li{plan.vec}E"
     regs, spills, stack = next(v for k, v in ptxas_report("triplane_gather").items() if symbol in k)
-    print(f"[15/22] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
+    print(f"[15/25] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
           f"channels of {table.dtype}), {plan.groups} threads per point, {plan.blocks} blocks of "
           f"{plan.threads}; {regs} registers, {spills} spill bytes, {stack} bytes of stack",
           flush=True)
-    print(f"[15/22] triplane_gather at {n} points (one chunk's coarse pass), medians of "
+    print(f"[15/25] triplane_gather at {n} points (one chunk's coarse pass), medians of "
           f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
           f"counted bytes, {100 * bound_ms / ms:.1f}% of the bound), F.grid_sample float32 "
           f"{lib_ms:.4f} ms, bf16 {lib16_txt} (grid precomputed): kernel / float32 library "
@@ -1949,7 +2023,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
           f"{table_bytes / 1e6:.2f} MB of the table's texels the points read, output); "
           f"kernel unqueued {float(np.median(unqueued)):.4f} ms (median of "
           f"{[round(t, 4) for t in unqueued]}); {card}", flush=True)
-    print(f"[15/22] triplane_gather below F.grid_sample float32 in every round: "
+    print(f"[15/25] triplane_gather below F.grid_sample float32 in every round: "
           f"{'yes' if max(ratios) < 1 else 'no'} (kernel / float32 per round "
           f"{[round(r, 3) for r in ratios]})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1995,7 +2069,7 @@ def eg3d_phases(device, card, args):
         for k, v in out.items():
             if v.shape[0] != EG3D_WH * EG3D_WH or not torch.isfinite(v).all():
                 fail(f"EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
-    print(f"[16/22] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
+    print(f"[16/25] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
           f"{hp.N_importance} samples, chunk {hp.chunk}, --plane_sampler kernel): latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the "
           f"median frame, of which mapping + synthesis {1e3 * synth_s:.3f} ms ({card}); K5 "
@@ -2008,7 +2082,7 @@ def eg3d_phases(device, card, args):
     worst = {k: max(float((o[k] - g[k]).abs().max()) for o, g in zip(outs, g_outs))
              for k in outs[0]}
     n_diff = sum(int((o[k] != g[k]).sum()) for o, g in zip(outs, g_outs) for k in o)
-    print(f"[16/22] the same frames through --plane_sampler gather: latency s "
+    print(f"[16/25] the same frames through --plane_sampler gather: latency s "
           f"{[round(t, 4) for t in g_lat]}; {n_diff} output elements differ from the kernel "
           f"frames, max|d| {worst} (bar {SAME_FRAME_ATOL})", flush=True)
     if max(worst.values()) > SAME_FRAME_ATOL:
@@ -2022,7 +2096,7 @@ def eg3d_phases(device, card, args):
                                                  for v in out_big.values()):
         fail(f"the {EG3D_BIG}² frame: {big_launches} K5 launches (expected {2 * big_chunks}) "
              f"or non-finite outputs")
-    print(f"[16/22] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
+    print(f"[16/25] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
           f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
           f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
           f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
@@ -2041,7 +2115,7 @@ def eg3d_phases(device, card, args):
         cpu_planes = cpu_model.planes(cpu_model.mapping(cpu_model.z))
     worst = {k: float((outs[0][k][EG3D_CHECK].cpu() - v).abs().max()) for k, v in ref.items()}
     p_err, p_scale = float((planes - cpu_planes).abs().max()), float(cpu_planes.abs().max())
-    print(f"[17/22] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
+    print(f"[17/25] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
           f"a CPU re-render on the card's table: max|d| {worst} (atol {RENDER_ATOL}); the card's "
           f"float32 planes vs a CPU float32 synthesis (cuDNN TF32 "
           f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max|d| {p_err:.3e}, largest "
@@ -2134,7 +2208,7 @@ def gap_by_tensor(system, state, start, got, want):
 
 
 def group_vs_eager(phase, label, system, models, batches, seed, card, gated=True, watch=(),
-                   floor=False):
+                   floor=False, k2_per_step=0):
     """GROUP_STEPS eager `train_step`s against one grouped group
     (`train_scan_batches`, a captured CUDA graph) from the same weights,
     seed and batches, read as phase 6(c) reads them (losses within
@@ -2144,9 +2218,12 @@ def group_vs_eager(phase, label, system, models, batches, seed, card, gated=True
     change gap); `gated=False` prints the reading without the bars and the
     control; with `floor`, a second eager run from the same start read the
     same way against the first (the spread of two eager runs); then ms per
-    step of eager steps and of replays in turns, and a replay under
-    `torch.cuda.set_sync_debug_mode("error")` (any host sync raises).
-    Returns (start, eager state, grouped state)."""
+    step of eager steps and of replays in turns (their medians kept in
+    STEP_MS[label]), and a replay under `torch.cuda.set_sync_debug_mode(
+    "error")` (any host sync raises). K2's wrappers must be called
+    `k2_per_step` times a step at each capture (and as often in its warm-up
+    step), 0 on the plain field. Returns (start, eager state, grouped
+    state)."""
     import torch
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
     from nerf_siren_tpu_torch.training.system import parameters
@@ -2220,8 +2297,10 @@ def group_vs_eager(phase, label, system, models, batches, seed, card, gated=True
         fail(f"{label}: grouped steps disagree with eager steps")
     if gated and not control_gap > GROUP_CHANGE_GAP:
         fail(f"{label}: the change gap does not see a last update with lr 0")
-    if any(k2_calls.values()):
-        fail(f"{label}: K2 was called on a path that trains the plain field")
+    k2_expect = k2_per_step * (n + 1) * (2 if gated else 1)   # the group's and the control's
+    if k2_calls != {"fwd": k2_expect, "bwd": k2_expect}:
+        fail(f"{label}: K2's wrappers called {k2_calls} times at the captures, expected "
+             f"{k2_expect} each")
     del control
 
     # ms per step: eager steps and replays on the same batches, in turns
@@ -2248,6 +2327,7 @@ def group_vs_eager(phase, label, system, models, batches, seed, card, gated=True
     system.optimizer.advance(grouped.opt_state, n)   # the counts `_grouped` would advance
     grouped.step += n
     torch.cuda.synchronize()
+    STEP_MS[label] = (float(np.median(times["eager"])), float(np.median(times["grouped"])))
     print(f"[{phase}] {label}: ms per step eager {[round(v, 3) for v in times['eager']]}, "
           f"grouped {[round(v, 3) for v in times['grouped']]} (in turns; eager steps of the "
           f"check {[round(1e3 * v, 3) for v in eager_s]}); the capture of {n} steps "
@@ -2279,11 +2359,11 @@ def siren_phase(device, card, args):
                         NeRFConfig(), 1000, device=device, field_type="siren")
     batches = sem_batches(device, SEED + 51)
     n_params = sum(p.numel() for m in models.values() for p in m.parameters())
-    print(f"[18/22] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
+    print(f"[18/25] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
           f"{9 * 256 * 2}, learnable z, box 51; coarse + fine {n_params} parameters; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples, perturb 1, noise 1, "
           f"Adam {LR}", flush=True)
-    _, eager, _ = group_vs_eager("18/22", "SIREN", system, models, batches, SEED + 52, card)
+    _, eager, _ = group_vs_eager("18/25", "SIREN", system, models, batches, SEED + 52, card)
     if args.profile:
         profile("SIREN train step", lambda: system.train_step(eager, batches[0], seed=1), card)
 
@@ -2328,10 +2408,10 @@ def d3_steps_phase(device, card, args):
     models["points"] = numpy_points(SEED + 61, device)
     system = d3_system(device, "pointnet")
     batches = sem_batches(device, SEED + 62, classes=True)
-    print(f"[19/22] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
+    print(f"[19/25] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
           f"point feature) at capacity {SEM_CAPACITY}, msenll, no_grad_on_nerf; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples", flush=True)
-    start, eager, grouped = group_vs_eager("19/22", "d3 pointnet", system, models, batches,
+    start, eager, grouped = group_vs_eager("19/25", "d3 pointnet", system, models, batches,
                                            SEED + 63, card)
     names = [(k, n) for k in sorted(eager.models) for n, _ in eager.models[k].named_parameters()]
     for label, state in (("eager", eager), ("grouped", grouped)):
@@ -2341,7 +2421,7 @@ def d3_steps_phase(device, card, args):
         moved = sum(not torch.equal(a, b) for (k, _), a, b in zip(names, start, now)
                     if k == "points")
         total = sum(k == "points" for k, _ in names)
-        print(f"[19/22] d3 {label} state after its {state.step} steps: NeRF parameters "
+        print(f"[19/25] d3 {label} state after its {state.step} steps: NeRF parameters "
               f"bit-unchanged {nerf_same}; PointNet tensors moved {moved} of {total}",
               flush=True)
         if not nerf_same or moved < total // 2:
@@ -2362,7 +2442,7 @@ def d3_steps_phase(device, card, args):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["train/total_loss"]))
-    print(f"[19/22] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
+    print(f"[19/25] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
           f"losses {[f'{v:.6e}' for v in losses]}, ms per step "
           f"{[round(1e3 * v, 3) for v in step_s]}; {card}", flush=True)
     if not all(math.isfinite(v) for v in losses):
@@ -2427,7 +2507,7 @@ def d3_frames_phase(device, card, args):
     peak = torch.cuda.max_memory_allocated()
     key = fast.model_key
     n_chunks = -(-H * W // CHUNK)
-    print(f"[20/22] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
+    print(f"[20/25] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"capacity {hp.point_capacity}, cls_threshold 0, PointNet k {SEM_CLASSES}): latency "
           f"{lat:.4f} s; launches {counts} (this phase's own); peak device memory "
           f"{peak / 2**30:.3f} GiB; {card}", flush=True)
@@ -2457,7 +2537,7 @@ def d3_frames_phase(device, card, args):
         d = (out[k] - ref[k]).abs() / max(1.0, float(ref[k].abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
     margin = class_margin(ref[f"cls_{key}"])
-    print(f"[20/22] the same frame on the plain versions of K3 select and K1 on the card "
+    print(f"[20/25] the same frame on the plain versions of K3 select and K1 on the card "
           f"({ref_lat:.4f} s): class ids differ at {n_diff} of {H * W} pixels, the largest "
           f"plain top-two margin among them {worst:.4e}; {above} differ above the bar "
           f"{CLS_MARGIN} (pixels above it {int((margin > CLS_MARGIN).sum())}); (median, 99th "
@@ -2475,7 +2555,7 @@ def d3_frames_phase(device, card, args):
         conv4.bias.copy_(conv4.bias[perm])
     (ctl,), _ = render_frames(render, [rays])
     above_ctl, n_ctl, _ = disagree(ctl)
-    print(f"[20/22] control (PointNet's conv4 columns rolled by one): class ids differ at "
+    print(f"[20/25] control (PointNet's conv4 columns rolled by one): class ids differ at "
           f"{n_ctl} pixels, {above_ctl} above the bar (must be > 0)", flush=True)
     if not above_ctl:
         fail("the class gate does not see a permuted class head")
@@ -2497,7 +2577,7 @@ def d3_frames_phase(device, card, args):
         if v.shape[0] != D3_EXACT_WH ** 2 or not torch.isfinite(v).all():
             fail(f"d3 exact frame {k}: shape {tuple(v.shape)} or non-finite values")
     classes = torch.bincount(out["cls_fine"].argmax(-1), minlength=SEM_CLASSES).tolist()
-    print(f"[20/22] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
+    print(f"[20/25] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
           f"bf16 field operands): latency {lat:.4f} s; pixels per class {classes}; {card}",
           flush=True)
 
@@ -2571,7 +2651,7 @@ def eg3d_steps_phase(device, card, args, targets):
         return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
 
     n_tensors = sum(p.numel() for p in model.state_dict().values())
-    print(f"[21/22] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
+    print(f"[21/25] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
           f"{cfg.n_planes} x {cfg.plane_channels} x {cfg.plane_resolution}², channel_base "
           f"{cfg.channel_base}, channel_max {cfg.channel_max}, decoder {cfg.plane_channels} -> 64 "
           f"-> 4; {hp.batch_size} rays at {cfg.rendering.depth_resolution}+"
@@ -2590,7 +2670,7 @@ def eg3d_steps_phase(device, card, args, targets):
         losses.append(float(metrics["train/loss"]))
     first = float(np.mean(losses[:EG3D_WINDOW]))
     last = float(np.mean(losses[-EG3D_WINDOW:]))
-    print(f"[21/22] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
+    print(f"[21/25] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
           f"{[f'{v:.5f}' for v in losses]}; mean of the first {EG3D_WINDOW} {first:.6f}, of the "
           f"last {last:.6f}; ms per step (after the first) "
           f"{float(np.median(step_s[1:])) * 1e3:.3f} median; {card}", flush=True)
@@ -2603,11 +2683,11 @@ def eg3d_steps_phase(device, card, args, targets):
     # differ, so their reading is printed with that spread, ungated
     torch.use_deterministic_algorithms(True)
     try:
-        group_vs_eager("21/22", "EG3D, deterministic algorithms", system, state.models, batches,
+        group_vs_eager("21/25", "EG3D, deterministic algorithms", system, state.models, batches,
                        EG3D_SEED + 43, card, watch=("w_avg",))
     finally:
         torch.use_deterministic_algorithms(False)
-    _, eager, _ = group_vs_eager("21/22", "EG3D, default algorithms", system, state.models,
+    _, eager, _ = group_vs_eager("21/25", "EG3D, default algorithms", system, state.models,
                                  batches, EG3D_SEED + 43, card, gated=False, watch=("w_avg",),
                                  floor=True)
     if args.profile:
@@ -2674,7 +2754,7 @@ def eg3d_fast_phase(device, card, args):
                                                          cfg)))
     model = model.to(device)
     fast, distill_s = synced_s(lambda: setup_fast_renderer(system, model, hp))
-    print(f"[22/22] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
+    print(f"[22/25] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
           f"decoder a ball of radius {BALL_R} with density {EG3D_BALL_SIGMA} per unit); the "
           f"fast renderer at the eval CLI's defaults (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"{hp.fast_placement}, {hp.fast_quadrature}, chunk {hp.chunk}): planes synthesised "
@@ -2695,7 +2775,7 @@ def eg3d_fast_phase(device, card, args):
             if v.shape[0] != n or not torch.isfinite(v).all():
                 fail(f"fast EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
     exact, exact_lat = render_frames(make_renderer(system, model, hp.chunk), small)
-    print(f"[22/22] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
+    print(f"[22/25] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the median "
           f"frame; K3 select launches {small_launches} ({n_chunks[EG3D_WH]} chunks a frame); one "
           f"of {EG3D_BIG}²: {lat_big:.4f} s, {EG3D_BIG ** 2 / lat_big:.0f} rays/s, K3 select "
@@ -2717,7 +2797,7 @@ def eg3d_fast_phase(device, card, args):
             fail("the plain versions launched a kernel")
     for i, (out, ref, rays) in enumerate(zip(outs + [out_big], refs, small + [big])):
         errs = fast_frame_errors(out, ref, rays, cfg.rendering)
-        print(f"[22/22] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
+        print(f"[22/25] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
               f"(median, 99th pct | max) {errs} (bars rgb {FAST_BARS}, depth {DEPTH_BARS}, "
               f"opacity {OPACITY_BARS})", flush=True)
         if not within_fast_bars(errs):
@@ -2730,7 +2810,7 @@ def eg3d_fast_phase(device, card, args):
                                                                        proxy=rolled))
     (ctl,), _ = render_frames(control, small[:1])
     ctl_errs = fast_frame_errors(ctl, refs[0], small[0], cfg.rendering)
-    print(f"[22/22] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
+    print(f"[22/25] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
           f"fail the bars)", flush=True)
     if within_fast_bars(ctl_errs):
         fail("the fast EG3D bars do not see a rolled proxy")
@@ -2751,7 +2831,7 @@ def eg3d_fast_phase(device, card, args):
               & (out["opacity_fine"] == 0))
         lost = int((bg & (out_big["opacity_fine"] > 0.01)).sum())
         errs = fast_frame_errors(out, out_big, big, cfg.rendering, depth_mask=visible)
-        print(f"[22/22] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
+        print(f"[22/25] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
               f"({EG3D_BIG ** 2 / sec:.0f} rays/s); active fraction {auto.last_active_frac:.4f}, "
               f"bypass {auto.last_plain}, eps {float(auto.last_eps):.5f}; launches {counts}; "
               f"{int(bg.sum())} rays culled to background ({lost} of them with opacity > 0.01 "
@@ -2801,6 +2881,272 @@ def profile(label, fn, card):
           flush=True)
 
 
+
+# ---- culled training and mesh extraction (phases 23-25) --------------------------
+
+def check_culled_kernels(models, pool_rays, device, card):
+    """Phase 23(a): K2's forward and backward against their plain versions
+    at the culled step's shapes: TRAIN_RAYS rays x CULLED_K sorted depths
+    (samples_per_dir CULLED_K), the coarse and the fine field; then each
+    timed over both (one step's work) beside its plain version and bound.
+    Returns {wrapper: its readings at this shape}."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 63)
+    pick = torch.randint(0, pool_rays.shape[0], (TRAIN_RAYS,), generator=gen, device=device)
+    rays = pool_rays[pick]
+    dirs = rays[:, 3:6].contiguous()
+    z = torch.sort(rays[:, 6:7] + (rays[:, 7:8] - rays[:, 6:7])
+                   * torch.rand((TRAIN_RAYS, CULLED_K), generator=gen, device=device), -1)[0]
+    pts = (rays[:, None, :3] + rays[:, None, 3:6] * z[..., None]).reshape(-1, 3).contiguous()
+    n_pts, s = pts.shape[0], CULLED_K
+    dy = torch.rand((n_pts, 4), generator=gen, device=device) * 2.0 - 0.5
+    packs = [k2.pack_train_params(models[k].state_dict()) for k in ("coarse", "fine")]
+    where = f"at {TRAIN_RAYS} rays x {s} = {n_pts} points, samples_per_dir {s}"
+    fwd_err = bwd_err = 0.0
+    for key, packed in zip(("coarse", "fine"), packs):
+        fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
+                                       k2.fused_train_fwd_ref(packed, pts, dirs, s),
+                                       f"{where} ({key})", "23/25"))
+        got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
+        torch.cuda.synchronize()
+        rel, max_abs, elem, worst = grad_errors(got, k2.fused_train_bwd_ref(packed, pts, dirs,
+                                                                            dy, s))
+        print(f"[23/25] fused_train_bwd vs plain {where} ({key}): worst relative L2 {rel:.3e} "
+              f"({worst}), max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's "
+              f"scale (bars {GRAD_REL_L2}, {GRAD_ELEM})", flush=True)
+        bwd_err = max(bwd_err, max_abs)
+    results, _ = time_train_kernels("23/25", "one culled step's shapes", models["fine"],
+                                    [(p, pts, dy, s) for p in packs], dirs, fwd_err, bwd_err,
+                                    card)
+    for r in results.values():
+        r.update(points_per_launch=n_pts, samples_per_dir=s)
+    return results
+
+
+def culled_phase(pool_rays, pool_rgbs, student, device, card):
+    """Phase 23: culled training on K2, from phase 6(b)'s trained fields
+    (`student`) and a fresh proxy. Returns (K2 readings at the culled
+    shape, K2 launches over (c))."""
+    import torch
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+    from nerf_siren_tpu_torch.render.culled_train import PROXY_HIDDEN
+    from nerf_siren_tpu_torch.render.fast import init_proxy
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    steps_per_epoch = pool_rays.shape[0] // TRAIN_RAYS
+
+    def batch():
+        idx = torch.randint(0, pool_rays.shape[0], (TRAIN_RAYS,), generator=gen, device=device)
+        return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
+
+    # fields trained on these targets (a random field's density rises fast
+    # in its first steps under noise_std 1, and the proxy's targets with it,
+    # faster than a fresh proxy follows at lr 5e-4), and a fresh proxy
+    models = {k: copy.deepcopy(m) for k, m in student.items()}
+    models["proxy"] = init_proxy(PROXY_HIDDEN, generator=torch.Generator().manual_seed(
+        SEED + 62)).to(device)
+    # (a) K2 against its plain version at the culled shapes
+    results = check_culled_kernels(models, pool_rays, device, card)
+    torch.cuda.empty_cache()
+
+    # (b) culled_fused against culled from the same weights and batch, deterministic
+    first, losses = batch(), {}
+    for backend in ("culled_fused", "culled"):
+        system = train_system(backend, 0.0, 0.0, steps_per_epoch, device)
+        _, metrics = system.train_step(state_copy(system, models), first, seed=SEED)
+        losses[backend] = (float(metrics["train/loss"]), float(metrics["train/proxy_loss"]))
+    rel = abs(losses["culled_fused"][0] - losses["culled"][0]) / abs(losses["culled"][0])
+    print(f"[23/25] (b) first culled step, same weights and batch: loss (with the proxy's) "
+          f"culled_fused {losses['culled_fused']}, culled {losses['culled']}, relative "
+          f"{rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
+    if not rel < TRAIN_LOSS_RTOL:
+        fail("the culled_fused and culled backends disagree on the first step's loss")
+
+    # (c) the culled_fused backend at opt.py's defaults: the path
+    system = train_system("culled_fused", 1.0, 1.0, steps_per_epoch, device)
+    state = state_copy(system, models)
+    batches = [batch() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    k2.LAUNCHES.update(fwd=0, bwd=0)
+    metrics_t, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = system.train_step(state, b, seed=SEED + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics_t.append((metrics["train/loss"], metrics["train/rgb_loss"],
+                          metrics["train/proxy_loss"]))
+    launches = dict(k2.LAUNCHES)
+    loss, rgb, proxy = ([float(m[i]) for m in metrics_t] for i in range(3))
+    ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
+    print(f"[23/25] (c) culled_fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays (C "
+          f"{system.culled['n_candidates']}, {system.culled['n_sel']} + "
+          f"{system.culled['n_uni']} samples): photometric loss first 10 mean "
+          f"{np.mean(rgb[:10]):.5f}, last 10 {np.mean(rgb[-10:]):.5f}; proxy loss first 10 "
+          f"{np.mean(proxy[:10]):.5f}, last 10 {np.mean(proxy[-10:]):.5f}; loss every 10th step "
+          f"{[round(v, 5) for v in loss[::10]]}; {ms:.3f} ms per step (median after "
+          f"{TRAIN_WARMUP}; {card}); launches {launches}", flush=True)
+    if not all(math.isfinite(v) for v in loss + rgb + proxy):
+        fail("a culled training loss is not finite")
+    if not (np.mean(rgb[-10:]) < np.mean(rgb[:10]) and np.mean(proxy[-10:]) < np.mean(proxy[:10])):
+        fail("the culled photometric or proxy loss did not fall")
+    if launches != {"fwd": 2 * TRAIN_STEPS, "bwd": 2 * TRAIN_STEPS}:
+        fail(f"K2 launched {launches} times over {TRAIN_STEPS} culled steps, expected "
+             f"{2 * TRAIN_STEPS} each (twice a step)")
+
+    # eager ms per step beside the fused backend's on the same batches, in turns
+    fused = train_system("fused", 1.0, 1.0, steps_per_epoch, device)
+    fused_state = fused.state_for({k: copy.deepcopy(m) for k, m in state.models.items()
+                                   if k != "proxy"})
+    turns = {"fused": [], "culled_fused": []}
+    for mode in ("fused", "culled_fused", "culled_fused", "fused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches[:GROUP_STEPS]:
+            if mode == "fused":
+                fused_state, _ = fused.train_step(fused_state, b, seed=SEED + 1)
+            else:
+                state, _ = system.train_step(state, b, seed=SEED + 1)
+        torch.cuda.synchronize()
+        turns[mode].append(1e3 * (time.perf_counter() - t0) / GROUP_STEPS)
+    print(f"[23/25] (c) eager ms per step in turns over {GROUP_STEPS} steps: fused "
+          f"{[round(v, 3) for v in turns['fused']]}, culled_fused "
+          f"{[round(v, 3) for v in turns['culled_fused']]}; fused / culled_fused "
+          f"{np.median(turns['fused']) / np.median(turns['culled_fused']):.3f}; {card}",
+          flush=True)
+    del fused, fused_state
+
+    # (d) grouped steps on a captured graph against eager steps
+    group_vs_eager("23/25", "culled_fused", system, state.models, batches[:GROUP_STEPS],
+                   SEED + 2, card, k2_per_step=2)
+    eager_ms, grouped_ms = STEP_MS["culled_fused"]
+    f_eager, f_grouped = STEP_MS["fused"]
+    print(f"[23/25] (d) ms per step (medians of turns): grouped culled_fused {grouped_ms:.3f} "
+          f"against phase 6(c)'s grouped fused {f_grouped:.3f}: {f_grouped / grouped_ms:.3f}x "
+          f"(predicted >= 1.5x); eager {eager_ms:.3f} against {f_eager:.3f}; {card}", flush=True)
+    return results, launches
+
+
+def timed_s(fn):
+    """(fn(), seconds), the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_ply(path, verts, faces, what):
+    """The PLY read back: vertices and faces as written, vertex count > 0,
+    colours finite and in [0, 1]."""
+    from nerf_siren_tpu_torch.mesh.ply import read_ply
+
+    v, f, c = read_ply(path)
+    if len(v) == 0 or not np.array_equal(v, verts) or not np.array_equal(f, faces):
+        fail(f"{what}: the PLY does not hold the {len(verts)} vertices and faces written")
+    c = None if c is None else c.astype(np.float32) / 255.0
+    if c is None or c.shape != v.shape or not np.isfinite(c).all() or c.min() < 0 or c.max() > 1:
+        fail(f"{what}: vertex colours missing, non-finite or outside [0, 1]")
+    return c
+
+
+def nerf_mesh_phase(ball, device, card):
+    """Phase 24: the NeRF mesh CLI's stages on phase 7's ball field."""
+    import torch
+    from nerf_siren_tpu_torch import extract_color_mesh as ecm
+    from nerf_siren_tpu_torch.mesh.marching import marching_tetrahedra
+    from nerf_siren_tpu_torch.mesh.ply import write_ply
+
+    ckpt, frames = ball
+    hp = ecm.get_opts(["--root_dir", ".", "--ckpt_path", ckpt, "--N_grid", str(MESH_GRID),
+                       "--sigma_threshold", str(MESH_SIGMA), "--out_dir", "ckpts/chip_smoke",
+                       "--scene_name", "ball"])
+    model = ecm.load_fine(ckpt, device)
+    (sigma, spacing, origin), grid_s = timed_s(lambda: ecm.predict_sigma_grid(model, hp, device))
+    xyz = ecm.grid_points(hp)[0]
+    pick = np.random.default_rng(SEED + 64).choice(xyz.shape[0], MESH_CHECK, replace=False)
+    cpu = copy.deepcopy(model).cpu()
+    ref = ecm.field_sigma(cpu, torch.from_numpy(xyz[pick])).numpy()
+    err = float(np.abs(sigma.reshape(-1)[pick] - ref).max())
+    print(f"[24/25] NeRF mesh of the ball field: sigma grid {MESH_GRID}^3 (float32 plain field, "
+          f"chunk {hp.chunk}) in {grid_s:.3f} s ({card}); max sigma {float(sigma.max()):.3f}; "
+          f"{MESH_CHECK} grid points vs the CPU: max|d| {err:.3e} (atol {MESH_ATOL})", flush=True)
+    if not np.isfinite(sigma).all() or err > MESH_ATOL:
+        fail("the card's sigma grid disagrees with the CPU's")
+    (verts, faces), march_s = timed_s(lambda: marching_tetrahedra(
+        sigma, hp.sigma_threshold, spacing=spacing, origin=origin))
+    r = np.linalg.norm(verts, axis=-1)
+    images = [(f * 255.0).cpu().numpy() for f in frames]
+    poses = np.stack([lego_pose(k) for k in range(len(images))])
+    colors, fuse_s = timed_s(lambda: ecm.fuse_colors({"coarse": model}, images, poses, FOCAL,
+                                                      NEAR, verts, hp, device))
+    path = os.path.join(hp.out_dir, "ball.ply")
+    write_ply(path, verts, faces, colors)
+    c = check_ply(path, verts, faces, "NeRF mesh")
+    print(f"[24/25] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
+          f"{len(faces)} faces in {march_s:.3f} s (host); vertex radius median "
+          f"{np.median(r):.4f} (the ball's sigma {MESH_SIGMA} shell lies at "
+          f"{BALL_R * (1 - MESH_SIGMA / BALL_SIGMA):.4f}); fusion colours from {len(images)} "
+          f"exact {H}x{W} frames ({hp.N_samples} opacity samples) in {fuse_s:.3f} s; median "
+          f"colour {np.round(np.median(c, 0), 4).tolist()} (the ball's {list(BALL_RGB)}); "
+          f"PLY written and read back; {card}", flush=True)
+
+
+def eg3d_mesh_phase(device, card):
+    """Phase 25: the EG3D mesh CLI's stages on phase 22's ball scene."""
+    import torch
+    from nerf_siren_tpu_torch import extract_color_mesh_eg3d as ecm
+    from nerf_siren_tpu_torch.eval_eg3d import get_opts as eval_opts, triplane_config
+    from nerf_siren_tpu_torch.mesh.marching import marching_tetrahedra
+    from nerf_siren_tpu_torch.mesh.ply import write_ply
+    from nerf_siren_tpu_torch.render.triplane import run_model
+    from nerf_siren_tpu_torch.training.checkpoints import save_checkpoint
+
+    cfg = triplane_config(eval_opts(["--root_dir", ".", "--ckpt_path", "unused"]), True)
+    ckpt = os.path.join("ckpts", "chip_smoke", "eg3d_ball.msgpack")
+    save_checkpoint(ckpt, {"eg3d_renderer": eg3d_ball_params(
+        np.random.default_rng(EG3D_SEED + 50), cfg)})
+    hp = ecm.get_opts(["--ckpt_path", ckpt, "--N_grid", str(MESH_GRID), "--colorize",
+                       "--out_dir", "ckpts/chip_smoke", "--scene_name", "eg3d_ball"])
+    model, load_s = timed_s(lambda: ecm.load_model(hp, device))
+    sample, planes_s = timed_s(lambda: ecm.scene_sampler(model))
+    sigma, grid_s = timed_s(lambda: ecm.sigma_grid(sample, hp, device))
+    n, half = hp.N_grid, hp.cube_length / 2
+    lin = np.linspace(-half, half, n, dtype=np.float32)
+    pick = np.random.default_rng(SEED + 65).integers(1, n - 1, (MESH_CHECK, 3))
+    pts = lin[pick]
+    with torch.no_grad():   # the card's planes, sampled and decoded on the CPU
+        ref = run_model(sample.planes.cpu(), copy.deepcopy(model.decoder).cpu(),
+                        torch.from_numpy(pts)[None], model.cfg.rendering)["sigma"][0, :, 0]
+    ref = ref.numpy()
+    err = float(np.abs(sigma[pick[:, 0], pick[:, 1], pick[:, 2]] - ref).max())
+    print(f"[25/25] EG3D mesh of the ball scene (eg3d_ball_params at eval_eg3d's defaults): "
+          f"checkpoint loaded in {load_s:.3f} s, planes synthesised once in {planes_s:.3f} s, "
+          f"sigma grid {n}^3 (chunk {hp.chunk}) in {grid_s:.3f} s ({card}); sigma range "
+          f"{float(sigma[1:-1, 1:-1, 1:-1].min()):.3f}..{float(sigma.max()):.3f}; {MESH_CHECK} "
+          f"interior grid points vs the card's planes sampled and decoded on the CPU: max|d| "
+          f"{err:.3e} (atol "
+          f"{MESH_ATOL} + 1e-3 |ref|)", flush=True)
+    if not np.isfinite(sigma).all() or err > MESH_ATOL + 1e-3 * float(np.abs(ref).max()):
+        fail("the card's EG3D sigma grid disagrees with the CPU's")
+    (verts, faces), march_s = timed_s(lambda: marching_tetrahedra(
+        sigma, hp.sigma_threshold, spacing=(hp.cube_length / (n - 1),) * 3,
+        origin=(-half,) * 3))
+    colors, color_s = timed_s(lambda: ecm.vertex_colors(sample, verts, hp.chunk, device))
+    path = os.path.join(hp.out_dir, "eg3d_ball.ply")
+    write_ply(path, verts, faces, colors)
+    c = check_ply(path, verts, faces, "EG3D mesh")
+    print(f"[25/25] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
+          f"{len(faces)} faces in {march_s:.3f} s (host); vertex radius median "
+          f"{np.median(np.linalg.norm(verts, axis=-1)):.4f} (the ball's radius {BALL_R}); "
+          f"decoder colours in {color_s:.3f} s, median {np.round(np.median(c, 0), 4).tolist()} "
+          f"(the ball's {list(BALL_RGB)}); PLY written and read back; {card}", flush=True)
+
+
 def main():
     import os
 
@@ -2826,7 +3172,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/22] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/25] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -2841,7 +3187,7 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/22] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/25] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
@@ -2867,7 +3213,7 @@ def main():
             lat.append(time.perf_counter() - t0)
     launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/22] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/25] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
@@ -2881,7 +3227,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/22] outputs finite; opacity_fine mean per frame "
+    print(f"[4/25] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -2890,7 +3236,7 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/22] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/25] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
@@ -2916,11 +3262,12 @@ def main():
                 lambda: g_system.train_scan_batches(g_state, *g_batches, seed=SEED + 2), smi)
         del g_system, g_state, g_batches
 
-    del system, state, last, group, pool_rays, pool_rgbs
+    student = {k: copy.deepcopy(m) for k, m in state.models.items()}   # phase 23's start
+    del system, state, last, group
     torch.cuda.empty_cache()
 
     # ---- 7-13. the fast renderer's path ---------------------------------------
-    fast_results, fast_launches = fast_phases(frames_rays, device, smi, args)
+    fast_results, fast_launches, ball = fast_phases(frames_rays, device, smi, args)
     results.update(fast_results)
     launches.update(fast_launches)
     del frames_rays
@@ -2943,6 +3290,23 @@ def main():
     del eg3d_targets
     torch.cuda.empty_cache()
     eg3d_fast_phase(device, smi, args)
+    torch.cuda.empty_cache()
+
+    # ---- 23. culled training on K2 ------------------------------------------------------
+    culled_results, culled_launches = culled_phase(pool_rays, pool_rgbs, student, device, smi)
+    del pool_rays, pool_rgbs, student
+    torch.cuda.empty_cache()
+    for name, key in (("fused_train_fwd", "fwd"), ("fused_train_bwd", "bwd")):
+        results[name]["launches_by_path"] = {"fused (phase 6)": launches[name],
+                                             "culled_fused (phase 23)": culled_launches[key]}
+        results[name]["culled_shape"] = culled_results[name]
+        launches[name] += culled_launches[key]
+
+    # ---- 24-25. mesh extraction ------------------------------------------------------------
+    nerf_mesh_phase(ball, device, smi)
+    del ball
+    torch.cuda.empty_cache()
+    eg3d_mesh_phase(device, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

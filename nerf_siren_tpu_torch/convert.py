@@ -197,18 +197,24 @@ siren_to_jax = points_to_jax = module_to_jax
 def from_jax_for(model: torch.nn.Module):
     """The JAX-tree -> state_dict map of a model of the port."""
     from nerf_siren_tpu_torch.models.nerf import NeRF
+    from nerf_siren_tpu_torch.render.fast import Proxy
     from nerf_siren_tpu_torch.render.triplane import TriPlaneGenerator
 
     if isinstance(model, TriPlaneGenerator):
         return eg3d_from_jax
+    if isinstance(model, Proxy):
+        return proxy_from_jax
     return nerf_from_jax if isinstance(model, NeRF) else module_from_jax
 
 
 def to_jax(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """A model's state_dict (or tensors keyed as it) -> its JAX tree."""
     from nerf_siren_tpu_torch.models.nerf import NeRF
+    from nerf_siren_tpu_torch.render.fast import Proxy
     from nerf_siren_tpu_torch.render.triplane import TriPlaneGenerator
 
     if isinstance(model, TriPlaneGenerator):
         return eg3d_to_jax(state_dict)
+    if isinstance(model, Proxy):
+        return proxy_to_jax(state_dict)
     return (nerf_to_jax if isinstance(model, NeRF) else module_to_jax)(state_dict)

@@ -3,6 +3,8 @@ padding 'zeros', align_corners=False): the triplane sampling op.
 
 Counterpart of `nerf_siren_tpu/ops/grid_sample.py`:
 - `grid_sample_2d`: the 4-corner form on (B, C, H, W) features;
+- `grid_sample_3d`: trilinear samples of (B, C, D, H, W) volumes, the 8
+  corners gathered with zeros outside (JAX has no caller for it either);
 - `pack_grid_for_block_sample` / `grid_sample_2d_packed`: the same function
   on a channel-last table with a 1-texel zero border, where the four
   corners of a point are rows iy0+1, iy0+2 and columns ix0+1, ix0+2 of the
@@ -93,3 +95,32 @@ def packed_corner_block(coords: torch.Tensor, h: int, w: int):
     c0 = (ix0 + 1).nan_to_num(0.0).clamp(0, w).long()
     valid = (ix0 >= -1) & (ix0 <= w - 1) & (iy0 >= -1) & (iy0 <= h - 1)
     return r0, c0, wx1, wy1, valid
+
+
+def grid_sample_3d(grid: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Sample (B, C, D, H, W) at (B, M, 3) normalised (x, y, z) coords; x
+    indexes W, y H and z D (`F.grid_sample`'s convention: trilinear, zeros
+    padding, align_corners=False) -> (B, M, C). The eight corners are summed
+    in JAX's order: z outermost, then y, then x."""
+    b, c, d, h, w = grid.shape
+    x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
+    ix = ((x + 1) * w - 1) / 2
+    iy = ((y + 1) * h - 1) / 2
+    iz = ((z + 1) * d - 1) / 2
+    ix0, iy0, iz0 = torch.floor(ix), torch.floor(iy), torch.floor(iz)
+    fx, fy, fz = ix - ix0, iy - iy0, iz - iz0
+    flat = grid.reshape(b, c, d * h * w)
+
+    def gather(iz_, iy_, ix_):
+        mask = (ix_ >= 0) & (ix_ < w) & (iy_ >= 0) & (iy_ < h) & (iz_ >= 0) & (iz_ < d)
+        idx = ((iz_.clamp(0, d - 1) * h + iy_.clamp(0, h - 1)) * w
+               + ix_.clamp(0, w - 1)).nan_to_num(0.0).long()
+        out = flat.gather(2, idx[:, None, :].expand(b, c, idx.shape[1]))   # (B, C, M)
+        return torch.where(mask[:, None, :], out, 0.0)
+
+    out = 0.0
+    for cz, wz in ((iz0, 1 - fz), (iz0 + 1, fz)):
+        for cy, wy in ((iy0, 1 - fy), (iy0 + 1, fy)):
+            for cx, wx in ((ix0, 1 - fx), (ix0 + 1, fx)):
+                out = out + gather(cz, cy, cx) * (wz * wy * wx)[:, None, :]
+    return out.transpose(1, 2)

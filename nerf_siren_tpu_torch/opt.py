@@ -80,9 +80,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "on K2, the hand-written CUDA forward and "
                              "backward kernels (bf16 operands, float32 "
                              "accumulation; reference 8x256 topology). "
-                             "culled / culled_fused come with ROADMAP "
-                             "slice 6. The SIREN field and --mode d3 train "
-                             "on jnp")
+                             "culled: proxy-culled sample placement "
+                             "(render/culled_train.py): an online proxy "
+                             "places 16 samples a ray among 32 candidates, "
+                             "8 strata beside them, and both fields "
+                             "evaluate only those 24. culled_fused: culled "
+                             "with both field passes on K2. The SIREN field "
+                             "and --mode d3 train on jnp")
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
                         help="training steps per group: > 1 runs each group of the "
                              "epoch's batches as one captured CUDA graph on the card "
@@ -153,7 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag values the port does not serve yet -> the ROADMAP slice that brings them
 NOT_YET = (
-    ("train_backend", ("culled", "culled_fused"), "slice 6 (culled training)"),
     ("multihost", (True,), "slice 6 (multi-GPU)"),
 )
 

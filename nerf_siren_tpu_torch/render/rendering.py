@@ -14,7 +14,7 @@ graph needs: it cannot make a generator per step.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -24,16 +24,33 @@ from nerf_siren_tpu_torch.ops.sample_pdf import sample_pdf
 
 # One render's random draws by name: 'strat_u' (R, n_samples) uniform,
 # 'sigma_coarse' (R, n_samples) and 'sigma_fine' (R, n_samples +
-# n_importance) standard normal, 'pdf_u' (R, n_importance) uniform; only
-# those the config draws (`noise_shapes`).
+# n_importance) standard normal, 'pdf_u' (R, n_importance) uniform; for the
+# culled render (`render/culled_train.py`) 'culled_pdf_u' (R, n_sel) and
+# 'culled_strat_u' (R, n_uni) uniform, 'culled_sigma_coarse' and
+# 'culled_sigma_fine' (R, n_sel + n_uni) standard normal; only those the
+# config draws (`noise_shapes`).
 StepNoise = Dict[str, torch.Tensor]
 
 
-def noise_shapes(n_rays: int, cfg: RenderConfig) -> Dict[str, tuple]:
+def noise_shapes(n_rays: int, cfg: RenderConfig,
+                 culled: Optional[Tuple[int, int]] = None) -> Dict[str, tuple]:
     """name -> (shape, `torch.rand` or `torch.randn`) of the draws
-    `render_rays` makes from a generator under `cfg`, in its order."""
-    s, i = cfg.n_samples, cfg.n_importance
+    `render_rays` makes from a generator under `cfg`, in its order; with
+    `culled` (n_sel, n_uni) those of `render_rays_culled` instead (JAX's
+    four keys: the pdf's u where perturb != 0, the strata's where perturb >
+    0, the coarse and the fine density noise)."""
     spec = {}
+    if culled is not None:
+        n_sel, n_uni = culled
+        if cfg.perturb != 0.0:
+            spec["culled_pdf_u"] = ((n_rays, n_sel), torch.rand)
+        if cfg.perturb > 0.0:
+            spec["culled_strat_u"] = ((n_rays, n_uni), torch.rand)
+        if cfg.noise_std > 0.0:
+            spec["culled_sigma_coarse"] = ((n_rays, n_sel + n_uni), torch.randn)
+            spec["culled_sigma_fine"] = ((n_rays, n_sel + n_uni), torch.randn)
+        return spec
+    s, i = cfg.n_samples, cfg.n_importance
     if cfg.perturb > 0.0:
         spec["strat_u"] = ((n_rays, s), torch.rand)
     if cfg.noise_std > 0.0:
@@ -45,12 +62,14 @@ def noise_shapes(n_rays: int, cfg: RenderConfig) -> Dict[str, tuple]:
     return spec
 
 
-def draw_noise(generator: torch.Generator, n_rays: int, cfg: RenderConfig) -> StepNoise:
-    """The draws `render_rays(..., generator)` makes for `n_rays` float32
-    rays under `cfg`, made now, from `generator` (on its device)."""
+def draw_noise(generator: torch.Generator, n_rays: int, cfg: RenderConfig,
+               culled: Optional[Tuple[int, int]] = None) -> StepNoise:
+    """The draws `render_rays(..., generator)` (with `culled`,
+    `render_rays_culled`) makes for `n_rays` float32 rays under `cfg`, made
+    now, from `generator` (on its device)."""
     return {name: fn(shape, generator=generator, dtype=torch.float32,
                      device=generator.device)
-            for name, (shape, fn) in noise_shapes(n_rays, cfg).items()}
+            for name, (shape, fn) in noise_shapes(n_rays, cfg, culled).items()}
 
 
 class _Transmittance(torch.autograd.Function):

@@ -26,13 +26,19 @@ scenes):
   [ray_start, ray_end] (or to depth 0 for ray_start='auto'); rays that miss
   collapse to a zero-length interval at a safe depth and get zero opacity;
 - the depth is the weighted mean over the opacity, clipped to the min/max
-  survivor depth of the call's rays.
-The TPU kernel's tile-major survivor order and its padding of rays to the
-kernel's tile are layout: here the survivors are ray-major (R, K) and no
-ray is padded, so the depth clip and the safe depth are taken over the
-call's rays. A call renders its rays whole; the survivors' plane samples
-and decoder run in slices of DECODE_RAYS rays, which bounds the
-temporaries of a whole culled frame and changes no value.
+  survivor depth of JAX's call, which pads its rays with zero rays to a
+  multiple of its kernel's tile (TILE_R): a padding ray's survivor depths
+  are 0, so where JAX's call holds one the clip's floor falls to 0 (and a
+  ray with no opacity reads depth 0). The port pads no ray through K3: it
+  takes the clip over the real rays' depths and adds 0 where JAX's call
+  would pad (a plain call of a ray count that is not a TILE_R multiple,
+  the auto-cull bypass on a padded frame, a culled call whose active
+  blocks hold padding rays), so the depth is JAX's on every route.
+The TPU kernel's tile-major survivor order is layout: here the survivors
+are ray-major (R, K). The safe depth of rays that miss is taken over the
+call's real rays, as JAX's. A call renders its rays whole; the survivors'
+plane samples and decoder run in slices of DECODE_RAYS rays, which bounds
+the temporaries of a whole culled frame and changes no value.
 """
 from __future__ import annotations
 
@@ -156,10 +162,12 @@ def make_fast_eg3d_renderer(
             rgb.append(out["rgb"][0].view(-1, k, 3))
         return torch.cat(sig), torch.cat(rgb)
 
-    def render_core(rays8: torch.Tensor, real: Optional[torch.Tensor] = None):
-        """(N, 8) prepped rays -> (rgb, depth, opacity); `real` (N,) marks
-        the rays of the frame among block padding (the depth clip's
-        range)."""
+    def render_core(rays8: torch.Tensor, real: Optional[torch.Tensor] = None,
+                    pad: bool = False):
+        """(N, 8) prepped rays -> (rgb, depth, opacity). The depth clip's
+        range: the depths of the real rays (`real` (N,) marks them among a
+        culled call's block padding; else every ray), and 0 where JAX's
+        call holds a padding ray (`pad`, or any ray outside `real`)."""
         sel = proxy_march_select(packed_proxy, rays8, c, k, midpoint=placement == "mid",
                                  return_density=quadrature == "ratio")
         z, xyz = sel[0], sel[1]
@@ -177,8 +185,16 @@ def make_fast_eg3d_renderer(
         opacity = weights.sum(-1)
         rgb = (weights[..., None] * rgb_k).sum(-2)
         depth = (weights * z).sum(-1) / torch.clamp_min(opacity, 1e-10)
-        zr = z if real is None else z[real]
-        depth = torch.clamp(depth, zr.min(), zr.max())
+        lo, hi = z.amin(-1), z.amax(-1)
+        padded = torch.as_tensor(pad, device=z.device)
+        if real is not None:
+            lo = torch.where(real, lo, float("inf"))
+            hi = torch.where(real, hi, float("-inf"))
+            padded = padded | ~real.all()
+        lo, hi = lo.min(), hi.max()
+        lo = torch.where(padded, lo.clamp_max(0.0), lo)
+        hi = torch.where(padded, hi.clamp_min(0.0), hi)
+        depth = torch.clamp(depth, lo, hi)
         if opts.white_back:
             rgb = rgb + (1.0 - opacity[:, None])
         return rgb, depth, opacity
@@ -186,7 +202,8 @@ def make_fast_eg3d_renderer(
     if cull is None:
         @torch.no_grad()
         def render_plain(rays: torch.Tensor) -> Outputs:
-            return dict(zip(KEYS, render_core(fast_rays8(rays.float(), opts))))
+            return dict(zip(KEYS, render_core(fast_rays8(rays.float(), opts),
+                                              pad=rays.shape[0] % TILE_R != 0)))
 
         render_plain.proxy = proxy
         return render_plain
@@ -239,7 +256,7 @@ def make_fast_eg3d_renderer(
         """Every ray, no prepass: the plain renderer's frame, and the count
         of field-visible blocks. Returns (outputs, n_vis_b)."""
         rp = rays8.shape[0]
-        rgb, depth, opacity = render_core(rays8[:r])
+        rgb, depth, opacity = render_core(rays8[:r], pad=rp > r)
         vis = F.pad(opacity > 0.01, (0, rp - r))
         return dict(zip(KEYS, (rgb, depth, opacity))), vis.view(rp // block, block).any(1).sum()
 

@@ -20,8 +20,10 @@ warm start of the weights (`--pretrained`, a checkpoint of either
 package). TensorBoard scalars are written when `tensorboardX` imports. It
 runs on `--device` (default `cuda`, which fails when no card is visible;
 the tests pass `--device cpu`); `--train_backend fused` runs the field on
-K2 there. Not ported yet (ROADMAP slice 6): multi-GPU and the culled
-training backends.
+K2 there, `culled` trains with the online proxy's sample placement
+(`render/culled_train.py`, logging `train/proxy_loss`; the checkpoints
+hold the proxy under `proxy`) and `culled_fused` does both. Not ported yet
+(ROADMAP slice 6): multi-GPU.
 """
 from __future__ import annotations
 

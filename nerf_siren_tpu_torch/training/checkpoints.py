@@ -4,16 +4,18 @@ Counterpart of `nerf_siren_tpu/training/checkpoints.py`. The files are in
 flax's `msgpack_serialize` encoding, written and read here without flax:
 arrays are msgpack ext type 1 (numpy scalars ext type 3), each holding a
 packed ``(shape, dtype name, C-order bytes)`` triple. Models are keyed by
-name (`nerf_coarse`, `nerf_fine`, `points`, `eg3d_renderer`) with the JAX
-package's parameter trees (`convert.nerf_to_jax`, `convert.siren_to_jax`
-for a SIREN field under the `nerf_*` names, `convert.points_to_jax` for the
-semantic point network, `convert.eg3d_to_jax`), and
+name (`nerf_coarse`, `nerf_fine`, `points`, `eg3d_renderer`, `proxy`) with
+the JAX package's parameter trees (`convert.nerf_to_jax`,
+`convert.siren_to_jax` for a SIREN field under the `nerf_*` names,
+`convert.points_to_jax` for the semantic point network,
+`convert.eg3d_to_jax`, `convert.proxy_to_jax` for the culled backends'
+online proxy), and
 full-resume checkpoints nest them under 'params', so the JAX package's
 `load_ckpt` and `eval.py` read what the port trains, and the port reads
 what the JAX package trains.
 
 A full-resume file (`save_train_state`) holds
-  {"params": {"nerf_coarse": tree, "nerf_fine": tree[, "points": tree]}
+  {"params": {"nerf_coarse": tree, "nerf_fine": tree[, "points" | "proxy": tree]}
              (or {"eg3d_renderer": tree}: the whole renderer, `w_avg`,
              the `noise_const`s and z included),
    "opt_state": {"optimizer": name, "count": int, <slot>: {model name: tree}, ...},
@@ -37,7 +39,8 @@ from torch import nn
 from nerf_siren_tpu_torch.convert import eg3d_from_jax, from_jax_for, to_jax
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
-MODEL_NAMES = {"coarse": "nerf_coarse", "fine": "nerf_fine", "points": "points"}
+MODEL_NAMES = {"coarse": "nerf_coarse", "fine": "nerf_fine", "points": "points",
+               "proxy": "proxy"}
 
 
 def _encode_array(a: np.ndarray) -> bytes:

@@ -27,13 +27,14 @@ subclass) and `training/eg3d_system.py::EG3DSystem`, each through the
 (gather its rays from the pool inside the graph), run `loss_and_grads` on
 the system's backend with the step's draws, apply `Optimizer.step_device`
 in place, run the system's `after_update` where it has one (EG3D's `w_avg`
-EMA, from the outputs of the step's forward), and write the step's loss
-and PSNR into row i of the (N, 2) output. With 'importance' a per-ray error buffer
-over the pool starts at ones; each step draws its rays with probability
-proportional to (err + 1e-8)^alpha by inverse CDF (a cumulative sum and a
-search over the pool, not JAX's (B, P) Gumbel slab) unless the uniform
-floor takes them, and writes its rays' errors back (duplicate indices land
-in any order, as in JAX).
+EMA, from the outputs of the step's forward), and write the step's loss,
+PSNR and the G losses the system names in `GROUP_LOSSES` (the culled
+backends' proxy loss) into row i of the (N, 2 + G) output. With
+'importance' a per-ray error buffer over the pool starts at ones; each
+step draws its rays with probability proportional to (err + 1e-8)^alpha by
+inverse CDF (a cumulative sum and a search over the pool, not JAX's (B, P)
+Gumbel slab) unless the uniform floor takes them, and writes its rays'
+errors back (duplicate indices land in any order, as in JAX).
 
 On a CUDA device the body is captured once, after one eager forward and
 backward of step 0 on a side stream (it builds K2, sets its kernels'
@@ -88,7 +89,8 @@ class StepGroup:
         self.graph = None
         self.static: Dict[str, torch.Tensor] = {}
         self.out = None
-        self.steps: Optional[torch.Tensor] = None   # the last run's (N, 2) loss, PSNR
+        self.steps: Optional[torch.Tensor] = None   # the last run's (N, 2 + G) loss, PSNR, ...
+        self.width = 2 + len(system.GROUP_LOSSES)
         self.capture_s: Optional[float] = None      # host seconds of the capture alone
 
     def _rays(self, x, i, buf):
@@ -123,6 +125,8 @@ class StepGroup:
             pred = res["rgb_fine" if "rgb_fine" in res else "rgb_coarse"].detach()
             out[i, 0] = losses["sum"].detach()
             out[i, 1] = psnr(pred, rgbs)
+            for j, name in enumerate(system.GROUP_LOSSES):
+                out[i, 2 + j] = losses[name].detach()
             if buf is not None:
                 buf[idx] = ((pred - rgbs) ** 2).mean(dim=-1)
 
@@ -131,7 +135,7 @@ class StepGroup:
         self.static = {k: v.clone() for k, v in inputs.items()}
         if self.kind == "importance":
             self.static["buf"] = torch.ones(inputs["pool_rays"].shape[0], device=device)
-        self.out = torch.zeros((self.n, 2), device=device)
+        self.out = torch.zeros((self.n, self.width), device=device)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):   # warm-up: step 0's forward and backward only
@@ -162,19 +166,19 @@ class StepGroup:
     def loop(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The body as a plain loop over `inputs`, uncaptured: the CPU's
         route, and on a card the plain version a graph is held against.
-        Returns `steps`, the (N, 2) losses and PSNRs."""
+        Returns `steps`, the (N, 2 + G) losses and PSNRs."""
         device = inputs["table"].device
         x = dict(inputs)
         if self.kind == "importance":
             x["buf"] = torch.ones(inputs["pool_rays"].shape[0], device=device)
-        self.steps = torch.empty((self.n, 2), device=device)
+        self.steps = torch.empty((self.n, self.width), device=device)
         self._body(x, self.steps)
         return self.steps
 
     def run(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The group's N steps on `inputs` (on the state's device): the state
         is updated in place (its counts are the caller's); returns `steps`,
-        the (N, 2) losses and PSNRs. On a card: the captured graph, made at
+        the (N, 2 + G) losses and PSNRs. On a card: the captured graph, made at
         the first call."""
         if inputs["table"].device.type != "cuda":
             return self.loop(inputs)

@@ -75,7 +75,7 @@ class NeRF3DSystem(NeRFSystem):
 
     def _render_train(self, models, rays, cfg, generator, noise):
         return render_rays_3d(models, rays, cfg, generator, no_grad_on_nerf=self.no_grad_on_nerf,
-                              noise=noise, **self._semantic_kwargs())
+                              noise=noise, **self._semantic_kwargs()), None
 
     def train_step(self, state, batch, seed: int):
         """One update on a batch {'rays', 'rgbs', 'cls'} (any leading shape:

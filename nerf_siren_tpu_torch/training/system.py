@@ -10,12 +10,19 @@ models and the optimizer state in place and returns the same state with
 the step advanced. `training/semantic_system.py` derives the `--mode d3`
 system from it.
 
-Two training backends:
+Four training backends:
 - `jnp` (the flag value of the reference scripts): the plain PyTorch field
   in float32 under autograd;
 - `fused`: both field passes on K2 (`ops/kernels/fused_mlp_train.py`),
   bf16 operands with float32 accumulation, forward and backward kernels
-  on a CUDA device; reference 8x256 topology of the MLP field only.
+  on a CUDA device; reference 8x256 topology of the MLP field only;
+- `culled`: proxy-culled training (`render/culled_train.py`): an online
+  proxy (`models['proxy']`, hidden 64, in the optimizer with the fields)
+  places `culled_sel` samples a ray among `culled_candidates`, with
+  `culled_uni` strata beside them, and both fields evaluate only those K;
+  the step's loss adds `proxy_lambda` times the proxy's regression loss;
+- `culled_fused`: `culled` with both field passes on K2 at
+  `samples_per_dir` = K.
 
 The steps:
 - `train_step`: one update, eagerly;
@@ -29,7 +36,8 @@ The three grouped steps run as one `training/graphs.py::StepGroup`: a
 captured CUDA graph of the N steps on a card (cached per kind, N, B, pool
 size and state), a plain loop on the CPU. They return the state and the
 last step's loss and PSNR, as the JAX package's scans do; every step's
-are in `last_group.steps` (N, 2) until the next group.
+are in `last_group.steps` (N, 2 + G: loss, PSNR, then the `GROUP_LOSSES`)
+until the next group.
 
 Random draws (stratified perturbation, sigma noise, the fine pass's
 sample_pdf) come from a `torch.Generator` on the rays' device, seeded from
@@ -51,6 +59,8 @@ import torch
 from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.models.siren import SirenNeRF, siren_field_fn
+from nerf_siren_tpu_torch.render.culled_train import PROXY_HIDDEN, render_rays_culled
+from nerf_siren_tpu_torch.render.fast import init_proxy
 from nerf_siren_tpu_torch.render.rendering import (StepNoise, draw_noise, render_rays,
                                                    render_rays_chunked)
 from nerf_siren_tpu_torch.training.graphs import NOISE, StepGroup
@@ -58,14 +68,15 @@ from nerf_siren_tpu_torch.training.losses import loss_dict
 from nerf_siren_tpu_torch.training.metrics import psnr
 from nerf_siren_tpu_torch.training.optimizers import Optimizer
 
-BACKENDS = ("jnp", "fused")
+BACKENDS = ("jnp", "fused", "culled", "culled_fused")
+CULLED = ("culled", "culled_fused")
 FIELDS = ("mlp", "siren")
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
-    models: Dict[str, torch.nn.Module]   # 'coarse', (n_importance > 0) 'fine'[, 'points']
+    models: Dict[str, torch.nn.Module]   # 'coarse', (n_importance > 0) 'fine'[, 'points' | 'proxy']
     opt_state: Dict[str, Any]        # `Optimizer` state over `parameters(models)`
 
 
@@ -91,11 +102,12 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def draw_step_noise(seed: int, step: int, n_rays: int, cfg: RenderConfig,
-                    device) -> StepNoise:
-    """The draws `render_rays` makes from `step_generator(seed, step)` for
+                    device, culled: Optional[Tuple[int, int]] = None) -> StepNoise:
+    """The draws `render_rays` (with `culled` (n_sel, n_uni),
+    `render_rays_culled`) makes from `step_generator(seed, step)` for
     `n_rays` rays under `cfg`, made beforehand, with the same generator, in
     the same order and at the same shapes."""
-    return draw_noise(step_generator(seed, step, device), n_rays, cfg)
+    return draw_noise(step_generator(seed, step, device), n_rays, cfg, culled)
 
 
 class GroupedSteps:
@@ -105,9 +117,11 @@ class GroupedSteps:
     `loss_and_grads(state, rays, rgbs, generator, cls_target=None,
     noise=None)`, `step_draws(generator, n_rays)` and optionally
     `after_update(state, outputs)` (run after each optimizer update, inside
-    the graph)."""
+    the graph). `GROUP_LOSSES` names the losses besides the sum that a
+    group reports, as `train/<name>_loss`."""
 
     LOSS_KEY = "train/loss"   # the metric of the step's summed loss
+    GROUP_LOSSES: Tuple[str, ...] = ()
 
     def __init__(self):
         self._groups: Dict[tuple, StepGroup] = {}
@@ -166,7 +180,10 @@ class GroupedSteps:
         out = self.last_group.run(inputs)
         self.optimizer.advance(state.opt_state, n)
         state.step += n
-        return state, {self.LOSS_KEY: out[-1, 0], "train/psnr": out[-1, 1]}
+        metrics = {self.LOSS_KEY: out[-1, 0], "train/psnr": out[-1, 1]}
+        for j, name in enumerate(self.GROUP_LOSSES):
+            metrics[f"train/{name}_loss"] = out[-1, 2 + j]
+        return state, metrics
 
     def group_inputs(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
                      seed: int, n: int, b: int, uniform_frac: float = 0.0
@@ -202,7 +219,8 @@ class NeRFSystem(GroupedSteps):
     fine NeRF (or SIREN fields: `field_type='siren'`, `siren_hidden` x
     `siren_layers` FiLM layers, a `siren_z_dim` latent, coordinates scaled
     by 2 / `siren_box_warp`), MSE loss (or the semantic losses), PSNR
-    logging."""
+    logging. The culled backends take `culled_candidates`, `culled_sel`,
+    `culled_uni` and `proxy_lambda` (JAX's defaults)."""
 
     def __init__(self, render_cfg: RenderConfig = RenderConfig(),
                  train_cfg: TrainConfig = TrainConfig(),
@@ -210,19 +228,26 @@ class NeRFSystem(GroupedSteps):
                  steps_per_epoch: int = 1000, train_backend: str = "jnp",
                  device="cuda", field_type: str = "mlp", siren_hidden: int = 256,
                  siren_layers: int = 8, siren_z_dim: int = 100,
-                 siren_box_warp: float = 51.0):
+                 siren_box_warp: float = 51.0, culled_candidates: int = 32,
+                 culled_sel: int = 16, culled_uni: int = 8, proxy_lambda: float = 1.0):
         if train_backend not in BACKENDS:
-            raise ValueError(f"train_backend {train_backend!r}: the port has {BACKENDS}; "
-                             "'culled' and 'culled_fused' come with ROADMAP slice 6")
+            raise ValueError(f"train_backend {train_backend!r}: one of {BACKENDS}")
         if field_type not in FIELDS:
             raise ValueError(f"field_type {field_type!r}: one of {FIELDS}")
-        if train_backend == "fused":
+        if train_backend in ("fused", "culled_fused"):
             if field_type != "mlp":
-                raise ValueError("the fused backend trains the MLP field (K2), not "
+                raise ValueError(f"the {train_backend} backend trains the MLP field (K2), not "
                                  f"{field_type!r}")
             from nerf_siren_tpu_torch.ops.kernels.fused_mlp_train import check_topology
 
             check_topology(nerf_cfg)
+        if train_backend in CULLED and (render_cfg.n_importance <= 0 or field_type != "mlp"):
+            raise ValueError("culled training needs a fine network and the MLP field")
+        self.culled = dict(n_candidates=culled_candidates, n_sel=culled_sel,
+                           n_uni=culled_uni)
+        self.proxy_lambda = proxy_lambda
+        if train_backend in CULLED:
+            self.GROUP_LOSSES = ("proxy",)
         self.field_type = field_type
         self.siren = dict(hidden_dim=siren_hidden, n_layers=siren_layers, z_dim=siren_z_dim,
                           box_sidelength=siren_box_warp)
@@ -250,6 +275,10 @@ class NeRFSystem(GroupedSteps):
         models = {"coarse": field()}
         if self.render_cfg.n_importance > 0:
             models["fine"] = field()
+        if self.train_backend in CULLED:
+            # the online placement proxy; checkpoints save it under 'proxy',
+            # where both packages' fast eval reuse it
+            models["proxy"] = init_proxy(PROXY_HIDDEN, generator=generator)
         return {k: m.to(self.device) for k, m in models.items()}
 
     def init_state(self, seed: int) -> TrainState:
@@ -268,7 +297,7 @@ class NeRFSystem(GroupedSteps):
         return siren_field_fn if self.field_type == "siren" else None
 
     def _field_fn(self, rays: torch.Tensor):
-        if self.train_backend == "fused":
+        if self.train_backend in ("fused", "culled_fused"):
             from nerf_siren_tpu_torch.ops.kernels.fused_mlp_train import (
                 make_fused_train_field_fn)
 
@@ -277,9 +306,14 @@ class NeRFSystem(GroupedSteps):
 
     def _render_train(self, models, rays: torch.Tensor, cfg: RenderConfig,
                       generator: Optional[torch.Generator], noise: Optional[StepNoise]):
-        """The training step's render."""
+        """The training step's render: its outputs, and the proxy's loss on
+        the culled backends (else None)."""
+        if self.train_backend in CULLED:
+            return render_rays_culled(models, rays, cfg, generator,
+                                      field_fn=self._field_fn(rays), noise=noise,
+                                      **self.culled)
         return render_rays(models, rays, cfg, generator, field_fn=self._field_fn(rays),
-                           noise=noise)
+                           noise=noise), None
 
     def loss_and_grads(self, state: TrainState, rays: torch.Tensor, rgbs: torch.Tensor,
                        generator: Optional[torch.Generator],
@@ -292,8 +326,11 @@ class NeRFSystem(GroupedSteps):
         params = [p for _, _, p in parameters(state.models)]
         for p in params:
             p.grad = None
-        out = self._render_train(state.models, rays, cfg, generator, noise)
+        out, proxy_loss = self._render_train(state.models, rays, cfg, generator, noise)
         losses = self.loss_fn(out, rgbs, cls_target=cls_target)
+        if proxy_loss is not None:
+            losses = dict(losses, proxy=proxy_loss,
+                          sum=losses["sum"] + self.proxy_lambda * proxy_loss)
         losses["sum"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p in params:
@@ -329,6 +366,10 @@ class NeRFSystem(GroupedSteps):
         loss and PSNR are micro-batch means. Each micro-batch draws from
         `step_generator(seed, state.step)`, as JAX folds the step into one key
         for all of them."""
+        if self.train_backend in CULLED:
+            raise NotImplementedError(
+                "train_step_accum supports the jnp/fused backends; use "
+                "train_step or train_scan with the culled backends")
         rays = torch.as_tensor(batch["rays"], dtype=torch.float32, device=self.device)
         rgbs = torch.as_tensor(batch["rgbs"], dtype=torch.float32, device=self.device)
         if rays.shape[0] % n_micro:
@@ -352,7 +393,9 @@ class NeRFSystem(GroupedSteps):
     def step_draws(self, generator: torch.Generator, n_rays: int) -> StepNoise:
         """The draws `train_step` makes for `n_rays` rays from the step's
         generator, made beforehand (`draw_noise` under the training config)."""
-        return draw_noise(generator, n_rays, self.render_cfg.replace(test_time=False))
+        culled = ((self.culled["n_sel"], self.culled["n_uni"])
+                  if self.train_backend in CULLED else None)
+        return draw_noise(generator, n_rays, self.render_cfg.replace(test_time=False), culled)
 
     # -- inference ------------------------------------------------------------
 

@@ -28,6 +28,8 @@ tensor's largest
 plain gradient chain agrees within 6.7e-4 at both sizes (1.1e-3 at
 N = 127), so that check holds the kernel to SAME_ELEM = 3e-3.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -230,11 +232,14 @@ def _train_packed(device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,samples_per_dir", [(65536, 64), (4099, 7), (1, 1)] + [
-    (n, s) for n in (1, 127, 129, 65536 + 37) for s in (1, 64, 192) if (n, s) != (1, 1)])
+    (n, s) for n in (1, 127, 129, 65536 + 37) for s in (1, 64, 192) if (n, s) != (1, 1)] + [
+    (24576, 24), (24576 + 13, 24)])
 def test_train_kernels_match_plain(cuda_device, n, samples_per_dir):
     """K2 against the plain version, at tile edges (127, 129: one warpgroup's
     block of 64 points past N; 65,536 + 37: a second round of the
-    persistent grid) and one direction per 1, 64 or 192 points; then the
+    persistent grid), one direction per 1, 64 or 192 points, and at the
+    culled step's shape (1024 rays x 24 points, one direction per 24, and
+    an odd count beside it); then the
     plain gradient chain run on the activations the backward's tile kernel
     stashed, read back through the stash layout (so on its own ReLU masks),
     against the kernel, within SAME_ELEM of each tensor's largest
@@ -989,21 +994,19 @@ def _param_list(state):
     return [p.detach().clone() for _, _, p in parameters(state.models)]
 
 
-def _train_system(device, n_samples=64, n_importance=128, perturb=1.0, batch_size=1024):
+def _train_system(device, n_samples=64, n_importance=128, perturb=1.0, batch_size=1024,
+                  backend="fused"):
     from nerf_siren_tpu_torch.config import RenderConfig, TrainConfig
     from nerf_siren_tpu_torch.training.system import NeRFSystem
 
     return NeRFSystem(RenderConfig(n_samples=n_samples, n_importance=n_importance,
                                    perturb=perturb, noise_std=perturb, white_back=True),
                       TrainConfig(lr=5e-4, decay_step=(20,), decay_gamma=0.1,
-                                  batch_size=batch_size), NeRFConfig(), 1000, "fused", device)
+                                  batch_size=batch_size), NeRFConfig(), 1000, backend, device)
 
 
 def _copy_state(system, state, device):
-    other = system.state_for({k: NeRF(NeRFConfig()).to(device) for k in state.models})
-    for k, m in other.models.items():
-        m.load_state_dict(state.models[k].state_dict())
-    return other
+    return system.state_for(copy.deepcopy(state.models))
 
 
 def _synthetic_rays(shape, device, seed=3):
@@ -1026,20 +1029,32 @@ def test_grouped_fused_steps_on_a_graph_match_eager_steps(cuda_device):
     (`change_gap`); the eager step runs the same device-scalar update as
     the graph. A control must fail the same bar: a group whose last update
     has lr 0 (the last row of its scalar table)."""
+    _grouped_vs_eager(_train_system(cuda_device), cuda_device)
+
+
+@pytest.mark.cuda
+def test_grouped_culled_fused_steps_on_a_graph_match_eager_steps(cuda_device):
+    """The same on `culled_fused` (K2 at 1024 rays x 24 points, the proxy
+    in the optimizer and in `change_gap`; its proxy loss per step within
+    GROUP_LOSS_RTOL of the eager step's too)."""
+    _grouped_vs_eager(_train_system(cuda_device, backend="culled_fused"), cuda_device)
+
+
+def _grouped_vs_eager(system, cuda_device):
     n = 7
-    system = _train_system(cuda_device)
     eager = system.init_state(0)
     grouped, control = _copy_state(system, eager, cuda_device), _copy_state(system, eager,
                                                                              cuda_device)
     start = _param_list(eager)
     rays, rgbs = _synthetic_rays((2 * n, 1024), cuda_device)
-    want, want_params = [], []
+    want, want_params, want_extra = [], [], []
     for i in range(2 * n):
         eager, m = system.train_step(eager, {"rays": rays[i], "rgbs": rgbs[i]}, seed=7)
         want.append(float(m["train/loss"]))
+        want_extra.append([float(m[f"train/{k}_loss"]) for k in system.GROUP_LOSSES])
         if i % n == n - 1:
             want_params.append(_param_list(eager))
-    got, gaps = [], []
+    got, got_extra, gaps = [], [], []
     for grp in range(2):
         before = dict(k2.LAUNCHES)
         sl = slice(grp * n, (grp + 1) * n)
@@ -1049,9 +1064,11 @@ def test_grouped_fused_steps_on_a_graph_match_eager_steps(cuda_device):
                             else {"fwd": 0, "bwd": 0}), launched
         assert float(m["train/loss"]) == float(system.last_group.steps[-1, 0])
         got += system.last_group.steps[:, 0].tolist()
+        got_extra += system.last_group.steps[:, 2:].tolist()
         gaps.append(change_gap(start, _param_list(grouped), want_params[grp]))
     assert grouped.step == eager.step == 2 * n
-    loss_rel = max(abs(b - a) / abs(a) for a, b in zip(want, got))
+    loss_rel = max(abs(b - a) / abs(a) for a, b in zip(want + sum(want_extra, []),
+                                                       got + sum(got_extra, [])))
 
     table = system.optimizer.scalar_table
 

@@ -128,14 +128,15 @@ def test_pretrained_warm_starts_from_a_jax_checkpoint(tmp_path, scene):
     # slice 5 ported EG3D training: it parses now, under its old id
     pytest.param(["--mode", "eg3d"], None, id="flags1-slice 5"),
     pytest.param(["--field", "siren"], None, id="flags2-slice 4"),
-    (["--train_backend", "culled_fused"], "slice 6 (culled"),
+    # slice 6 ported culled training: it parses now, under its old id
+    pytest.param(["--train_backend", "culled_fused"], None, id="flags3-slice 6 (culled"),
     (["--multihost"], "slice 6"),
     (["--num_chips", "4"], "slice 6"),
     pytest.param(["--dataset_name", "replica"], None, id="flags6-slice 4"),
 ])
 def test_unported_flags_name_their_roadmap_slice(capsys, flags, names):
     """A flag value that a later slice brings is refused with that slice's
-    name; the values slices 4 and 5 brought parse."""
+    name; the values slices 4, 5 and 6 brought parse."""
     if names is None:
         assert getattr(train_opts(["--root_dir", "unused", *flags]), flags[0][2:]) == flags[1]
         return

@@ -247,8 +247,11 @@ def test_fused_backend_trains_and_agrees_with_jnp():
 
 
 def test_system_rejects_what_the_port_lacks():
-    with pytest.raises(ValueError, match="slice 6"):
-        NeRFSystem(train_backend="culled", device="cpu")
+    # slice 6 ported the culled backends: they refuse what JAX's refuse
+    with pytest.raises(ValueError, match="fine network"):
+        NeRFSystem(RenderConfig(n_importance=0), train_backend="culled", device="cpu")
+    with pytest.raises(ValueError, match="reference 8x256"):
+        NeRFSystem(nerf_cfg=NeRFConfig(**NARROW), train_backend="culled_fused", device="cpu")
     with pytest.raises(ValueError, match="reference 8x256"):
         NeRFSystem(nerf_cfg=NeRFConfig(**NARROW), train_backend="fused", device="cpu")
 

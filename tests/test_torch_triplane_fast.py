@@ -1,9 +1,9 @@
 """The port's fast EG3D renderer (`render/triplane_fast.py`, `python -m
 nerf_siren_tpu_torch.eval_eg3d --renderer fast`) against the JAX
 package's, on the CPU: the port on K3's plain version, JAX on its Pallas
-kernel in interpret mode with the ray tile shrunk to 128 (so 256-ray
-calls are two whole tiles, no padding ray joins the depth clip and the
-safe depth), the TINY triplane config of tests/test_triplane_fast.py
+kernel in interpret mode with the ray tile shrunk to 128 on both sides
+(256-ray calls are two whole tiles; `test_depth_clip_matches_jax_where_
+jax_pads` renders 200), the TINY triplane config of tests/test_triplane_fast.py
 (planes 16^2 x 8, box_warp 4, ray_start 'auto') and numpy-drawn weights.
 Both renderers take one proxy that JAX distilled (`proxy=`), since the
 two packages' random streams differ; the CLIs take it through their
@@ -54,10 +54,12 @@ JAX_TILE = 128
 
 @pytest.fixture(scope="module", autouse=True)
 def small_tiles():
-    old = jpm.TILE_R
-    jpm.TILE_R = JAX_TILE   # keep interpreter-mode runs fast
+    """JAX's tile at 128 (keeps interpreter-mode runs fast), and the port's
+    at the same: the port adds 0 to its depth clip where JAX's call pads."""
+    old = jpm.TILE_R, TF.TILE_R
+    jpm.TILE_R = TF.TILE_R = JAX_TILE
     yield
-    jpm.TILE_R = old
+    jpm.TILE_R, TF.TILE_R = old
 
 
 def camera_rays(n_side: int, n_miss: int = 0):
@@ -203,6 +205,37 @@ def test_auto_cull_first_frames_match_jax_on_the_fog_scene(scene, monkeypatch):
         close(got, want, f"frame {frame}")
         assert (auto.last_active_frac, auto.last_plain) == (jauto.last_active_frac,
                                                            jauto.last_plain), frame
+
+
+def test_depth_clip_matches_jax_where_jax_pads(scene, monkeypatch):
+    """200 rays (196 through the box, 4 that miss it) with the tile at 128 on
+    both sides, so JAX pads every call with 56 zero rays, whose depths pull
+    its clip's floor to 0: the plain renderer, and the auto-cull renderer's
+    first frame (culled, every block active, the padding block among them)
+    and its second (the dense bypass). The misses have no opacity, so their
+    depth is the clip's floor: 0 in JAX. Before the repair the port clipped
+    over the real rays only and read the nearest survivor depth there
+    (2.0, the box's near depth, on each miss in all three frames, outside the
+    render bars); now they are equal, and the frames within the bars."""
+    rays = camera_rays(14, n_miss=4)
+    kw = dict(FAST, table_dtype=jnp.float32, proxy=scene["proxy"])
+    pkw = dict(kw, table_dtype=torch.float32, proxy=port_proxy(scene["proxy"]))
+    want = JF.make_fast_eg3d_renderer(scene["tree"], scene["jcfg"], **kw)(jnp.asarray(rays))
+    got = TF.make_fast_eg3d_renderer(scene["model"], scene["cfg"], **pkw)(
+        torch.from_numpy(rays))
+    frames = [("plain", got, want)]
+    jauto = JF.make_fast_eg3d_renderer(scene["tree"], scene["jcfg"], cull="auto", **kw)
+    auto = TF.make_fast_eg3d_renderer(scene["model"], scene["cfg"], cull="auto", **pkw)
+    for frame in range(2):
+        want = jauto(jnp.asarray(rays))
+        got = auto(torch.from_numpy(rays))
+        assert auto.last_plain == jauto.last_plain == (frame == 1), frame
+        frames.append((f"auto frame {frame}", got, want))
+    for name, got, want in frames:
+        close(got, want, name)
+        miss = np.asarray(want["depth_fine"])[-4:]
+        assert (miss == 0).all(), name
+        np.testing.assert_array_equal(got["depth_fine"][-4:].numpy(), miss, err_msg=name)
 
 
 # ---- the CLI --------------------------------------------------------------------
