@@ -265,17 +265,36 @@ Run from the repository root. Phases, each printing a line:
      tetrahedra, `--colorize`): each stage's seconds, MESH_CHECK interior
      grid points against the card's planes sampled and decoded on the CPU,
      and phase 24's PLY checks.
+ 26. data-parallel training on a one-rank NCCL group (file store):
+     DP_STEPS `fused` and `culled_fused` steps (K2) and DP_EG3D_STEPS EG3D
+     steps (deterministic algorithms), each eager and as one group on a
+     CUDA graph (its all-reduce captured), through `DataParallel` against
+     the non-distributed path from the same weights, seed and batches: bit
+     for bit (a card that refuses the collective's capture refuses the
+     grouped steps with an error, printed as such); the replica hash; ms
+     per step of both paths, eager and grouped, in turns, beside phase 6's
+     and 23's.
+ 27. sharded rendering on a mesh of the card twice (two slabs, a host
+     thread and stream each: the route of every mesh) against one device:
+     the 800² exact frame (fused, K1; the slab boundary falls on a chunk),
+     the fast frame (K3 select, K1), 128² EG3D `render_sharded` (K5), each
+     bit for bit, with both times in turns; the 800² exact frame on the
+     plain fields (`--renderer exact`) under no_grad, within 1e-4 of one
+     device, no slab recording an autograd graph, both peak memories;
+     N_AUTO auto-cull frames in mesh mode (K3 opacity; per-shard budgets),
+     every ray the fast frame's or background.
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
   device time per kernel, the device's idle share and the peak device
   memory; it also profiles one group of phase 6(c)'s grouped `fused` steps.
 Then one JSON line of kernels (launches counted over the path that runs
-each: K1 phase 4, K2 phases 6(b) and 23(c) (`launches_by_path`; its
+each: K1 phase 4, K2 phases 6(b), 23(c) and 26 (`launches_by_path`; its
 readings at the culled shape under `culled_shape`), K3 select phase 9,
 K3 opacity phase 10, K4 phase 11, K6 phase 13, K5 the 128² frames of
-phase 16; `timing` says how `ms` was taken: "queued" for K5 and K3
-select, "unqueued" for the rest), the nvidia-smi line, and the JSON
+phase 16, and K1, K3 and K5 again over phase 27's two-slab frames (their
+`launches_by_path`); `timing` says how `ms` was taken: "queued" for K5
+and K3 select, "unqueued" for the rest), the nvidia-smi line, and the JSON
 result as the last line. Any failure exits non-zero before the result is
 printed.
 Bounds: the larger of the operations over the dense tensor-core peak of
@@ -306,6 +325,7 @@ CHECK_RAYS = slice(400 * W, 400 * W + 2048)   # rays through the image centre ro
 TRAIN_RAYS, TRAIN_STEPS, TRAIN_WARMUP, JNP_STEPS, LR = 1024, 60, 10, 12, 5e-4
 TRAIN_LOSS_RTOL = 2e-2
 GROUP_STEPS, GROUP_LOSS_RTOL, GROUP_CHANGE_GAP = 10, 1e-6, 1e-4
+DP_STEPS, DP_EG3D_STEPS = 10, 3   # phase 26: steps a run (eager, and one group of as many)
 GRAD_REL_L2, GRAD_ELEM = 1e-2, 5e-2
 FIELD_SEED, FIELD_NOISE = SEED + 20, 0.05
 BALL_R, BALL_SIGMA, BALL_RGB = 0.6, 15.0, (0.8, 0.35, 0.2)
@@ -384,6 +404,10 @@ KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kern
 }
 # the wrappers whose kernel is in another source than their module's name
 SOURCE_OF = {"proxy_select": "proxy_march"}
+# the path whose launches a kernel's `launches` counted before phase 27 added its slabs
+MAIN_PATH = {"fused_nerf_sigma": "exact (phase 4)", "fused_nerf_full": "exact (phase 4)",
+             "proxy_march_select": "fast (phase 9)", "proxy_opacity": "auto-cull (phase 10)",
+             "triplane_gather": "EG3D (phase 16)"}
 
 
 STEP_MS = {}   # label -> (eager, grouped) ms per step, medians of turns (phases 6, 23)
@@ -451,7 +475,7 @@ def cuda_ms(fn, reps, queued=False):
     return device_ms(fn, reps, queued)
 
 
-def compare(name, got, ref, where, phase="3/25"):
+def compare(name, got, ref, where, phase="3/27"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -524,7 +548,7 @@ def check_kernels(packed, device, card):
     report = ptxas_report("fused_mlp")
     for name, symbol in K1_SYMBOLS.items():
         regs, spills, stack = next(v for k, v in report.items() if symbol in k)
-        print(f"[3/25] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
+        print(f"[3/27] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
               f"(stores + loads), {stack} bytes stack frame; "
               f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
               f"memory", flush=True)
@@ -544,7 +568,7 @@ def check_kernels(packed, device, card):
         n_bytes += k1_weight_bytes(packed)
         bound_ms, bound_by = bound(flops, n_bytes)
         chain_ms = matmul_chain_ms(packed, n_pts, full)
-        print(f"[3/25] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/27] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
               f"bound), plain {plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms "
               f"({bound_by}); earlier wmma kernel {EARLIER_K1_MS[name]} ms (another call); bf16 "
@@ -673,18 +697,18 @@ def check_train_kernels(model, frame_rays, device, card):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/25"))
+                                       "5/27"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/25] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/27] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
 
     results, kerns = time_train_kernels(
-        "5/25", "one step's shapes", model, [(packed, p, d, s) for s, p, d in shapes], dirs,
+        "5/27", "one step's shapes", model, [(packed, p, d, s) for s, p, d in shapes], dirs,
         fwd_err, bwd_err, card)
     n_pts = sum(pts.shape[0] for _, pts, _ in shapes)
     forward_readings(packed, kerns["fused_train_fwd"], shapes, results["fused_train_fwd"]["ms"],
@@ -750,7 +774,7 @@ def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes],
                                      backward=False)
     earlier = EARLIER_K2_MS["fused_train_fwd"]
-    print(f"[5/25] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
+    print(f"[5/27] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
           f"profiler, mean of 3; before the redesign {earlier} ms, another call; "
           f"{earlier / own:.2f}x); operations bound {bound_ms:.3f} ms ({100 * bound_ms / own:.1f}% "
           f"of it); build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes (stores + "
@@ -775,7 +799,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
         k_ms = sum(v for k, v in own.items() if symbol in k)
         earlier = (f"; before the redesign {EARLIER_K2_MS[label]} ms (another call)"
                    if label in EARLIER_K2_MS else "")
-        print(f"[5/25] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
+        print(f"[5/27] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
               f"profiler, mean of 3){earlier}; build (-Xptxas -v): {regs} registers at entry, "
               f"{spills} spill bytes (stores + loads), {stack} bytes stack frame; "
               f"{smem.get(label, 0)} bytes dynamic shared memory", flush=True)
@@ -783,7 +807,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
     floor_ms = n_pts * (written + read) / PEAK_BYTES * 1e3
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes])
     earlier = EARLIER_K2_MS["fused_train_bwd"]
-    print(f"[5/25] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
+    print(f"[5/27] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
           f"another call; {earlier / ms:.2f}x); operations bound {bound_ms:.3f} ms "
           f"({100 * bound_ms / ms:.1f}% of it); the stash {written} bytes a point written + "
           f"{read} read = {n_pts * (written + read) / 1e9:.3f} GB, "
@@ -851,7 +875,7 @@ def numpy_models(seed, device, params_fn=numpy_nerf_params):
     return models
 
 
-def train_system(backend, perturb, noise_std, steps_per_epoch, device):
+def train_system(backend, perturb, noise_std, steps_per_epoch, device, data_parallel=None):
     from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
     from nerf_siren_tpu_torch.training.system import NeRFSystem
 
@@ -860,7 +884,7 @@ def train_system(backend, perturb, noise_std, steps_per_epoch, device):
     # opt.py's defaults: Adam, lr 5e-4, steplr at epoch 20 by 0.1
     train_cfg = TrainConfig(lr=LR, decay_step=(20,), decay_gamma=0.1, batch_size=TRAIN_RAYS)
     return NeRFSystem(render_cfg, train_cfg, NeRFConfig(), steps_per_epoch,
-                      train_backend=backend, device=device)
+                      train_backend=backend, device=device, data_parallel=data_parallel)
 
 
 def train_phase(pool_rays, pool_rgbs, device, card):
@@ -887,7 +911,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/25] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/27] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -909,7 +933,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/25] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/27] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -931,7 +955,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/25] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/27] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
 
@@ -1004,7 +1028,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     eager_params = param_list(eager)
     gap = change_gap(start, param_list(grouped), eager_params)
     control = change_gap(start, short, eager_params)
-    print(f"[6/25] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
+    print(f"[6/27] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
           f"same weights, seed and batches: max relative loss difference {loss_rel:.3e} "
           f"(bar {GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the "
           f"control without the last update {control:.3e}, must exceed it); losses eager "
@@ -1053,7 +1077,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     want = [float(v) for v in eager_losses]
     replay_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     replay_gap = change_gap(start, param_list(grouped), param_list(eager))
-    print(f"[6/25] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
+    print(f"[6/27] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
           f"relative loss difference of the last group {replay_rel:.3e} (bar "
           f"{GROUP_LOSS_RTOL}), change gap over the {5 * n} steps {replay_gap:.3e} (bar "
           f"{GROUP_CHANGE_GAP})", flush=True)
@@ -1061,7 +1085,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
         fail(f"{backend}: replayed groups disagree with eager steps")
     replay_ms = float(np.median(times["grouped"])) * n
     STEP_MS[backend] = (float(np.median(times["eager"])), float(np.median(times["grouped"])))
-    print(f"[6/25] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
+    print(f"[6/27] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
           f"(median {np.median(times['grouped']):.3f}), eager "
           f"{[round(v, 3) for v in times['eager']]} (median {np.median(times['eager']):.3f}), "
           f"in turns; the capture of {n} steps {capture_s:.3f} s (the first group with its "
@@ -1275,7 +1299,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
 
     d, ratio = over(got)
     n_diff = int((d > 0).sum())
-    print(f"[8/25] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
+    print(f"[8/27] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
           f"differ ({100 * n_diff / d.numel():.3f}%), max|d| {float(d.max()):.3e}, max |d| / "
           f"bar {float(ratio.max()):.3e}, median over those that differ "
           f"{float(ratio[d > 0].median()) if n_diff else 0.0:.3e} (bar: proxy_score_bar)",
@@ -1285,7 +1309,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
     if control:
         _, ratio = over(k3.proxy_scores_ref({**pp, "b1": pp["b1"].bfloat16().float()}, pts))
         n_over = int((ratio > 1.0).sum())
-        print(f"[8/25] control, the plain scores with b1 rounded to bf16: {n_over} of "
+        print(f"[8/27] control, the plain scores with b1 rounded to bf16: {n_over} of "
               f"{ratio.numel()} ({100 * n_over / ratio.numel():.3f}%) beyond proxy_score_bar, max "
               f"|d| / bar {float(ratio.max()):.3e}", flush=True)
         if n_over == 0:
@@ -1317,7 +1341,7 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
     bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
-    print(f"[8/25] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+    print(f"[8/27] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
           f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
@@ -1382,7 +1406,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     dz = (z - rz).abs() / span[:, None]
     med, p99 = float(dz.median()), percentile(dz, 0.99)
     err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
-    print(f"[8/25] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+    print(f"[8/27] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
           f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
@@ -1399,7 +1423,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     scores = k3_scores_reading(pp, rays8, PREPASS_C)
     same_op = torch.equal(k3.proxy_opacity_ref(pp, rays8, PREPASS_C, scores=scores), op)
     del scores
-    print(f"[8/25] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
+    print(f"[8/27] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
           f"{FAST_C}, K {FAST_K}) {'bit-equal' if same_sel else 'DIFFERENT'}, opacity (C "
           f"{PREPASS_C}) {'bit-equal' if same_op else 'DIFFERENT'}", flush=True)
     if not (same_sel and same_op):
@@ -1415,7 +1439,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     crz, crxyz = k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True)
     err = float(torch.maximum((cz - crz).abs().amax(), (cxyz - crxyz).abs().amax()))
     same_chunk = torch.equal(cz, z[pick]) and torch.equal(cxyz, xyz[pick])
-    print(f"[8/25] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
+    print(f"[8/27] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
           f"frame's launch: {'bit-equal' if same_chunk else 'DIFFERENT'}; max|d| vs plain "
           f"{err:.3e}", flush=True)
     if not same_chunk:
@@ -1437,7 +1461,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_march_select"] = res
     one_ms = cuda_ms(lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True), 5)
     n_chunks = -(-r // CHUNK)
-    print(f"[8/25] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
+    print(f"[8/27] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
           f"(median of {[round(t, 4) for t in queued]}; unqueued {unqueued:.4f}), "
           f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; x {n_chunks} = "
           f"{n_chunks * res['ms']:.3f} ms a frame in chunks; beside one launch over all {r} "
@@ -1450,7 +1474,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (op - rop).abs()
     err = float(d.max())
-    print(f"[8/25] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+    print(f"[8/27] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
           f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
           f"{int((op != rop).sum())} of {r} differ", flush=True)
     if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
@@ -1462,20 +1486,20 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + k3_bytes, err, card,
         plain_reps=1)
     res = results["proxy_opacity"]
-    print(f"[8/25] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
+    print(f"[8/27] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
           f"earlier CUDA-core kernel {EARLIER_K3_MS['opacity']} ms (another call)", flush=True)
     hidden = pp["w1"].shape[0]
     report = ptxas_report("proxy_march")
     for name, epi, c in (("proxy_march_select", 1, FAST_C), ("proxy_opacity", 0, PREPASS_C)):
         sym = f"proxy_march_kernelILi{k3.k3_width(hidden)}ELi{epi}ELb0E"
         regs, spills, stack = next(v for k, v in report.items() if sym in k)
-        print(f"[8/25] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
+        print(f"[8/27] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
               f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
               f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
               f"{c}", flush=True)
     for sym, before in K3_SASS_DIGESTS.items():
         digest = sass_digest("proxy_march", sym)
-        print(f"[8/25] {sym} SASS digest {digest}: "
+        print(f"[8/27] {sym} SASS digest {digest}: "
               f"{'unchanged from' if digest == before else 'DIFFERS from'} the build of the tree "
               f"before K6 joined csrc/proxy_march.cu, {before} (nvcc 12.8; a reading)", flush=True)
 
@@ -1523,7 +1547,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
         rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
         errs[name] = max(errs[name], float(d.max()))
-        print(f"[8/25] {name} vs plain {where}: max|d| per column "
+        print(f"[8/27] {name} vs plain {where}: max|d| per column "
               f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
               f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
               f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
@@ -1531,14 +1555,14 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
             fail(f"{name} disagrees with its plain version {where}")
     n_flip = 65536
     flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
-    print(f"[8/25] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+    print(f"[8/27] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
     lib = _build.load("fused_mlp_int8")
     report = ptxas_report("fused_mlp_int8")
     n_emb = sum(1 for k in p8 if k[0] == "q" and k.endswith("x"))
     epi = sass_epilogue("fused_mlp_int8", K4_SYMBOLS["fused_nerf_sigma_int8"])
-    print("[8/25] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
+    print("[8/27] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
           (f"{epi[0]} instructions converting its 128 accumulators, {epi[1]} adding the bias, "
            f"ReLU and absmax and quantising them: {sum(epi) / 128:.2f} per element"
            if epi else "not found"), flush=True)
@@ -1554,7 +1578,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
                            card, int8_ops=n * i8)
         ms4, ms1, (a1, b1, b2, a2) = timed_pair([kern], [bf16_kern])   # K1, K4, K4, K1
         regs, spills, stack = next(v for k, v in report.items() if K4_SYMBOLS[name] in k)
-        print(f"[8/25] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
+        print(f"[8/27] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
               f"int8 + {n * f_bf16 * 1e-12 / (res['ms'] * 1e-3):.1f} TFLOP/s bf16, "
               f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound; earlier mma.sync kernel "
               f"{EARLIER_K4_MS[name]} ms (another call; {EARLIER_K4_MS[name] / res['ms']:.1f}x); "
@@ -1584,7 +1608,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         got, k6.proxy_select_ref(pp, rays6, K6_C, K6_K, scores=scores))
     n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
     err = float((got - k6.proxy_select_ref(pp, rays6, K6_C, K6_K)).abs().max())
-    print(f"[8/25] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
+    print(f"[8/27] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
           f"of {d.numel()} differ ({100 * n_diff / d.numel():.3f}%), max |d| / bar "
           f"{float(ratio.max()):.3e} (bar: proxy_score_bar); the plain selection on the kernel's "
           f"scores {'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} of {K6_RAYS} rays "
@@ -1605,7 +1629,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_select"] = res
     regs, spills, stack = next(v for k, v in ptxas_report("proxy_march").items()
                                if TOPK_SYMBOL in k)
-    print(f"[8/25] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
+    print(f"[8/27] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
           f"CUDA-core kernel {EARLIER_K6_MS} ms (another call; {EARLIER_K6_MS / res['ms']:.2f}x); "
           f"build (-Xptxas -v, {TOPK_SYMBOL}): {regs} registers, {spills} spill bytes, {stack} "
           f"bytes stack frame; {k3.shared_bytes(hidden, K6_C)} bytes dynamic shared memory at C "
@@ -1638,7 +1662,7 @@ def fast_phases(frames_rays, device, card, args):
     exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
     check_outputs(exact, "exact frame")
     empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
-    print(f"[7/25] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+    print(f"[7/27] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
           f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
           f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
           f"per frame {[round(e, 4) for e in empty]}", flush=True)
@@ -1671,7 +1695,7 @@ def fast_phases(frames_rays, device, card, args):
     t0 = time.perf_counter()
     cached = setup_fast_proxy(models, hp, bounds)
     t_cached = time.perf_counter() - t0
-    print(f"[7/25] proxy distilled ({hp.fast_distill_steps} steps, batch "
+    print(f"[7/27] proxy distilled ({hp.fast_distill_steps} steps, batch "
           f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
           f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
           f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
@@ -1695,7 +1719,7 @@ def fast_phases(frames_rays, device, card, args):
     counts = read_counts(names)
     launches["proxy_march_select"] = counts["proxy_march_select"]
     n_chunks = -(-H * W // CHUNK)
-    print(f"[9/25] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+    print(f"[9/27] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
           f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
           f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
           f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
@@ -1716,7 +1740,7 @@ def fast_phases(frames_rays, device, card, args):
     for k, v in ref.items():
         d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
-    print(f"[9/25] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+    print(f"[9/27] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
           f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
           flush=True)
     if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
@@ -1741,7 +1765,7 @@ def fast_phases(frames_rays, device, card, args):
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
             lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
-            print(f"[10/25] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+            print(f"[10/27] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
                   f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
                   f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
@@ -1768,7 +1792,7 @@ def fast_phases(frames_rays, device, card, args):
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/25] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
+    print(f"[11/27] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
           f"against the bf16 fast frames' {[round(t, 4) for t in lat]} (rgb max|d| vs the bf16 "
           f"fast frame {d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused "
           f"{[round(t, 4) for t in sec_x8]} against the bf16 exact frames' "
@@ -1787,7 +1811,7 @@ def fast_phases(frames_rays, device, card, args):
                          hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
     (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
     check_outputs([out_e], "edge-refined frame")
-    print(f"[12/25] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+    print(f"[12/27] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
           f"({card}); "
           f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
           f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
@@ -1802,7 +1826,7 @@ def fast_phases(frames_rays, device, card, args):
     sec6 = time.perf_counter() - t0
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
-    print(f"[13/25] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+    print(f"[13/27] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
           f"({card}); the tree before the redesign {EARLIER_K6_FRAME_S} s (another call); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
@@ -1884,7 +1908,7 @@ def eg3d_setup(device, card):
     model, t_load = synced_s(lambda: load_model(system, ckpt, device))
     n_params = sum(p.numel() for p in model.parameters())
     synth = [synced_s(lambda: system.frame_planes(model))[1] for _ in range(4)]
-    print(f"[14/25] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
+    print(f"[14/27] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
           f"{cfg.plane_channels} x {cfg.plane_resolution}², channel_base {cfg.channel_base}, "
           f"channel_max {cfg.channel_max}): checkpoint written in {t_save:.2f} s, read by the "
           f"CLI's load_model in {t_load:.2f} s; mapping + synthesis + bf16 packing ms "
@@ -1958,7 +1982,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         lib = library(planes32, grid(xyz))[:, :, 0].permute(0, 2, 1)
         lib_err = float((got - lib).abs().max())
         err = max(err, float((got - ref).abs().max()))
-        print(f"[15/25] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
+        print(f"[15/27] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
               f"{c}): {n_diff} of {got.numel()} elements differ; max|d| vs F.grid_sample on the "
               f"float32 planes {lib_err:.3e} (bar {K5_LIB_TOL} x {t_scale:.3f})", flush=True)
         if n_diff or lib_err > K5_LIB_TOL * t_scale:
@@ -1991,7 +2015,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         for k, v in got.items():
             runs[k] += v
         ratios.append(float(np.median(got["kernel"]) / np.median(got["f32"])))
-        print(f"[15/25] triplane_gather round {rnd} in turns (ms): kernel "
+        print(f"[15/27] triplane_gather round {rnd} in turns (ms): kernel "
               f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
               f"{[round(t, 4) for t in got['f32']]}, bf16 "
               f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}; kernel / "
@@ -2010,11 +2034,11 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
     elem = "13__nv_bfloat16" if table.dtype == torch.bfloat16 else "f"
     symbol = f"triplane_gather_kernelI{elem}Li{plan.vec}E"
     regs, spills, stack = next(v for k, v in ptxas_report("triplane_gather").items() if symbol in k)
-    print(f"[15/25] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
+    print(f"[15/27] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
           f"channels of {table.dtype}), {plan.groups} threads per point, {plan.blocks} blocks of "
           f"{plan.threads}; {regs} registers, {spills} spill bytes, {stack} bytes of stack",
           flush=True)
-    print(f"[15/25] triplane_gather at {n} points (one chunk's coarse pass), medians of "
+    print(f"[15/27] triplane_gather at {n} points (one chunk's coarse pass), medians of "
           f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
           f"counted bytes, {100 * bound_ms / ms:.1f}% of the bound), F.grid_sample float32 "
           f"{lib_ms:.4f} ms, bf16 {lib16_txt} (grid precomputed): kernel / float32 library "
@@ -2023,7 +2047,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
           f"{table_bytes / 1e6:.2f} MB of the table's texels the points read, output); "
           f"kernel unqueued {float(np.median(unqueued)):.4f} ms (median of "
           f"{[round(t, 4) for t in unqueued]}); {card}", flush=True)
-    print(f"[15/25] triplane_gather below F.grid_sample float32 in every round: "
+    print(f"[15/27] triplane_gather below F.grid_sample float32 in every round: "
           f"{'yes' if max(ratios) < 1 else 'no'} (kernel / float32 per round "
           f"{[round(r, 3) for r in ratios]})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2069,7 +2093,7 @@ def eg3d_phases(device, card, args):
         for k, v in out.items():
             if v.shape[0] != EG3D_WH * EG3D_WH or not torch.isfinite(v).all():
                 fail(f"EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
-    print(f"[16/25] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
+    print(f"[16/27] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
           f"{hp.N_importance} samples, chunk {hp.chunk}, --plane_sampler kernel): latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the "
           f"median frame, of which mapping + synthesis {1e3 * synth_s:.3f} ms ({card}); K5 "
@@ -2082,7 +2106,7 @@ def eg3d_phases(device, card, args):
     worst = {k: max(float((o[k] - g[k]).abs().max()) for o, g in zip(outs, g_outs))
              for k in outs[0]}
     n_diff = sum(int((o[k] != g[k]).sum()) for o, g in zip(outs, g_outs) for k in o)
-    print(f"[16/25] the same frames through --plane_sampler gather: latency s "
+    print(f"[16/27] the same frames through --plane_sampler gather: latency s "
           f"{[round(t, 4) for t in g_lat]}; {n_diff} output elements differ from the kernel "
           f"frames, max|d| {worst} (bar {SAME_FRAME_ATOL})", flush=True)
     if max(worst.values()) > SAME_FRAME_ATOL:
@@ -2096,7 +2120,7 @@ def eg3d_phases(device, card, args):
                                                  for v in out_big.values()):
         fail(f"the {EG3D_BIG}² frame: {big_launches} K5 launches (expected {2 * big_chunks}) "
              f"or non-finite outputs")
-    print(f"[16/25] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
+    print(f"[16/27] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
           f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
           f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
           f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
@@ -2115,7 +2139,7 @@ def eg3d_phases(device, card, args):
         cpu_planes = cpu_model.planes(cpu_model.mapping(cpu_model.z))
     worst = {k: float((outs[0][k][EG3D_CHECK].cpu() - v).abs().max()) for k, v in ref.items()}
     p_err, p_scale = float((planes - cpu_planes).abs().max()), float(cpu_planes.abs().max())
-    print(f"[17/25] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
+    print(f"[17/27] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
           f"a CPU re-render on the card's table: max|d| {worst} (atol {RENDER_ATOL}); the card's "
           f"float32 planes vs a CPU float32 synthesis (cuDNN TF32 "
           f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max|d| {p_err:.3e}, largest "
@@ -2359,11 +2383,11 @@ def siren_phase(device, card, args):
                         NeRFConfig(), 1000, device=device, field_type="siren")
     batches = sem_batches(device, SEED + 51)
     n_params = sum(p.numel() for m in models.values() for p in m.parameters())
-    print(f"[18/25] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
+    print(f"[18/27] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
           f"{9 * 256 * 2}, learnable z, box 51; coarse + fine {n_params} parameters; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples, perturb 1, noise 1, "
           f"Adam {LR}", flush=True)
-    _, eager, _ = group_vs_eager("18/25", "SIREN", system, models, batches, SEED + 52, card)
+    _, eager, _ = group_vs_eager("18/27", "SIREN", system, models, batches, SEED + 52, card)
     if args.profile:
         profile("SIREN train step", lambda: system.train_step(eager, batches[0], seed=1), card)
 
@@ -2408,10 +2432,10 @@ def d3_steps_phase(device, card, args):
     models["points"] = numpy_points(SEED + 61, device)
     system = d3_system(device, "pointnet")
     batches = sem_batches(device, SEED + 62, classes=True)
-    print(f"[19/25] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
+    print(f"[19/27] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
           f"point feature) at capacity {SEM_CAPACITY}, msenll, no_grad_on_nerf; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples", flush=True)
-    start, eager, grouped = group_vs_eager("19/25", "d3 pointnet", system, models, batches,
+    start, eager, grouped = group_vs_eager("19/27", "d3 pointnet", system, models, batches,
                                            SEED + 63, card)
     names = [(k, n) for k in sorted(eager.models) for n, _ in eager.models[k].named_parameters()]
     for label, state in (("eager", eager), ("grouped", grouped)):
@@ -2421,7 +2445,7 @@ def d3_steps_phase(device, card, args):
         moved = sum(not torch.equal(a, b) for (k, _), a, b in zip(names, start, now)
                     if k == "points")
         total = sum(k == "points" for k, _ in names)
-        print(f"[19/25] d3 {label} state after its {state.step} steps: NeRF parameters "
+        print(f"[19/27] d3 {label} state after its {state.step} steps: NeRF parameters "
               f"bit-unchanged {nerf_same}; PointNet tensors moved {moved} of {total}",
               flush=True)
         if not nerf_same or moved < total // 2:
@@ -2442,7 +2466,7 @@ def d3_steps_phase(device, card, args):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["train/total_loss"]))
-    print(f"[19/25] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
+    print(f"[19/27] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
           f"losses {[f'{v:.6e}' for v in losses]}, ms per step "
           f"{[round(1e3 * v, 3) for v in step_s]}; {card}", flush=True)
     if not all(math.isfinite(v) for v in losses):
@@ -2507,7 +2531,7 @@ def d3_frames_phase(device, card, args):
     peak = torch.cuda.max_memory_allocated()
     key = fast.model_key
     n_chunks = -(-H * W // CHUNK)
-    print(f"[20/25] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
+    print(f"[20/27] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"capacity {hp.point_capacity}, cls_threshold 0, PointNet k {SEM_CLASSES}): latency "
           f"{lat:.4f} s; launches {counts} (this phase's own); peak device memory "
           f"{peak / 2**30:.3f} GiB; {card}", flush=True)
@@ -2537,7 +2561,7 @@ def d3_frames_phase(device, card, args):
         d = (out[k] - ref[k]).abs() / max(1.0, float(ref[k].abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
     margin = class_margin(ref[f"cls_{key}"])
-    print(f"[20/25] the same frame on the plain versions of K3 select and K1 on the card "
+    print(f"[20/27] the same frame on the plain versions of K3 select and K1 on the card "
           f"({ref_lat:.4f} s): class ids differ at {n_diff} of {H * W} pixels, the largest "
           f"plain top-two margin among them {worst:.4e}; {above} differ above the bar "
           f"{CLS_MARGIN} (pixels above it {int((margin > CLS_MARGIN).sum())}); (median, 99th "
@@ -2555,7 +2579,7 @@ def d3_frames_phase(device, card, args):
         conv4.bias.copy_(conv4.bias[perm])
     (ctl,), _ = render_frames(render, [rays])
     above_ctl, n_ctl, _ = disagree(ctl)
-    print(f"[20/25] control (PointNet's conv4 columns rolled by one): class ids differ at "
+    print(f"[20/27] control (PointNet's conv4 columns rolled by one): class ids differ at "
           f"{n_ctl} pixels, {above_ctl} above the bar (must be > 0)", flush=True)
     if not above_ctl:
         fail("the class gate does not see a permuted class head")
@@ -2577,7 +2601,7 @@ def d3_frames_phase(device, card, args):
         if v.shape[0] != D3_EXACT_WH ** 2 or not torch.isfinite(v).all():
             fail(f"d3 exact frame {k}: shape {tuple(v.shape)} or non-finite values")
     classes = torch.bincount(out["cls_fine"].argmax(-1), minlength=SEM_CLASSES).tolist()
-    print(f"[20/25] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
+    print(f"[20/27] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
           f"bf16 field operands): latency {lat:.4f} s; pixels per class {classes}; {card}",
           flush=True)
 
@@ -2651,7 +2675,7 @@ def eg3d_steps_phase(device, card, args, targets):
         return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
 
     n_tensors = sum(p.numel() for p in model.state_dict().values())
-    print(f"[21/25] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
+    print(f"[21/27] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
           f"{cfg.n_planes} x {cfg.plane_channels} x {cfg.plane_resolution}², channel_base "
           f"{cfg.channel_base}, channel_max {cfg.channel_max}, decoder {cfg.plane_channels} -> 64 "
           f"-> 4; {hp.batch_size} rays at {cfg.rendering.depth_resolution}+"
@@ -2670,7 +2694,7 @@ def eg3d_steps_phase(device, card, args, targets):
         losses.append(float(metrics["train/loss"]))
     first = float(np.mean(losses[:EG3D_WINDOW]))
     last = float(np.mean(losses[-EG3D_WINDOW:]))
-    print(f"[21/25] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
+    print(f"[21/27] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
           f"{[f'{v:.5f}' for v in losses]}; mean of the first {EG3D_WINDOW} {first:.6f}, of the "
           f"last {last:.6f}; ms per step (after the first) "
           f"{float(np.median(step_s[1:])) * 1e3:.3f} median; {card}", flush=True)
@@ -2683,11 +2707,11 @@ def eg3d_steps_phase(device, card, args, targets):
     # differ, so their reading is printed with that spread, ungated
     torch.use_deterministic_algorithms(True)
     try:
-        group_vs_eager("21/25", "EG3D, deterministic algorithms", system, state.models, batches,
+        group_vs_eager("21/27", "EG3D, deterministic algorithms", system, state.models, batches,
                        EG3D_SEED + 43, card, watch=("w_avg",))
     finally:
         torch.use_deterministic_algorithms(False)
-    _, eager, _ = group_vs_eager("21/25", "EG3D, default algorithms", system, state.models,
+    _, eager, _ = group_vs_eager("21/27", "EG3D, default algorithms", system, state.models,
                                  batches, EG3D_SEED + 43, card, gated=False, watch=("w_avg",),
                                  floor=True)
     if args.profile:
@@ -2754,7 +2778,7 @@ def eg3d_fast_phase(device, card, args):
                                                          cfg)))
     model = model.to(device)
     fast, distill_s = synced_s(lambda: setup_fast_renderer(system, model, hp))
-    print(f"[22/25] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
+    print(f"[22/27] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
           f"decoder a ball of radius {BALL_R} with density {EG3D_BALL_SIGMA} per unit); the "
           f"fast renderer at the eval CLI's defaults (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"{hp.fast_placement}, {hp.fast_quadrature}, chunk {hp.chunk}): planes synthesised "
@@ -2775,7 +2799,7 @@ def eg3d_fast_phase(device, card, args):
             if v.shape[0] != n or not torch.isfinite(v).all():
                 fail(f"fast EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
     exact, exact_lat = render_frames(make_renderer(system, model, hp.chunk), small)
-    print(f"[22/25] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
+    print(f"[22/27] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the median "
           f"frame; K3 select launches {small_launches} ({n_chunks[EG3D_WH]} chunks a frame); one "
           f"of {EG3D_BIG}²: {lat_big:.4f} s, {EG3D_BIG ** 2 / lat_big:.0f} rays/s, K3 select "
@@ -2797,7 +2821,7 @@ def eg3d_fast_phase(device, card, args):
             fail("the plain versions launched a kernel")
     for i, (out, ref, rays) in enumerate(zip(outs + [out_big], refs, small + [big])):
         errs = fast_frame_errors(out, ref, rays, cfg.rendering)
-        print(f"[22/25] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
+        print(f"[22/27] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
               f"(median, 99th pct | max) {errs} (bars rgb {FAST_BARS}, depth {DEPTH_BARS}, "
               f"opacity {OPACITY_BARS})", flush=True)
         if not within_fast_bars(errs):
@@ -2810,7 +2834,7 @@ def eg3d_fast_phase(device, card, args):
                                                                        proxy=rolled))
     (ctl,), _ = render_frames(control, small[:1])
     ctl_errs = fast_frame_errors(ctl, refs[0], small[0], cfg.rendering)
-    print(f"[22/25] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
+    print(f"[22/27] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
           f"fail the bars)", flush=True)
     if within_fast_bars(ctl_errs):
         fail("the fast EG3D bars do not see a rolled proxy")
@@ -2831,7 +2855,7 @@ def eg3d_fast_phase(device, card, args):
               & (out["opacity_fine"] == 0))
         lost = int((bg & (out_big["opacity_fine"] > 0.01)).sum())
         errs = fast_frame_errors(out, out_big, big, cfg.rendering, depth_mask=visible)
-        print(f"[22/25] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
+        print(f"[22/27] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
               f"({EG3D_BIG ** 2 / sec:.0f} rays/s); active fraction {auto.last_active_frac:.4f}, "
               f"bypass {auto.last_plain}, eps {float(auto.last_eps):.5f}; launches {counts}; "
               f"{int(bg.sum())} rays culled to background ({lost} of them with opacity > 0.01 "
@@ -2908,16 +2932,16 @@ def check_culled_kernels(models, pool_rays, device, card):
     for key, packed in zip(("coarse", "fine"), packs):
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s),
-                                       f"{where} ({key})", "23/25"))
+                                       f"{where} ({key})", "23/27"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, worst = grad_errors(got, k2.fused_train_bwd_ref(packed, pts, dirs,
                                                                             dy, s))
-        print(f"[23/25] fused_train_bwd vs plain {where} ({key}): worst relative L2 {rel:.3e} "
+        print(f"[23/27] fused_train_bwd vs plain {where} ({key}): worst relative L2 {rel:.3e} "
               f"({worst}), max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's "
               f"scale (bars {GRAD_REL_L2}, {GRAD_ELEM})", flush=True)
         bwd_err = max(bwd_err, max_abs)
-    results, _ = time_train_kernels("23/25", "one culled step's shapes", models["fine"],
+    results, _ = time_train_kernels("23/27", "one culled step's shapes", models["fine"],
                                     [(p, pts, dy, s) for p in packs], dirs, fwd_err, bwd_err,
                                     card)
     for r in results.values():
@@ -2958,7 +2982,7 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
         _, metrics = system.train_step(state_copy(system, models), first, seed=SEED)
         losses[backend] = (float(metrics["train/loss"]), float(metrics["train/proxy_loss"]))
     rel = abs(losses["culled_fused"][0] - losses["culled"][0]) / abs(losses["culled"][0])
-    print(f"[23/25] (b) first culled step, same weights and batch: loss (with the proxy's) "
+    print(f"[23/27] (b) first culled step, same weights and batch: loss (with the proxy's) "
           f"culled_fused {losses['culled_fused']}, culled {losses['culled']}, relative "
           f"{rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
@@ -2981,7 +3005,7 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
     launches = dict(k2.LAUNCHES)
     loss, rgb, proxy = ([float(m[i]) for m in metrics_t] for i in range(3))
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
-    print(f"[23/25] (c) culled_fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays (C "
+    print(f"[23/27] (c) culled_fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays (C "
           f"{system.culled['n_candidates']}, {system.culled['n_sel']} + "
           f"{system.culled['n_uni']} samples): photometric loss first 10 mean "
           f"{np.mean(rgb[:10]):.5f}, last 10 {np.mean(rgb[-10:]):.5f}; proxy loss first 10 "
@@ -3011,7 +3035,7 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
                 state, _ = system.train_step(state, b, seed=SEED + 1)
         torch.cuda.synchronize()
         turns[mode].append(1e3 * (time.perf_counter() - t0) / GROUP_STEPS)
-    print(f"[23/25] (c) eager ms per step in turns over {GROUP_STEPS} steps: fused "
+    print(f"[23/27] (c) eager ms per step in turns over {GROUP_STEPS} steps: fused "
           f"{[round(v, 3) for v in turns['fused']]}, culled_fused "
           f"{[round(v, 3) for v in turns['culled_fused']]}; fused / culled_fused "
           f"{np.median(turns['fused']) / np.median(turns['culled_fused']):.3f}; {card}",
@@ -3019,11 +3043,11 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
     del fused, fused_state
 
     # (d) grouped steps on a captured graph against eager steps
-    group_vs_eager("23/25", "culled_fused", system, state.models, batches[:GROUP_STEPS],
+    group_vs_eager("23/27", "culled_fused", system, state.models, batches[:GROUP_STEPS],
                    SEED + 2, card, k2_per_step=2)
     eager_ms, grouped_ms = STEP_MS["culled_fused"]
     f_eager, f_grouped = STEP_MS["fused"]
-    print(f"[23/25] (d) ms per step (medians of turns): grouped culled_fused {grouped_ms:.3f} "
+    print(f"[23/27] (d) ms per step (medians of turns): grouped culled_fused {grouped_ms:.3f} "
           f"against phase 6(c)'s grouped fused {f_grouped:.3f}: {f_grouped / grouped_ms:.3f}x "
           f"(predicted >= 1.5x); eager {eager_ms:.3f} against {f_eager:.3f}; {card}", flush=True)
     return results, launches
@@ -3072,7 +3096,7 @@ def nerf_mesh_phase(ball, device, card):
     cpu = copy.deepcopy(model).cpu()
     ref = ecm.field_sigma(cpu, torch.from_numpy(xyz[pick])).numpy()
     err = float(np.abs(sigma.reshape(-1)[pick] - ref).max())
-    print(f"[24/25] NeRF mesh of the ball field: sigma grid {MESH_GRID}^3 (float32 plain field, "
+    print(f"[24/27] NeRF mesh of the ball field: sigma grid {MESH_GRID}^3 (float32 plain field, "
           f"chunk {hp.chunk}) in {grid_s:.3f} s ({card}); max sigma {float(sigma.max()):.3f}; "
           f"{MESH_CHECK} grid points vs the CPU: max|d| {err:.3e} (atol {MESH_ATOL})", flush=True)
     if not np.isfinite(sigma).all() or err > MESH_ATOL:
@@ -3087,7 +3111,7 @@ def nerf_mesh_phase(ball, device, card):
     path = os.path.join(hp.out_dir, "ball.ply")
     write_ply(path, verts, faces, colors)
     c = check_ply(path, verts, faces, "NeRF mesh")
-    print(f"[24/25] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
+    print(f"[24/27] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
           f"{len(faces)} faces in {march_s:.3f} s (host); vertex radius median "
           f"{np.median(r):.4f} (the ball's sigma {MESH_SIGMA} shell lies at "
           f"{BALL_R * (1 - MESH_SIGMA / BALL_SIGMA):.4f}); fusion colours from {len(images)} "
@@ -3124,7 +3148,7 @@ def eg3d_mesh_phase(device, card):
                         torch.from_numpy(pts)[None], model.cfg.rendering)["sigma"][0, :, 0]
     ref = ref.numpy()
     err = float(np.abs(sigma[pick[:, 0], pick[:, 1], pick[:, 2]] - ref).max())
-    print(f"[25/25] EG3D mesh of the ball scene (eg3d_ball_params at eval_eg3d's defaults): "
+    print(f"[25/27] EG3D mesh of the ball scene (eg3d_ball_params at eval_eg3d's defaults): "
           f"checkpoint loaded in {load_s:.3f} s, planes synthesised once in {planes_s:.3f} s, "
           f"sigma grid {n}^3 (chunk {hp.chunk}) in {grid_s:.3f} s ({card}); sigma range "
           f"{float(sigma[1:-1, 1:-1, 1:-1].min()):.3f}..{float(sigma.max()):.3f}; {MESH_CHECK} "
@@ -3140,11 +3164,405 @@ def eg3d_mesh_phase(device, card):
     path = os.path.join(hp.out_dir, "eg3d_ball.ply")
     write_ply(path, verts, faces, colors)
     c = check_ply(path, verts, faces, "EG3D mesh")
-    print(f"[25/25] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
+    print(f"[25/27] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
           f"{len(faces)} faces in {march_s:.3f} s (host); vertex radius median "
           f"{np.median(np.linalg.norm(verts, axis=-1)):.4f} (the ball's radius {BALL_R}); "
           f"decoder colours in {color_s:.3f} s, median {np.round(np.median(c, 0), 4).tolist()} "
           f"(the ball's {list(BALL_RGB)}); PLY written and read back; {card}", flush=True)
+
+
+# ---- multi-GPU (phases 26-27) ----------------------------------------------------------
+
+def n_unequal(a, b):
+    """Tensors of two states' parameter lists that are not bit-equal."""
+    import torch
+
+    return sum(not torch.equal(x, y) for x, y in zip(param_list(a), param_list(b)))
+
+
+def dp_runs(label, make_system, models, batches, seed, card, k2_launches):
+    """Phase 26 on one system: DP_STEPS eager steps and one group of as many
+    through the data-parallel path (a `DataParallel` of the one-rank group)
+    against the non-distributed path, from the same weights, seed and
+    batches, bit for bit; then ms per step of both, eager and grouped, in
+    turns. K2's launches on the data-parallel path go to `k2_launches`."""
+    import torch
+    from nerf_siren_tpu_torch.parallel.mesh import cross_replica_param_hash
+
+    n = DP_STEPS
+    eager, group = {}, {}
+    for mode in ("plain", "dp"):
+        system = make_system(mode == "dp")
+        state = state_copy(system, models)
+        before = dict(k2_launches_now())
+        losses = []
+        for b in batches[:n]:
+            state, metrics = system.train_step(state, b, seed=seed)
+            losses.append(metrics["train/loss"])
+        eager[mode] = (system, state, torch.stack(losses))
+        gstate = state_copy(system, models)
+        refused = None
+        try:
+            gstate, _ = system.train_scan_batches(gstate, *stacked(batches[:n]), seed=seed)
+        except RuntimeError as e:
+            if mode != "dp" or "refused" not in str(e):
+                raise
+            refused = str(e)
+        group[mode] = (gstate, None if refused else system.last_group.steps[:, 0].clone(),
+                       refused)
+        if mode == "dp":
+            for k, v in k2_calls_since(before).items():
+                k2_launches[k] += v
+    torch.cuda.synchronize()
+    e_diff = n_unequal(eager["plain"][1], eager["dp"][1])
+    e_loss = torch.equal(eager["plain"][2], eager["dp"][2])
+    refused = group["dp"][2]
+    if refused:
+        g_diff, g_loss = None, None
+    else:
+        g_diff = n_unequal(group["plain"][0], group["dp"][0])
+        g_loss = torch.equal(group["plain"][1], group["dp"][1])
+    h = float(cross_replica_param_hash(eager["dp"][1].models))
+    print(f"[26/27] {label}: {n} eager steps, data-parallel (NCCL, world 1) vs "
+          f"non-distributed: {e_diff} parameter tensors differ, losses bit-equal {e_loss}; "
+          f"one group of {n} on a CUDA graph: "
+          + (f"REFUSED: {refused}" if refused else
+             f"{g_diff} tensors differ, losses bit-equal {g_loss}")
+          + f"; replica hash {h!r}", flush=True)
+    if e_diff or not e_loss:
+        fail(f"{label}: data-parallel eager steps are not bit-equal to the non-distributed ones")
+    if not refused and (g_diff or not g_loss):
+        fail(f"{label}: data-parallel grouped steps are not bit-equal to the non-distributed "
+             f"ones")
+    # ms per step in turns, eager and grouped, on the next batches
+    times = {f"{k} {m}": [] for k in ("eager", "grouped") for m in ("plain", "dp")}
+    rest = batches[n:2 * n]
+    for _ in range(2):
+        for m in ("plain", "dp", "dp", "plain"):
+            system, state, _ = eager[m]
+            _, dt = synced_s(lambda: [system.train_step(state, b, seed=seed) for b in rest])
+            times[f"eager {m}"].append(1e3 * dt / n)
+            if group[m][2] is None:
+                _, dt = synced_s(lambda: system.train_scan_batches(group[m][0], *stacked(rest),
+                                                                   seed=seed))
+                times[f"grouped {m}"].append(1e3 * dt / n)
+    med = {k: float(np.median(v)) if v else float("nan") for k, v in times.items()}
+    print(f"[26/27] {label}: ms per step in turns (plain, dp, dp, plain, twice): "
+          + "; ".join(f"{k} {[round(x, 3) for x in v]} (median {med[k]:.3f})"
+                      for k, v in times.items() if v)
+          + f"; grouped dp / plain {med['grouped dp'] / med['grouped plain']:.4f}, eager dp / "
+          f"plain {med['eager dp'] / med['eager plain']:.4f}; {card}", flush=True)
+    if not refused:
+        g_diff = n_unequal(group["plain"][0], group["dp"][0])
+        if g_diff:
+            fail(f"{label}: after the replays {g_diff} tensors differ between the paths")
+    return med
+
+
+def k2_launches_now():
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+
+    return dict(k2.LAUNCHES)
+
+
+def data_parallel_phase(pool_rays, pool_rgbs, device, card):
+    """Phase 26: the data-parallel training path on a one-rank NCCL group.
+    Returns K2's launches on that path."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from nerf_siren_tpu_torch.convert import eg3d_from_jax
+    from nerf_siren_tpu_torch.opt import get_opts
+    from nerf_siren_tpu_torch.parallel.shard_train import DataParallel
+    from nerf_siren_tpu_torch.render.culled_train import PROXY_HIDDEN
+    from nerf_siren_tpu_torch.render.fast import init_proxy
+    from nerf_siren_tpu_torch.train import build_system
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        dp = DataParallel()
+        gen = torch.Generator(device=device).manual_seed(SEED + 70)
+        steps_per_epoch = pool_rays.shape[0] // TRAIN_RAYS
+
+        def batch():
+            idx = torch.randint(0, pool_rays.shape[0], (TRAIN_RAYS,), generator=gen,
+                                device=device)
+            return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
+
+        batches = [batch() for _ in range(2 * DP_STEPS)]
+        print(f"[26/27] data parallel: a one-rank NCCL group (file store), "
+              f"{dist.get_backend()} world {dp.world}; {DP_STEPS} steps of {TRAIN_RAYS} rays "
+              f"per run ({N_SAMPLES}+{N_IMPORTANCE}, perturb 1, noise 1, Adam {LR})", flush=True)
+        launches = {"fwd": 0, "bwd": 0}
+        base = numpy_models(SEED + 71, device)
+        meds = {}
+        for backend in ("fused", "culled_fused"):
+            models = {k: copy.deepcopy(m) for k, m in base.items()}
+            if backend == "culled_fused":
+                models["proxy"] = init_proxy(PROXY_HIDDEN, generator=torch.Generator().manual_seed(
+                    SEED + 72)).to(device)
+            meds[backend] = dp_runs(
+                backend, lambda with_dp, b=backend: train_system(
+                    b, 1.0, 1.0, steps_per_epoch, device, data_parallel=dp if with_dp else None),
+                models, batches, SEED + 73, card, launches)
+        for backend, (eager_ms, grouped_ms) in STEP_MS.items():
+            if backend in meds:
+                print(f"[26/27] {backend}: phase {6 if backend == 'fused' else 23}'s "
+                      f"non-distributed steps read eager {eager_ms:.3f}, grouped "
+                      f"{grouped_ms:.3f} ms; here non-distributed "
+                      f"{meds[backend]['eager plain']:.3f} / {meds[backend]['grouped plain']:.3f}"
+                      f", data-parallel {meds[backend]['eager dp']:.3f} / "
+                      f"{meds[backend]['grouped dp']:.3f} (predicted within 5% grouped); "
+                      f"{card}", flush=True)
+        if launches["fwd"] < 2 * DP_STEPS or launches["bwd"] < 2 * DP_STEPS:
+            fail(f"K2 launched {launches} times on the data-parallel path, expected >= "
+                 f"{2 * DP_STEPS} each")
+        # EG3D at the train CLI's defaults, under deterministic algorithms (its
+        # atomics make even two eager runs differ otherwise, phase 21)
+        hp = get_opts(["--root_dir", ".", "--mode", "eg3d"])
+        plain = build_system(hp, white_back=True, steps_per_epoch=1000, device=device)
+        model = plain.init_model()
+        model.load_state_dict(eg3d_from_jax(numpy_eg3d_params(
+            np.random.default_rng(EG3D_SEED + 40), plain.cfg)))
+        eg3d_batches = [{"rays": b["rays"], "rgbs": b["rgbs"]} for b in batches]
+        torch.use_deterministic_algorithms(True)
+        try:
+            dp_runs_eg3d(hp, dp, model.to(device), eg3d_batches, device, card)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        print(f"[26/27] K2 launches on the data-parallel path {launches}", flush=True)
+        return launches
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def dp_runs_eg3d(hp, dp, model, batches, device, card):
+    """Phase 26's EG3D steps: DP_EG3D_STEPS eager steps and one group of as
+    many, data-parallel against non-distributed, bit for bit."""
+    import torch
+    from nerf_siren_tpu_torch.parallel.mesh import cross_replica_param_hash
+    from nerf_siren_tpu_torch.train import build_system
+    from nerf_siren_tpu_torch.training.eg3d_system import MODEL
+
+    n = DP_EG3D_STEPS
+    runs = {}
+    for mode in ("plain", "dp"):
+        system = build_system(hp, white_back=True, steps_per_epoch=1000, device=device,
+                              data_parallel=dp if mode == "dp" else None)
+        state = state_copy(system, {MODEL: model})
+        losses = []
+        t = []
+        for b in batches[:n]:
+            (state, metrics), dt = synced_s(lambda: system.train_step(state, b, seed=SEED + 74))
+            losses.append(metrics["train/loss"])
+            t.append(1e3 * dt)
+        gstate = state_copy(system, {MODEL: model})
+        refused = None
+        try:
+            (gstate, _), gs = synced_s(lambda: system.train_scan_batches(
+                gstate, *stacked(batches[:n]), seed=SEED + 74))
+        except RuntimeError as e:
+            if mode != "dp" or "refused" not in str(e):
+                raise
+            refused, gs = str(e), float("nan")
+        w_avg = state.models[MODEL].backbone.mapping.w_avg
+        runs[mode] = (state, torch.stack(losses), gstate, refused, t, gs, w_avg)
+    e_diff = n_unequal(runs["plain"][0], runs["dp"][0])
+    e_loss = torch.equal(runs["plain"][1], runs["dp"][1])
+    refused = runs["dp"][3]
+    g_diff = None if refused else n_unequal(runs["plain"][2], runs["dp"][2])
+    w_eq = torch.equal(runs["plain"][6], runs["dp"][6])
+    h = float(cross_replica_param_hash(runs["dp"][0].models[MODEL]))
+    print(f"[26/27] EG3D (--mode eg3d defaults, deterministic algorithms): {n} eager steps "
+          f"data-parallel vs non-distributed: {e_diff} tensors differ, losses bit-equal "
+          f"{e_loss}, w_avg bit-equal {w_eq}; one group of {n}: "
+          + (f"REFUSED: {refused}" if refused else f"{g_diff} tensors differ")
+          + f"; eager ms per step plain {[round(v, 3) for v in runs['plain'][4]]}, dp "
+          f"{[round(v, 3) for v in runs['dp'][4]]}; the first group (with its capture) s plain "
+          f"{runs['plain'][5]:.3f}, dp {runs['dp'][5]:.3f}; replica hash {h!r}; {card}",
+          flush=True)
+    if e_diff or not e_loss or not w_eq or (not refused and g_diff):
+        fail("EG3D: data-parallel steps are not bit-equal to the non-distributed ones")
+
+
+def sharded_render_phase(ball_ckpt, device, card):
+    """Phase 27: frames on a mesh of the card twice (two slabs, two host
+    threads and streams: the route of every mesh) against one-device frames.
+    Returns the launches of K1, K3 and K5 on the sharded frames."""
+    from pathlib import Path
+
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.eval import get_opts, make_renderer, setup_fast_proxy
+    from nerf_siren_tpu_torch.eval_eg3d import get_opts as eg3d_opts
+    from nerf_siren_tpu_torch.eval_eg3d import load_model, triplane_config
+    from nerf_siren_tpu_torch.parallel.mesh import make_mesh
+    from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+    mesh = make_mesh(devices=[device, device])
+    launches = {}
+
+    def turns(one, two, rays):
+        """Outputs and seconds in turns (one, two, two, one; twice)."""
+        secs = {"one": [], "two": []}
+        outs = {}
+        with torch.no_grad():
+            for _ in range(2):
+                for m in ("one", "two", "two", "one"):
+                    outs[m], dt = synced_s(lambda: (one if m == "one" else two)(rays))
+                    secs[m].append(dt)
+        return outs, secs
+
+    def report(label, outs, secs, names):
+        diff = sum(int((outs["one"][k] != outs["two"][k]).sum()) for k in outs["one"])
+        print(f"[27/27] {label}: {diff} output elements differ between the two slabs and one "
+              f"device; s " + ", ".join(f"{k} {[round(v, 4) for v in t]}" for k, t in secs.items())
+              + f" (two / one {np.median(secs['two']) / np.median(secs['one']):.4f}, medians); "
+              f"launches of the two-slab frame {names}; {card}", flush=True)
+        if diff:
+            fail(f"{label}: the two-slab frame is not bit-equal to the one-device frame")
+
+    print(f"[27/27] sharded rendering: mesh {mesh}", flush=True)
+    # (a) the 800² exact frame on K1 (slab boundary 327,680 = 10 chunks)
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    models = numpy_models(SEED, device)
+    rays = lego_rays(0, device)
+    k1 = ["fused_nerf_sigma", "fused_nerf_full"]
+    two = make_renderer(models, cfg, renderer="fused", mesh=mesh)
+    reset_counts(k1)
+    with torch.no_grad():
+        two(rays)
+    torch.cuda.synchronize()
+    launches["exact"] = read_counts(k1)
+    outs, secs = turns(make_renderer(models, cfg, renderer="fused"), two, rays)
+    check_outputs([outs["two"]], "two-slab exact frame")
+    report(f"exact {H}x{W} frame (fused, K1)", outs, secs, launches["exact"])
+    del outs, two
+
+    # (a') the same frame on the plain fields, float32 (`--renderer exact`):
+    # the slabs' threads must take the caller's no_grad (a slab recording
+    # the fields' graph holds every chunk's activations to the frame's end);
+    # the slab boundary (320,000 rays) splits a chunk, so within 1e-4; in
+    # chunks of CHUNK / 4 rays, since the two slabs' float32 chunks share
+    # one card's memory at once
+    pcfg = cfg.replace(chunk=CHUNK // 4)
+    graphs = []
+    hooks = [m.register_forward_hook(lambda m, i, o: graphs.append(o.requires_grad))
+             for m in models.values()]
+    plain = {}
+    with torch.no_grad():
+        for m, route in (("one", None), ("two", mesh)):
+            render = make_renderer(models, pcfg, renderer="exact", mesh=route)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out, dt = synced_s(lambda: render(rays))
+            plain[m] = (out, dt, (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    for h in hooks:
+        h.remove()
+    gap = max(float((plain["one"][0][k] - plain["two"][0][k]).abs().max()) for k in plain["one"][0])
+    held = any(v.grad_fn is not None for v in plain["two"][0].values())
+    print(f"[27/27] exact {H}x{W} frame on the plain fields (float32, no kernel, chunk "
+          f"{pcfg.chunk}), under no_grad: "
+          f"one device {plain['one'][1]:.3f} s, peak {plain['one'][2]:.2f} GiB above the frame's "
+          f"inputs; two slabs {plain['two'][1]:.3f} s, peak {plain['two'][2]:.2f} GiB; max |diff| "
+          f"{gap:.3e} (bar 1e-4); {len(graphs)} field forwards, {sum(graphs)} recording a graph; "
+          f"{card}", flush=True)
+    check_outputs([plain["two"][0]], "two-slab plain exact frame")
+    if any(graphs) or held:
+        fail("a slab of the plain exact frame recorded an autograd graph under no_grad")
+    if gap > 1e-4:
+        fail(f"the two-slab plain exact frame differs from one device by {gap:.3e}")
+    del models, plain, rays
+
+    # (b) the fast frame (K3 select, K1) and (c) auto-cull in mesh mode (K3 opacity)
+    ball = numpy_models(FIELD_SEED, device, ball_nerf_params)
+    ckpt_dir = Path(ball_ckpt).parent
+
+    def opts(*extra):
+        return get_opts(["--root_dir", str(ckpt_dir), "--ckpt_path", ball_ckpt, "--renderer",
+                         "fast", "--chunk", str(CHUNK), *extra])
+
+    bounds = np.array([NEAR, FAR], np.float32)
+    hp = opts()
+    fast = setup_fast_proxy(ball, hp, bounds)   # phase 7's cache
+    k3s = ["proxy_march_select", "fused_nerf_full"]
+    one_fast = make_renderer(ball, cfg, renderer="fast", fast=fast, hparams=hp, img_hw=(H, W))
+    two_fast = make_renderer(ball, cfg, renderer="fast", fast=fast, hparams=hp, img_hw=(H, W),
+                             mesh=mesh)
+    frames = [lego_rays(k, device) for k in range(N_FRAMES)]
+    reset_counts(k3s)
+    with torch.no_grad():
+        two_fast(frames[0])
+    torch.cuda.synchronize()
+    launches["fast"] = read_counts(k3s)
+    outs, secs = turns(one_fast, two_fast, frames[0])
+    check_outputs([outs["two"]], "two-slab fast frame")
+    report(f"fast {H}x{W} frame (K3 select, K1)", outs, secs, launches["fast"])
+    with torch.no_grad():
+        fast_frames = [outs["one"]] + [one_fast(r) for r in frames[1:]]
+
+    auto = make_renderer(ball, cfg, renderer="fast", fast=fast,
+                         hparams=opts("--fast_cull", "auto"), img_hw=(H, W), mesh=mesh)
+    auto_one = make_renderer(ball, cfg, renderer="fast", fast=fast,
+                             hparams=opts("--fast_cull", "auto"), img_hw=(H, W))
+    key = fast.model_key
+    reset_counts(["proxy_opacity"])
+    auto_s, one_s = [], []
+    with torch.no_grad():
+        for i in range(N_AUTO):
+            k = i % N_FRAMES
+            (out,), (sec,) = render_frames(auto, [frames[k]])
+            auto_s.append(sec)
+            ref = fast_frames[k]
+            same = (out[f"rgb_{key}"] - ref[f"rgb_{key}"]).abs().amax(-1) <= 1e-6
+            for name in ("depth", "opacity"):
+                same &= (out[f"{name}_{key}"] - ref[f"{name}_{key}"]).abs() <= 1e-6
+            bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
+                  & (out[f"opacity_{key}"] == 0))
+            print(f"[27/27] auto-cull frame {i} in mesh mode (camera {k}): {sec:.4f} s; active "
+                  f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps per "
+                  f"shard {[round(float(e), 5) for e in auto.last_eps]}; "
+                  f"{int((same & ~bg).sum())} rays rendered, {int((bg & ~same).sum())} culled "
+                  f"to background; {card}", flush=True)
+            check_outputs([out], "mesh-mode auto-cull frame")
+            if not bool((same | bg).all()):
+                fail("a mesh-mode auto-cull ray is neither the fast frame's value nor "
+                     "background")
+        launches["auto"] = read_counts(["proxy_opacity"])
+        for i in range(N_AUTO):
+            one_s.append(render_frames(auto_one, [frames[i % N_FRAMES]])[1][0])
+    print(f"[27/27] auto-cull frames s: mesh mode {[round(v, 4) for v in auto_s]}, one device "
+          f"{[round(v, 4) for v in one_s]} (the same cameras, after); medians of the last "
+          f"{N_AUTO - 1}: {np.median(auto_s[1:]):.4f} / {np.median(one_s[1:]):.4f}; {card}",
+          flush=True)
+    if launches["auto"]["proxy_opacity"] < 1:
+        fail("the mesh-mode auto-cull frames never launched the opacity prepass")
+    del ball, fast, fast_frames, frames, outs
+
+    # (d) a 128² EG3D frame on K5 through render_sharded (two slabs of 2 chunks)
+    ckpt = str(Path("ckpts") / "chip_smoke" / "eg3d.msgpack")
+    hpe = eg3d_opts(["--root_dir", ".", "--ckpt_path", ckpt, "--plane_sampler", "kernel"])
+    system = EG3DSystem(triplane_config(hpe, white_back=True), hpe.plane_sampler)
+    model = load_model(system, ckpt, device)
+    rays = lego_rays(0, device, EG3D_WH, EG3D_WH)
+    reset_counts(["triplane_gather"])
+    with torch.no_grad():
+        system.render_sharded(model, rays, mesh, chunk=hpe.chunk)
+    torch.cuda.synchronize()
+    launches["eg3d"] = read_counts(["triplane_gather"])
+    outs, secs = turns(lambda r: system.render(model, r, chunk=hpe.chunk),
+                       lambda r: system.render_sharded(model, r, mesh, chunk=hpe.chunk), rays)
+    report(f"EG3D {EG3D_WH}x{EG3D_WH} frame (K5)", outs, secs, launches["eg3d"])
+    for name, counts in launches.items():
+        if min(counts.values()) < 1:
+            fail(f"the two-slab {name} frame did not launch {counts}")
+    return launches
 
 
 def main():
@@ -3172,7 +3590,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/25] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/27] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -3187,7 +3605,7 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/25] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/27] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
@@ -3213,7 +3631,7 @@ def main():
             lat.append(time.perf_counter() - t0)
     launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/25] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/27] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
@@ -3227,7 +3645,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/25] outputs finite; opacity_fine mean per frame "
+    print(f"[4/27] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -3236,7 +3654,7 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/25] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/27] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
@@ -3294,19 +3712,36 @@ def main():
 
     # ---- 23. culled training on K2 ------------------------------------------------------
     culled_results, culled_launches = culled_phase(pool_rays, pool_rgbs, student, device, smi)
-    del pool_rays, pool_rgbs, student
+    del student
+    torch.cuda.empty_cache()
+
+    # ---- 26. data-parallel training on a one-rank NCCL group ------------------------
+    dp_launches = data_parallel_phase(pool_rays, pool_rgbs, device, smi)
+    del pool_rays, pool_rgbs
     torch.cuda.empty_cache()
     for name, key in (("fused_train_fwd", "fwd"), ("fused_train_bwd", "bwd")):
         results[name]["launches_by_path"] = {"fused (phase 6)": launches[name],
-                                             "culled_fused (phase 23)": culled_launches[key]}
+                                             "culled_fused (phase 23)": culled_launches[key],
+                                             "data parallel (phase 26)": dp_launches[key]}
         results[name]["culled_shape"] = culled_results[name]
-        launches[name] += culled_launches[key]
+        launches[name] += culled_launches[key] + dp_launches[key]
 
     # ---- 24-25. mesh extraction ------------------------------------------------------------
     nerf_mesh_phase(ball, device, smi)
+    ball_ckpt = ball[0]
     del ball
     torch.cuda.empty_cache()
     eg3d_mesh_phase(device, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 27. sharded rendering on two slabs of the card ------------------------------
+    mesh_launches = sharded_render_phase(ball_ckpt, device, smi)
+    for path, counts in mesh_launches.items():
+        for name, n in counts.items():
+            by = results[name].setdefault("launches_by_path",
+                                          {MAIN_PATH[name]: launches[name]})
+            by[f"{path}, two slabs (phase 27)"] = n
+            launches[name] += n
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -32,7 +32,17 @@ survivors (K3 then K1 on the card, `return_samples`), which refuses
 `--fast_cull` and `--fast_adaptive` as JAX does. Each frame adds the class
 map `r_<i>.png` (class id x 10) and the `color_cls` overlays in
 `<scene_name>_cls_map/`, and with labels the pixel accuracy and mIoU.
-`--num_chips` > 1 is refused with the ROADMAP slice that brings it.
+
+`--num_chips N` (0: every visible card; a count above the visible one is
+refused, naming it) renders each frame over a `parallel/mesh.py::Mesh` of
+N devices of `--device` (on the CPU, N slots of it), zero collectives, as
+JAX's CLI: the exact route in contiguous slabs of the frame (each chunked
+as on one device), the fused, fast and d3 routes through
+`sharded_tile_render` (each slab padded to whole `--chunk` tiles, so the
+tiles are the one-device ones), `--fast_cull auto` in the auto-cull
+renderer's mesh mode (per-shard budgets, the next frame sized from the
+maximum). `--fast_edge_refine` is refused with more than one device, as
+JAX refuses it.
 
 `make_renderer` and `make_semantic_renderer` hold the ray tiling and the
 render call, so every caller (this CLI, `chip_smoke.py`) drives the same
@@ -142,7 +152,8 @@ def get_opts(args=None):
                         help="the distilled proxy's cache (default "
                              "<ckpt_path>.proxy.msgpack; 'none' disables it)")
     parser.add_argument('--num_chips', type=int, default=1,
-                        help="only 1: multi-GPU eval comes with ROADMAP slice 6")
+                        help="devices of --device to render each frame over (slabs "
+                             "of its rays); 0: every visible card")
     parser.add_argument('--mode', type=str, default='normal', choices=['normal', 'd3'],
                         help="'d3': semantic evaluation, class maps from the "
                              "checkpoint's point network over each tile's point cloud")
@@ -163,9 +174,6 @@ def get_opts(args=None):
                         help="'cuda' (default; fails when no card is visible) "
                              "or 'cpu'")
     opts = parser.parse_args(args)
-    if opts.num_chips != 1:
-        parser.error(f"--num_chips {opts.num_chips}: the port renders on one device; "
-                     f"multi-GPU eval comes with ROADMAP slice 6 (multi-GPU)")
     k3_route = (opts.renderer == 'fast' and opts.fast_select == 'pdf'
                 and opts.fast_keep >= 2)
     if k3_route and torch.device(opts.device).type == 'cuda':
@@ -313,13 +321,39 @@ def fast_kwargs(render_cfg: RenderConfig, fast: FastSetup, hparams,
                 quadrature=h.fast_quadrature)
 
 
+def eval_mesh(device, num_chips: int):
+    """The mesh of `--num_chips` on `device`'s type, or None for one device
+    (`parallel/mesh.py::mesh_devices` refuses a count above the visible
+    one)."""
+    from nerf_siren_tpu_torch.parallel.mesh import make_mesh, mesh_devices
+
+    if num_chips == 1:
+        return None
+    devices = mesh_devices(device, num_chips)
+    return make_mesh(devices=devices) if len(devices) > 1 else None
+
+
+def tiled(tile_fn_for: Callable, objs: tuple, chunk: int, mesh=None):
+    """A frame renderer from a tile renderer: tile_fn_for(*objs) tiled by
+    `chunk` on one device, or with a mesh one per device on the device's
+    replicas of `objs` through `sharded_tile_render`."""
+    from nerf_siren_tpu_torch.parallel.mesh import replicate, sharded_tile_render
+
+    if mesh is None:
+        tile = tile_fn_for(*objs)
+        return lambda rays: map_chunks(tile, rays, chunk)
+    reps = list(zip(*(replicate(o, mesh) for o in objs)))
+    return sharded_tile_render([tile_fn_for(*r) for r in reps], mesh, chunk)
+
+
 def make_fast_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, fast: FastSetup,
                        hparams, compute_dtype: Optional[torch.dtype] = None,
-                       img_hw: Optional[Tuple[int, int]] = None):
+                       img_hw: Optional[Tuple[int, int]] = None, mesh=None):
     """`--renderer fast` as the JAX CLI builds it: `render_rays_fast` per
     tile of `render_cfg.chunk` rays (with `--fast_adaptive` or a fixed
     `--fast_cull`), or the auto-cull frame driver (`--fast_cull auto`), then
-    the edge refinement pass (`--fast_edge_refine`, needs `img_hw`)."""
+    the edge refinement pass (`--fast_edge_refine`, needs `img_hw`); over
+    `mesh` when given (see the module docstring)."""
     h = hparams
     common = fast_kwargs(render_cfg, fast, hparams, compute_dtype)
     if (h.fast_cull is not None or h.fast_adaptive is not None) and fast.packed_proxy is None:
@@ -329,18 +363,19 @@ def make_fast_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, fast: 
         eps = h.fast_opacity_eps if h.fast_opacity_eps == 'auto' else float(h.fast_opacity_eps)
         render = make_auto_cull_renderer(models, fast.proxy, margin=h.fast_cull_margin,
                                          opacity_eps=eps, prepass_candidates=h.fast_prepass,
-                                         **common)
+                                         mesh=mesh, **common)
     else:
         adaptive = None if h.fast_adaptive is None else (float(h.fast_adaptive[0]),
                                                          int(h.fast_adaptive[1]))
         cull = None if h.fast_cull is None else float(h.fast_cull)
 
-        def render(rays):
-            return map_chunks(lambda t: render_rays_fast(models, fast.proxy, t,
-                                                         select=h.fast_select,
-                                                         adaptive=adaptive, cull=cull,
-                                                         **common),
-                              rays, render_cfg.chunk)
+        def tile_for(ms, proxy, packed, packed_proxy):
+            kw = dict(common, packed_params=packed, packed_proxy=packed_proxy)
+            return lambda t: render_rays_fast(ms, proxy, t, select=h.fast_select,
+                                              adaptive=adaptive, cull=cull, **kw)
+
+        render = tiled(tile_for, (models, fast.proxy, fast.packed, fast.packed_proxy),
+                       render_cfg.chunk, mesh)
     if h.fast_edge_refine is None:
         return render
     if 'fine' not in models or not render_cfg.test_time:
@@ -357,7 +392,7 @@ def make_fast_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, fast: 
 def make_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, *, renderer: str,
                   compute_dtype: Optional[torch.dtype] = None, field_dtype: str = 'bf16',
                   fast: Optional[FastSetup] = None, hparams=None,
-                  img_hw: Optional[Tuple[int, int]] = None
+                  img_hw: Optional[Tuple[int, int]] = None, mesh=None
                   ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """A function of (N, 8) rays -> render outputs, tiled by `render_cfg.chunk`.
 
@@ -365,21 +400,24 @@ def make_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, *, renderer
     and runs `render_rays_fused` per tile (it needs the test_time coarse
     pass, n_importance > 0); 'exact' runs `render_rays` per tile at
     `compute_dtype`; 'fast' runs `make_fast_renderer` with `fast`
-    (`setup_fast_proxy`) and the CLI options `hparams`."""
+    (`setup_fast_proxy`) and the CLI options `hparams`. With `mesh` every
+    route renders over its devices (the module docstring)."""
     if renderer == 'fast':
-        return make_fast_renderer(models, render_cfg, fast, hparams, compute_dtype, img_hw)
+        return make_fast_renderer(models, render_cfg, fast, hparams, compute_dtype, img_hw,
+                                  mesh)
     if renderer == 'fused':
-        packed = field_packs(models, field_dtype)
-
-        def render(rays):
-            return map_chunks(lambda t: render_rays_fused(packed, t, render_cfg),
-                              rays, render_cfg.chunk)
-        return render
+        return tiled(lambda packed: lambda t: render_rays_fused(packed, t, render_cfg),
+                     (field_packs(models, field_dtype),), render_cfg.chunk, mesh)
     if renderer == 'exact':
-        def render(rays):
-            return render_rays_chunked(models, rays, render_cfg, None,
-                                       compute_dtype=compute_dtype)
-        return render
+        def exact(ms):
+            return lambda rays: render_rays_chunked(ms, rays, render_cfg, None,
+                                                    compute_dtype=compute_dtype)
+        if mesh is None:
+            return exact(models)
+        from nerf_siren_tpu_torch.parallel.mesh import render_slabs, replicate
+
+        fns = [exact(ms) for ms in replicate(models, mesh)]
+        return lambda rays: render_slabs(fns, mesh, rays)
     raise ValueError(f"unknown renderer {renderer!r}")
 
 
@@ -387,7 +425,7 @@ def make_semantic_renderer(models: Dict[str, torch.nn.Module], render_cfg: Rende
                            renderer: str, n_classes: int, point_capacity: int = 8192,
                            point_norm: str = 'frob', cls_threshold: Optional[float] = None,
                            compute_dtype: Optional[torch.dtype] = None,
-                           fast: Optional[FastSetup] = None, hparams=None
+                           fast: Optional[FastSetup] = None, hparams=None, mesh=None
                            ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """`--mode d3`: a function of (N, 8) rays -> render outputs with
     cls_<model> (log-probabilities), one point cloud per `render_cfg.chunk`
@@ -396,28 +434,36 @@ def make_semantic_renderer(models: Dict[str, torch.nn.Module], render_cfg: Rende
     valid). 'exact' runs `render_rays_3d` at `compute_dtype`; 'fast' runs
     `render_rays_fast` with `fast` and the CLI's options `hparams` and
     composites the class maps over its survivors. `models` holds the fields
-    and 'points'."""
+    and 'points'. With `mesh` the tiles are the one-device tiles, spread
+    over the devices (`sharded_tile_render`), so the clouds are the same."""
     threshold = (0.5 if render_cfg.test_time else 0.0) if cls_threshold is None \
         else cls_threshold
     sem = dict(n_classes=n_classes, point_capacity=point_capacity, point_norm=point_norm)
     if renderer == 'fast':
         common = fast_kwargs(render_cfg, fast, hparams, compute_dtype)
 
-        def tile(t):
-            out = render_rays_fast(models, fast.proxy, t, select=hparams.fast_select,
-                                   return_samples=True, **common)
-            xyz = t[:, None, 0:3] + t[:, None, 3:6] * out.pop('z_samples')[..., None]
-            out[f'cls_{fast.model_key}'] = semantic_from_weights(
-                models['points'], xyz, out.pop('rgb_samples'), out.pop('w_samples'),
-                threshold=threshold, **sem)
-            return out
+        def tile_for(ms, proxy, packed, packed_proxy):
+            kw = dict(common, packed_params=packed, packed_proxy=packed_proxy)
+
+            def tile(t):
+                out = render_rays_fast(ms, proxy, t, select=hparams.fast_select,
+                                       return_samples=True, **kw)
+                xyz = t[:, None, 0:3] + t[:, None, 3:6] * out.pop('z_samples')[..., None]
+                out[f'cls_{fast.model_key}'] = semantic_from_weights(
+                    ms['points'], xyz, out.pop('rgb_samples'), out.pop('w_samples'),
+                    threshold=threshold, **sem)
+                return out
+            return tile
+        objs = (models, fast.proxy, fast.packed, fast.packed_proxy)
     elif renderer == 'exact':
-        def tile(t):
-            return render_rays_3d(models, t, render_cfg, None, no_grad_on_nerf=False,
-                                  compute_dtype=compute_dtype, cls_threshold=threshold, **sem)
+        def tile_for(ms):
+            return lambda t: render_rays_3d(ms, t, render_cfg, None, no_grad_on_nerf=False,
+                                            compute_dtype=compute_dtype,
+                                            cls_threshold=threshold, **sem)
+        objs = (models,)
     else:
         raise ValueError(f"--mode d3 renders 'exact' or 'fast', not {renderer!r}")
-    return lambda rays: map_chunks(tile, rays, render_cfg.chunk)
+    return tiled(tile_for, objs, render_cfg.chunk, mesh)
 
 
 def infer_ckpt_classes(ckpt_path: str, semantic_network: str) -> Optional[int]:
@@ -464,6 +510,10 @@ def main(hparams):
     from nerf_siren_tpu_torch.utils.color import color_cls
 
     device = resolve_device(hparams.device)
+    mesh = eval_mesh(device, hparams.num_chips)
+    if mesh is not None and hparams.renderer == 'fast' and hparams.fast_edge_refine is not None:
+        raise SystemExit('--fast_edge_refine is an image-space pass '
+                         'and does not compose with --num_chips yet')
     w, h = hparams.img_wh
     kwargs = dict(root_dir=hparams.root_dir, split=hparams.split,
                   img_wh=tuple(hparams.img_wh))
@@ -500,6 +550,9 @@ def main(hparams):
               'fused has no semantic head); pass --renderer fast for the survivor path',
               flush=True)
         renderer = 'exact'
+    if mesh is not None:
+        print(f'rendering each frame over {mesh.size} devices: '
+              f'{", ".join(str(d) for d in mesh.devices)}', flush=True)
     fast = None
     if renderer == 'fast':
         fast = setup_fast_proxy(models, hparams, dataset.bounds)
@@ -514,11 +567,11 @@ def main(hparams):
             models, render_cfg, renderer=renderer, n_classes=n_classes,
             point_capacity=hparams.point_capacity, point_norm=hparams.point_norm,
             cls_threshold=hparams.cls_threshold, compute_dtype=compute_dtype, fast=fast,
-            hparams=hparams)
+            hparams=hparams, mesh=mesh)
     else:
         render = make_renderer(models, render_cfg, renderer=renderer,
                                compute_dtype=compute_dtype, field_dtype=hparams.fast_field_dtype,
-                               fast=fast, hparams=hparams, img_hw=(h, w))
+                               fast=fast, hparams=hparams, img_hw=(h, w), mesh=mesh)
 
     out_dir = os.path.join('results', hparams.dataset_name, hparams.scene_name)
     os.makedirs(out_dir, exist_ok=True)

@@ -17,9 +17,13 @@ places `--fast_keep` samples a ray from `--fast_candidates`, in `--chunk`
 tiles; with `--fast_cull auto` the frame renders whole (the culling ranks
 the whole frame) and K3 opacity is its prepass. On the card K3 takes at
 most 256 candidates a ray, so `--fast_candidates` and `--fast_prepass`
-above that are refused at parse time there. `--num_chips` other than 1 is
-refused with the ROADMAP slice that brings it. `--dataset_name` takes the
-JAX CLI's choices: blender, llff and replica.
+above that are refused at parse time there. `--num_chips N` (0: every
+visible card; a count above the visible one is refused, naming it)
+renders the exact frames over a mesh of N devices of `--device`
+(`EG3DSystem.render_sharded`: the planes once, one contiguous slab of the
+rays a device, zero collectives); the fast renderer stays on one device,
+as in JAX. `--dataset_name` takes the JAX CLI's choices: blender, llff
+and replica.
 
 `make_renderer` holds the render call, so every caller (this CLI,
 `chip_smoke.py`) drives the same code. Datasets (PIL) and `imageio` are
@@ -54,7 +58,8 @@ def get_opts(args=None):
     parser.add_argument('--spheric_poses', default=False, action='store_true')
     parser.add_argument('--chunk', type=int, default=4096)
     parser.add_argument('--num_chips', type=int, default=1,
-                        help="only 1: multi-GPU eval comes with ROADMAP slice 6")
+                        help="devices of --device to render the exact frames over "
+                             "(slabs of the rays); 0: every visible card")
     parser.add_argument('--ckpt_path', type=str, required=True)
     parser.add_argument('--eg3d_plane_res', type=int, default=256)
     parser.add_argument('--eg3d_channel_base', type=int, default=32768)
@@ -90,9 +95,6 @@ def get_opts(args=None):
     parser.add_argument('--device', type=str, default='cuda',
                         help="'cuda' (default; fails when no card is visible) or 'cpu'")
     opts = parser.parse_args(args)
-    if opts.num_chips != 1:
-        parser.error(f"--num_chips {opts.num_chips}: the port renders on one device; "
-                     f"multi-GPU eval comes with ROADMAP slice 6 (multi-GPU)")
     if opts.renderer == 'fast' and torch.device(opts.device).type == 'cuda':
         for flag in ('fast_candidates', 'fast_prepass'):
             if getattr(opts, flag) > MAX_CANDIDATES:
@@ -138,17 +140,20 @@ def setup_fast_renderer(system: EG3DSystem, model: EG3DRenderer, hparams, proxy=
 
 
 def make_renderer(system: EG3DSystem, model: EG3DRenderer, chunk: int, fast=None,
-                  whole_frame: bool = False
+                  whole_frame: bool = False, mesh=None
                   ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """A function of one frame's (N, >= 6) rays -> render outputs: the exact
-    renderer, or `fast` (`setup_fast_renderer`) in `chunk`-ray tiles, or on
-    the whole frame (`whole_frame`, the auto-cull renderer)."""
+    renderer (over `mesh` when given: `render_sharded`), or `fast`
+    (`setup_fast_renderer`) in `chunk`-ray tiles, or on the whole frame
+    (`whole_frame`, the auto-cull renderer)."""
     if fast is not None:
         if whole_frame:
             return fast
         return lambda rays: map_chunks(fast, rays, chunk)
 
     def render(rays: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if mesh is not None:
+            return system.render_sharded(model, rays, mesh, chunk=chunk)
         return system.render(model, rays, chunk=chunk)
     return render
 
@@ -157,10 +162,11 @@ def main(hparams):
     import imageio
 
     from nerf_siren_tpu_torch.datasets import dataset_dict
-    from nerf_siren_tpu_torch.eval import resolve_device
+    from nerf_siren_tpu_torch.eval import eval_mesh, resolve_device
     from nerf_siren_tpu_torch.training.metrics import psnr as psnr_fn
 
     device = resolve_device(hparams.device)
+    mesh = eval_mesh(device, hparams.num_chips)
     w, h = hparams.img_wh
     kwargs = dict(root_dir=hparams.root_dir, split=hparams.split, img_wh=tuple(hparams.img_wh))
     if hparams.dataset_name.startswith('llff'):
@@ -173,7 +179,12 @@ def main(hparams):
     if hparams.renderer == 'fast':
         print('distilling density proxy ...', flush=True)
         fast = setup_fast_renderer(system, model, hparams)
-    render = make_renderer(system, model, hparams.chunk, fast, hparams.fast_cull == 'auto')
+    if mesh is not None:
+        print(f'exact frames over {mesh.size} devices' if fast is None else
+              'NOTE: the fast renderer renders on one device (as JAX\'s); --num_chips '
+              'shards the exact renderer', flush=True)
+    render = make_renderer(system, model, hparams.chunk, fast, hparams.fast_cull == 'auto',
+                           mesh)
 
     out_dir = os.path.join('results', hparams.dataset_name, hparams.scene_name)
     os.makedirs(out_dir, exist_ok=True)

@@ -27,6 +27,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], key: str) -> None:
+    """Add one to a wrapper's launch count: under a lock, since the slabs of
+    a mesh launch from a host thread each."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def nvcc_path() -> str:

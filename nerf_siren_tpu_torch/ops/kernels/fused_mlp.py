@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 
 EMB_X = 64        # 63 xyz-embedding channels + 1 zero column
 EMB_D = 32        # 27 direction-embedding channels + 5 zero columns
@@ -317,7 +318,7 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
                  stream)
     if err != 0:
         raise RuntimeError(f"nerf_field_forward failed: cudaError {err}")
-    LAUNCHES["full" if full else "sigma"] += 1
+    count_launch(LAUNCHES, "full" if full else "sigma")
     return out
 
 

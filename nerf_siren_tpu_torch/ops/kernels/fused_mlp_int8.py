@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTH, SLICE, Packed,
                                                         _bf16, _check, _depth, _width,
@@ -290,7 +291,7 @@ def fused_nerf_sigma_int8(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     if xyz.device.type == "cpu":
         return fused_sigma_int8_ref(packed, xyz)
     out = _launch(packed, xyz, None, 1)
-    LAUNCHES["sigma"] += 1
+    count_launch(LAUNCHES, "sigma")
     return out
 
 
@@ -301,7 +302,7 @@ def fused_nerf_full_int8(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
     if xyz.device.type == "cpu":
         return fused_full_int8_ref(packed, xyz, dirs, samples_per_dir)
     out = _launch(packed, xyz, dirs, samples_per_dir)
-    LAUNCHES["full"] += 1
+    count_launch(LAUNCHES, "full")
     return out
 
 

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.config import NeRFConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (EMB_D, EMB_X, SLICE, _bf16, _check,
                                                         _embed, _swizzle128)
 
@@ -465,7 +466,7 @@ def _launch_fwd(packed, xyz, dirs, samples_per_dir, entry=None):
             samples_per_dir, out.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nerf_train_forward failed: cudaError {err}")
-    LAUNCHES["fwd"] += 1
+    count_launch(LAUNCHES, "fwd")
     return out
 
 
@@ -498,7 +499,7 @@ def _launch_bwd(packed, xyz, dirs, dy, samples_per_dir, entry=None):
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"nerf_train_backward failed: cudaError {err}")
-    LAUNCHES["bwd"] += 1
+    count_launch(LAUNCHES, "bwd")
     grads["w_sigma"] = outs["w_sigma"][SIGMA_ROW]
     grads["w_rgb"] = outs["w_rgb"][:3]
     return grads, ws

@@ -51,6 +51,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
+from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import _bf16, _check, _swizzle128
 
 PROXY_FREQS = 5
@@ -371,7 +372,7 @@ def proxy_opacity(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torc
                                        out.data_ptr(), current_stream(rays.device))
     if err != 0:
         raise RuntimeError(f"proxy_opacity_forward failed: cudaError {err}")
-    LAUNCHES["opacity"] += 1
+    count_launch(LAUNCHES, "opacity")
     return out
 
 
@@ -402,7 +403,7 @@ def proxy_march_select(packed: Packed, rays: torch.Tensor, n_candidates: int, n_
         mass.data_ptr() if return_density else None, current_stream(dev))
     if err != 0:
         raise RuntimeError(f"proxy_march_select_forward failed: cudaError {err}")
-    LAUNCHES["select"] += 1
+    count_launch(LAUNCHES, "select")
     return (z, xyz, rho, mass) if return_density else (z, xyz)
 
 

@@ -34,6 +34,7 @@ from typing import Tuple
 
 import torch
 
+from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import (  # noqa: F401 (re-export)
     MAX_CANDIDATES, Packed, _div, _lib, check_range, current_stream, k3_args,
     pack_proxy_params, proxy_scores_ref)
@@ -139,7 +140,7 @@ def proxy_select(packed: Packed, rays: torch.Tensor, n_candidates: int = 64,
     if rays.device.type == "cpu":
         return proxy_select_ref(packed, rays, n_candidates, n_keep)
     z = _launch(packed, rays, n_candidates, n_keep, None)
-    LAUNCHES["select"] += 1
+    count_launch(LAUNCHES, "select")
     return z
 
 

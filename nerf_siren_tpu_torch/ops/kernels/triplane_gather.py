@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.grid_sample import grid_sample_2d_packed
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import current_stream
 
@@ -133,5 +134,5 @@ def triplane_gather(table: torch.Tensor, xyz: torch.Tensor, scale: float) -> tor
                 current_stream(xyz.device))
     if err != 0:
         raise RuntimeError(f"triplane_gather_forward failed: cudaError {err}")
-    LAUNCHES["gather"] += 1
+    count_launch(LAUNCHES, "gather")
     return out

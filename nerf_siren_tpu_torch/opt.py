@@ -1,8 +1,7 @@
 """Training CLI flags of the port: the same flags and defaults as the JAX
-package's root `opt.py`, plus `--device`.
-
-Values whose feature the port lacks yet are rejected by `get_opts` with an
-error that names the ROADMAP slice bringing it."""
+package's root `opt.py`, plus `--device`. Every flag value of the JAX CLI
+is served; `--num_chips` above the visible device count is refused by the
+train CLI, which knows the device."""
 from __future__ import annotations
 
 import argparse
@@ -92,12 +91,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "epoch's batches as one captured CUDA graph on the card "
                              "(train_scan_batches, every --mode); 1: one eager step a batch")
     parser.add_argument('--num_chips', '--num_gpus', dest='num_chips', type=int, default=0,
-                        help='devices to train on (0 or 1: one; more '
-                             'comes with ROADMAP slice 6)')
+                        help="devices of --device to train on, one process each "
+                             "(data parallel): 0 every visible card (the CPU: one), "
+                             "N > 1 spawns N local ranks")
     parser.add_argument('--multihost', default=False, action='store_true',
-                        help='multi-process training (ROADMAP slice 6)')
+                        help="this process is one rank of a multi-process group "
+                             "(torchrun, or the coordinator flags / NERF_TPU_* env)")
     parser.add_argument('--coordinator_address', type=str, default=None,
-                        help='host:port of process 0 (multi-process, slice 6)')
+                        help='host:port of process 0 (--multihost)')
     parser.add_argument('--num_processes', type=int, default=None)
     parser.add_argument('--process_id', type=int, default=None)
 
@@ -155,22 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# flag values the port does not serve yet -> the ROADMAP slice that brings them
-NOT_YET = (
-    ("multihost", (True,), "slice 6 (multi-GPU)"),
-)
-
-
 def get_opts(args=None):
     parser = build_parser()
     opts = parser.parse_args(args)
-    for flag, values, slice_ in NOT_YET:
-        if getattr(opts, flag) in values:
-            parser.error(f"--{flag} {getattr(opts, flag)} is not ported yet: it comes "
-                         f"with ROADMAP {slice_}")
-    if opts.num_chips > 1:
-        parser.error(f"--num_chips {opts.num_chips}: the port trains on one device; "
-                     f"multi-GPU comes with ROADMAP slice 6 (multi-GPU)")
     if opts.is_use_mixed_precision and \
             opts.is_use_mixed_precision.lower() not in ('false', '0', 'no'):
         opts.compute_dtype = 'bfloat16'

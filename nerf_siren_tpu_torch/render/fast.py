@@ -457,8 +457,9 @@ def make_auto_cull_renderer(
     prepass_candidates: Optional[int] = None,
     placement: str = "mid",
     quadrature: str = "delta",
+    mesh=None,
 ) -> Callable[[torch.Tensor], Outputs]:
-    """Frame-global empty-ray culling at ray-block granularity (one device).
+    """Frame-global empty-ray culling at ray-block granularity.
 
     Per frame: the K3 opacity prepass (`prepass_candidates` per ray) scores
     every ray; a block of `block` consecutive rays is foreground if any ray
@@ -484,38 +485,57 @@ def make_auto_cull_renderer(
     anew. Budget counts come from the previous frame through a non-blocking
     copy, never a sync on the frame in flight.
 
-    `render.last_active_frac`, `.last_plain` and `.last_eps` describe the
-    last frame. The JAX function's `mesh=` mode is not ported (slice 6)."""
+    Mesh mode (`mesh`, a `parallel/mesh.py::Mesh`; JAX's `mesh=`): the rays
+    are padded to the shards' padded rows (the frame split evenly, each
+    slab rounded up to TILE_R), each device ranks and culls its own
+    contiguous slab with its own eps and counts (`Mesh.run`: a stream a
+    slab; the models, proxy and packs `replicate`d), and the next
+    frame's static budget and the plain-mode estimate take the MAXIMUM
+    across the shards.
+
+    `render.last_active_frac`, `.last_plain` and `.last_eps` (per shard in
+    mesh mode) describe the last frame."""
+    from nerf_siren_tpu_torch.parallel.mesh import replicate, shard_rays
+
     prepass_c = prepass_candidates or n_candidates
     if TILE_R % block:
         raise ValueError(f"block must divide TILE_R={TILE_R}")
     blocks_per_tile = TILE_R // block
+    n_dev = 1 if mesh is None else mesh.size
     common = dict(n_candidates=n_candidates, n_keep=n_keep, white_back=white_back,
                   placement=placement, compute_dtype=compute_dtype, scene_aabb=scene_aabb,
-                  select="pdf", packed_params=packed_params, packed_proxy=packed_proxy,
-                  model=model, quadrature=quadrature)
+                  select="pdf", model=model, quadrature=quadrature)
+    # per shard: (models, proxy, field packs, proxy pack) on its device
+    if mesh is None:
+        shards = [(models, proxy, packed_params, packed_proxy)]
+    else:
+        shards = list(zip(*(replicate(x, mesh) for x in (models, proxy, packed_params,
+                                                          packed_proxy))))
     auto_eps = opacity_eps == "auto"
     bg = 1.0 if white_back else 0.0
     keys = [f"rgb_{model}", f"depth_{model}", f"opacity_{model}"]
 
-    def render_tiles(act, chunk_rays):
-        outs = [render_rays_fast(models, proxy, act[i: i + chunk_rays], **common)
+    def render_tiles(shard, act, chunk_rays):
+        ms, px, pp, ppx = shard
+        outs = [render_rays_fast(ms, px, act[i: i + chunk_rays], packed_params=pp,
+                                 packed_proxy=ppx, **common)
                 for i in range(0, act.shape[0], chunk_rays)]
         return {k: torch.cat([o[k] for o in outs]) for k in keys}
 
-    def culled_frame(rays8, r, n_act_b, chunk_b, eps_in):
+    def culled_frame(shard, rays8, r, n_act_b, chunk_b, eps_in):
         """Prepass, block ranking, the top n_act_b blocks rendered,
-        reassembly. Returns (outputs, n_fg_b, eps_next, n_vis_b)."""
+        reassembly, over rays8's first r valid rows. Returns (outputs,
+        n_fg_b, eps_next, n_vis_b)."""
         rp = rays8.shape[0]
         nblocks = rp // block
         dev = rays8.device
         rid = torch.arange(rp, device=dev)
-        opac = torch.where(rid < r, proxy_opacity(packed_proxy, rays8, prepass_c),
+        opac = torch.where(rid < r, proxy_opacity(shard[3], rays8, prepass_c),
                            torch.full((rp,), -1.0, device=dev))
         score = opac.view(nblocks, block).amax(1)
         order = _descending(score)[:n_act_b]
         act = rays8.view(nblocks, block * 8)[order].view(-1, 8)
-        out = render_tiles(act, chunk_b * block)
+        out = render_tiles(shard, act, chunk_b * block)
         field_op = out[keys[2]]
         valid = (order[:, None] * block + torch.arange(block, device=dev) < r).reshape(-1)
         eps_next = eps_in
@@ -538,26 +558,32 @@ def make_auto_cull_renderer(
         for k, v in full.items():
             v[order] = out[k].view(n_act_b, block, *v.shape[2:])
         return ({k: v.reshape(rp, *v.shape[2:])[:r] for k, v in full.items()},
-                n_fg_b, eps_next, n_vis_b)
+                _DeferredCount(n_fg_b), eps_next, _DeferredCount(n_vis_b))
 
-    def plain_frame(rays8, r, chunk_b):
+    def plain_frame(shard, rays8, r, chunk_b):
         """Every block in order, no prepass. Returns (outputs, n_vis_b)."""
         rp = rays8.shape[0]
-        out = render_tiles(rays8, chunk_b * block)
+        out = render_tiles(shard, rays8, chunk_b * block)
         vis = (out[keys[2]] > 0.01) & (torch.arange(rp, device=rays8.device) < r)
         n_vis_b = vis.view(rp // block, block).any(1).sum()
-        return {k: v[:r] for k, v in out.items()}, n_vis_b
+        return {k: v[:r] for k, v in out.items()}, _DeferredCount(n_vis_b)
 
     # measured break-even of the culling apparatus and its hysteresis
     PLAIN_ENTER, PLAIN_EXIT = 0.70, 0.65
     RATIO_MAX = 32.0               # cap of the field -> proxy block-count ratio
     PLAIN_REPROBE_EVERY = 64       # bounded staleness of ratio / eps in plain mode
-    state = {"n_fg_b": None, "n_vis_b": None, "plain": False, "ratio": 1.0, "plain_run": 0,
-             "eps": None if auto_eps else torch.tensor(float(opacity_eps))}
+    # per shard: the last counts (`_DeferredCount`), eps and field -> proxy ratio
+    state = {"n_fg_b": None, "n_vis_b": None, "plain": False, "ratio": [1.0] * n_dev,
+             "plain_run": 0,
+             "eps": None if auto_eps else [torch.tensor(float(opacity_eps))] * n_dev}
 
     def render(rays: torch.Tensor) -> Outputs:
         r = rays.shape[0]
-        rp = r + (-r % TILE_R)
+        if n_dev > 1:   # each shard's padded rows
+            per = -(-r // n_dev)
+            rp = -(-per // TILE_R) * TILE_R
+        else:
+            rp = r + (-r % TILE_R)
         nblocks = rp // block
         quantum_b = -(-nblocks // (levels * blocks_per_tile)) * blocks_per_tile
 
@@ -570,20 +596,21 @@ def make_auto_cull_renderer(
             # measuring budget, eps and the field -> proxy ratio
             n_act_b = nblocks
             if state["eps"] is None:
-                state["eps"] = torch.tensor(2.0)   # cull nothing until calibrated
+                state["eps"] = [torch.tensor(2.0)] * n_dev   # cull nothing until calibrated
         elif state["plain"]:
             n_act_b, plain = nblocks, True
             state["plain_run"] += 1
             if state["plain_run"] >= PLAIN_REPROBE_EVERY:
                 plain = False
             elif state["n_vis_b"] is not None:
-                est_fg_b = state["n_vis_b"].get() * state["ratio"]
+                est_fg_b = max(c.get() * q for c, q in zip(state["n_vis_b"], state["ratio"]))
                 if quantized_act(est_fg_b) / nblocks < PLAIN_EXIT:
                     plain = False       # turned sparse: a full culled frame now
         else:
-            fg, vis = state["n_fg_b"].get(), state["n_vis_b"].get()
-            state["ratio"] = min(fg / max(vis, 1.0), RATIO_MAX)
-            n_act_b = quantized_act(int(fg))
+            fg = [c.get() for c in state["n_fg_b"]]
+            vis = [c.get() for c in state["n_vis_b"]]
+            state["ratio"] = [min(f / max(v, 1.0), RATIO_MAX) for f, v in zip(fg, vis)]
+            n_act_b = quantized_act(int(max(fg)))
             plain = n_act_b / nblocks >= PLAIN_ENTER
         state["plain"] = plain
         if not plain:
@@ -592,18 +619,29 @@ def make_auto_cull_renderer(
             nblocks = -(-nblocks // quantum_b) * quantum_b   # whole quanta
             rp = nblocks * block
             n_act_b = nblocks
-        rays8 = F.pad(rays.float(), (0, 0, 0, rp - r))
-        eps = state["eps"].to(rays.device)
-        if plain:
-            out, n_vis_b = plain_frame(rays8, r, quantum_b)
+        rays8 = F.pad(rays.float(), (0, 0, 0, rp * n_dev - r))
+        slabs = [rays8] if mesh is None else shard_rays(rays8, mesh)
+        valid = [max(0, min(rp, r - s * rp)) for s in range(n_dev)]   # real rows a shard
+
+        def frame(s):
+            eps = state["eps"][s].to(slabs[s].device)
+            if plain:
+                out, n_vis_b = plain_frame(shards[s], slabs[s], valid[s], quantum_b)
+                return out, None, eps, n_vis_b
+            return culled_frame(shards[s], slabs[s], valid[s], n_act_b, quantum_b, eps)
+
+        if mesh is None:
+            results = [frame(0)]
         else:
-            out, n_fg_b, eps, n_vis_b = culled_frame(rays8, r, n_act_b, quantum_b, eps)
-            state["n_fg_b"] = _DeferredCount(n_fg_b)
-        state["n_vis_b"] = _DeferredCount(n_vis_b)
-        state["eps"] = eps
+            results = mesh.run([frame] * n_dev, list(range(n_dev)))
+        if not plain:
+            state["n_fg_b"] = [res[1] for res in results]
+        state["eps"] = [res[2] for res in results]
+        state["n_vis_b"] = [res[3] for res in results]
+        out = {k: torch.cat([res[0][k].to(rays.device) for res in results]) for k in keys}
         render.last_active_frac = n_act_b / nblocks
         render.last_plain = plain
-        render.last_eps = eps
+        render.last_eps = state["eps"][0] if mesh is None else state["eps"]
         return out
 
     render.last_active_frac = None

@@ -14,6 +14,11 @@ Counterpart of `nerf_siren_tpu/render/rendering_3d.py`. The ray march is
    elsewhere) and composites cls = sum_s w_s cls_s.
 The count of valid points stays a device tensor: nothing here reads the
 device from the host, so a training step can be captured in a CUDA graph.
+Under data parallelism (`data_parallel`, a `parallel/shard_train.py::
+DataParallel`) the ranks all-gather the per-ray xyz, rgb and weights, so
+every rank builds JAX's one cloud of the global batch (its top-K, its
+norm, the point network's batch norm and max-pool), and each keeps the
+class outputs of its own rays.
 With `no_grad_on_nerf` the NeRF runs without autograd and only the point
 network trains (its parameters then get no gradient, which the system
 reads as zeros, as JAX's are).
@@ -31,10 +36,19 @@ from nerf_siren_tpu_torch.render.rendering import StepNoise, _field, render_rays
 
 def semantic_from_weights(points: nn.Module, xyz: torch.Tensor, rgbs: torch.Tensor,
                           weights: torch.Tensor, *, n_classes: int, threshold: float,
-                          point_capacity: int, point_norm: str = "frob") -> torch.Tensor:
+                          point_capacity: int, point_norm: str = "frob",
+                          data_parallel=None) -> torch.Tensor:
     """Steps 1-4 above: xyz, rgbs (R, S, 3), weights (R, S) -> (R, n_classes).
     `points` maps (K, 6) points and a (K,) mask to (K, n_classes)
-    log-probabilities."""
+    log-probabilities. With `data_parallel` the cloud is the global batch's
+    and the rows returned this rank's."""
+    if data_parallel is not None:
+        r_local = xyz.shape[0]
+        g = data_parallel.gather_rows
+        cls = semantic_from_weights(points, g(xyz), g(rgbs), g(weights), n_classes=n_classes,
+                                    threshold=threshold, point_capacity=point_capacity,
+                                    point_norm=point_norm)
+        return data_parallel.local_rows(cls, r_local)
     r, s, _ = xyz.shape
     n = r * s
     k = min(point_capacity, n)
@@ -62,7 +76,8 @@ def render_rays_3d(models: Dict[str, nn.Module], rays: torch.Tensor,
                    no_grad_on_nerf: bool = True,
                    compute_dtype: Optional[torch.dtype] = None,
                    cls_threshold: Optional[float] = None, point_norm: str = "frob",
-                   noise: Optional[StepNoise] = None) -> Dict[str, torch.Tensor]:
+                   noise: Optional[StepNoise] = None,
+                   data_parallel=None) -> Dict[str, torch.Tensor]:
     """`render_rays` of models {'coarse', 'fine' (optional), 'points'} with
     cls_coarse / cls_fine from `semantic_from_weights` on each rgb pass
     (the test-time coarse pass is sigma-only and has none)."""
@@ -75,7 +90,7 @@ def render_rays_3d(models: Dict[str, nn.Module], rays: torch.Tensor,
     def cls_fn(xyz, rgb, weights):
         return semantic_from_weights(models["points"], xyz, rgb, weights, n_classes=n_classes,
                                      threshold=threshold, point_capacity=point_capacity,
-                                     point_norm=point_norm)
+                                     point_norm=point_norm, data_parallel=data_parallel)
 
     return render_rays(models, rays, cfg, generator, field_fn=field_fn, noise=noise,
                        cls_fn=cls_fn)

@@ -22,8 +22,25 @@ runs on `--device` (default `cuda`, which fails when no card is visible;
 the tests pass `--device cpu`); `--train_backend fused` runs the field on
 K2 there, `culled` trains with the online proxy's sample placement
 (`render/culled_train.py`, logging `train/proxy_loss`; the checkpoints
-hold the proxy under `proxy`) and `culled_fused` does both. Not ported yet
-(ROADMAP slice 6): multi-GPU.
+hold the proxy under `proxy`) and `culled_fused` does both.
+
+Data-parallel training (`parallel/shard_train.py`), one process per
+device, every backend and mode, eager and grouped:
+- `--num_chips N` (N > 1) spawns N local ranks with `torch.multiprocessing`
+  (NCCL between cards, gloo on the CPU, a `file://` store in a temporary
+  directory), rank r on the r-th device; each takes the rows [r B / N,
+  (r + 1) B / N) of the one-process batches (`epoch_iterator(block=)`),
+  so N ranks train the `--num_chips 1` trajectory. 0 means every visible
+  card (the CPU counts as one); a count above the visible one is refused,
+  naming it. With one device no process group is made.
+- `--multihost`: this process is one rank of a group (torchrun, or
+  `--coordinator_address`, `--num_processes`, `--process_id` and JAX's
+  `NERF_TPU_*` names; `parallel/multihost.py`); it reads JAX's interleaved
+  shard of every epoch (`epoch_iterator(shard_index=rank,
+  num_shards=world)`), and checkpoints are ranked by the epoch-mean train
+  loss, as in JAX.
+Rank 0 alone prints, writes TensorBoard scalars and checkpoints; under
+`--num_chips` it validates on its device.
 """
 from __future__ import annotations
 
@@ -39,7 +56,7 @@ from nerf_siren_tpu_torch.opt import get_opts
 
 
 def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
-                 n_classes: int = 0):
+                 n_classes: int = 0, data_parallel=None):
     """The system of `--mode`: `NeRFSystem` (normal), `NeRF3DSystem` (d3,
     d3_ib; `n_classes` from the dataset, else 6) or `EG3DSystem` (eg3d: the
     `--eg3d_*` flags, N_importance floored at 1, the dataset's background)."""
@@ -63,7 +80,8 @@ def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
         from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
 
         return EG3DSystem(triplane_config(hparams, white_back), train_cfg=train_cfg,
-                          steps_per_epoch=steps_per_epoch, device=device)
+                          steps_per_epoch=steps_per_epoch, device=device,
+                          data_parallel=data_parallel)
     if hparams.mode in ("d3", "d3_ib"):
         from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
 
@@ -74,10 +92,11 @@ def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
         return NeRF3DSystem(render_cfg, train_cfg, nerf_cfg, steps_per_epoch,
                             semantic_network=hparams.semantic_network,
                             point_norm=hparams.point_norm, n_classes=n_classes or 6,
-                            device=device)
+                            device=device, data_parallel=data_parallel)
     return NeRFSystem(render_cfg, train_cfg, nerf_cfg, steps_per_epoch,
                       train_backend=hparams.train_backend, device=device,
-                      field_type=hparams.field, siren_box_warp=hparams.siren_box_warp)
+                      field_type=hparams.field, siren_box_warp=hparams.siren_box_warp,
+                      data_parallel=data_parallel)
 
 
 def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int = 1,
@@ -136,12 +155,85 @@ def validate(system, state, val_ds, writer, step: int, img_wh, max_images: int =
 
 
 def main(hparams):
-    from nerf_siren_tpu_torch.datasets import dataset_dict
+    """Train as the flags say: one process, N spawned local ranks
+    (`--num_chips`), or one rank of a multi-process group (`--multihost`).
+    Returns the final state (None in the process that spawned ranks)."""
     from nerf_siren_tpu_torch.eval import resolve_device
+    from nerf_siren_tpu_torch.parallel.mesh import mesh_devices
+
+    device = resolve_device(hparams.device)
+    if hparams.multihost:
+        from nerf_siren_tpu_torch.parallel import multihost
+        from nerf_siren_tpu_torch.parallel.shard_train import DataParallel
+
+        multihost.initialize_distributed(hparams.coordinator_address, hparams.num_processes,
+                                         hparams.process_id, device.type)
+        if device.type == "cuda":
+            device = multihost.local_device("cuda")
+        dp = DataParallel() if multihost.process_count() > 1 else None
+        return train(hparams, device, dp, multihost=True)
+    devices = mesh_devices(device, hparams.num_chips)
+    if len(devices) == 1:
+        return train(hparams, device)
+    spawn_ranks(hparams, devices)
+    return None
+
+
+def spawn_ranks(hparams, devices) -> None:
+    """Run `train` on len(devices) local ranks, rank r on devices[r], joined
+    by a file store in a fresh temporary directory (removed afterwards)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from nerf_siren_tpu_torch.parallel.shard_train import batch_split_error
+
+    err = batch_split_error(hparams.batch_size, len(devices))
+    if err:
+        raise SystemExit(err)
+    store_dir = tempfile.mkdtemp(prefix="nerf_torch_ranks_")
+    # CPU ranks share this process's intra-op threads
+    threads = max(1, torch.get_num_threads() // len(devices))
+    try:
+        mp.spawn(_rank_main, args=(hparams, [str(d) for d in devices],
+                                   os.path.join(store_dir, "store"), threads),
+                 nprocs=len(devices), join=True)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def _rank_main(rank: int, hparams, devices, store: str, threads: int) -> None:
+    """One spawned rank: join the group, train on devices[rank] (on the CPU
+    with `threads` intra-op threads)."""
+    import torch.distributed as dist
+
+    from nerf_siren_tpu_torch.parallel.multihost import backend_for
+    from nerf_siren_tpu_torch.parallel.shard_train import DataParallel
+
+    device = torch.device(devices[rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(threads)
+    dist.init_process_group(backend_for(device.type), init_method=f"file://{store}",
+                            world_size=len(devices), rank=rank)
+    try:
+        train(hparams, device, DataParallel())
+    finally:
+        dist.destroy_process_group()
+
+
+def train(hparams, device, dp=None, multihost: bool = False):
+    """The epoch loop on `device`; with `dp` (a `DataParallel`) as one rank
+    of it: `--multihost` reads the rank's interleaved shard, otherwise the
+    rank's rows of the one-process batches."""
+    from nerf_siren_tpu_torch.datasets import dataset_dict
     from nerf_siren_tpu_torch.training import checkpoints as ckpt_lib
     from nerf_siren_tpu_torch.training.system import epoch_iterator
 
-    device = resolve_device(hparams.device)
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    primary = rank == 0
     dataset_cls = dataset_dict[hparams.dataset_name]
     kwargs = dict(root_dir=hparams.root_dir, img_wh=tuple(hparams.img_wh))
     if hparams.dataset_name.startswith("llff"):
@@ -153,14 +245,15 @@ def main(hparams):
 
     steps_per_epoch = max(1, len(train_ds.all_rays) // hparams.batch_size)
     system = build_system(hparams, train_ds.white_back, steps_per_epoch, device,
-                          getattr(train_ds, "n_classes", 0))
+                          getattr(train_ds, "n_classes", 0), data_parallel=dp)
     optimizer = hparams.optimizer
 
     state = system.init_state(hparams.seed)
     start_epoch = 0
+    log = print if primary else (lambda *a, **k: None)
     if hparams.ckpt_path:  # full resume
         state, start_epoch = ckpt_lib.restore_train_state(hparams.ckpt_path, state, optimizer)
-        print(f"resumed from {hparams.ckpt_path} at epoch {start_epoch}, step {state.step}")
+        log(f"resumed from {hparams.ckpt_path} at epoch {start_epoch}, step {state.step}")
     elif hparams.pretrained:  # warm start of the weights only
         if "eg3d_renderer" in state.models:
             ckpt_lib.load_eg3d_ckpt(state.models["eg3d_renderer"], hparams.pretrained)
@@ -170,21 +263,29 @@ def main(hparams):
                 ckpt_lib.load_ckpt(state.models[key], hparams.pretrained, name,
                                    hparams.prefixes_to_ignore)
         state = system.state_for(state.models)
-        print(f"warm-started from {hparams.pretrained}")
+        log(f"warm-started from {hparams.pretrained}")
 
     writer = None
     try:
         from tensorboardX import SummaryWriter
     except ImportError:
         SummaryWriter = None
-    if SummaryWriter is not None:
+    if SummaryWriter is not None and primary:
         writer = SummaryWriter(os.path.join("logs", hparams.exp_name))
 
     ckpt_dir = os.path.join("ckpts", hparams.exp_name)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if primary:
+        os.makedirs(ckpt_dir, exist_ok=True)
     saved: list = []  # (val_loss, path)
-    checkpointer = ckpt_lib.AsyncCheckpointer()
+    checkpointer = ckpt_lib.AsyncCheckpointer() if primary else None
     extras = {"cls": train_ds.all_cls} if hasattr(train_ds, "all_cls") else None
+    shards = dict(shard_index=rank, num_shards=world) if multihost else dict(block=(rank, world))
+
+    def batches(epoch):
+        for batch in epoch_iterator(train_ds.all_rays, train_ds.all_rgbs, hparams.batch_size,
+                                    hparams.seed, epoch, extras, **shards):
+            yield batch
+
     spd = max(1, hparams.steps_per_dispatch)
     if extras and "cls_b" not in inspect.signature(system.train_scan_batches).parameters:
         spd = 1   # as JAX: groups carry class targets on the semantic system only
@@ -200,18 +301,23 @@ def main(hparams):
             t0 = time.time()
             metrics: Dict = {}
             group: list = []
-            for batch in epoch_iterator(train_ds.all_rays, train_ds.all_rgbs,
-                                        hparams.batch_size, hparams.seed, epoch, extras):
+            losses: list = []   # device scalars, fetched once an epoch
+            for batch in batches(epoch):
                 if spd == 1:
                     state, metrics = system.train_step(state, batch, hparams.seed + 1)
+                    losses.append(metrics[system.LOSS_KEY])
                     continue
                 group.append(batch)
                 if len(group) == spd:
                     state, metrics = flush_group(state, group)
+                    losses.append(metrics[system.LOSS_KEY])
                     group = []
             if group:   # the epoch's tail: one smaller group (its own graph)
                 state, metrics = flush_group(state, group)
+                losses.append(metrics[system.LOSS_KEY])
             step = state.step
+            if not primary:
+                continue
             if writer is not None:
                 for k, v in metrics.items():
                     writer.add_scalar(k, float(v), step)
@@ -220,9 +326,14 @@ def main(hparams):
                 f"{k}={float(v):.4f}" for k, v in metrics.items()) + f" ({time.time() - t0:.1f}s)"
 
             if (epoch + 1) % hparams.val_every == 0 or epoch == hparams.num_epochs - 1:
-                val_loss, val_psnr = validate(system, state, val_ds, writer, step,
-                                              tuple(hparams.img_wh), exp_name=hparams.exp_name)
-                line += f" val/loss={val_loss:.4f} val/psnr={val_psnr:.2f}"
+                if multihost and world > 1:
+                    # as JAX: rank checkpoints by the epoch-mean train loss
+                    val_loss = float(torch.stack(losses).mean()) if losses else 0.0
+                else:
+                    val_loss, val_psnr = validate(system, state, val_ds, writer, step,
+                                                  tuple(hparams.img_wh),
+                                                  exp_name=hparams.exp_name)
+                    line += f" val/loss={val_loss:.4f} val/psnr={val_psnr:.2f}"
                 path = os.path.join(ckpt_dir, f"epoch={epoch}-step={step}.msgpack")
                 checkpointer.save_train_state(path, state, epoch + 1, optimizer)
                 saved.append((val_loss, path))
@@ -235,7 +346,8 @@ def main(hparams):
                 saved = saved[: hparams.save_topk]
             print(line, flush=True)
     finally:
-        checkpointer.close()  # every checkpoint file is on disk before returning
+        if checkpointer is not None:
+            checkpointer.close()  # every checkpoint file is on disk before returning
         if writer is not None:
             writer.close()
     return state

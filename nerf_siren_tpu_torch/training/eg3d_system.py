@@ -33,7 +33,15 @@ table, then the rays are rendered in `chunk`-ray tiles by
 `importance_render`, sampling the planes through the plain gather
 (`plane_sampler='gather'`) or the kernel K5 ('kernel'). A Python loop
 takes the place of `lax.map`, so the last tile needs no padding.
-`render_sharded` is not ported yet (ROADMAP slice 6).
+`render_sharded` synthesises the planes once, replicates the table and
+the decoder to the mesh's devices and renders one contiguous slab of the
+rays on each (JAX's: zero collectives).
+
+Data parallel (`data_parallel`): each rank renders its rows of the global
+batch; the mapping, the synthesis and the `w_avg` EMA are replicated
+computations, equal on every rank, and the draws are the global batch's
+(the strata's and the pdf's per ray, the density noise per sample), each
+rank keeping its rays' (`local_draws`).
 """
 from __future__ import annotations
 
@@ -48,7 +56,6 @@ from nerf_siren_tpu_torch.render.triplane import (EG3DRenderer, TriPlaneConfig, 
                                                   make_kernel_plane_sampler,
                                                   pack_planes_for_sampling)
 from nerf_siren_tpu_torch.training.losses import mse_loss
-from nerf_siren_tpu_torch.training.metrics import psnr
 from nerf_siren_tpu_torch.training.optimizers import Optimizer
 from nerf_siren_tpu_torch.training.system import (GroupedSteps, TrainState, parameters,
                                                   step_generator)
@@ -63,7 +70,7 @@ OUTPUTS = ("rgb_coarse", "depth_coarse", "opacity_coarse", "rgb_fine", "depth_fi
 class EG3DSystem(GroupedSteps):
     def __init__(self, triplane_cfg: Optional[TriPlaneConfig] = None,
                  plane_sampler: str = "gather", train_cfg: TrainConfig = TrainConfig(),
-                 steps_per_epoch: int = 1000, device="cuda"):
+                 steps_per_epoch: int = 1000, device="cuda", data_parallel=None):
         if plane_sampler not in PLANE_SAMPLERS:
             raise ValueError(f"plane_sampler {plane_sampler!r}: one of {PLANE_SAMPLERS}")
         self.cfg = triplane_cfg if triplane_cfg is not None else TriPlaneConfig()
@@ -72,7 +79,7 @@ class EG3DSystem(GroupedSteps):
         self.steps_per_epoch = steps_per_epoch
         self.device = torch.device(device)
         self.optimizer = Optimizer(train_cfg, steps_per_epoch)
-        super().__init__()
+        super().__init__(data_parallel)
 
     # -- state ----------------------------------------------------------------
 
@@ -98,6 +105,17 @@ class EG3DSystem(GroupedSteps):
     def step_draws(self, generator: torch.Generator, n_rays: int) -> Dict[str, torch.Tensor]:
         """The draws of one step on `n_rays` rays, from `generator`."""
         return draw_eg3d_noise(generator, 1, n_rays, self.cfg.rendering)
+
+    def local_draws(self, draws: Dict[str, torch.Tensor], n_local: int
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's rays of draws made for the global batch (the shapes of
+        `eg3d_noise_shapes`: strata (1, R, S), pdf (R, I), noise (1, R S) and
+        (1, R I))."""
+        opts = self.cfg.rendering
+        per = {"strat_u": (1, 1), "pdf_u": (0, 1),
+               "sigma_coarse": (1, opts.depth_resolution),
+               "sigma_fine": (1, opts.depth_resolution_importance)}
+        return {k: self.dp.local_rows(v, n_local, *per[k]) for k, v in draws.items()}
 
     def loss_and_grads(self, state: TrainState, rays: torch.Tensor, rgbs: torch.Tensor,
                        generator: Optional[torch.Generator] = None, cls_target=None,
@@ -141,14 +159,16 @@ class EG3DSystem(GroupedSteps):
         `noise`. Metrics stay on the device."""
         rays = torch.as_tensor(batch["rays"], dtype=torch.float32, device=self.device)
         rgbs = torch.as_tensor(batch["rgbs"], dtype=torch.float32, device=self.device)
-        gen = step_generator(seed, state.step, self.device) if noise is None else None
-        losses, out, grads = self.loss_and_grads(state, rays, rgbs, gen, noise=noise)
+        if noise is None:
+            noise = self.local_step_draws(step_generator(seed, state.step, self.device),
+                                          rays.shape[0])
+        losses, out, grads = self.loss_and_grads(state, rays, rgbs, None, noise=noise)
+        losses, step_psnr, grads = self.reduce_step(losses, out["rgb_fine"], rgbs, grads)
         self.optimizer.step([p for _, _, p in parameters(state.models)], grads,
                             state.opt_state)
         self.after_update(state, out)
         state.step += 1
-        return state, {self.LOSS_KEY: losses["sum"].detach(),
-                       "train/psnr": psnr(out["rgb_fine"].detach(), rgbs)}
+        return state, {self.LOSS_KEY: losses["sum"].detach(), "train/psnr": step_psnr}
 
     def current_lr(self, state: TrainState) -> float:
         return float(self.optimizer.schedule(state.step))
@@ -165,12 +185,14 @@ class EG3DSystem(GroupedSteps):
     def render_packed(self, model: EG3DRenderer, packed: torch.Tensor, rays: torch.Tensor,
                       chunk: int = EG3D_VAL_CHUNK) -> Dict[str, torch.Tensor]:
         """Render rays (R, >= 6) [o, d, ...] on a frame's table -> dict of
-        (R, ...) outputs, `chunk` rays per tile."""
+        (R, ...) outputs, `chunk` rays per tile; `model` is the renderer, or
+        its decoder alone."""
+        decoder = model.decoder if isinstance(model, EG3DRenderer) else model
         sampler = (make_kernel_plane_sampler(packed, self.cfg.rendering.box_warp)
                    if self.plane_sampler == "kernel" else None)
 
         def tile(t: torch.Tensor) -> Dict[str, torch.Tensor]:
-            out = importance_render(packed, model.decoder, t[None, :, 0:3], t[None, :, 3:6],
+            out = importance_render(packed, decoder, t[None, :, 0:3], t[None, :, 3:6],
                                     self.cfg.rendering, packed=True, sampler=sampler)
             return {k: v[0] for k, v in zip(OUTPUTS, out)}
 
@@ -181,3 +203,22 @@ class EG3DSystem(GroupedSteps):
                chunk: int = EG3D_VAL_CHUNK) -> Dict[str, torch.Tensor]:
         """Chunked deterministic render of one frame (planes once per call)."""
         return self.render_packed(model, self.frame_planes(model), rays, chunk)
+
+    def render_sharded(self, model: EG3DRenderer, rays: torch.Tensor, mesh,
+                       chunk: int = EG3D_VAL_CHUNK) -> Dict[str, torch.Tensor]:
+        """`render` over a mesh: the planes synthesised once, the table and the
+        decoder replicated, the rays padded to a multiple of the mesh's size
+        and one contiguous slab rendered on each device in `chunk`-ray tiles
+        (zero collectives); the outputs on the rays' device. One device:
+        `render`."""
+        from nerf_siren_tpu_torch.parallel.mesh import render_slabs, replicate
+
+        if mesh is None or mesh.size == 1:
+            return self.render(model, rays, chunk)
+        packed = self.frame_planes(model)
+        tables = replicate(packed, mesh)
+        decoders = replicate(model.decoder, mesh)
+
+        return render_slabs([lambda slab, t=t, d=d: self.render_packed(d, t, slab, chunk)
+                             for t, d in zip(tables, decoders)], mesh,
+                            torch.as_tensor(rays, dtype=torch.float32))

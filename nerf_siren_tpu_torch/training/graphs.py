@@ -43,7 +43,10 @@ replayed after that. Every tensor the body allocates comes from the
 graph's private pool; only the static inputs, the output and the state's
 own tensors (updated in place, so their addresses hold across replays and
 an in-place checkpoint load) cross the capture. A failed capture raises:
-there is no eager fallback. On the CPU the same body runs as a plain loop
+there is no eager fallback. Under data parallelism the body's
+`reduce_step` all-reduce is captured with the step (NCCL; the warm-up
+makes the communicators first); a card that refuses that capture refuses
+the grouped steps with an error that says so. On the CPU the same body runs as a plain loop
 over the caller's tensors (`loop`), the plain version the tests hold
 against N `train_step`s, and on a card against the graph.
 """
@@ -55,7 +58,6 @@ from typing import Dict, Optional
 
 import torch
 
-from nerf_siren_tpu_torch.training.metrics import psnr
 
 NOISE = "noise:"
 
@@ -119,12 +121,13 @@ class StepGroup:
             losses, res, grads = system.loss_and_grads(state, rays, rgbs, None,
                                                        cls_target=_cls(x, i),
                                                        noise=_step_noise(x, i))
+            pred = res["rgb_fine" if "rgb_fine" in res else "rgb_coarse"].detach()
+            losses, step_psnr, grads = system.reduce_step(losses, pred, rgbs, grads)
             system.optimizer.step_device(params, grads, state.opt_state, x["table"][i])
             if after_update is not None:
                 after_update(state, res)
-            pred = res["rgb_fine" if "rgb_fine" in res else "rgb_coarse"].detach()
             out[i, 0] = losses["sum"].detach()
-            out[i, 1] = psnr(pred, rgbs)
+            out[i, 1] = step_psnr
             for j, name in enumerate(system.GROUP_LOSSES):
                 out[i, 2 + j] = losses[name].detach()
             if buf is not None:
@@ -132,6 +135,7 @@ class StepGroup:
 
     def _capture(self, inputs: Dict[str, torch.Tensor]) -> None:
         device = inputs["table"].device
+        dp = getattr(self.system, "dp", None)
         self.static = {k: v.clone() for k, v in inputs.items()}
         if self.kind == "importance":
             self.static["buf"] = torch.ones(inputs["pool_rays"].shape[0], device=device)
@@ -143,6 +147,8 @@ class StepGroup:
             self.system.loss_and_grads(self.state, rays, rgbs, None,
                                        cls_target=_cls(self.static, 0),
                                        noise=_step_noise(self.static, 0))
+            if dp is not None:   # the communicators, made before the capture
+                dp.warm_up(device)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         # A dead graph (the group of an unreachable system: a group and its
@@ -157,6 +163,14 @@ class StepGroup:
         try:
             with torch.cuda.graph(graph):
                 self._body(self.static, self.out)
+        except RuntimeError as e:
+            if dp is None:
+                raise
+            raise RuntimeError(
+                f"grouped steps under data parallelism (world size {dp.world}) need the "
+                f"card to capture the step's all-reduce into the CUDA graph, and the "
+                f"capture failed: {e}. Grouped steps are refused here; run eager steps "
+                f"(--steps_per_dispatch 1)") from e
         finally:
             if collecting:
                 gc.enable()

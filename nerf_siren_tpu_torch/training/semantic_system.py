@@ -16,7 +16,9 @@ runs N steps with per-step class targets as one `training/graphs.py::
 StepGroup` (a captured CUDA graph on a card). JAX's `train_scan` and
 `train_scan_importance` take no class targets, so the port refuses them
 here. `render` tiles the rays by `chunk` and builds one cloud per tile, as
-JAX does. `render_sharded` is not ported yet (ROADMAP slice 6).
+JAX does; `render_sharded` does so on each device's slab. Under data
+parallelism (`data_parallel`) every rank builds the global batch's cloud
+(`render/rendering_3d.py`), as JAX's step on a mesh does.
 """
 from __future__ import annotations
 
@@ -52,8 +54,9 @@ class NeRF3DSystem(NeRFSystem):
                  nerf_cfg: NeRFConfig = NeRFConfig(), steps_per_epoch: int = 1000,
                  semantic_network: str = "pointnet", n_classes: int = 6,
                  point_capacity: int = 8192, no_grad_on_nerf: bool = True,
-                 point_norm: str = "frob", device="cuda"):
-        super().__init__(render_cfg, train_cfg, nerf_cfg, steps_per_epoch, device=device)
+                 point_norm: str = "frob", device="cuda", data_parallel=None):
+        super().__init__(render_cfg, train_cfg, nerf_cfg, steps_per_epoch, device=device,
+                         data_parallel=data_parallel)
         if semantic_network not in SEMANTIC_NETWORKS:
             raise ValueError(f"semantic_network {semantic_network!r}: one of "
                              f"{SEMANTIC_NETWORKS}")
@@ -75,7 +78,8 @@ class NeRF3DSystem(NeRFSystem):
 
     def _render_train(self, models, rays, cfg, generator, noise):
         return render_rays_3d(models, rays, cfg, generator, no_grad_on_nerf=self.no_grad_on_nerf,
-                              noise=noise, **self._semantic_kwargs()), None
+                              noise=noise, data_parallel=self.dp,
+                              **self._semantic_kwargs()), None
 
     def train_step(self, state, batch, seed: int):
         """One update on a batch {'rays', 'rgbs', 'cls'} (any leading shape:
@@ -108,15 +112,12 @@ class NeRF3DSystem(NeRFSystem):
                                   "class targets (as JAX's): use "
                                   "train_scan_batches(..., cls_b)")
 
-    @torch.no_grad()
-    def render(self, models, rays, test_time: bool = False) -> Dict[str, torch.Tensor]:
-        """Chunked semantic render (adds the cls maps), deterministic; one
+    def frame_renderer(self, models, cfg):
+        """rays -> the semantic render under `cfg` (adds the cls maps): one
         point cloud per `chunk`-ray tile."""
-        cfg = self.render_cfg.replace(test_time=test_time, perturb=0.0, noise_std=0.0)
-        rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
-        return map_chunks(lambda t: render_rays_3d(models, t, cfg, None, no_grad_on_nerf=False,
-                                                   **self._semantic_kwargs()),
-                          rays, cfg.chunk)
+        return lambda rays: map_chunks(
+            lambda t: render_rays_3d(models, t, cfg, None, no_grad_on_nerf=False,
+                                     **self._semantic_kwargs()), rays, cfg.chunk)
 
 
 NeRF3DSystem_ib = NeRF3DSystem   # the reference's name; batches are flat rays already

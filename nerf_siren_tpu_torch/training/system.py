@@ -41,12 +41,24 @@ until the next group.
 
 Random draws (stratified perturbation, sigma noise, the fine pass's
 sample_pdf) come from a `torch.Generator` on the rays' device, seeded from
-(seed, step), so a resumed run draws what the uninterrupted one would. A
-grouped step draws the same values beforehand (`draw_step_noise`; the pool
-steps draw their indices first from the same generator), outside the
-graph. `jax.random` and torch streams cannot match, so parity with JAX
+(seed, step), so a resumed run draws what the uninterrupted one would.
+Every step makes them beforehand (`step_draws`, `draw_step_noise`; a
+group's pool steps draw their indices first from the same generator),
+outside a group's graph. `jax.random` and torch streams cannot match, so parity with JAX
 holds at perturb 0 and noise 0, and for `train_scan*` in distribution.
-`render_sharded` is not ported yet (ROADMAP).
+
+Data parallel (`data_parallel=parallel/shard_train.py::DataParallel`): the
+system is one rank of a process group, its batches are its rows of the
+global batch (`epoch_iterator(shard_index=rank, num_shards=world)`, or its
+block of the one-process batches: `epoch_iterator(block=(rank, world))`), it draws every
+step's noise at the global shape and keeps its rows (`local_step_draws`),
+and each step's gradients, losses and squared error go through one
+all-reduce (`reduce_step`), eager and inside a `StepGroup`'s graph. So N
+ranks compute the one-process step. `train_scan_importance` keeps a
+per-ray error buffer that would differ between ranks and is refused
+there, as is `train_step_accum`. Without it the step has no collective.
+`render_sharded` renders a frame in contiguous slabs over a
+`parallel/mesh.py::Mesh`, one slab a device, with no collective.
 """
 from __future__ import annotations
 
@@ -123,9 +135,31 @@ class GroupedSteps:
     LOSS_KEY = "train/loss"   # the metric of the step's summed loss
     GROUP_LOSSES: Tuple[str, ...] = ()
 
-    def __init__(self):
+    def __init__(self, data_parallel=None):
         self._groups: Dict[tuple, StepGroup] = {}
         self.last_group: Optional[StepGroup] = None   # of the last grouped call
+        self.dp = data_parallel     # parallel/shard_train.py::DataParallel, or None
+
+    def local_draws(self, draws: Dict[str, torch.Tensor], n_local: int
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of draws made for the global batch (every draw
+        of a step has the rays on its first axis)."""
+        return {k: self.dp.local_rows(v, n_local) for k, v in draws.items()}
+
+    def local_step_draws(self, generator: torch.Generator, n_local: int):
+        """The step's draws for this process's `n_local` rays: `step_draws`
+        at the global batch's shape, then this rank's rows."""
+        if self.dp is None:
+            return self.step_draws(generator, n_local)
+        return self.local_draws(self.step_draws(generator, n_local * self.dp.world), n_local)
+
+    def reduce_step(self, losses: Dict[str, torch.Tensor], pred: torch.Tensor,
+                    target: torch.Tensor, grads):
+        """(losses, PSNR, gradients) of the step: as they are on one process,
+        the global batch's under data parallelism (one all-reduce)."""
+        if self.dp is None:
+            return losses, psnr(pred.detach(), target), grads
+        return self.dp.reduce_step(losses, pred, target, grads)
 
     def train_scan_batches(self, state: TrainState, rays_b, rgbs_b,
                            seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -192,6 +226,11 @@ class GroupedSteps:
         `state`: their indices and noise from each step's generator, and the
         optimizer's scalar table (see `training/graphs.py`)."""
         n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
+        if kind == "importance" and self.dp is not None:
+            raise NotImplementedError(
+                "train_scan_importance under data parallelism: its per-ray error buffer "
+                "would hold each rank's rows only; use train_scan or train_scan_batches")
+        world = 1 if self.dp is None else self.dp.world
         draws: Dict[str, list] = {}
 
         def add(name, value):
@@ -201,12 +240,13 @@ class GroupedSteps:
         for k in range(n):
             gen = step_generator(seed, state.step + k, dev)
             if kind == "pool":
-                add("idx", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
+                idx = torch.randint(0, n_pool, (b * world,), generator=gen, device=dev)
+                add("idx", idx if self.dp is None else self.dp.local_rows(idx, b))
             elif kind == "importance":
                 add("u_cat", torch.rand(b, generator=gen, device=dev))
                 add("idx_uni", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
                 add("take_uni", torch.rand(b, generator=gen, device=dev) < uniform_frac)
-            for name, v in self.step_draws(gen, b).items():
+            for name, v in self.local_step_draws(gen, b).items():
                 add(NOISE + name, v)
         inputs = dict(inputs, **{k: torch.stack(v) for k, v in draws.items()})
         inputs["table"] = torch.from_numpy(
@@ -229,7 +269,8 @@ class NeRFSystem(GroupedSteps):
                  device="cuda", field_type: str = "mlp", siren_hidden: int = 256,
                  siren_layers: int = 8, siren_z_dim: int = 100,
                  siren_box_warp: float = 51.0, culled_candidates: int = 32,
-                 culled_sel: int = 16, culled_uni: int = 8, proxy_lambda: float = 1.0):
+                 culled_sel: int = 16, culled_uni: int = 8, proxy_lambda: float = 1.0,
+                 data_parallel=None):
         if train_backend not in BACKENDS:
             raise ValueError(f"train_backend {train_backend!r}: one of {BACKENDS}")
         if field_type not in FIELDS:
@@ -259,7 +300,7 @@ class NeRFSystem(GroupedSteps):
         self.device = torch.device(device)
         self.optimizer = Optimizer(train_cfg, steps_per_epoch)
         self.loss_fn = loss_dict[train_cfg.loss_type]
-        super().__init__()
+        super().__init__(data_parallel)
 
     # -- state ----------------------------------------------------------------
 
@@ -347,15 +388,17 @@ class NeRFSystem(GroupedSteps):
         cls_t = batch.get("cls")
         if cls_t is not None:
             cls_t = torch.as_tensor(cls_t, device=self.device)
-        gen = step_generator(seed, state.step, self.device)
-        losses, out, grads = self.loss_and_grads(state, rays, rgbs, gen, cls_t)
+        noise = self.local_step_draws(step_generator(seed, state.step, self.device),
+                                      rays.shape[0])
+        losses, out, grads = self.loss_and_grads(state, rays, rgbs, None, cls_t, noise=noise)
+        rgb_key = "rgb_fine" if "rgb_fine" in out else "rgb_coarse"
+        losses, step_psnr, grads = self.reduce_step(losses, out[rgb_key], rgbs, grads)
         params = [p for _, _, p in parameters(state.models)]
         self.optimizer.step(params, grads, state.opt_state)
 
-        rgb_key = "rgb_fine" if "rgb_fine" in out else "rgb_coarse"
         metrics = {f"train/{k}_loss" if k != "sum" else self.LOSS_KEY: v.detach()
                    for k, v in losses.items()}
-        metrics["train/psnr"] = psnr(out[rgb_key].detach(), rgbs)
+        metrics["train/psnr"] = step_psnr
         state.step += 1
         return state, metrics
 
@@ -370,6 +413,9 @@ class NeRFSystem(GroupedSteps):
             raise NotImplementedError(
                 "train_step_accum supports the jnp/fused backends; use "
                 "train_step or train_scan with the culled backends")
+        if self.dp is not None:
+            raise NotImplementedError("train_step_accum runs on one process; under data "
+                                      "parallelism use train_step or train_scan_batches")
         rays = torch.as_tensor(batch["rays"], dtype=torch.float32, device=self.device)
         rgbs = torch.as_tensor(batch["rgbs"], dtype=torch.float32, device=self.device)
         if rays.shape[0] % n_micro:
@@ -399,31 +445,71 @@ class NeRFSystem(GroupedSteps):
 
     # -- inference ------------------------------------------------------------
 
+    def frame_renderer(self, models: Dict[str, torch.nn.Module], cfg: RenderConfig):
+        """rays -> outputs of the deterministic render under `cfg` on the
+        models' device: chunked, on the plain field."""
+        field_fn = self._plain_field_fn()
+        return lambda rays: render_rays_chunked(models, rays, cfg, None, field_fn=field_fn)
+
     @torch.no_grad()
     def render(self, models: Dict[str, torch.nn.Module], rays, test_time: bool = False
                ) -> Dict[str, torch.Tensor]:
-        """Chunked full-image render (the validation path), deterministic:
-        perturb 0 and noise 0, on the plain field."""
+        """Full-image render (the validation path), deterministic: perturb 0
+        and noise 0 (`frame_renderer`)."""
         cfg = self.render_cfg.replace(test_time=test_time, perturb=0.0, noise_std=0.0)
         rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
-        return render_rays_chunked(models, rays, cfg, None, field_fn=self._plain_field_fn())
+        return self.frame_renderer(models, cfg)(rays)
+
+    @torch.no_grad()
+    def render_sharded(self, models: Dict[str, torch.nn.Module], rays, mesh,
+                       test_time: bool = False) -> Dict[str, torch.Tensor]:
+        """`render` over a `parallel/mesh.py::Mesh`: the rays padded to a
+        multiple of the mesh's size, one contiguous slab a device (the
+        models `replicate`d), each slab rendered as `render` renders a
+        frame, zero collectives; the outputs back on this system's device
+        (JAX's `render_sharded`). One device: `render`."""
+        from nerf_siren_tpu_torch.parallel.mesh import render_slabs, replicate
+
+        if mesh is None or mesh.size == 1:
+            return self.render(models, rays, test_time)
+        cfg = self.render_cfg.replace(test_time=test_time, perturb=0.0, noise_std=0.0)
+        rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
+        return render_slabs([self.frame_renderer(m, cfg) for m in replicate(models, mesh)],
+                            mesh, rays)
 
     def current_lr(self, state: TrainState) -> float:
         return float(self.optimizer.schedule(state.step))
 
 
 def epoch_iterator(all_rays: np.ndarray, all_rgbs: np.ndarray, batch_size: int,
-                   seed: int, epoch: int, extras: Optional[Dict[str, np.ndarray]] = None
-                   ) -> Iterator[Dict[str, np.ndarray]]:
+                   seed: int, epoch: int, extras: Optional[Dict[str, np.ndarray]] = None,
+                   shard_index: int = 0, num_shards: int = 1,
+                   block: Tuple[int, int] = (0, 1)) -> Iterator[Dict[str, np.ndarray]]:
     """Host-side shuffled batches over the precomputed ray buffer, with the
-    JAX package's single-process permutation (numpy
-    `SeedSequence([seed, epoch, 0])`); drops the ragged tail. `extras`
-    (name -> per-ray array, e.g. the semantic datasets' 'cls') are batched
-    with the same indices."""
+    JAX package's permutation (numpy `SeedSequence([seed, epoch,
+    shard_index])`); drops the ragged tail. `extras` (name -> per-ray
+    array, e.g. the semantic datasets' 'cls') are batched with the same
+    indices. With `num_shards` > 1 (one process of a data-parallel group)
+    the process sees JAX's interleaved shard, rows shard_index, shard_index
+    + num_shards, ..., and yields batch_size / num_shards rows a step, as
+    many steps as every other shard. With `block` (r, N) (rank r of
+    `train --num_chips N`, which splits the one-process batches by rows as
+    JAX's one-process mesh does) each batch is cut to its rows [r B / N,
+    (r + 1) B / N) before any row is gathered."""
+    from nerf_siren_tpu_torch.parallel.shard_train import batch_split_error
+
+    r, n_blocks = block
+    err = batch_split_error(batch_size, num_shards) or batch_split_error(batch_size, n_blocks)
+    if err:
+        raise ValueError(err)
     n = all_rays.shape[0]
-    perm = np.random.default_rng(np.random.SeedSequence([seed, epoch, 0])).permutation(n)
-    for b in range(n // batch_size):
-        idx = perm[b * batch_size:(b + 1) * batch_size]
+    local = np.arange(shard_index, n, num_shards)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, shard_index]))
+    perm = rng.permutation(local)
+    local_bs = batch_size // num_shards
+    per = local_bs // n_blocks
+    for b in range((n // num_shards) // local_bs):
+        idx = perm[b * local_bs + r * per:b * local_bs + (r + 1) * per]
         batch = {"rays": all_rays[idx], "rgbs": all_rgbs[idx]}
         for k, v in (extras or {}).items():
             batch[k] = v[idx]

@@ -41,6 +41,7 @@ from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
 from nerf_siren_tpu_torch.render import fast
 from tests.test_torch_proxy_march import port_proxy, rays_np
 from tests.test_torch_rendering import with_density
+from tests.test_torch_semantic import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = NeRFConfig(depth=5, width=128)
 

@@ -27,6 +27,7 @@ from nerf_siren_tpu.ops.pallas.fused_mlp_train import TILE_T, fused_field_train
 from nerf_siren_tpu_torch.convert import nerf_from_jax
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+from tests.test_torch_semantic import one_torch_thread  # noqa: F401 (autouse)
 
 FWD_TOL = dict(atol=2e-3, rtol=1e-2)
 

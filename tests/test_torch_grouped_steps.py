@@ -52,6 +52,7 @@ from nerf_siren_tpu_torch.training.optimizers import (B1, B2, LOOKAHEAD_PERIOD, 
 from nerf_siren_tpu_torch.training.system import (NeRFSystem, draw_step_noise, parameters,
                                                   step_generator)
 from tests.test_torch_rendering import with_density
+from tests.test_torch_semantic import one_torch_thread  # noqa: F401 (autouse)
 
 NARROW = dict(depth=4, width=32, skips=(2,))
 

@@ -34,6 +34,7 @@ from nerf_siren_tpu_torch.convert import proxy_from_jax, proxy_to_jax
 from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
 from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
 from nerf_siren_tpu_torch.render.fast import Proxy, apply_proxy
+from tests.test_torch_semantic import one_torch_thread  # noqa: F401 (autouse)
 
 C, K = 16, 8
 SPAN = 4.0   # far - near

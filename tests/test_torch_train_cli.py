@@ -23,6 +23,7 @@ from nerf_siren_tpu_torch.train import main as train_main
 from nerf_siren_tpu_torch.opt import get_opts as train_opts
 from nerf_siren_tpu_torch.training.checkpoints import load_checkpoint
 from tests.datasets_synthetic import make_blender_dataset
+from tests.test_torch_semantic import one_torch_thread  # noqa: F401 (autouse)
 
 HW = 16
 # 6 train images of 16x16 = 1536 rays: 2 steps of 768 rays per epoch
@@ -130,15 +131,19 @@ def test_pretrained_warm_starts_from_a_jax_checkpoint(tmp_path, scene):
     pytest.param(["--field", "siren"], None, id="flags2-slice 4"),
     # slice 6 ported culled training: it parses now, under its old id
     pytest.param(["--train_backend", "culled_fused"], None, id="flags3-slice 6 (culled"),
-    (["--multihost"], "slice 6"),
-    (["--num_chips", "4"], "slice 6"),
+    # slice 6 ported multi-GPU training: these parse now, under their old ids
+    pytest.param(["--multihost", "True"], None, id="flags4-slice 6"),
+    pytest.param(["--num_chips", "4"], None, id="flags5-slice 6"),
     pytest.param(["--dataset_name", "replica"], None, id="flags6-slice 4"),
 ])
 def test_unported_flags_name_their_roadmap_slice(capsys, flags, names):
     """A flag value that a later slice brings is refused with that slice's
-    name; the values slices 4, 5 and 6 brought parse."""
+    name; the values slices 4, 5 and 6 brought parse (a switch's second
+    item is the value it sets)."""
     if names is None:
-        assert getattr(train_opts(["--root_dir", "unused", *flags]), flags[0][2:]) == flags[1]
+        args = flags[:1] if flags[1] == "True" else flags
+        assert str(getattr(train_opts(["--root_dir", "unused", *args]), flags[0][2:])) == \
+            flags[1]
         return
     with pytest.raises(SystemExit):
         train_opts(["--root_dir", "unused", *flags])

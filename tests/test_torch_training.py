@@ -49,6 +49,7 @@ from nerf_siren_tpu_torch.training.optimizers import Optimizer
 from nerf_siren_tpu_torch.training.optimizers import make_lr_schedule as t_schedule
 from nerf_siren_tpu_torch.training.system import NeRFSystem, epoch_iterator
 from tests.test_torch_rendering import with_density
+from tests.test_torch_semantic import one_torch_thread  # noqa: F401 (autouse)
 
 NARROW = dict(depth=4, width=64, skips=(2,))
 
