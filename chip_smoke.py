@@ -266,7 +266,10 @@ Run from the repository root. Phases, each printing a line:
      grid points against the card's planes sampled and decoded on the CPU,
      and phase 24's PLY checks.
  26. data-parallel training on a one-rank NCCL group (file store):
-     DP_STEPS `fused` and `culled_fused` steps (K2) and DP_EG3D_STEPS EG3D
+     DP_STEPS `fused` and `culled_fused` steps (K2), DP_STEPS d3 msenll
+     steps with a third of the labels ignored (the masked mean's count
+     all-reduced, `DataParallel.mean_count`; a refused group fails here)
+     and DP_EG3D_STEPS EG3D
      steps (deterministic algorithms), each eager and as one group on a
      CUDA graph (its all-reduce captured), through `DataParallel` against
      the non-distributed path from the same weights, seed and batches: bit
@@ -283,17 +286,38 @@ Run from the repository root. Phases, each printing a line:
      device, no slab recording an autograd graph, both peak memories;
      N_AUTO auto-cull frames in mesh mode (K3 opacity; per-shard budgets),
      every ray the fast frame's or background.
+ 28. tools and examples on the card: (a) the datasets' rays
+     (`datasets/ray_utils.py`) of N_LEGO_CAMERAS Blender cameras at 800²
+     through the C++ helper (`native/`, built with g++ here; the phase
+     fails if it does not build) and through numpy, within the bars of the
+     JAX package's tests/test_native.py, host seconds of each; (b)
+     `utils/save_weights_only` on a full-resume checkpoint of phase 6(b)'s
+     trained state and (c) those fields through a reference-format
+     Lightning checkpoint and `tools/import_torch_ckpt`: fresh fields
+     loaded from each file give the trained fields' K1 slice (SLICE_RAYS
+     rays of a lego frame) bit for bit; (d) `tools/psnr_parity` at
+     PARITY_ARGS (full 8x256 width, 4096-ray steps in groups on a CUDA
+     graph): K1 launched at least once a chunk, plain float32 agreement
+     with the torch oracle >= PARITY_F32_DB and K1's >= PARITY_K1_DB dB,
+     every delta printed; (e) `examples/export_unity_vol` (its sigma grid
+     at MESH_GRID^3 equal to phase 24's, the .vol written) and
+     `examples/mesh_threshold_sweep` at SWEEP_THRESHOLDS (its faces at
+     phase 24's threshold equal phase 24's mesh); (f)
+     `examples/render_single_image.render_view` on one 400² lego camera of
+     the ball field: seconds, PSNR against the K1 frame, and seconds in
+     turns with the same plain render in float32.
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
   device time per kernel, the device's idle share and the peak device
-  memory; it also profiles one group of phase 6(c)'s grouped `fused` steps.
+  memory; it also profiles one group of phase 6(c)'s grouped `fused` steps
+  and phase 28(f)'s render_view in bf16 and float32.
 Then one JSON line of kernels (launches counted over the path that runs
 each: K1 phase 4, K2 phases 6(b), 23(c) and 26 (`launches_by_path`; its
 readings at the culled shape under `culled_shape`), K3 select phase 9,
 K3 opacity phase 10, K4 phase 11, K6 phase 13, K5 the 128² frames of
-phase 16, and K1, K3 and K5 again over phase 27's two-slab frames (their
-`launches_by_path`); `timing` says how `ms` was taken: "queued" for K5
+phase 16, and K1, K3 and K5 again over phase 27's two-slab frames, K1
+over phase 28's round trips and psnr_parity (their `launches_by_path`); `timing` says how `ms` was taken: "queued" for K5
 and K3 select, "unqueued" for the rest), the nvidia-smi line, and the JSON
 result as the last line. Any failure exits non-zero before the result is
 printed.
@@ -349,6 +373,13 @@ EG3D_BALL_SIGMA = 20.0  # phase 22's ball: marcher density per unit depth inside
 CULLED_K = 24           # phase 23: samples a ray of the culled step (n_sel 16 + n_uni 8)
 MESH_GRID, MESH_SIGMA = 256, 5.0   # phases 24-25: the grid; phase 24's threshold (< 15)
 MESH_CHECK, MESH_ATOL = 2048, 1e-3  # grid points held against the CPU, float32 both sides
+N_LEGO_CAMERAS = 100    # phase 28(a): a Blender scene's training cameras, 800² each
+NATIVE_RAY_TOL = dict(rtol=1e-5, atol=1e-6)   # world directions, tests/test_native.py's bars
+SLICE_RAYS = 32768      # phase 28(b, c): the K1 slice of the round-tripped fields
+PARITY_ARGS = ["--steps", "200", "--train_hw", "64", "--hw", "64", "--poses", "1"]
+PARITY_F32_DB, PARITY_K1_DB = 40.0, 30.0   # phase 28(d): agreement with the oracle
+SWEEP_THRESHOLDS = (MESH_SIGMA, 10.0)      # phase 28(e): phase 24's threshold first
+VIEW_WH, VIEW_SAMPLES, VIEW_IMPORTANCE = 400, 64, 64   # phase 28(f): the example's defaults
 K5_RANDOM = 262_144
 K5_LIB_TOL = 1e-5       # of the table's largest magnitude, vs F.grid_sample
 K5_ROUNDS = 4           # rounds of K5 and F.grid_sample timed in turns
@@ -437,10 +468,11 @@ def numpy_nerf_params(rng, cfg):
             "rgb": lin(cfg.width // 2, 3)}
 
 
-def lego_pose(k):
-    """(3, 4) camera-to-world matrix [R | eye] of camera k of N_FRAMES on the
-    radius-4 sphere, looking at the origin (OpenGL camera, -z forward)."""
-    theta, phi = 2 * math.pi * k / N_FRAMES, math.radians(30.0)
+def lego_pose(k, n=N_FRAMES, elevation=30.0):
+    """(3, 4) camera-to-world matrix [R | eye] of camera k of n on the
+    radius-4 sphere at `elevation` degrees, looking at the origin (OpenGL
+    camera, -z forward)."""
+    theta, phi = 2 * math.pi * k / n, math.radians(elevation)
     eye = RADIUS * np.array([math.cos(phi) * math.cos(theta),
                              math.cos(phi) * math.sin(theta), math.sin(phi)])
     z = eye / np.linalg.norm(eye)
@@ -475,7 +507,7 @@ def cuda_ms(fn, reps, queued=False):
     return device_ms(fn, reps, queued)
 
 
-def compare(name, got, ref, where, phase="3/27"):
+def compare(name, got, ref, where, phase="3/28"):
     """Max |got - ref|; fails on a shape mismatch, a non-finite value or any
     element outside KERNEL_TOL."""
     import torch
@@ -548,7 +580,7 @@ def check_kernels(packed, device, card):
     report = ptxas_report("fused_mlp")
     for name, symbol in K1_SYMBOLS.items():
         regs, spills, stack = next(v for k, v in report.items() if symbol in k)
-        print(f"[3/27] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
+        print(f"[3/28] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
               f"(stores + loads), {stack} bytes stack frame; "
               f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
               f"memory", flush=True)
@@ -568,7 +600,7 @@ def check_kernels(packed, device, card):
         n_bytes += k1_weight_bytes(packed)
         bound_ms, bound_by = bound(flops, n_bytes)
         chain_ms = matmul_chain_ms(packed, n_pts, full)
-        print(f"[3/27] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
+        print(f"[3/28] {name} at {n_pts} points: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}; "
               f"{flops * 1e-12 / (ms * 1e-3):.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the "
               f"bound), plain {plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.3f} ms "
               f"({bound_by}); earlier wmma kernel {EARLIER_K1_MS[name]} ms (another call); bf16 "
@@ -697,18 +729,18 @@ def check_train_kernels(model, frame_rays, device, card):
         where = f"at {TRAIN_RAYS} rays x {s}, samples_per_dir {s}"
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s), where,
-                                       "5/27"))
+                                       "5/28"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, key = grad_errors(got,
                                               k2.fused_train_bwd_ref(packed, pts, dirs, dy, s))
-        print(f"[5/27] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
+        print(f"[5/28] fused_train_bwd vs plain {where}: worst relative L2 {rel:.3e} ({key}), "
               f"max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's scale, over "
               f"{len(got)} gradient tensors", flush=True)
         bwd_err, worst_rel = max(bwd_err, max_abs), max(worst_rel, rel)
 
     results, kerns = time_train_kernels(
-        "5/27", "one step's shapes", model, [(packed, p, d, s) for s, p, d in shapes], dirs,
+        "5/28", "one step's shapes", model, [(packed, p, d, s) for s, p, d in shapes], dirs,
         fwd_err, bwd_err, card)
     n_pts = sum(pts.shape[0] for _, pts, _ in shapes)
     forward_readings(packed, kerns["fused_train_fwd"], shapes, results["fused_train_fwd"]["ms"],
@@ -774,7 +806,7 @@ def forward_readings(packed, kern, shapes, ms, bound_ms, flops, card):
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes],
                                      backward=False)
     earlier = EARLIER_K2_MS["fused_train_fwd"]
-    print(f"[5/27] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
+    print(f"[5/28] fused_train_fwd per step: {ms:.3f} ms, its kernel {own:.3f} ms (device time, "
           f"profiler, mean of 3; before the redesign {earlier} ms, another call; "
           f"{earlier / own:.2f}x); operations bound {bound_ms:.3f} ms ({100 * bound_ms / own:.1f}% "
           f"of it); build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes (stores + "
@@ -799,7 +831,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
         k_ms = sum(v for k, v in own.items() if symbol in k)
         earlier = (f"; before the redesign {EARLIER_K2_MS[label]} ms (another call)"
                    if label in EARLIER_K2_MS else "")
-        print(f"[5/27] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
+        print(f"[5/28] fused_train_bwd {label} kernel: {k_ms:.3f} ms per step (device time, "
               f"profiler, mean of 3){earlier}; build (-Xptxas -v): {regs} registers at entry, "
               f"{spills} spill bytes (stores + loads), {stack} bytes stack frame; "
               f"{smem.get(label, 0)} bytes dynamic shared memory", flush=True)
@@ -807,7 +839,7 @@ def backward_readings(packed, kern, shapes, ms, bound_ms, flops, n_pts, card):
     floor_ms = n_pts * (written + read) / PEAK_BYTES * 1e3
     chain_ms = train_matmul_chain_ms(packed, [pts.shape[0] for _, pts, _ in shapes])
     earlier = EARLIER_K2_MS["fused_train_bwd"]
-    print(f"[5/27] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
+    print(f"[5/28] fused_train_bwd per step: {ms:.3f} ms (before the redesign {earlier} ms, "
           f"another call; {earlier / ms:.2f}x); operations bound {bound_ms:.3f} ms "
           f"({100 * bound_ms / ms:.1f}% of it); the stash {written} bytes a point written + "
           f"{read} read = {n_pts * (written + read) / 1e9:.3f} GB, "
@@ -911,7 +943,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         _, metrics = system.train_step(state, first, seed=SEED)
         losses[backend] = float(metrics["train/loss"])
     rel = abs(losses["fused"] - losses["jnp"]) / abs(losses["jnp"])
-    print(f"[6/27] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
+    print(f"[6/28] first step, same weights and batch: loss fused {losses['fused']:.6f}, "
           f"jnp {losses['jnp']:.6f}, relative {rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
         fail("the fused and jnp backends disagree on the first step's loss")
@@ -933,7 +965,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
     loss = [float(v) for v in loss_t]
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
     head, tail = float(np.mean(loss[:10])), float(np.mean(loss[-10:]))
-    print(f"[6/27] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
+    print(f"[6/28] fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at "
           f"{N_SAMPLES}+{N_IMPORTANCE} samples: loss first 10 mean {head:.5f}, last 10 mean "
           f"{tail:.5f}; loss every 10th step {[round(v, 5) for v in loss[::10]]}; "
           f"{ms:.3f} ms per step (median after {TRAIN_WARMUP}); "
@@ -955,7 +987,7 @@ def train_phase(pool_rays, pool_rgbs, device, card):
         torch.cuda.synchronize()
         plain_s.append(time.perf_counter() - t0)
     plain_ms = 1e3 * float(np.median(plain_s[2:]))
-    print(f"[6/27] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
+    print(f"[6/28] jnp backend on the same batches: {plain_ms:.3f} ms per step (median of "
           f"{JNP_STEPS - 2} after 2; {card}); fused / jnp step time {ms / plain_ms:.3f}",
           flush=True)
 
@@ -1028,7 +1060,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     eager_params = param_list(eager)
     gap = change_gap(start, param_list(grouped), eager_params)
     control = change_gap(start, short, eager_params)
-    print(f"[6/27] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
+    print(f"[6/28] (c) {backend}: {n} grouped steps on a captured graph vs {n} eager steps, "
           f"same weights, seed and batches: max relative loss difference {loss_rel:.3e} "
           f"(bar {GROUP_LOSS_RTOL}), change gap {gap:.3e} (bar {GROUP_CHANGE_GAP}; the "
           f"control without the last update {control:.3e}, must exceed it); losses eager "
@@ -1077,7 +1109,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
     want = [float(v) for v in eager_losses]
     replay_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     replay_gap = change_gap(start, param_list(grouped), param_list(eager))
-    print(f"[6/27] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
+    print(f"[6/28] (c) {backend}: after 4 replays and 4 eager groups on the next batches: max "
           f"relative loss difference of the last group {replay_rel:.3e} (bar "
           f"{GROUP_LOSS_RTOL}), change gap over the {5 * n} steps {replay_gap:.3e} (bar "
           f"{GROUP_CHANGE_GAP})", flush=True)
@@ -1085,7 +1117,7 @@ def grouped_phase(backend, models, batches, steps_per_epoch, device, card):
         fail(f"{backend}: replayed groups disagree with eager steps")
     replay_ms = float(np.median(times["grouped"])) * n
     STEP_MS[backend] = (float(np.median(times["eager"])), float(np.median(times["grouped"])))
-    print(f"[6/27] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
+    print(f"[6/28] (c) {backend}: ms per step grouped {[round(v, 3) for v in times['grouped']]} "
           f"(median {np.median(times['grouped']):.3f}), eager "
           f"{[round(v, 3) for v in times['eager']]} (median {np.median(times['eager']):.3f}), "
           f"in turns; the capture of {n} steps {capture_s:.3f} s (the first group with its "
@@ -1299,7 +1331,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
 
     d, ratio = over(got)
     n_diff = int((d > 0).sum())
-    print(f"[8/27] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
+    print(f"[8/28] K3 scores vs plain at {rays8.shape[0]} rays x C {c}: {n_diff} of {d.numel()} "
           f"differ ({100 * n_diff / d.numel():.3f}%), max|d| {float(d.max()):.3e}, max |d| / "
           f"bar {float(ratio.max()):.3e}, median over those that differ "
           f"{float(ratio[d > 0].median()) if n_diff else 0.0:.3e} (bar: proxy_score_bar)",
@@ -1309,7 +1341,7 @@ def k3_scores_reading(pp, rays8, c, control=False):
     if control:
         _, ratio = over(k3.proxy_scores_ref({**pp, "b1": pp["b1"].bfloat16().float()}, pts))
         n_over = int((ratio > 1.0).sum())
-        print(f"[8/27] control, the plain scores with b1 rounded to bf16: {n_over} of "
+        print(f"[8/28] control, the plain scores with b1 rounded to bf16: {n_over} of "
               f"{ratio.numel()} ({100 * n_over / ratio.numel():.3f}%) beyond proxy_score_bar, max "
               f"|d| / bar {float(ratio.max()):.3e}", flush=True)
         if n_over == 0:
@@ -1341,7 +1373,7 @@ def timed_result(label, name, kern, plain, flops, n_bytes, err, card, int8_ops=0
                  plain_reps=3):
     ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=plain_reps)
     bound_ms, bound_by = bound(flops, n_bytes, int8_ops)
-    print(f"[8/27] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+    print(f"[8/28] {name} {label}: kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}; "
           f"{flops * 1e-12:.4f} TFLOP bf16, {int8_ops * 1e-12:.4f} TOP int8, "
           f"{n_bytes / 1e6:.1f} MB); {card}", flush=True)
@@ -1406,7 +1438,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     dz = (z - rz).abs() / span[:, None]
     med, p99 = float(dz.median()), percentile(dz, 0.99)
     err = float(torch.maximum((z - rz).abs().amax(), (xyz - rxyz).abs().amax()))
-    print(f"[8/27] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
+    print(f"[8/28] proxy_march_select vs plain at {r} rays, C {FAST_C}, K {FAST_K}: depth "
           f"|d|/(far-near) median {med:.3e}, 99th pct {p99:.3e} (bars {DEPTH_BARS}); "
           f"{int((z != rz).sum())} of {z.numel()} depths differ; max|d| {err:.3e}", flush=True)
     if not (med < DEPTH_BARS[0] and p99 < DEPTH_BARS[1]):
@@ -1423,7 +1455,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     scores = k3_scores_reading(pp, rays8, PREPASS_C)
     same_op = torch.equal(k3.proxy_opacity_ref(pp, rays8, PREPASS_C, scores=scores), op)
     del scores
-    print(f"[8/27] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
+    print(f"[8/28] the plain march on K3's own scores vs the kernels at {r} rays: select (C "
           f"{FAST_C}, K {FAST_K}) {'bit-equal' if same_sel else 'DIFFERENT'}, opacity (C "
           f"{PREPASS_C}) {'bit-equal' if same_op else 'DIFFERENT'}", flush=True)
     if not (same_sel and same_op):
@@ -1439,7 +1471,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     crz, crxyz = k3.proxy_march_select_ref(pp, chunk, FAST_C, FAST_K, midpoint=True)
     err = float(torch.maximum((cz - crz).abs().amax(), (cxyz - crxyz).abs().amax()))
     same_chunk = torch.equal(cz, z[pick]) and torch.equal(cxyz, xyz[pick])
-    print(f"[8/27] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
+    print(f"[8/28] proxy_march_select at one chunk of {CHUNK} rays vs the same rays in the "
           f"frame's launch: {'bit-equal' if same_chunk else 'DIFFERENT'}; max|d| vs plain "
           f"{err:.3e}", flush=True)
     if not same_chunk:
@@ -1461,7 +1493,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_march_select"] = res
     one_ms = cuda_ms(lambda: k3.proxy_march_select(pp, rays8, FAST_C, FAST_K, midpoint=True), 5)
     n_chunks = -(-r // CHUNK)
-    print(f"[8/27] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
+    print(f"[8/28] proxy_march_select: {res['ms']:.4f} ms a chunk of {CHUNK} rays queued "
           f"(median of {[round(t, 4) for t in queued]}; unqueued {unqueued:.4f}), "
           f"{100 * res['bound_ms'] / res['ms']:.1f}% of its bound; x {n_chunks} = "
           f"{n_chunks * res['ms']:.3f} ms a frame in chunks; beside one launch over all {r} "
@@ -1474,7 +1506,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     torch.cuda.synchronize()
     d = (op - rop).abs()
     err = float(d.max())
-    print(f"[8/27] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
+    print(f"[8/28] proxy_opacity vs plain at {r} rays, C {PREPASS_C}: median |d| "
           f"{float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); "
           f"{int((op != rop).sum())} of {r} differ", flush=True)
     if not torch.isfinite(op).all() or not (float(d.median()) < OPACITY_BARS[0]
@@ -1486,20 +1518,20 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         r * PREPASS_C * proxy_flop_per_candidate(pp), r * (32 + 4) + k3_bytes, err, card,
         plain_reps=1)
     res = results["proxy_opacity"]
-    print(f"[8/27] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
+    print(f"[8/28] proxy_opacity: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; "
           f"earlier CUDA-core kernel {EARLIER_K3_MS['opacity']} ms (another call)", flush=True)
     hidden = pp["w1"].shape[0]
     report = ptxas_report("proxy_march")
     for name, epi, c in (("proxy_march_select", 1, FAST_C), ("proxy_opacity", 0, PREPASS_C)):
         sym = f"proxy_march_kernelILi{k3.k3_width(hidden)}ELi{epi}ELb0E"
         regs, spills, stack = next(v for k, v in report.items() if sym in k)
-        print(f"[8/27] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
+        print(f"[8/28] {name} build (-Xptxas -v, hidden {hidden} -> wgmma width "
               f"{k3.k3_width(hidden)}): {regs} registers, {spills} spill bytes, {stack} bytes "
               f"stack frame; {k3.shared_bytes(hidden, c)} bytes dynamic shared memory at C "
               f"{c}", flush=True)
     for sym, before in K3_SASS_DIGESTS.items():
         digest = sass_digest("proxy_march", sym)
-        print(f"[8/27] {sym} SASS digest {digest}: "
+        print(f"[8/28] {sym} SASS digest {digest}: "
               f"{'unchanged from' if digest == before else 'DIFFERS from'} the build of the tree "
               f"before K6 joined csrc/proxy_march.cu, {before} (nvcc 12.8; a reading)", flush=True)
 
@@ -1547,7 +1579,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         sig_bad = int((d[:, -1] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1] * ref[:, -1].abs()).sum())
         rgb_bad = int((d[:, :-1] > INT8_RGB_ATOL).sum())
         errs[name] = max(errs[name], float(d.max()))
-        print(f"[8/27] {name} vs plain {where}: max|d| per column "
+        print(f"[8/28] {name} vs plain {where}: max|d| per column "
               f"{[f'{v:.2e}' for v in d.amax(0).tolist()]}; {rgb_bad} rgb outside atol "
               f"{INT8_RGB_ATOL}, {sig_bad} sigma outside {INT8_SIGMA_TOL[0]} + "
               f"{INT8_SIGMA_TOL[1]}|ref|", flush=True)
@@ -1555,14 +1587,14 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
             fail(f"{name} disagrees with its plain version {where}")
     n_flip = 65536
     flips = (k4.int8_trunk_inputs(p8, surv[:n_flip]) != k4.int8_trunk_inputs_ref(p8, surv[:n_flip]))
-    print(f"[8/27] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
+    print(f"[8/28] int8 layer inputs rounded apart, kernel vs plain, at {n_flip} survivors: "
           f"{flips.sum(dim=(1, 2)).tolist()} per layer of {n_flip * 256}", flush=True)
     del pts, dirs, flips
     lib = _build.load("fused_mlp_int8")
     report = ptxas_report("fused_mlp_int8")
     n_emb = sum(1 for k in p8 if k[0] == "q" and k.endswith("x"))
     epi = sass_epilogue("fused_mlp_int8", K4_SYMBOLS["fused_nerf_sigma_int8"])
-    print("[8/27] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
+    print("[8/28] fused_nerf_sigma_int8 SASS, one hidden layer's epilogue per thread: " +
           (f"{epi[0]} instructions converting its 128 accumulators, {epi[1]} adding the bias, "
            f"ReLU and absmax and quantising them: {sum(epi) / 128:.2f} per element"
            if epi else "not found"), flush=True)
@@ -1578,7 +1610,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
                            card, int8_ops=n * i8)
         ms4, ms1, (a1, b1, b2, a2) = timed_pair([kern], [bf16_kern])   # K1, K4, K4, K1
         regs, spills, stack = next(v for k, v in report.items() if K4_SYMBOLS[name] in k)
-        print(f"[8/27] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
+        print(f"[8/28] {name} at {n} points: {n * i8 * 1e-12 / (res['ms'] * 1e-3):.1f} TOP/s "
               f"int8 + {n * f_bf16 * 1e-12 / (res['ms'] * 1e-3):.1f} TFLOP/s bf16, "
               f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound; earlier mma.sync kernel "
               f"{EARLIER_K4_MS[name]} ms (another call; {EARLIER_K4_MS[name] / res['ms']:.1f}x); "
@@ -1608,7 +1640,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
         got, k6.proxy_select_ref(pp, rays6, K6_C, K6_K, scores=scores))
     n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
     err = float((got - k6.proxy_select_ref(pp, rays6, K6_C, K6_K)).abs().max())
-    print(f"[8/27] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
+    print(f"[8/28] proxy_select at {K6_RAYS} rays, C {K6_C}, K {K6_K}: scores vs plain {n_diff} "
           f"of {d.numel()} differ ({100 * n_diff / d.numel():.3f}%), max |d| / bar "
           f"{float(ratio.max()):.3e} (bar: proxy_score_bar); the plain selection on the kernel's "
           f"scores {'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} of {K6_RAYS} rays "
@@ -1629,7 +1661,7 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
     results["proxy_select"] = res
     regs, spills, stack = next(v for k, v in ptxas_report("proxy_march").items()
                                if TOPK_SYMBOL in k)
-    print(f"[8/27] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
+    print(f"[8/28] proxy_select: {100 * res['bound_ms'] / res['ms']:.1f}% of its bound; the "
           f"CUDA-core kernel {EARLIER_K6_MS} ms (another call; {EARLIER_K6_MS / res['ms']:.2f}x); "
           f"build (-Xptxas -v, {TOPK_SYMBOL}): {regs} registers, {spills} spill bytes, {stack} "
           f"bytes stack frame; {k3.shared_bytes(hidden, K6_C)} bytes dynamic shared memory at C "
@@ -1662,7 +1694,7 @@ def fast_phases(frames_rays, device, card, args):
     exact, exact_lat = render_frames(make_renderer(models, cfg, renderer="fused"), frames_rays)
     check_outputs(exact, "exact frame")
     empty = [float((o["opacity_fine"] < 0.01).float().mean()) for o in exact]
-    print(f"[7/27] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
+    print(f"[7/28] exact frames of the ball field (density {BALL_SIGMA} (1 - |x|/{BALL_R}), "
           f"weight noise {FIELD_NOISE}; {N_SAMPLES}+{N_IMPORTANCE}): latency s "
           f"{[round(t, 4) for t in exact_lat]} ({card}); share of rays with opacity < 0.01 "
           f"per frame {[round(e, 4) for e in empty]}", flush=True)
@@ -1695,7 +1727,7 @@ def fast_phases(frames_rays, device, card, args):
     t0 = time.perf_counter()
     cached = setup_fast_proxy(models, hp, bounds)
     t_cached = time.perf_counter() - t0
-    print(f"[7/27] proxy distilled ({hp.fast_distill_steps} steps, batch "
+    print(f"[7/28] proxy distilled ({hp.fast_distill_steps} steps, batch "
           f"{hp.fast_distill_batch}, hidden {fast.proxy.l1.weight.shape[0]}) and box estimated "
           f"in {t_setup:.2f} s, the box alone {t_box:.3f} s ({card}); box "
           f"{np.round(fast.aabb[0], 3).tolist()}..{np.round(fast.aabb[1], 3).tolist()}; read "
@@ -1719,7 +1751,7 @@ def fast_phases(frames_rays, device, card, args):
     counts = read_counts(names)
     launches["proxy_march_select"] = counts["proxy_march_select"]
     n_chunks = -(-H * W // CHUNK)
-    print(f"[9/27] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
+    print(f"[9/28] {N_FRAMES} fast frames of {H}x{W} (C {hp.fast_candidates}, K "
           f"{hp.fast_keep}, {hp.fast_select}, {hp.fast_placement}, {hp.fast_quadrature}): "
           f"latency s {[round(t, 4) for t in lat]}, {H * W / np.median(lat):.0f} rays/s at the "
           f"median frame ({card}); launches {counts}; PSNR vs the exact frames "
@@ -1740,7 +1772,7 @@ def fast_phases(frames_rays, device, card, args):
     for k, v in ref.items():
         d = (outs[0][k][CHECK_RAYS].cpu() - v).abs() / max(1.0, float(v.abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
-    print(f"[9/27] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
+    print(f"[9/28] {CHECK_RAYS.stop - CHECK_RAYS.start} rays of frame 0 vs a CPU re-render on "
           f"the plain versions: (median, 99th pct) of |d| / scale {errs} (bars {FAST_BARS})",
           flush=True)
     if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
@@ -1765,7 +1797,7 @@ def fast_phases(frames_rays, device, card, args):
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
             lost = int((bg & ~same & (ref[f"opacity_{key}"] > 0.01)).sum())
-            print(f"[10/27] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
+            print(f"[10/28] auto-cull frame {i} (camera {k}): {sec:.4f} s ({card}); active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps "
                   f"{float(auto.last_eps):.5f}; {int((same & ~bg).sum())} rays rendered, "
                   f"{int((bg & ~same).sum())} culled to background ({lost} of them visible "
@@ -1792,7 +1824,7 @@ def fast_phases(frames_rays, device, card, args):
     check_outputs([out_f8, out_x8], "int8 frame")
     d_fast = float((out_f8["rgb_fine"] - outs[0]["rgb_fine"]).abs().max())
     d_fused = float((out_x8["rgb_fine"] - exact[0]["rgb_fine"]).abs().max())
-    print(f"[11/27] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
+    print(f"[11/28] int8 frames (cameras 0 and 1): fast latency s {[round(t, 4) for t in sec_f8]} "
           f"against the bf16 fast frames' {[round(t, 4) for t in lat]} (rgb max|d| vs the bf16 "
           f"fast frame {d_fast:.4f}, PSNR vs exact {psnr_vs(out_f8, exact[0]):.2f} dB), fused "
           f"{[round(t, 4) for t in sec_x8]} against the bf16 exact frames' "
@@ -1811,7 +1843,7 @@ def fast_phases(frames_rays, device, card, args):
                          hparams=opts("--fast_edge_refine", str(EDGE_CAP)), img_hw=(H, W))
     (out_e,), (sec_e,) = render_frames(edge, [frames_rays[0]])
     check_outputs([out_e], "edge-refined frame")
-    print(f"[12/27] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
+    print(f"[12/28] edge-refined frame (cap {EDGE_CAP}, {edge.n_edge} slots): {sec_e:.4f} s "
           f"({card}); "
           f"{int(edge.last_refined)} rays refined; PSNR vs exact {psnr_vs(out_e, exact[0]):.2f} "
           f"dB (fast frame {psnr_vs(outs[0], exact[0]):.2f} dB)", flush=True)
@@ -1826,7 +1858,7 @@ def fast_phases(frames_rays, device, card, args):
     sec6 = time.perf_counter() - t0
     launches.update(read_counts(["proxy_select"]))
     inside = ((z6 >= rays8[:, 6:7] - 1e-5) & (z6 <= rays8[:, 7:8] + 1e-5)).all()
-    print(f"[13/27] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
+    print(f"[13/28] proxy_select over {rays8.shape[0]} rays (C {K6_C}, K {K6_K}): {sec6:.4f} s "
           f"({card}); the tree before the redesign {EARLIER_K6_FRAME_S} s (another call); "
           f"launches {launches['proxy_select']}", flush=True)
     if z6.shape != (H * W, K6_K) or not torch.isfinite(z6).all() or not bool(inside):
@@ -1908,7 +1940,7 @@ def eg3d_setup(device, card):
     model, t_load = synced_s(lambda: load_model(system, ckpt, device))
     n_params = sum(p.numel() for p in model.parameters())
     synth = [synced_s(lambda: system.frame_planes(model))[1] for _ in range(4)]
-    print(f"[14/27] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
+    print(f"[14/28] EG3D renderer ({n_params} parameters; planes {cfg.n_planes} x "
           f"{cfg.plane_channels} x {cfg.plane_resolution}², channel_base {cfg.channel_base}, "
           f"channel_max {cfg.channel_max}): checkpoint written in {t_save:.2f} s, read by the "
           f"CLI's load_model in {t_load:.2f} s; mapping + synthesis + bf16 packing ms "
@@ -1982,7 +2014,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         lib = library(planes32, grid(xyz))[:, :, 0].permute(0, 2, 1)
         lib_err = float((got - lib).abs().max())
         err = max(err, float((got - ref).abs().max()))
-        print(f"[15/27] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
+        print(f"[15/28] triplane_gather vs plain, {label} ({xyz.shape[0]} points x 3 planes x "
               f"{c}): {n_diff} of {got.numel()} elements differ; max|d| vs F.grid_sample on the "
               f"float32 planes {lib_err:.3e} (bar {K5_LIB_TOL} x {t_scale:.3f})", flush=True)
         if n_diff or lib_err > K5_LIB_TOL * t_scale:
@@ -2015,7 +2047,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
         for k, v in got.items():
             runs[k] += v
         ratios.append(float(np.median(got["kernel"]) / np.median(got["f32"])))
-        print(f"[15/27] triplane_gather round {rnd} in turns (ms): kernel "
+        print(f"[15/28] triplane_gather round {rnd} in turns (ms): kernel "
               f"{[round(t, 4) for t in got['kernel']]}, F.grid_sample float32 "
               f"{[round(t, 4) for t in got['f32']]}, bf16 "
               f"{[round(t, 4) for t in got['bf16']] if lib16 is True else lib16}; kernel / "
@@ -2034,11 +2066,11 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
     elem = "13__nv_bfloat16" if table.dtype == torch.bfloat16 else "f"
     symbol = f"triplane_gather_kernelI{elem}Li{plan.vec}E"
     regs, spills, stack = next(v for k, v in ptxas_report("triplane_gather").items() if symbol in k)
-    print(f"[15/27] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
+    print(f"[15/28] triplane_gather route: {plan.load_bytes}-byte corner loads ({plan.vec} "
           f"channels of {table.dtype}), {plan.groups} threads per point, {plan.blocks} blocks of "
           f"{plan.threads}; {regs} registers, {spills} spill bytes, {stack} bytes of stack",
           flush=True)
-    print(f"[15/27] triplane_gather at {n} points (one chunk's coarse pass), medians of "
+    print(f"[15/28] triplane_gather at {n} points (one chunk's coarse pass), medians of "
           f"{K5_ROUNDS} rounds: kernel {ms:.4f} ms ({n_bytes / (ms * 1e-3) / 1e12:.2f} TB/s of "
           f"counted bytes, {100 * bound_ms / ms:.1f}% of the bound), F.grid_sample float32 "
           f"{lib_ms:.4f} ms, bf16 {lib16_txt} (grid precomputed): kernel / float32 library "
@@ -2047,7 +2079,7 @@ def check_triplane_gather(system, model, frame_rays, chunk, device, card):
           f"{table_bytes / 1e6:.2f} MB of the table's texels the points read, output); "
           f"kernel unqueued {float(np.median(unqueued)):.4f} ms (median of "
           f"{[round(t, 4) for t in unqueued]}); {card}", flush=True)
-    print(f"[15/27] triplane_gather below F.grid_sample float32 in every round: "
+    print(f"[15/28] triplane_gather below F.grid_sample float32 in every round: "
           f"{'yes' if max(ratios) < 1 else 'no'} (kernel / float32 per round "
           f"{[round(r, 3) for r in ratios]})", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2093,7 +2125,7 @@ def eg3d_phases(device, card, args):
         for k, v in out.items():
             if v.shape[0] != EG3D_WH * EG3D_WH or not torch.isfinite(v).all():
                 fail(f"EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
-    print(f"[16/27] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
+    print(f"[16/28] {N_EG3D} EG3D frames of {EG3D_WH}x{EG3D_WH} ({hp.N_samples}+"
           f"{hp.N_importance} samples, chunk {hp.chunk}, --plane_sampler kernel): latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the "
           f"median frame, of which mapping + synthesis {1e3 * synth_s:.3f} ms ({card}); K5 "
@@ -2106,7 +2138,7 @@ def eg3d_phases(device, card, args):
     worst = {k: max(float((o[k] - g[k]).abs().max()) for o, g in zip(outs, g_outs))
              for k in outs[0]}
     n_diff = sum(int((o[k] != g[k]).sum()) for o, g in zip(outs, g_outs) for k in o)
-    print(f"[16/27] the same frames through --plane_sampler gather: latency s "
+    print(f"[16/28] the same frames through --plane_sampler gather: latency s "
           f"{[round(t, 4) for t in g_lat]}; {n_diff} output elements differ from the kernel "
           f"frames, max|d| {worst} (bar {SAME_FRAME_ATOL})", flush=True)
     if max(worst.values()) > SAME_FRAME_ATOL:
@@ -2120,7 +2152,7 @@ def eg3d_phases(device, card, args):
                                                  for v in out_big.values()):
         fail(f"the {EG3D_BIG}² frame: {big_launches} K5 launches (expected {2 * big_chunks}) "
              f"or non-finite outputs")
-    print(f"[16/27] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
+    print(f"[16/28] one EG3D frame of {EG3D_BIG}x{EG3D_BIG}: {sec_big:.4f} s, "
           f"{EG3D_BIG ** 2 / sec_big:.0f} rays/s, of which mapping + synthesis "
           f"{1e3 * synth_s:.3f} ms ({card}); K5 launches {big_launches}; outputs finite; "
           f"opacity_fine mean {float(out_big['opacity_fine'].mean()):.4f}", flush=True)
@@ -2139,7 +2171,7 @@ def eg3d_phases(device, card, args):
         cpu_planes = cpu_model.planes(cpu_model.mapping(cpu_model.z))
     worst = {k: float((outs[0][k][EG3D_CHECK].cpu() - v).abs().max()) for k, v in ref.items()}
     p_err, p_scale = float((planes - cpu_planes).abs().max()), float(cpu_planes.abs().max())
-    print(f"[17/27] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
+    print(f"[17/28] {EG3D_CHECK.stop - EG3D_CHECK.start} rays of the first {EG3D_WH}² frame vs "
           f"a CPU re-render on the card's table: max|d| {worst} (atol {RENDER_ATOL}); the card's "
           f"float32 planes vs a CPU float32 synthesis (cuDNN TF32 "
           f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}): max|d| {p_err:.3e}, largest "
@@ -2383,11 +2415,11 @@ def siren_phase(device, card, args):
                         NeRFConfig(), 1000, device=device, field_type="siren")
     batches = sem_batches(device, SEED + 51)
     n_params = sum(p.numel() for m in models.values() for p in m.parameters())
-    print(f"[18/27] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
+    print(f"[18/28] SIREN field: 8 FiLM layers of 256, mapping 100 -> 256 -> 256 -> "
           f"{9 * 256 * 2}, learnable z, box 51; coarse + fine {n_params} parameters; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples, perturb 1, noise 1, "
           f"Adam {LR}", flush=True)
-    _, eager, _ = group_vs_eager("18/27", "SIREN", system, models, batches, SEED + 52, card)
+    _, eager, _ = group_vs_eager("18/28", "SIREN", system, models, batches, SEED + 52, card)
     if args.profile:
         profile("SIREN train step", lambda: system.train_step(eager, batches[0], seed=1), card)
 
@@ -2410,7 +2442,7 @@ def sem_batches(device, seed, classes=False):
     return out
 
 
-def d3_system(device, network):
+def d3_system(device, network, data_parallel=None):
     from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
     from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
 
@@ -2419,7 +2451,8 @@ def d3_system(device, network):
                         TrainConfig(lr=LR, decay_step=(20,), decay_gamma=0.1,
                                     batch_size=TRAIN_RAYS, loss_type="msenll"),
                         NeRFConfig(), 1000, semantic_network=network, n_classes=SEM_CLASSES,
-                        point_capacity=SEM_CAPACITY, device=device)
+                        point_capacity=SEM_CAPACITY, device=device,
+                        data_parallel=data_parallel)
 
 
 def d3_steps_phase(device, card, args):
@@ -2432,10 +2465,10 @@ def d3_steps_phase(device, card, args):
     models["points"] = numpy_points(SEED + 61, device)
     system = d3_system(device, "pointnet")
     batches = sem_batches(device, SEED + 62, classes=True)
-    print(f"[19/27] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
+    print(f"[19/28] d3: NeRF 8x256 coarse + fine and PointNet k {SEM_CLASSES} (1088-wide "
           f"point feature) at capacity {SEM_CAPACITY}, msenll, no_grad_on_nerf; "
           f"{TRAIN_RAYS} rays at {N_SAMPLES}+{N_IMPORTANCE} samples", flush=True)
-    start, eager, grouped = group_vs_eager("19/27", "d3 pointnet", system, models, batches,
+    start, eager, grouped = group_vs_eager("19/28", "d3 pointnet", system, models, batches,
                                            SEED + 63, card)
     names = [(k, n) for k in sorted(eager.models) for n, _ in eager.models[k].named_parameters()]
     for label, state in (("eager", eager), ("grouped", grouped)):
@@ -2445,7 +2478,7 @@ def d3_steps_phase(device, card, args):
         moved = sum(not torch.equal(a, b) for (k, _), a, b in zip(names, start, now)
                     if k == "points")
         total = sum(k == "points" for k, _ in names)
-        print(f"[19/27] d3 {label} state after its {state.step} steps: NeRF parameters "
+        print(f"[19/28] d3 {label} state after its {state.step} steps: NeRF parameters "
               f"bit-unchanged {nerf_same}; PointNet tensors moved {moved} of {total}",
               flush=True)
         if not nerf_same or moved < total // 2:
@@ -2466,7 +2499,7 @@ def d3_steps_phase(device, card, args):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(metrics["train/total_loss"]))
-    print(f"[19/27] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
+    print(f"[19/28] d3 conv3d (voxel UNet, res 32, channels (16, 32, 64)): 3 eager steps, "
           f"losses {[f'{v:.6e}' for v in losses]}, ms per step "
           f"{[round(1e3 * v, 3) for v in step_s]}; {card}", flush=True)
     if not all(math.isfinite(v) for v in losses):
@@ -2531,7 +2564,7 @@ def d3_frames_phase(device, card, args):
     peak = torch.cuda.max_memory_allocated()
     key = fast.model_key
     n_chunks = -(-H * W // CHUNK)
-    print(f"[20/27] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
+    print(f"[20/28] d3 fast frame {H}x{W} (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"capacity {hp.point_capacity}, cls_threshold 0, PointNet k {SEM_CLASSES}): latency "
           f"{lat:.4f} s; launches {counts} (this phase's own); peak device memory "
           f"{peak / 2**30:.3f} GiB; {card}", flush=True)
@@ -2561,7 +2594,7 @@ def d3_frames_phase(device, card, args):
         d = (out[k] - ref[k]).abs() / max(1.0, float(ref[k].abs().max()))
         errs[k] = (float(d.median()), percentile(d, 0.99))
     margin = class_margin(ref[f"cls_{key}"])
-    print(f"[20/27] the same frame on the plain versions of K3 select and K1 on the card "
+    print(f"[20/28] the same frame on the plain versions of K3 select and K1 on the card "
           f"({ref_lat:.4f} s): class ids differ at {n_diff} of {H * W} pixels, the largest "
           f"plain top-two margin among them {worst:.4e}; {above} differ above the bar "
           f"{CLS_MARGIN} (pixels above it {int((margin > CLS_MARGIN).sum())}); (median, 99th "
@@ -2579,7 +2612,7 @@ def d3_frames_phase(device, card, args):
         conv4.bias.copy_(conv4.bias[perm])
     (ctl,), _ = render_frames(render, [rays])
     above_ctl, n_ctl, _ = disagree(ctl)
-    print(f"[20/27] control (PointNet's conv4 columns rolled by one): class ids differ at "
+    print(f"[20/28] control (PointNet's conv4 columns rolled by one): class ids differ at "
           f"{n_ctl} pixels, {above_ctl} above the bar (must be > 0)", flush=True)
     if not above_ctl:
         fail("the class gate does not see a permuted class head")
@@ -2601,7 +2634,7 @@ def d3_frames_phase(device, card, args):
         if v.shape[0] != D3_EXACT_WH ** 2 or not torch.isfinite(v).all():
             fail(f"d3 exact frame {k}: shape {tuple(v.shape)} or non-finite values")
     classes = torch.bincount(out["cls_fine"].argmax(-1), minlength=SEM_CLASSES).tolist()
-    print(f"[20/27] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
+    print(f"[20/28] d3 exact frame {D3_EXACT_WH}x{D3_EXACT_WH} ({N_SAMPLES}+{N_IMPORTANCE}, "
           f"bf16 field operands): latency {lat:.4f} s; pixels per class {classes}; {card}",
           flush=True)
 
@@ -2675,7 +2708,7 @@ def eg3d_steps_phase(device, card, args, targets):
         return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
 
     n_tensors = sum(p.numel() for p in model.state_dict().values())
-    print(f"[21/27] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
+    print(f"[21/28] EG3D training (--mode eg3d defaults): z/w {cfg.z_dim}, planes "
           f"{cfg.n_planes} x {cfg.plane_channels} x {cfg.plane_resolution}², channel_base "
           f"{cfg.channel_base}, channel_max {cfg.channel_max}, decoder {cfg.plane_channels} -> 64 "
           f"-> 4; {hp.batch_size} rays at {cfg.rendering.depth_resolution}+"
@@ -2694,7 +2727,7 @@ def eg3d_steps_phase(device, card, args, targets):
         losses.append(float(metrics["train/loss"]))
     first = float(np.mean(losses[:EG3D_WINDOW]))
     last = float(np.mean(losses[-EG3D_WINDOW:]))
-    print(f"[21/27] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
+    print(f"[21/28] {EG3D_TRAIN_STEPS} eager EG3D steps: losses "
           f"{[f'{v:.5f}' for v in losses]}; mean of the first {EG3D_WINDOW} {first:.6f}, of the "
           f"last {last:.6f}; ms per step (after the first) "
           f"{float(np.median(step_s[1:])) * 1e3:.3f} median; {card}", flush=True)
@@ -2707,11 +2740,11 @@ def eg3d_steps_phase(device, card, args, targets):
     # differ, so their reading is printed with that spread, ungated
     torch.use_deterministic_algorithms(True)
     try:
-        group_vs_eager("21/27", "EG3D, deterministic algorithms", system, state.models, batches,
+        group_vs_eager("21/28", "EG3D, deterministic algorithms", system, state.models, batches,
                        EG3D_SEED + 43, card, watch=("w_avg",))
     finally:
         torch.use_deterministic_algorithms(False)
-    _, eager, _ = group_vs_eager("21/27", "EG3D, default algorithms", system, state.models,
+    _, eager, _ = group_vs_eager("21/28", "EG3D, default algorithms", system, state.models,
                                  batches, EG3D_SEED + 43, card, gated=False, watch=("w_avg",),
                                  floor=True)
     if args.profile:
@@ -2778,7 +2811,7 @@ def eg3d_fast_phase(device, card, args):
                                                          cfg)))
     model = model.to(device)
     fast, distill_s = synced_s(lambda: setup_fast_renderer(system, model, hp))
-    print(f"[22/27] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
+    print(f"[22/28] scene with empty space (eg3d_ball_params: the planes carry a disk, the "
           f"decoder a ball of radius {BALL_R} with density {EG3D_BALL_SIGMA} per unit); the "
           f"fast renderer at the eval CLI's defaults (C {hp.fast_candidates}, K {hp.fast_keep}, "
           f"{hp.fast_placement}, {hp.fast_quadrature}, chunk {hp.chunk}): planes synthesised "
@@ -2799,7 +2832,7 @@ def eg3d_fast_phase(device, card, args):
             if v.shape[0] != n or not torch.isfinite(v).all():
                 fail(f"fast EG3D frame {k}: shape {tuple(v.shape)} or non-finite values")
     exact, exact_lat = render_frames(make_renderer(system, model, hp.chunk), small)
-    print(f"[22/27] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
+    print(f"[22/28] {N_EG3D} fast EG3D frames of {EG3D_WH}²: latency s "
           f"{[round(t, 4) for t in lat]}, {EG3D_WH ** 2 / np.median(lat):.0f} rays/s at the median "
           f"frame; K3 select launches {small_launches} ({n_chunks[EG3D_WH]} chunks a frame); one "
           f"of {EG3D_BIG}²: {lat_big:.4f} s, {EG3D_BIG ** 2 / lat_big:.0f} rays/s, K3 select "
@@ -2821,7 +2854,7 @@ def eg3d_fast_phase(device, card, args):
             fail("the plain versions launched a kernel")
     for i, (out, ref, rays) in enumerate(zip(outs + [out_big], refs, small + [big])):
         errs = fast_frame_errors(out, ref, rays, cfg.rendering)
-        print(f"[22/27] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
+        print(f"[22/28] frame {i} on K3 vs K3's plain version on the card ({ref_lat[i]:.4f} s): "
               f"(median, 99th pct | max) {errs} (bars rgb {FAST_BARS}, depth {DEPTH_BARS}, "
               f"opacity {OPACITY_BARS})", flush=True)
         if not within_fast_bars(errs):
@@ -2834,7 +2867,7 @@ def eg3d_fast_phase(device, card, args):
                                                                        proxy=rolled))
     (ctl,), _ = render_frames(control, small[:1])
     ctl_errs = fast_frame_errors(ctl, refs[0], small[0], cfg.rendering)
-    print(f"[22/27] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
+    print(f"[22/28] control (the proxy's first-layer columns rolled by one): {ctl_errs} (must "
           f"fail the bars)", flush=True)
     if within_fast_bars(ctl_errs):
         fail("the fast EG3D bars do not see a rolled proxy")
@@ -2855,7 +2888,7 @@ def eg3d_fast_phase(device, card, args):
               & (out["opacity_fine"] == 0))
         lost = int((bg & (out_big["opacity_fine"] > 0.01)).sum())
         errs = fast_frame_errors(out, out_big, big, cfg.rendering, depth_mask=visible)
-        print(f"[22/27] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
+        print(f"[22/28] auto-cull frame {i} ({EG3D_BIG}², the same pose): {sec:.4f} s "
               f"({EG3D_BIG ** 2 / sec:.0f} rays/s); active fraction {auto.last_active_frac:.4f}, "
               f"bypass {auto.last_plain}, eps {float(auto.last_eps):.5f}; launches {counts}; "
               f"{int(bg.sum())} rays culled to background ({lost} of them with opacity > 0.01 "
@@ -2932,16 +2965,16 @@ def check_culled_kernels(models, pool_rays, device, card):
     for key, packed in zip(("coarse", "fine"), packs):
         fwd_err = max(fwd_err, compare("fused_train_fwd", k2.fused_train_fwd(packed, pts, dirs, s),
                                        k2.fused_train_fwd_ref(packed, pts, dirs, s),
-                                       f"{where} ({key})", "23/27"))
+                                       f"{where} ({key})", "23/28"))
         got = k2.fused_train_bwd(packed, pts, dirs, dy, s)
         torch.cuda.synchronize()
         rel, max_abs, elem, worst = grad_errors(got, k2.fused_train_bwd_ref(packed, pts, dirs,
                                                                             dy, s))
-        print(f"[23/27] fused_train_bwd vs plain {where} ({key}): worst relative L2 {rel:.3e} "
+        print(f"[23/28] fused_train_bwd vs plain {where} ({key}): worst relative L2 {rel:.3e} "
               f"({worst}), max|d| {max_abs:.3e}, worst element {elem:.3e} of its tensor's "
               f"scale (bars {GRAD_REL_L2}, {GRAD_ELEM})", flush=True)
         bwd_err = max(bwd_err, max_abs)
-    results, _ = time_train_kernels("23/27", "one culled step's shapes", models["fine"],
+    results, _ = time_train_kernels("23/28", "one culled step's shapes", models["fine"],
                                     [(p, pts, dy, s) for p in packs], dirs, fwd_err, bwd_err,
                                     card)
     for r in results.values():
@@ -2982,7 +3015,7 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
         _, metrics = system.train_step(state_copy(system, models), first, seed=SEED)
         losses[backend] = (float(metrics["train/loss"]), float(metrics["train/proxy_loss"]))
     rel = abs(losses["culled_fused"][0] - losses["culled"][0]) / abs(losses["culled"][0])
-    print(f"[23/27] (b) first culled step, same weights and batch: loss (with the proxy's) "
+    print(f"[23/28] (b) first culled step, same weights and batch: loss (with the proxy's) "
           f"culled_fused {losses['culled_fused']}, culled {losses['culled']}, relative "
           f"{rel:.3e} (bar {TRAIN_LOSS_RTOL})", flush=True)
     if not rel < TRAIN_LOSS_RTOL:
@@ -3005,7 +3038,7 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
     launches = dict(k2.LAUNCHES)
     loss, rgb, proxy = ([float(m[i]) for m in metrics_t] for i in range(3))
     ms = 1e3 * float(np.median(step_s[TRAIN_WARMUP:]))
-    print(f"[23/27] (c) culled_fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays (C "
+    print(f"[23/28] (c) culled_fused training, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays (C "
           f"{system.culled['n_candidates']}, {system.culled['n_sel']} + "
           f"{system.culled['n_uni']} samples): photometric loss first 10 mean "
           f"{np.mean(rgb[:10]):.5f}, last 10 {np.mean(rgb[-10:]):.5f}; proxy loss first 10 "
@@ -3035,7 +3068,7 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
                 state, _ = system.train_step(state, b, seed=SEED + 1)
         torch.cuda.synchronize()
         turns[mode].append(1e3 * (time.perf_counter() - t0) / GROUP_STEPS)
-    print(f"[23/27] (c) eager ms per step in turns over {GROUP_STEPS} steps: fused "
+    print(f"[23/28] (c) eager ms per step in turns over {GROUP_STEPS} steps: fused "
           f"{[round(v, 3) for v in turns['fused']]}, culled_fused "
           f"{[round(v, 3) for v in turns['culled_fused']]}; fused / culled_fused "
           f"{np.median(turns['fused']) / np.median(turns['culled_fused']):.3f}; {card}",
@@ -3043,11 +3076,11 @@ def culled_phase(pool_rays, pool_rgbs, student, device, card):
     del fused, fused_state
 
     # (d) grouped steps on a captured graph against eager steps
-    group_vs_eager("23/27", "culled_fused", system, state.models, batches[:GROUP_STEPS],
+    group_vs_eager("23/28", "culled_fused", system, state.models, batches[:GROUP_STEPS],
                    SEED + 2, card, k2_per_step=2)
     eager_ms, grouped_ms = STEP_MS["culled_fused"]
     f_eager, f_grouped = STEP_MS["fused"]
-    print(f"[23/27] (d) ms per step (medians of turns): grouped culled_fused {grouped_ms:.3f} "
+    print(f"[23/28] (d) ms per step (medians of turns): grouped culled_fused {grouped_ms:.3f} "
           f"against phase 6(c)'s grouped fused {f_grouped:.3f}: {f_grouped / grouped_ms:.3f}x "
           f"(predicted >= 1.5x); eager {eager_ms:.3f} against {f_eager:.3f}; {card}", flush=True)
     return results, launches
@@ -3079,7 +3112,8 @@ def check_ply(path, verts, faces, what):
 
 
 def nerf_mesh_phase(ball, device, card):
-    """Phase 24: the NeRF mesh CLI's stages on phase 7's ball field."""
+    """Phase 24: the NeRF mesh CLI's stages on phase 7's ball field. Returns
+    the sigma grid, its spacing and origin, and the mesh's face count."""
     import torch
     from nerf_siren_tpu_torch import extract_color_mesh as ecm
     from nerf_siren_tpu_torch.mesh.marching import marching_tetrahedra
@@ -3096,7 +3130,7 @@ def nerf_mesh_phase(ball, device, card):
     cpu = copy.deepcopy(model).cpu()
     ref = ecm.field_sigma(cpu, torch.from_numpy(xyz[pick])).numpy()
     err = float(np.abs(sigma.reshape(-1)[pick] - ref).max())
-    print(f"[24/27] NeRF mesh of the ball field: sigma grid {MESH_GRID}^3 (float32 plain field, "
+    print(f"[24/28] NeRF mesh of the ball field: sigma grid {MESH_GRID}^3 (float32 plain field, "
           f"chunk {hp.chunk}) in {grid_s:.3f} s ({card}); max sigma {float(sigma.max()):.3f}; "
           f"{MESH_CHECK} grid points vs the CPU: max|d| {err:.3e} (atol {MESH_ATOL})", flush=True)
     if not np.isfinite(sigma).all() or err > MESH_ATOL:
@@ -3111,13 +3145,14 @@ def nerf_mesh_phase(ball, device, card):
     path = os.path.join(hp.out_dir, "ball.ply")
     write_ply(path, verts, faces, colors)
     c = check_ply(path, verts, faces, "NeRF mesh")
-    print(f"[24/27] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
+    print(f"[24/28] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
           f"{len(faces)} faces in {march_s:.3f} s (host); vertex radius median "
           f"{np.median(r):.4f} (the ball's sigma {MESH_SIGMA} shell lies at "
           f"{BALL_R * (1 - MESH_SIGMA / BALL_SIGMA):.4f}); fusion colours from {len(images)} "
           f"exact {H}x{W} frames ({hp.N_samples} opacity samples) in {fuse_s:.3f} s; median "
           f"colour {np.round(np.median(c, 0), 4).tolist()} (the ball's {list(BALL_RGB)}); "
           f"PLY written and read back; {card}", flush=True)
+    return sigma, spacing, origin, len(faces)
 
 
 def eg3d_mesh_phase(device, card):
@@ -3148,7 +3183,7 @@ def eg3d_mesh_phase(device, card):
                         torch.from_numpy(pts)[None], model.cfg.rendering)["sigma"][0, :, 0]
     ref = ref.numpy()
     err = float(np.abs(sigma[pick[:, 0], pick[:, 1], pick[:, 2]] - ref).max())
-    print(f"[25/27] EG3D mesh of the ball scene (eg3d_ball_params at eval_eg3d's defaults): "
+    print(f"[25/28] EG3D mesh of the ball scene (eg3d_ball_params at eval_eg3d's defaults): "
           f"checkpoint loaded in {load_s:.3f} s, planes synthesised once in {planes_s:.3f} s, "
           f"sigma grid {n}^3 (chunk {hp.chunk}) in {grid_s:.3f} s ({card}); sigma range "
           f"{float(sigma[1:-1, 1:-1, 1:-1].min()):.3f}..{float(sigma.max()):.3f}; {MESH_CHECK} "
@@ -3164,7 +3199,7 @@ def eg3d_mesh_phase(device, card):
     path = os.path.join(hp.out_dir, "eg3d_ball.ply")
     write_ply(path, verts, faces, colors)
     c = check_ply(path, verts, faces, "EG3D mesh")
-    print(f"[25/27] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
+    print(f"[25/28] marching tetrahedra at sigma {hp.sigma_threshold}: {len(verts)} vertices, "
           f"{len(faces)} faces in {march_s:.3f} s (host); vertex radius median "
           f"{np.median(np.linalg.norm(verts, axis=-1)):.4f} (the ball's radius {BALL_R}); "
           f"decoder colours in {color_s:.3f} s, median {np.round(np.median(c, 0), 4).tolist()} "
@@ -3223,7 +3258,7 @@ def dp_runs(label, make_system, models, batches, seed, card, k2_launches):
         g_diff = n_unequal(group["plain"][0], group["dp"][0])
         g_loss = torch.equal(group["plain"][1], group["dp"][1])
     h = float(cross_replica_param_hash(eager["dp"][1].models))
-    print(f"[26/27] {label}: {n} eager steps, data-parallel (NCCL, world 1) vs "
+    print(f"[26/28] {label}: {n} eager steps, data-parallel (NCCL, world 1) vs "
           f"non-distributed: {e_diff} parameter tensors differ, losses bit-equal {e_loss}; "
           f"one group of {n} on a CUDA graph: "
           + (f"REFUSED: {refused}" if refused else
@@ -3247,7 +3282,7 @@ def dp_runs(label, make_system, models, batches, seed, card, k2_launches):
                                                                    seed=seed))
                 times[f"grouped {m}"].append(1e3 * dt / n)
     med = {k: float(np.median(v)) if v else float("nan") for k, v in times.items()}
-    print(f"[26/27] {label}: ms per step in turns (plain, dp, dp, plain, twice): "
+    print(f"[26/28] {label}: ms per step in turns (plain, dp, dp, plain, twice): "
           + "; ".join(f"{k} {[round(x, 3) for x in v]} (median {med[k]:.3f})"
                       for k, v in times.items() if v)
           + f"; grouped dp / plain {med['grouped dp'] / med['grouped plain']:.4f}, eager dp / "
@@ -3293,7 +3328,7 @@ def data_parallel_phase(pool_rays, pool_rgbs, device, card):
             return {"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]}
 
         batches = [batch() for _ in range(2 * DP_STEPS)]
-        print(f"[26/27] data parallel: a one-rank NCCL group (file store), "
+        print(f"[26/28] data parallel: a one-rank NCCL group (file store), "
               f"{dist.get_backend()} world {dp.world}; {DP_STEPS} steps of {TRAIN_RAYS} rays "
               f"per run ({N_SAMPLES}+{N_IMPORTANCE}, perturb 1, noise 1, Adam {LR})", flush=True)
         launches = {"fwd": 0, "bwd": 0}
@@ -3310,7 +3345,7 @@ def data_parallel_phase(pool_rays, pool_rgbs, device, card):
                 models, batches, SEED + 73, card, launches)
         for backend, (eager_ms, grouped_ms) in STEP_MS.items():
             if backend in meds:
-                print(f"[26/27] {backend}: phase {6 if backend == 'fused' else 23}'s "
+                print(f"[26/28] {backend}: phase {6 if backend == 'fused' else 23}'s "
                       f"non-distributed steps read eager {eager_ms:.3f}, grouped "
                       f"{grouped_ms:.3f} ms; here non-distributed "
                       f"{meds[backend]['eager plain']:.3f} / {meds[backend]['grouped plain']:.3f}"
@@ -3320,6 +3355,7 @@ def data_parallel_phase(pool_rays, pool_rgbs, device, card):
         if launches["fwd"] < 2 * DP_STEPS or launches["bwd"] < 2 * DP_STEPS:
             fail(f"K2 launched {launches} times on the data-parallel path, expected >= "
                  f"{2 * DP_STEPS} each")
+        dp_runs_d3(dp, device, card)
         # EG3D at the train CLI's defaults, under deterministic algorithms (its
         # atomics make even two eager runs differ otherwise, phase 21)
         hp = get_opts(["--root_dir", ".", "--mode", "eg3d"])
@@ -3333,11 +3369,65 @@ def data_parallel_phase(pool_rays, pool_rgbs, device, card):
             dp_runs_eg3d(hp, dp, model.to(device), eg3d_batches, device, card)
         finally:
             torch.use_deterministic_algorithms(False)
-        print(f"[26/27] K2 launches on the data-parallel path {launches}", flush=True)
+        print(f"[26/28] K2 launches on the data-parallel path {launches}", flush=True)
         return launches
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
+
+
+def dp_runs_d3(dp, device, card):
+    """Phase 26's d3 msenll steps with ignored labels (-100 on a third of
+    each batch's rows): DP_STEPS eager steps and one group of as many,
+    data-parallel against non-distributed, bit for bit. The class loss's
+    valid count goes through `DataParallel.mean_count`: one NCCL all-reduce
+    in each eager step, and in the captured graph of the group."""
+    import torch
+
+    n = DP_STEPS
+    batches = sem_batches(device, SEED + 75, classes=True)[:n]
+    rows = torch.arange(TRAIN_RAYS, device=device)
+    for k, b in enumerate(batches):
+        b["cls"] = torch.where(rows % 3 == k % 3, -100, b["cls"])
+    ignored = [int((b["cls"] == -100).sum()) for b in batches]
+    models = numpy_models(SEED + 76, device)
+    models["points"] = numpy_points(SEED + 77, device)
+    runs = {}
+    for mode in ("plain", "dp"):
+        system = d3_system(device, "pointnet", data_parallel=dp if mode == "dp" else None)
+        state = state_copy(system, models)
+        losses = []
+        for b in batches:
+            state, metrics = system.train_step(state, b, seed=SEED + 78)
+            losses.append(metrics[system.LOSS_KEY])
+        gstate = state_copy(system, models)
+        refused = None
+        try:
+            gstate, _ = system.train_scan_batches(
+                gstate, *stacked(batches), seed=SEED + 78,
+                cls_b=torch.stack([b["cls"] for b in batches]))
+        except RuntimeError as e:
+            if mode != "dp" or "refused" not in str(e):
+                raise
+            refused = str(e)
+        runs[mode] = (state, torch.stack(losses), gstate, refused,
+                      None if refused else system.last_group.steps[:, 0].clone())
+    torch.cuda.synchronize()
+    e_diff = n_unequal(runs["plain"][0], runs["dp"][0])
+    e_loss = torch.equal(runs["plain"][1], runs["dp"][1])
+    refused = runs["dp"][3]
+    g_diff = None if refused else n_unequal(runs["plain"][2], runs["dp"][2])
+    g_loss = None if refused else torch.equal(runs["plain"][4], runs["dp"][4])
+    print(f"[26/28] d3 pointnet msenll, {ignored} of {TRAIN_RAYS} labels ignored a step: "
+          f"{n} eager steps data-parallel (the masked mean's count all-reduced) vs "
+          f"non-distributed: {e_diff} tensors differ, losses bit-equal {e_loss}; one group of "
+          f"{n} on a CUDA graph: "
+          + (f"REFUSED: {refused}" if refused else
+             f"{g_diff} tensors differ, losses bit-equal {g_loss}")
+          + f"; {card}", flush=True)
+    if e_diff or not e_loss or refused or g_diff or not g_loss:
+        fail("d3 msenll: data-parallel steps over ignored labels are not bit-equal to the "
+             "non-distributed ones, or their group was refused")
 
 
 def dp_runs_eg3d(hp, dp, model, batches, device, card):
@@ -3377,7 +3467,7 @@ def dp_runs_eg3d(hp, dp, model, batches, device, card):
     g_diff = None if refused else n_unequal(runs["plain"][2], runs["dp"][2])
     w_eq = torch.equal(runs["plain"][6], runs["dp"][6])
     h = float(cross_replica_param_hash(runs["dp"][0].models[MODEL]))
-    print(f"[26/27] EG3D (--mode eg3d defaults, deterministic algorithms): {n} eager steps "
+    print(f"[26/28] EG3D (--mode eg3d defaults, deterministic algorithms): {n} eager steps "
           f"data-parallel vs non-distributed: {e_diff} tensors differ, losses bit-equal "
           f"{e_loss}, w_avg bit-equal {w_eq}; one group of {n}: "
           + (f"REFUSED: {refused}" if refused else f"{g_diff} tensors differ")
@@ -3419,14 +3509,14 @@ def sharded_render_phase(ball_ckpt, device, card):
 
     def report(label, outs, secs, names):
         diff = sum(int((outs["one"][k] != outs["two"][k]).sum()) for k in outs["one"])
-        print(f"[27/27] {label}: {diff} output elements differ between the two slabs and one "
+        print(f"[27/28] {label}: {diff} output elements differ between the two slabs and one "
               f"device; s " + ", ".join(f"{k} {[round(v, 4) for v in t]}" for k, t in secs.items())
               + f" (two / one {np.median(secs['two']) / np.median(secs['one']):.4f}, medians); "
               f"launches of the two-slab frame {names}; {card}", flush=True)
         if diff:
             fail(f"{label}: the two-slab frame is not bit-equal to the one-device frame")
 
-    print(f"[27/27] sharded rendering: mesh {mesh}", flush=True)
+    print(f"[27/28] sharded rendering: mesh {mesh}", flush=True)
     # (a) the 800² exact frame on K1 (slab boundary 327,680 = 10 chunks)
     cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
                        noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
@@ -3467,7 +3557,7 @@ def sharded_render_phase(ball_ckpt, device, card):
         h.remove()
     gap = max(float((plain["one"][0][k] - plain["two"][0][k]).abs().max()) for k in plain["one"][0])
     held = any(v.grad_fn is not None for v in plain["two"][0].values())
-    print(f"[27/27] exact {H}x{W} frame on the plain fields (float32, no kernel, chunk "
+    print(f"[27/28] exact {H}x{W} frame on the plain fields (float32, no kernel, chunk "
           f"{pcfg.chunk}), under no_grad: "
           f"one device {plain['one'][1]:.3f} s, peak {plain['one'][2]:.2f} GiB above the frame's "
           f"inputs; two slabs {plain['two'][1]:.3f} s, peak {plain['two'][2]:.2f} GiB; max |diff| "
@@ -3525,7 +3615,7 @@ def sharded_render_phase(ball_ckpt, device, card):
                 same &= (out[f"{name}_{key}"] - ref[f"{name}_{key}"]).abs() <= 1e-6
             bg = ((out[f"rgb_{key}"] == 1.0).all(-1) & (out[f"depth_{key}"] == 0)
                   & (out[f"opacity_{key}"] == 0))
-            print(f"[27/27] auto-cull frame {i} in mesh mode (camera {k}): {sec:.4f} s; active "
+            print(f"[27/28] auto-cull frame {i} in mesh mode (camera {k}): {sec:.4f} s; active "
                   f"fraction {auto.last_active_frac:.4f}, bypass {auto.last_plain}, eps per "
                   f"shard {[round(float(e), 5) for e in auto.last_eps]}; "
                   f"{int((same & ~bg).sum())} rays rendered, {int((bg & ~same).sum())} culled "
@@ -3537,7 +3627,7 @@ def sharded_render_phase(ball_ckpt, device, card):
         launches["auto"] = read_counts(["proxy_opacity"])
         for i in range(N_AUTO):
             one_s.append(render_frames(auto_one, [frames[i % N_FRAMES]])[1][0])
-    print(f"[27/27] auto-cull frames s: mesh mode {[round(v, 4) for v in auto_s]}, one device "
+    print(f"[27/28] auto-cull frames s: mesh mode {[round(v, 4) for v in auto_s]}, one device "
           f"{[round(v, 4) for v in one_s]} (the same cameras, after); medians of the last "
           f"{N_AUTO - 1}: {np.median(auto_s[1:]):.4f} / {np.median(one_s[1:]):.4f}; {card}",
           flush=True)
@@ -3565,6 +3655,211 @@ def sharded_render_phase(ball_ckpt, device, card):
     return launches
 
 
+# ---- tools and examples (phase 28) ------------------------------------------------------
+
+def lego_cameras(n):
+    """`lego_pose`s of n cameras at elevations of 15-60 degrees in turn, the
+    layout of a Blender scene's training set, as float32."""
+    return [lego_pose(k, n, 15.0 + 15.0 * (k % 4)).astype(np.float32) for k in range(n)]
+
+
+def native_rays_check(card):
+    """Phase 28(a): the datasets' rays of N_LEGO_CAMERAS cameras at 800² through
+    the C++ helper and through numpy: within the bars of the JAX package's
+    tests/test_native.py; host seconds of each route."""
+    from nerf_siren_tpu_torch import native
+    from nerf_siren_tpu_torch.datasets import ray_utils
+
+    if not native.available():
+        fail(f"the native ray helper did not build: {native.build_error()}")
+    poses = lego_cameras(N_LEGO_CAMERAS)
+    rays, secs = {}, {}
+    for route, on in (("native", True), ("numpy", False)):
+        ray_utils._USE_NATIVE = on
+        t0 = time.perf_counter()
+        dirs = ray_utils.get_ray_directions(H, W, FOCAL)
+        rays[route] = (dirs, [ray_utils.get_rays(dirs, c2w) for c2w in poses])
+        secs[route] = time.perf_counter() - t0
+    ray_utils._USE_NATIVE = True
+    (nd, nr), (pd, pr) = rays["native"], rays["numpy"]
+    d_dir = float(np.abs(nd - pd).max())
+    d_o = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(nr, pr))
+    d_d = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(nr, pr))
+    ok = (np.allclose(nd, pd, rtol=1e-6, atol=0)
+          and all(np.allclose(a[0], b[0], rtol=1e-6, atol=0)
+                  and np.allclose(a[1], b[1], **NATIVE_RAY_TOL) for a, b in zip(nr, pr)))
+    print(f"[28/28] (a) dataset rays of {N_LEGO_CAMERAS} cameras at {H}x{W} "
+          f"({N_LEGO_CAMERAS * H * W} rays): native helper {secs['native']:.3f} s, numpy "
+          f"{secs['numpy']:.3f} s (host; {secs['numpy'] / secs['native']:.2f}x); max|d| "
+          f"directions {d_dir:.3e}, origins {d_o:.3e}, world directions {d_d:.3e} (bars: "
+          f"rtol 1e-6; rtol 1e-6; rtol {NATIVE_RAY_TOL['rtol']} + atol "
+          f"{NATIVE_RAY_TOL['atol']}); {card}", flush=True)
+    if not ok:
+        fail("the native rays disagree with numpy beyond the bars")
+    return secs
+
+
+def k1_slice(models, rays, cfg=None):
+    """The K1 frame of `models` (both fields packed) on `rays` at `cfg`
+    (phase 4's config by default)."""
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.ops.kernels.fused_mlp import pack_model_params
+    from nerf_siren_tpu_torch.render.fused import render_rays_fused
+
+    cfg = cfg or RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                              noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    with torch.no_grad():
+        out = render_rays_fused(pack_model_params(models), rays, cfg)
+    torch.cuda.synchronize()
+    return out
+
+
+def fields_from(trees, device):
+    """Full-width coarse and fine fields from {key: state_dict} on the CPU."""
+    from nerf_siren_tpu_torch.config import NeRFConfig
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+
+    out = {}
+    for k, sd in trees.items():
+        m = NeRF(NeRFConfig())
+        m.load_state_dict(sd)
+        out[k] = m.to(device)
+    return out
+
+
+def round_trips(trained, full_ckpt, device, card):
+    """Phase 28(b, c): fresh fields from `save_weights_only`'s file and from a
+    reference-format checkpoint through `import_torch_ckpt` give phase 6's
+    trained fields' K1 slice bit for bit. Returns K1's launches over both."""
+    import torch
+    from nerf_siren_tpu_torch.convert import nerf_to_jax
+    from nerf_siren_tpu_torch.tools.import_torch_ckpt import import_torch_ckpt
+    from nerf_siren_tpu_torch.tools.psnr_parity import export_torch_ckpt
+    from nerf_siren_tpu_torch.training.checkpoints import load_nerf_fields
+    from nerf_siren_tpu_torch.utils.save_weights_only import save_weights_only
+
+    from pathlib import Path
+
+    rays = lego_rays(0, device)[CHECK_RAYS.start: CHECK_RAYS.start + SLICE_RAYS]
+    want = k1_slice(fields_from(trained, device), rays)
+    k1 = ["fused_nerf_sigma", "fused_nerf_full"]
+    reset_counts(k1)
+    weights, w_s = timed_s(lambda: save_weights_only(full_ckpt))
+    got_w = k1_slice(load_nerf_fields(weights, device), rays)
+    ref = str(Path(full_ckpt).with_name("reference_format.ckpt"))
+    imported = str(Path(full_ckpt).with_name("imported.msgpack"))
+    export_torch_ckpt({k: nerf_to_jax(sd) for k, sd in trained.items()}, ref)
+    _, i_s = timed_s(lambda: import_torch_ckpt(ref, imported))
+    got_i = k1_slice(load_nerf_fields(imported, device), rays)
+    launches = read_counts(k1)
+    for label, path, sec, got in (("(b) save_weights_only", weights, w_s, got_w),
+                                  ("(c) import_torch_ckpt", imported, i_s, got_i)):
+        diff = sum(int((got[k] != want[k]).sum()) for k in want)
+        print(f"[28/28] {label}: fresh fields from {Path(path).name} ({sec:.3f} s to write) "
+              f"vs phase 6's trained fields, a K1 slice of {SLICE_RAYS} rays: {diff} output "
+              f"elements differ; {card}", flush=True)
+        if diff or not all(torch.isfinite(v).all() for v in got.values()):
+            fail(f"{label}: the round-tripped fields' K1 slice is not the trained fields'")
+    return launches
+
+
+def parity_phase(device, card):
+    """Phase 28(d): `tools/psnr_parity` at PARITY_ARGS (full 8x256 width): K1
+    launched at least once a chunk, plain float32 agreement with the oracle
+    >= PARITY_F32_DB and K1's >= PARITY_K1_DB; every delta printed."""
+    from nerf_siren_tpu_torch.tools import psnr_parity
+
+    k1 = ["fused_nerf_sigma", "fused_nerf_full"]
+    args = psnr_parity.get_opts(PARITY_ARGS + ["--out", "ckpts/chip_smoke/parity/parity.json"])
+    reset_counts(k1)
+    res, sec = timed_s(lambda: psnr_parity.run(args))
+    launches = read_counts(k1)
+    chunks = args.poses   # the tool renders a pose as one chunk
+    for r in res["rows"]:
+        print(f"[28/28] (d) psnr_parity {' '.join(PARITY_ARGS)}: pose {r['pose']}: oracle "
+              f"{r['torch_oracle_psnr']:.3f} dB vs the scene; " + "; ".join(
+                  f"{n} delta {r[f'{n}_delta_db']:+.4f} dB, agreement "
+                  f"{r[f'{n}_agreement_db']:.2f} dB, {r[f'{n}_s']:.4f} s"
+                  for n in psnr_parity.BACKENDS) + f" (oracle {r['torch_oracle_s']:.4f} s); "
+              f"{card}", flush=True)
+    print(f"[28/28] (d) trained {args.steps} steps in {res['train_s']:.3f} s (train PSNR "
+          f"{res['train_psnr']:.2f} dB), the whole tool {sec:.3f} s; K1 launches {launches} "
+          f"(>= {chunks} each); {card}", flush=True)
+    if min(launches.values()) < chunks:
+        fail("psnr_parity's fused backend did not launch K1 once a chunk")
+    for r in res["rows"]:
+        if not (r["jnp_f32_agreement_db"] >= PARITY_F32_DB
+                and r["fused_agreement_db"] >= PARITY_K1_DB):
+            fail(f"psnr_parity pose {r['pose']}: agreement below {PARITY_F32_DB} / "
+                 f"{PARITY_K1_DB} dB")
+    return launches
+
+
+def examples_phase(ball_ckpt, ball_grid, device, card, args):
+    """Phase 28(e, f): `export_unity_vol` and `mesh_threshold_sweep` on the ball
+    field's sigma grid at MESH_GRID^3 (equal to phase 24's), `render_view` on
+    one 400² lego camera against the K1 frame, timed in turns with the same
+    plain render in float32."""
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.render.rendering import render_rays_chunked
+    from nerf_siren_tpu_torch.examples import export_unity_vol as euv
+    from nerf_siren_tpu_torch.examples import render_single_image as rsi
+    from nerf_siren_tpu_torch.examples.mesh_threshold_sweep import sweep
+    from nerf_siren_tpu_torch.extract_color_mesh import load_fine, predict_sigma_grid
+    from nerf_siren_tpu_torch.training.checkpoints import load_nerf_fields
+
+    sigma24, spacing24, origin24, n_faces24 = ball_grid
+    out = "ckpts/chip_smoke/ball.vol"
+    hp = euv.get_opts(["--ckpt_path", ball_ckpt, "--N_grid", str(MESH_GRID), "--chunk",
+                       str(CHUNK), "--out", out])
+    fine = load_fine(ball_ckpt, device)
+    (sigma, spacing, origin), grid_s = timed_s(lambda: predict_sigma_grid(fine, hp, device))
+    _, vol_s = timed_s(lambda: euv.write_vol(out, sigma, spacing, origin, hp.sigma_max))
+    same = np.array_equal(sigma, sigma24) and spacing == spacing24 and origin == origin24
+    rows, sweep_s = timed_s(lambda: sweep(sigma, SWEEP_THRESHOLDS, spacing, origin))
+    print(f"[28/28] (e) export_unity_vol: sigma grid {MESH_GRID}^3 in {grid_s:.3f} s, equal to "
+          f"phase 24's: {same}; {os.path.getsize(out)} bytes written in {vol_s:.3f} s; "
+          f"mesh_threshold_sweep at {list(SWEEP_THRESHOLDS)}: (threshold, vertices, faces, "
+          f"largest component's share) {[(t, v, f, round(c, 4)) for t, v, f, c in rows]} in "
+          f"{sweep_s:.3f} s (host); {card}", flush=True)
+    if not same:
+        fail("the example's sigma grid differs from phase 24's")
+    if rows[0][2] != n_faces24:
+        fail(f"the sweep's faces at sigma {SWEEP_THRESHOLDS[0]} differ from phase 24's mesh")
+
+    models = load_nerf_fields(ball_ckpt, device, VIEW_IMPORTANCE)
+    cfg = RenderConfig(n_samples=VIEW_SAMPLES, n_importance=VIEW_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    rays = lego_rays(0, device, VIEW_WH, VIEW_WH)
+    renders = {"bf16": lambda: rsi.render_view(models, rays, cfg),
+               "f32": lambda: render_rays_chunked(models, rays, cfg, None)}
+    with torch.no_grad():
+        for fn in renders.values():   # warm-up
+            fn()
+        view, view_s = timed_s(renders["bf16"])
+        turns = {k: [] for k in renders}
+        for k in ("bf16", "f32", "f32", "bf16"):
+            turns[k].append(timed_s(renders[k])[1])
+    k1_frame = k1_slice(models, rays, cfg)
+    if not all(torch.isfinite(v).all() for v in view.values()) or not (
+            0 <= float(view["rgb_fine"].min()) and float(view["rgb_fine"].max()) <= 1 + 1e-3):
+        fail("render_view: non-finite outputs or rgb outside [0, 1+1e-3]")
+    agree = psnr_vs(view, k1_frame)
+    print(f"[28/28] (f) render_single_image.render_view, one {VIEW_WH}x{VIEW_WH} lego camera of "
+          f"the ball field ({VIEW_SAMPLES}+{VIEW_IMPORTANCE}, bf16 plain field): {view_s:.4f} s, "
+          f"{VIEW_WH * VIEW_WH / view_s:.0f} rays/s; PSNR against the K1 frame {agree:.2f} dB; "
+          f"then in turns (bf16, f32, f32, bf16) s bf16 {[round(v, 4) for v in turns['bf16']]}, "
+          f"the same plain render in float32 {[round(v, 4) for v in turns['f32']]}; {card}",
+          flush=True)
+    if args.profile:
+        with torch.no_grad():
+            for k, fn in renders.items():
+                profile(f"render_view {VIEW_WH}² plain field {k}", fn, card)
+    return grid_s, view_s
+
+
 def main():
     import os
 
@@ -3577,7 +3872,8 @@ def main():
     parser.add_argument("--profile", action="store_true",
                         help="profile one more exact frame, training step, fast frame, "
                              "int8 fast and exact frame, EG3D frame of 128² and 800², "
-                             "SIREN, d3 and EG3D training step and d3 fast frame")
+                             "SIREN, d3 and EG3D training step, d3 fast frame and "
+                             "phase 28(f)'s render_view in bf16 and float32")
     args = parser.parse_args()
 
     # ---- 1. device ---------------------------------------------------------
@@ -3590,7 +3886,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/27] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
+    print(f"[1/28] device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from nerf_siren_tpu_torch.config import RenderConfig
@@ -3605,7 +3901,7 @@ def main():
         list(pool.map(_build.build, SOURCES))
     for name in SOURCES:
         _build.load(name)
-    print(f"[2/27] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
+    print(f"[2/28] built {', '.join(f'csrc/{n}.cu' for n in SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # ---- 3. K1 vs plain ------------------------------------------------------
@@ -3631,7 +3927,7 @@ def main():
             lat.append(time.perf_counter() - t0)
     launches = read_counts(k1_names)
     n_chunks = -(-H * W // CHUNK)
-    print(f"[4/27] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
+    print(f"[4/28] rendered {N_FRAMES} frames of {H}x{W} at {N_SAMPLES}+{N_IMPORTANCE} "
           f"samples: latency s {[round(t, 4) for t in lat]}, "
           f"{H * W / np.median(lat):.0f} rays/s at the median frame ({kind}, {smi}); "
           f"launches {launches}", flush=True)
@@ -3645,7 +3941,7 @@ def main():
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
             fail(f"rgb_fine outside [0, 1+1e-3]: {float(rgb.min())}..{float(rgb.max())}")
-    print(f"[4/27] outputs finite; opacity_fine mean per frame "
+    print(f"[4/28] outputs finite; opacity_fine mean per frame "
           f"{[round(float(o['opacity_fine'].mean()), 4) for o in outs]}", flush=True)
 
     # the same rays re-rendered on the CPU, where the wrappers run the plain field
@@ -3654,7 +3950,7 @@ def main():
     with torch.no_grad():
         ref = render_rays_fused(cpu_packed, frames_rays[0][CHECK_RAYS].cpu(), cfg)
     worst = {k: float((outs[0][k][CHECK_RAYS].cpu() - v).abs().max()) for k, v in ref.items()}
-    print(f"[4/27] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
+    print(f"[4/28] {CHECK_RAYS.stop - CHECK_RAYS.start} rays vs plain-field CPU render: "
           f"max|d| {worst} (atol {RENDER_ATOL})", flush=True)
     if max(worst.values()) > RENDER_ATOL:
         fail("main-path render disagrees with the plain-field render")
@@ -3681,6 +3977,12 @@ def main():
         del g_system, g_state, g_batches
 
     student = {k: copy.deepcopy(m) for k, m in state.models.items()}   # phase 23's start
+    # phase 28's start: (b)'s trained fields and their full-resume checkpoint
+    from nerf_siren_tpu_torch.training.checkpoints import save_train_state
+    full_ckpt = os.path.join("ckpts", "chip_smoke", "trained_full.msgpack")
+    save_train_state(full_ckpt, state, epoch=0, optimizer=system.train_cfg.optimizer)
+    trained = {k: {n: t.detach().cpu().clone() for n, t in m.state_dict().items()}
+               for k, m in state.models.items()}
     del system, state, last, group
     torch.cuda.empty_cache()
 
@@ -3727,7 +4029,7 @@ def main():
         launches[name] += culled_launches[key] + dp_launches[key]
 
     # ---- 24-25. mesh extraction ------------------------------------------------------------
-    nerf_mesh_phase(ball, device, smi)
+    ball_grid = nerf_mesh_phase(ball, device, smi)
     ball_ckpt = ball[0]
     del ball
     torch.cuda.empty_cache()
@@ -3742,6 +4044,19 @@ def main():
                                           {MAIN_PATH[name]: launches[name]})
             by[f"{path}, two slabs (phase 27)"] = n
             launches[name] += n
+    torch.cuda.empty_cache()
+
+    # ---- 28. tools and examples on the card ---------------------------------------------
+    native_rays_check(smi)
+    trip_launches = round_trips(trained, full_ckpt, device, smi)
+    parity_launches = parity_phase(device, smi)
+    examples_phase(ball_ckpt, ball_grid, device, smi, args)
+    del ball_grid
+    for name in k1_names:
+        by = results[name]["launches_by_path"]
+        by["weights round trips (phase 28)"] = trip_launches[name]
+        by["psnr_parity (phase 28)"] = parity_launches[name]
+        launches[name] += trip_launches[name] + parity_launches[name]
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -1,4 +1,4 @@
-"""Ray generation and NDC warp (numpy, run once per dataset load).
+"""Ray generation and NDC warp (run once per dataset load).
 
 Counterpart of `nerf_siren_tpu/datasets/ray_utils.py` with the same
 numerics:
@@ -7,16 +7,32 @@ numerics:
 - world rays: rotate by c2w[:, :3], L2-normalise, broadcast the origin,
 - NDC warp: shift origins to the near plane, then the projective transform
   for unbounded forward-facing scenes.
-The JAX package can route the first two through its C++ helper library;
-the port keeps the numpy form only.
+As in the JAX package, the first two go through the C++ host library
+(`nerf_siren_tpu_torch/native`, built with g++ at first use) unless the
+environment sets `NERF_SIREN_TPU_NATIVE=0`; numpy is the reference and the
+fallback where no compiler exists.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+_USE_NATIVE = os.environ.get("NERF_SIREN_TPU_NATIVE", "1") != "0"
+
+
+def _native():
+    if not _USE_NATIVE:
+        return None
+    from nerf_siren_tpu_torch import native
+    return native if native.available() else None
 
 
 def get_ray_directions(H: int, W: int, focal: float) -> np.ndarray:
     """Per-pixel ray directions in camera coordinates. Returns (H, W, 3) f32."""
+    nat = _native()
+    if nat is not None:
+        return nat.ray_directions(H, W, focal)
     j, i = np.meshgrid(np.arange(H, dtype=np.float32),
                        np.arange(W, dtype=np.float32), indexing="ij")
     return np.stack(
@@ -27,6 +43,10 @@ def get_ray_directions(H: int, W: int, focal: float) -> np.ndarray:
 def get_rays(directions: np.ndarray, c2w: np.ndarray):
     """World-space rays of one camera: (H, W, 3) directions and a (3, 4)
     camera-to-world matrix -> rays_o, rays_d (H*W, 3) f32, rays_d unit."""
+    nat = _native()
+    if nat is not None:
+        return nat.world_rays(np.asarray(directions, np.float32),
+                              np.asarray(c2w, np.float32))
     rays_d = directions @ c2w[:, :3].T
     rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = np.broadcast_to(c2w[:, 3], rays_d.shape)

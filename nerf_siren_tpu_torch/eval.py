@@ -504,7 +504,7 @@ def main(hparams):
 
     from nerf_siren_tpu_torch.datasets import dataset_dict
     from nerf_siren_tpu_torch.datasets.depth_utils import save_pfm
-    from nerf_siren_tpu_torch.training.checkpoints import load_ckpt
+    from nerf_siren_tpu_torch.training.checkpoints import load_ckpt, load_nerf_fields
     from nerf_siren_tpu_torch.training.metrics import miou as miou_fn
     from nerf_siren_tpu_torch.training.metrics import psnr as psnr_fn
     from nerf_siren_tpu_torch.utils.color import color_cls
@@ -530,13 +530,7 @@ def main(hparams):
     )
     compute_dtype = torch.bfloat16 if hparams.compute_dtype == 'bfloat16' else None
 
-    def model(seed, name):
-        gen = torch.Generator().manual_seed(seed)
-        return load_ckpt(NeRF(nerf_cfg, generator=gen), hparams.ckpt_path, name).to(device)
-
-    models = {'coarse': model(0, 'nerf_coarse')}
-    if hparams.N_importance > 0:
-        models['fine'] = model(1, 'nerf_fine')
+    models = load_nerf_fields(hparams.ckpt_path, device, hparams.N_importance, nerf_cfg)
 
     renderer = hparams.renderer
     if renderer == 'fused' and not render_cfg.test_time:

@@ -23,10 +23,17 @@ under `shard_map`: each device computes its shard's gradient, then
   then the rank's rows), for the d3 point cloud JAX builds from the whole
   global batch. It runs on gloo (which has no `reduce_scatter`) and NCCL.
 
-Each rank's grads sum to the global batch's gradient only for losses that
-are means over rays with equal shard sizes, which every loss of the port
-is (a masked mean whose mask differs between shards is not, as in JAX's
-explicit step). `make_data_parallel_train_step` is the counterpart of
+- `mean_count`: the global count of a masked mean's valid labels (one
+  scalar all-reduce, captured with the step) over the world size. The
+  class losses divide each rank's masked sum by it (`training/losses.py`),
+  so the average of the ranks' losses and gradients is the global batch's
+  masked mean, as JAX's step on a mesh takes it, also where the ranks hold
+  different numbers of ignored labels.
+
+Each rank's grads average to the global batch's gradient for losses that
+are means over rays with equal shard sizes, or masked means over
+`mean_count`, which every loss of the port is.
+`make_data_parallel_train_step` is the counterpart of
 `make_shard_map_train_step`: JAX's plain MSE step built on the same helper.
 """
 from __future__ import annotations
@@ -110,6 +117,14 @@ class DataParallel:
                 out[i] = flat[off: off + n].view(tensors[i].shape)
                 off += n
         return out
+
+    def mean_count(self, n: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's count `n` (at least 1), over the world size:
+        a rank's masked sum over it, averaged over the ranks, is the masked
+        sum of the global batch over its count."""
+        total = n.detach().to(torch.float32, copy=True).reshape(1)
+        dist.all_reduce(total, group=self.group)
+        return total[0].clamp_min(1) / self.world
 
     def reduce_step(self, losses: Dict[str, torch.Tensor], pred: torch.Tensor,
                     target: torch.Tensor, grads: Sequence[torch.Tensor]

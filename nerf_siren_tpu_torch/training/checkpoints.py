@@ -150,6 +150,24 @@ def load_ckpt(model: nn.Module, path: str, model_name: str,
     return model
 
 
+def load_nerf_fields(path: str, device, n_importance: int = 1,
+                     nerf_cfg=None) -> Dict[str, nn.Module]:
+    """The checkpoint's `nerf_coarse` (and, with n_importance > 0,
+    `nerf_fine`) weights in fresh fields of `nerf_cfg` (default the
+    full-width `NeRFConfig()`) on `device`, in eval mode; a tensor the file
+    lacks keeps the init drawn from a seed-0 (coarse) or seed-1 (fine)
+    generator, as the JAX CLIs' `init_nerf(PRNGKey(0 / 1))`."""
+    from nerf_siren_tpu_torch.config import NeRFConfig
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+
+    names = (("coarse", "nerf_coarse"), ("fine", "nerf_fine"))[: 2 if n_importance > 0 else 1]
+    models = {}
+    for seed, (key, name) in enumerate(names):
+        net = NeRF(nerf_cfg or NeRFConfig(), generator=torch.Generator().manual_seed(seed))
+        models[key] = load_ckpt(net, path, name).to(device).eval()
+    return models
+
+
 def load_eg3d_ckpt(model: nn.Module, path: str,
                    model_name: str = "eg3d_renderer") -> nn.Module:
     """Load the `eg3d_renderer` tree (backbone, decoder, z) of a checkpoint

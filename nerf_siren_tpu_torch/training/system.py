@@ -368,7 +368,8 @@ class NeRFSystem(GroupedSteps):
         for p in params:
             p.grad = None
         out, proxy_loss = self._render_train(state.models, rays, cfg, generator, noise)
-        losses = self.loss_fn(out, rgbs, cls_target=cls_target)
+        losses = self.loss_fn(out, rgbs, cls_target=cls_target,
+                              global_count=None if self.dp is None else self.dp.mean_count)
         if proxy_loss is not None:
             losses = dict(losses, proxy=proxy_loss,
                           sum=losses["sum"] + self.proxy_lambda * proxy_loss)

@@ -146,7 +146,7 @@ def test_replicas_are_byte_equal(ranks):
     """Every case leaves both ranks' parameters byte-equal (one all-reduce
     result on both), and so their fingerprints."""
     for case in ("nerf_jnp", "nerf_fused", "nerf_culled_fused", "nerf_jax", "explicit",
-                 "eg3d", "d3"):
+                 "eg3d", "d3", "d3_ignored_msenll", "d3_ignored_msece"):
         a, b = ranks[0][case]["params"], ranks[1][case]["params"]
         for k in a:
             assert a[k].tobytes() == b[k].tobytes(), (case, k)
@@ -192,6 +192,30 @@ def test_d3_ranks_equal_jax_mesh_step_on_the_global_cloud(ranks):
     local = W.snapshot(s1)
     assert any(not np.allclose(local[k], got["params"][k], atol=1e-6)
                for k in local if k.startswith("points/"))
+
+
+@pytest.mark.parametrize("loss_type", list(W.IGNORE_INDEX))
+def test_d3_ranks_take_jax_global_masked_mean_over_uneven_ignored_labels(ranks, loss_type):
+    """One d3 step whose labels are ignored unevenly over the ranks (5 of
+    rank 0's 8 rows, 1 of rank 1's): the ranks divide their masked sums by
+    the global count (`DataParallel.mean_count`), so their step is JAX's
+    one global masked mean on a 2-device mesh, at the bars of the d3 test
+    above."""
+    system = W.d3_system(loss_type=loss_type)
+    state = W.with_density_state(system.init_state(W.SEED))
+    params = _jax_params(state.models)
+    mesh = make_mesh(devices=jax.devices()[:2])
+    jsys = JNeRF3DSystem(JRenderConfig(**_rkw()), JTrainConfig(loss_type=loss_type, **W.SGD),
+                         JNeRFConfig(**W.D3_NARROW), steps_per_epoch=10, mesh=mesh,
+                         semantic_network="pointnet", point_capacity=64)
+    jstate = replicate(JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                   opt_state=jsys.tx.init(params)), mesh)
+    jstate, m = jsys.train_step(jstate, W.ignored_batch(loss_type), jax.random.PRNGKey(0))
+    got = ranks[0][f"d3_ignored_{loss_type}"]
+    _close_params(got["params"], _from_jax(jstate.params, got["params"]), PARAM_TOL,
+                  f"d3 {loss_type}")
+    np.testing.assert_allclose(got["metrics"][:3], [float(m[k]) for k in (
+        "train/total_loss", "train/rgb_loss", "train/cls_loss")], rtol=METRIC_RTOL)
 
 
 def test_grouped_steps_with_the_all_reduce_equal_eager_steps(ranks):

@@ -4,10 +4,12 @@ training step on its NDC rays against the JAX `NeRFSystem`'s.
 
 Tolerances and why:
 - rays and rgbs of every split, with and without `spheric_poses`: atol
-  1e-6. The same numpy arithmetic, but the JAX package builds the camera
-  directions and world rays with its C++ helper library where it loads,
-  which rounds the direction's normalisation differently (up to ~3e-7 on
-  NDC rays here); the images are read by the same PIL calls (exact).
+  1e-6. Both packages build the camera directions and world rays with
+  their C++ helper libraries where they load (the same source and flags:
+  equal rays, `tests/test_torch_native.py`), and in numpy where they do
+  not, which rounds the direction's normalisation differently from the
+  helper (up to ~3e-7 on NDC rays here); the images are read by the same
+  PIL calls (exact).
 - `get_ndc_rays`: atol 1e-6, the same numpy expressions.
 - one NDC step (narrow field, perturb 0, noise 0, the same weights and
   batch): the single step's bars of `tests/test_torch_training.py`: loss

@@ -55,11 +55,16 @@ JAX_TILE = 128
 @pytest.fixture(scope="module", autouse=True)
 def small_tiles():
     """JAX's tile at 128 (keeps interpreter-mode runs fast), and the port's
-    at the same: the port adds 0 to its depth clip where JAX's call pads."""
+    at the same: the port adds 0 to its depth clip where JAX's call pads.
+    JAX's proxy march reads TILE_R when it traces, so its jit caches are
+    cleared on both sides: an executable another module traced at another
+    tile (256 in several) would lay out its points for that tile."""
     old = jpm.TILE_R, TF.TILE_R
     jpm.TILE_R = TF.TILE_R = JAX_TILE
+    jax.clear_caches()
     yield
     jpm.TILE_R, TF.TILE_R = old
+    jax.clear_caches()
 
 
 def camera_rays(n_side: int, n_miss: int = 0):

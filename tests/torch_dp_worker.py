@@ -124,21 +124,36 @@ def eg3d_steps(dp=None, n_steps=2):
             "w_avg": mapping.w_avg.detach().clone().numpy()}
 
 
-def d3_system(dp=None):
+def d3_system(dp=None, loss_type="msenll"):
     from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
 
     rkw = dict(n_samples=8, n_importance=8, perturb=0.0, noise_std=0.0, white_back=True)
-    return NeRF3DSystem(RenderConfig(**rkw), TrainConfig(loss_type="msenll", **SGD),
+    return NeRF3DSystem(RenderConfig(**rkw), TrainConfig(loss_type=loss_type, **SGD),
                         NeRFConfig(**D3_NARROW), steps_per_epoch=10, point_capacity=64,
                         device="cpu", data_parallel=dp)
 
 
-def d3_step(dp=None):
+IGNORE_INDEX = {"msenll": -100, "msece": -1}
+# rows whose labels are ignored: 5 of rank 0's 8 rows, 1 of rank 1's
+IGNORED_ROWS = [0, 2, 3, 5, 6, 12]
+
+
+def ignored_batch(loss_type):
+    """The d3 step's batch with labels ignored unevenly over the two ranks'
+    halves, so the ranks' masked means differ from the global one."""
+    b = rays_batch(BATCH, 300)
+    b["cls"][IGNORED_ROWS] = IGNORE_INDEX[loss_type]
+    return b
+
+
+def d3_step(dp=None, loss_type="msenll", ignored=False):
     """One d3 step: a cloud capacity (64) below the batch's 16 x 16 samples a
-    pass, so the top-K cut runs over both ranks' rays."""
-    system = d3_system(dp)
+    pass, so the top-K cut runs over both ranks' rays; with `ignored`, on
+    `ignored_batch`."""
+    system = d3_system(dp, loss_type)
     state = with_density_state(system.init_state(SEED))
-    state, m = system.train_step(state, local(rays_batch(BATCH, 300), dp), seed=3)
+    batch = ignored_batch(loss_type) if ignored else rays_batch(BATCH, 300)
+    state, m = system.train_step(state, local(batch, dp), seed=3)
     return {"params": snapshot(state),
             "metrics": np.array([float(m[k]) for k in ("train/total_loss", "train/rgb_loss",
                                                        "train/cls_loss", "train/psnr")])}
@@ -239,6 +254,8 @@ def run(rank: int, world: int, store: str, out: str) -> None:
         res["explicit"] = explicit_steps(dp)
         res["eg3d"] = eg3d_steps(dp)
         res["d3"] = d3_step(dp)
+        for loss_type in IGNORE_INDEX:
+            res[f"d3_ignored_{loss_type}"] = d3_step(dp, loss_type, ignored=True)
         res["grouped"] = grouped(dp)
         res["utilities"] = utilities(dp)
         res["sharded_field"] = sharded_field(dp)
