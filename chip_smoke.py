@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
-Run from the repository root. Phases, each printing a line:
+Run from the repository root. Phases, each printing a line (`[n/28]`, and
+`[29/29]` for the last):
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
      for matmuls and cuDNN convolutions.
   2. build: compiles the hand-written kernels from csrc/, one nvcc process
@@ -306,6 +307,27 @@ Run from the repository root. Phases, each printing a line:
      `examples/render_single_image.render_view` on one 400² lego camera of
      the ball field: seconds, PSNR against the K1 frame, and seconds in
      turns with the same plain render in float32.
+ 29. the last narrowings: (a) K1 and K4, both passes, at widths 128, 384
+     and 512 (8 layers, skip at 4, numpy-seeded weights) against their plain
+     versions at WIDTH_POINTS points (one direction per FAST_K), phase 3's
+     and phase 8's bars, each timed in turns with its plain version beside
+     its bound; every K1 and K4 instantiation's registers, spills and stack;
+     (b) a NeRFConfig(depth=5, width=128) field through `render_rays_fused`
+     (64 + 128) and `render_rays_fast` (C 32, K 16, a seeded proxy) on one
+     chunk of the lego frame, on its bf16 pack (K1) and its int8 pack (K4),
+     each kernel launched at width 128, 2048 rays of each
+     against CPU re-renders on the plain versions (phase 9's bars per output:
+     a random field's depth is no smoother than its weights, so phase 4's
+     absolute bar does not apply);
+     (c) the eval CLI's fast frame at `--fast_candidates 512` (K3 select)
+     and auto-cull frame at `--fast_prepass 512` (K3 opacity) on phase 7's
+     ball field and cached proxy, each against the same renderer on K3's
+     and K1's plain versions on the card (`plain_fast_kernels`, FAST_BARS
+     per output); (d) K3 opacity at C
+     4096 over OPACITY_4096_RAYS rays (the plain march on its own scores
+     bit for bit), K3 select at C 512 over one chunk and K6 at C 512 over
+     K6_RAYS rays (its scores within proxy_score_bar, the plain selection
+     on them bit for bit), each timed beside its plain version and bound.
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
@@ -317,7 +339,10 @@ each: K1 phase 4, K2 phases 6(b), 23(c) and 26 (`launches_by_path`; its
 readings at the culled shape under `culled_shape`), K3 select phase 9,
 K3 opacity phase 10, K4 phase 11, K6 phase 13, K5 the 128² frames of
 phase 16, and K1, K3 and K5 again over phase 27's two-slab frames, K1
-over phase 28's round trips and psnr_parity (their `launches_by_path`); `timing` says how `ms` was taken: "queued" for K5
+over phase 28's round trips and psnr_parity, and phase 29's library renders of the width-128
+field and CLI frames at C 512 (their `launches_by_path`; phase 29's readings of the other
+widths and candidate counts under `widths` and `candidates_<C>`); `timing` says how `ms` was
+taken: "queued" for K5
 and K3 select, "unqueued" for the rest), the nvidia-smi line, and the JSON
 result as the last line. Any failure exits non-zero before the result is
 printed.
@@ -388,6 +413,10 @@ K5_UNQUEUED = 4         # timings of K5 unqueued, as every other kernel is timed
 K3_QUEUED = 3           # queued timings of K3 select at one chunk (K5_REPS launches each)
 SAME_FRAME_ATOL = 1e-6  # kernel vs gather frames
 PLANES_RTOL = 1e-3      # card vs CPU float32 synthesis, of the planes' largest magnitude
+NARROW_WIDTHS = (128, 384, 512)   # phase 29: K1's and K4's widths beside 256
+WIDTH_POINTS = 524_288  # phase 29(a): points of each width's check (a fast chunk's survivors)
+WIDE_C = 512            # phase 29(c, d): candidates a ray above the 256 K3 once took
+OPACITY_4096_RAYS = 8192   # phase 29(d): rays of K3 opacity at C 4096
 SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "triplane_gather")
 PALLAS = "nerf_siren_tpu/ops/pallas"
 # K1's times before its redesign (the wmma kernel, at these shapes on an H100 80GB HBM3, 700 W)
@@ -417,10 +446,11 @@ TOPK_SYMBOL = "proxy_march_kernelILi96ELi2ELb0E"   # mangled <96, TOPK, false>
 K2_BWD_SYMBOLS = {"tile": "nerf_train_bwd_tile_kernel", "wgrad": "nerf_train_wgrad_kernel",
                   "reduce": "nerf_train_reduce_kernel"}
 K2_FWD_SYMBOL = "nerf_train_fwd_tile_kernel"
-K4_SYMBOLS = {"fused_nerf_sigma_int8": "nerf_field_int8_kernelILb0E",
-              "fused_nerf_full_int8": "nerf_field_int8_kernelILb1E"}
-K1_SYMBOLS = {"fused_nerf_sigma": "nerf_field_kernelILb0E",   # mangled <false> / <true>
-              "fused_nerf_full": "nerf_field_kernelILb1E"}
+K4_SYMBOLS = {"fused_nerf_sigma_int8": "nerf_field_int8_kernelILi256ELb0E",
+              "fused_nerf_full_int8": "nerf_field_int8_kernelILi256ELb1E"}
+# mangled <256, false> / <256, true>: the field's width, 256
+K1_SYMBOLS = {"fused_nerf_sigma": "nerf_field_kernelILi256ELb0E",
+              "fused_nerf_full": "nerf_field_kernelILi256ELb1E"}
 KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kernel it replaces)
     "fused_nerf_sigma": ("fused_mlp", "sigma", f"{PALLAS}/fused_mlp.py:262"),
     "fused_nerf_full": ("fused_mlp", "full", f"{PALLAS}/fused_mlp.py:272"),
@@ -582,8 +612,8 @@ def check_kernels(packed, device, card):
         regs, spills, stack = next(v for k, v in report.items() if symbol in k)
         print(f"[3/28] {name} build (-Xptxas -v): {regs} registers at entry, {spills} spill bytes "
               f"(stores + loads), {stack} bytes stack frame; "
-              f"{lib.nerf_field_smem_bytes(int(name == 'fused_nerf_full'))} bytes dynamic shared "
-              f"memory", flush=True)
+              f"{lib.nerf_field_smem_bytes(256, int(name == 'fused_nerf_full'))} bytes dynamic "
+              f"shared memory", flush=True)
     results = {}
     for name, kern, plain, n_pts, n_bytes, where in (
             ("fused_nerf_sigma", lambda: fm.fused_nerf_sigma(packed, pts_c),
@@ -1391,7 +1421,8 @@ def int_mm_chain_ms(p8, n):
 
     dev = p8["w_sigma"].device
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    h = torch.randint(-127, 128, (n, fm.KERNEL_WIDTH), generator=gen, device=dev).to(torch.int8)
+    h = torch.randint(-127, 128, (n, p8["w_sigma"].shape[0]), generator=gen,
+                      device=dev).to(torch.int8)
     e = torch.randint(-127, 128, (n, 64), generator=gen, device=dev).to(torch.int8)
     prods = [(h, p8[f"q{i}"].t()) for i in range(1, fm._depth(p8))]
     prods += [(e, p8[f"q{i}s"].t()) for i in range(fm._depth(p8)) if f"q{i}s" in p8]
@@ -1618,8 +1649,8 @@ def check_fast_kernels(fast, p8, p16, frame_rays, device, card):
               f"{a2:.3f}) in turns with K4 {ms4:.3f} ms ({b1:.3f}, {b2:.3f}): int8 / bf16 time "
               f"{ms4 / ms1:.3f}; build (-Xptxas -v): {regs} registers at entry, {spills} spill "
               f"bytes, {stack} bytes stack frame; "
-              f"{lib.nerf_field_int8_smem_bytes(int(full), fm._depth(p8), n_emb)} bytes dynamic "
-              f"shared memory; torch._int_mm over the same trunk products "
+              f"{lib.nerf_field_int8_smem_bytes(256, int(full), fm._depth(p8), n_emb)} bytes "
+              f"dynamic shared memory; torch._int_mm over the same trunk products "
               f"{int_mm_chain_ms(p8, n)} (a reading); {card}", flush=True)
         results[name] = res
 
@@ -2507,23 +2538,26 @@ def d3_steps_phase(device, card, args):
 
 
 class plain_fast_kernels:
-    """Within: the fast renderer runs K3 select's and the field kernels'
-    plain versions on the card in place of the kernels."""
+    """Within: the fast renderer runs K3's (select and opacity) and the
+    field kernels' plain versions on the card in place of the kernels."""
 
     def __enter__(self):
         from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
         from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
         from nerf_siren_tpu_torch.render import fast as fast_mod
 
-        self.saved = fast_mod.proxy_march_select, fast_mod.field_kernels
+        self.saved = (fast_mod.proxy_march_select, fast_mod.proxy_opacity,
+                      fast_mod.field_kernels)
         fast_mod.proxy_march_select = k3.proxy_march_select_ref
+        fast_mod.proxy_opacity = k3.proxy_opacity_ref
         fast_mod.field_kernels = lambda packed: (fm.fused_sigma_ref, fm.fused_full_ref)
         return self
 
     def __exit__(self, *exc):
         from nerf_siren_tpu_torch.render import fast as fast_mod
 
-        fast_mod.proxy_march_select, fast_mod.field_kernels = self.saved
+        (fast_mod.proxy_march_select, fast_mod.proxy_opacity,
+         fast_mod.field_kernels) = self.saved
 
 
 def class_margin(cls):
@@ -3860,6 +3894,313 @@ def examples_phase(ball_ckpt, ball_grid, device, card, args):
     return grid_s, view_s
 
 
+# ---- the last narrowings (phase 29) ------------------------------------------------------
+
+def frame_errors(got, ref, key="fine"):
+    """(median, 99th pct) of |d| / max(1, max |ref|) per output of a frame."""
+    errs = {}
+    for name in ("rgb", "depth", "opacity"):
+        a, b = got[f"{name}_{key}"], ref[f"{name}_{key}"]
+        d = (a - b).abs() / max(1.0, float(b.abs().max()))
+        errs[name] = (float(d.median()), percentile(d, 0.99))
+    return errs
+
+
+def check_widths(device, card):
+    """Phase 29(a): K1 and K4, both passes, at every width beside 256 against
+    their plain versions at WIDTH_POINTS points (one direction per
+    FAST_K points), timed in turns with them, each beside its bound.
+    Returns {kernel: {width: reading}}; these comparison launches are not
+    counted."""
+    import torch
+    from nerf_siren_tpu_torch.config import NeRFConfig
+    from nerf_siren_tpu_torch.convert import nerf_from_jax
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+
+    rng = np.random.default_rng(SEED + 29)
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    n = WIDTH_POINTS
+    xyz = (torch.rand((n, 3), generator=gen, device=device) - 0.5) * 8
+    dirs = torch.nn.functional.normalize(
+        torch.randn((-(-n // FAST_K), 3), generator=gen, device=device), dim=-1)
+    readings = {name: {} for name in ("fused_nerf_sigma", "fused_nerf_full",
+                                      "fused_nerf_sigma_int8", "fused_nerf_full_int8")}
+    for width in NARROW_WIDTHS:   # 8-layer fields, weights from a numpy seed
+        model = NeRF(NeRFConfig(width=width))
+        model.load_state_dict(nerf_from_jax(numpy_nerf_params(rng, model.cfg)))
+        model = model.to(device)
+        p16, p8 = fm.pack_nerf_params(model), k4.pack_nerf_params_int8(model)
+        cases = (
+            ("fused_nerf_sigma", lambda: fm.fused_nerf_sigma(p16, xyz),
+             lambda: fm.fused_sigma_ref(p16, xyz), False, False),
+            ("fused_nerf_full", lambda: fm.fused_nerf_full(p16, xyz, dirs, FAST_K),
+             lambda: fm.fused_full_ref(p16, xyz, dirs, FAST_K), True, False),
+            ("fused_nerf_sigma_int8", lambda: k4.fused_nerf_sigma_int8(p8, xyz),
+             lambda: k4.fused_sigma_int8_ref(p8, xyz), False, True),
+            ("fused_nerf_full_int8", lambda: k4.fused_nerf_full_int8(p8, xyz, dirs, FAST_K),
+             lambda: k4.fused_full_int8_ref(p8, xyz, dirs, FAST_K), True, True))
+        for name, kern, plain, full, int8 in cases:
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"{name} at width {width}: shape {tuple(got.shape)} or non-finite output")
+            d = (got - ref).abs()
+            if int8:   # K4's bars (phase 8): rgb atol 2e-2, sigma 5e-2 + 2e-2 |ref|
+                bad = int((d[:, :3] > INT8_RGB_ATOL).sum()) if full else 0
+                bad += int((d[:, -1:] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1]
+                            * ref[:, -1:].abs()).sum())
+                bars = f"rgb {INT8_RGB_ATOL}, sigma {INT8_SIGMA_TOL[0]} + {INT8_SIGMA_TOL[1]}|ref|"
+                f_bf16, i8 = int8_work_per_point(p8, full)
+                n_bytes = k4_weight_bytes(p8)
+            else:
+                atol, rtol = KERNEL_TOL
+                bad = int((d > atol + rtol * ref.abs()).sum())
+                bars = f"{atol} + {rtol}|ref|"
+                f_bf16, i8 = _flop_per_point(p16, full), 0
+                n_bytes = k1_weight_bytes(p16)
+            n_bytes += n * (12 + (16 if full else 4)) + (dirs.numel() * 4 if full else 0)
+            ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], plain_reps=2)
+            bound_ms, bound_by = bound(n * f_bf16, n_bytes, n * i8)
+            err = float(d.max())
+            print(f"[29/29] {name} at width {width}, {n} points: max|d| vs plain {err:.3e}, "
+                  f"{bad} outside {bars}; kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+                  f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; {card}", flush=True)
+            if bad:
+                fail(f"{name} at width {width} disagrees with its plain version")
+            readings[name][str(width)] = {
+                "points": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del model, p16, p8
+    report = {**ptxas_report("fused_mlp"), **ptxas_report("fused_mlp_int8")}
+    for sym in sorted(k for k in report if "nerf_field_kernel" in k or "int8_kernel" in k):
+        regs, spills, stack = report[sym]
+        tag = sym[sym.index("nerf_field"):].split("EEEv")[0]
+        print(f"[29/29] build (-Xptxas -v) {tag}: {regs} registers, {spills} spill bytes, "
+              f"{stack} bytes stack frame", flush=True)
+    return readings
+
+
+def narrow_field_paths(device, card):
+    """Phase 29(b): a NeRFConfig(depth=5, width=128) field through the
+    library's renderers, on its bf16 pack (K1) and its int8 pack (K4): an
+    exact slice (`render_rays_fused`, coarse and fine) and a fast slice
+    (`render_rays_fast`, K3 select + the field's full pass) each, against
+    CPU re-renders on the plain versions. Returns the field kernels'
+    launches of those calls."""
+    import torch
+    from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig
+    from nerf_siren_tpu_torch.convert import nerf_from_jax
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.render.fast import init_proxy, render_rays_fast
+    from nerf_siren_tpu_torch.render.fused import render_rays_fused
+
+    rng = np.random.default_rng(SEED + 30)
+    models = {}
+    for key in ("coarse", "fine"):
+        model = NeRF(NeRFConfig(depth=5, width=128))
+        model.load_state_dict(nerf_from_jax(numpy_nerf_params(rng, model.cfg)))
+        models[key] = model
+    on_card = {k: copy.deepcopy(m).to(device) for k, m in models.items()}
+    packs = {"bf16": (fm.pack_model_params(on_card), fm.pack_model_params(models, "cpu")),
+             "int8": (k4.pack_model_params_int8(on_card),
+                      k4.pack_model_params_int8(models, "cpu"))}
+    proxy = init_proxy(96, generator=torch.Generator().manual_seed(SEED + 30))
+    pp, pp_cpu = k3.pack_proxy_params(proxy, device), k3.pack_proxy_params(proxy, "cpu")
+    rays = lego_rays(0, device)[CHECK_RAYS.start - CHUNK // 2: CHECK_RAYS.start + CHUNK // 2]
+    check = slice(CHUNK // 2, CHUNK // 2 + 2048)
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    names = ["fused_nerf_sigma", "fused_nerf_full", "fused_nerf_sigma_int8",
+             "fused_nerf_full_int8", "proxy_march_select"]
+    kw = dict(n_candidates=FAST_C, n_keep=FAST_K, select="pdf", white_back=True,
+              scene_aabb=([-1.5] * 3, [1.5] * 3))
+    reset_counts(names)
+    errs, secs = {}, {}
+    for dtype, (packed, cpu_packed) in packs.items():
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exact = render_rays_fused(packed, rays, cfg)
+            fast = render_rays_fast(None, None, rays, packed_params=packed, packed_proxy=pp, **kw)
+            torch.cuda.synchronize()
+            secs[dtype] = round(time.perf_counter() - t0, 4)
+            exact_ref = render_rays_fused(cpu_packed, rays[check].cpu(), cfg)
+            fast_ref = render_rays_fast(None, None, rays[check].cpu(), packed_params=cpu_packed,
+                                        packed_proxy=pp_cpu, **kw)
+        for label, got, want in (("exact", exact, exact_ref), ("fast", fast, fast_ref)):
+            for k, v in want.items():
+                d = (got[k][check].cpu() - v).abs() / max(1.0, float(v.abs().max()))
+                errs[f"{dtype} {label} {k}"] = (float(d.median()), percentile(d, 0.99))
+    counts = read_counts(names)
+    print(f"[29/29] a NeRFConfig(depth=5, width=128) field, {rays.shape[0]} rays through "
+          f"render_rays_fused ({N_SAMPLES}+{N_IMPORTANCE}) and render_rays_fast (C {FAST_C}, K "
+          f"{FAST_K}) on its bf16 and int8 packs in {secs} s ({card}); launches {counts}; 2048 "
+          f"rays vs CPU re-renders on the plain versions, (median, 99th pct) of |d| / scale "
+          f"{errs} (bars {FAST_BARS})", flush=True)
+    if min(counts[k] for k in names[:4]) < 1:
+        fail("the width-128 field's renders did not run on K1 and K4")
+    if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
+        fail("the width-128 field's renders disagree with their plain re-renders")
+    return {k: counts[k] for k in names[:4]}
+
+
+def wide_candidates(ball_ckpt, device, card):
+    """Phase 29(c, d): the eval CLI above 256 candidates on the ball field: a
+    fast frame at `--fast_candidates 512` (K3 select) and an auto-cull frame
+    at `--fast_prepass 512` (K3 opacity), each against the same renderer on
+    K3's and K1's plain versions (the fast bars); K3 opacity at C 4096 and K6 at C 512
+    against their plain versions (K6's scores within proxy_score_bar, the
+    plain selection on them its depths bit for bit). Returns (K3 and K6
+    launches of the CLI frames and of K6's pass, readings)."""
+    from pathlib import Path
+
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.eval import get_opts, make_renderer, setup_fast_proxy
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    models = numpy_models(FIELD_SEED, device, ball_nerf_params)
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+
+    def opts(*extra):   # on cuda, the parser refuses C above MAX_CANDIDATES
+        return get_opts(["--root_dir", str(Path(ball_ckpt).parent), "--ckpt_path", ball_ckpt,
+                         "--renderer", "fast", "--chunk", str(CHUNK), *extra])
+
+    bounds = np.array([NEAR, FAR], np.float32)
+    frame = lego_rays(1, device)
+    launches, readings = {}, {}
+    for label, name, extra in (
+            ("fast frame", "proxy_march_select", ("--fast_candidates", str(WIDE_C))),
+            ("auto-cull frame", "proxy_opacity", ("--fast_cull", "auto", "--fast_prepass",
+                                                  str(WIDE_C)))):
+        hp = opts(*extra)
+        fast = setup_fast_proxy(models, hp, bounds)   # phase 7's cached proxy
+        render = make_renderer(models, cfg, renderer="fast", fast=fast, hparams=hp, img_hw=(H, W))
+        reset_counts([name])
+        (out,), (sec,) = render_frames(render, [frame])
+        launches[name] = read_counts([name])[name]
+        with plain_fast_kernels():
+            (ref,), (ref_sec,) = render_frames(render, [frame])
+        check_outputs([out, ref], label)
+        errs = frame_errors(out, ref)
+        print(f"[29/29] CLI {label} at {' '.join(extra)}: {sec:.4f} s ({card}; on the plain "
+              f"versions {ref_sec:.3f} s); {name} launches {launches[name]}; (median, 99th pct) "
+              f"of |d| / scale vs the plain versions of K3 and K1 {errs} (bars {FAST_BARS})",
+              flush=True)
+        if launches[name] < 1 or any(m >= FAST_BARS[0] or p >= FAST_BARS[1]
+                                     for m, p in errs.values()):
+            fail(f"the CLI's {label} at C {WIDE_C} did not run on K3 or left its plain version")
+        pp = fast.packed_proxy
+    rays8 = clipped_rays(frame, fast.aabb)
+    k3_bytes = sum(t.numel() * t.element_size() for t in pp.values())
+    flop = proxy_flop_per_candidate(pp)
+
+    # K3 opacity at C 4096, its own scores marched plainly bit-equal to it
+    rays_op = rays8[torch.as_tensor(np.random.default_rng(SEED + 31).permutation(
+        rays8.shape[0])[:OPACITY_4096_RAYS], device=device)]
+    op = k3.proxy_opacity(pp, rays_op, 4096)
+    scores = k3.proxy_march_scores(pp, rays_op, 4096)
+    same = torch.equal(op, k3.proxy_opacity_ref(pp, rays_op, 4096, scores=scores))
+    d = (op - k3.proxy_opacity_ref(pp, rays_op, 4096)).abs()
+    del scores
+    err = float(d.max())
+    ms, plain_ms, _ = timed_pair([lambda: k3.proxy_opacity(pp, rays_op, 4096)],
+                                 [lambda: k3.proxy_opacity_ref(pp, rays_op, 4096)], plain_reps=1)
+    r = rays_op.shape[0]
+    bound_ms, bound_by = bound(r * 4096 * flop, r * (32 + 4) + k3_bytes)
+    readings["proxy_opacity"] = {"candidates": 4096, "rays": r, "max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "library_ms": None}
+    print(f"[29/29] proxy_opacity at {r} rays, C 4096 (one ray a block, "
+          f"{k3.shared_bytes(pp['w1'].shape[0], 4096)} bytes of shared memory a CTA): median "
+          f"|d| vs plain {float(d.median()):.3e}, max {err:.3e} (bars {OPACITY_BARS}); the plain "
+          f"march on its own scores {'bit-equal' if same else 'DIFFERENT'}; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of it; {card}", flush=True)
+    if not same or not (float(d.median()) < OPACITY_BARS[0] and err < OPACITY_BARS[1]):
+        fail("proxy_opacity at C 4096 disagrees with its plain version")
+
+    # K3 select at C 512 over one chunk, timed beside its plain version
+    chunk = rays8[:CHUNK]
+    z = k3.proxy_march_select(pp, chunk, WIDE_C, FAST_K, midpoint=True)[0]
+    rz = k3.proxy_march_select_ref(pp, chunk, WIDE_C, FAST_K, midpoint=True)[0]
+    dz = (z - rz).abs() / (chunk[:, 7:8] - chunk[:, 6:7]).clamp_min(1e-6)
+    ms, plain_ms, _ = timed_pair(
+        [lambda: k3.proxy_march_select(pp, chunk, WIDE_C, FAST_K, midpoint=True)],
+        [lambda: k3.proxy_march_select_ref(pp, chunk, WIDE_C, FAST_K, midpoint=True)],
+        plain_reps=1)
+    bound_ms, bound_by = bound(CHUNK * WIDE_C * flop, CHUNK * (32 + 16 * FAST_K) + k3_bytes)
+    readings["proxy_march_select"] = {
+        "candidates": WIDE_C, "rays": CHUNK, "max_abs_err": float((z - rz).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}
+    print(f"[29/29] proxy_march_select at one chunk of {CHUNK} rays, C {WIDE_C}, K {FAST_K}: "
+          f"depth |d|/(far-near) median {float(dz.median()):.3e}, 99th pct "
+          f"{percentile(dz, 0.99):.3e} (bars {DEPTH_BARS}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% "
+          f"of it; {card}", flush=True)
+    if not (float(dz.median()) < DEPTH_BARS[0] and percentile(dz, 0.99) < DEPTH_BARS[1]):
+        fail("proxy_march_select at C 512 disagrees with its plain version")
+
+    # K6 at C 512: its scores within the bar, the plain selection on them its depths
+    rays6 = rays8[:K6_RAYS]
+    reset_counts(["proxy_select"])
+    got = k6.proxy_select(pp, rays6, WIDE_C, K6_K)
+    launches["proxy_select"] = read_counts(["proxy_select"])["proxy_select"]
+    scores, z_read = k6.proxy_select_scores(pp, rays6, WIDE_C, K6_K)
+    zc = k6.candidate_depths(rays6, WIDE_C)
+    pts = rays6[:, None, 0:3] + rays6[:, None, 3:6] * zc[..., None]
+    ref, bar = k3.proxy_scores_ref(pp, pts), k3.proxy_score_bar(pp, pts)
+    within = bool(((scores - ref).abs() <= bar).all())
+    same = torch.equal(got, z_read) and torch.equal(
+        got, k6.proxy_select_ref(pp, rays6, WIDE_C, K6_K, scores=scores))
+    n_sets, worst = k6.cut_swaps(ref, bar, scores, K6_K)
+    err = float((got - k6.proxy_select_ref(pp, rays6, WIDE_C, K6_K)).abs().max())
+    del scores, z_read, zc, pts, ref, bar
+    ms, plain_ms, _ = timed_pair([lambda: k6.proxy_select(pp, rays6, WIDE_C, K6_K)],
+                                 [lambda: k6.proxy_select_ref(pp, rays6, WIDE_C, K6_K)],
+                                 plain_reps=1)
+    bound_ms, bound_by = bound(K6_RAYS * WIDE_C * flop, K6_RAYS * (32 + 4 * K6_K) + k3_bytes)
+    readings["proxy_select"] = {"candidates": WIDE_C, "rays": K6_RAYS, "max_abs_err": err,
+                                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": None}
+    print(f"[29/29] proxy_select at {K6_RAYS} rays, C {WIDE_C}, K {K6_K}: scores "
+          f"{'within' if within else 'BEYOND'} proxy_score_bar; the plain selection on them "
+          f"{'bit-equal, in order' if same else 'DIFFERENT'}; {n_sets} rays keep another set, "
+          f"worst swap / bars {worst:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it; launches "
+          f"{launches['proxy_select']}; {card}", flush=True)
+    if not (within and same and worst <= 1.0):
+        fail("proxy_select at C 512 disagrees with its plain version")
+    return launches, readings
+
+
+def narrowings_phase(ball_ckpt, device, card):
+    """Phase 29. Returns ({kernel: {path: launches}}, {kernel: readings})."""
+    import torch
+
+    t0 = time.perf_counter()
+    readings = {name: {"widths": r} for name, r in check_widths(device, card).items()}
+    torch.cuda.empty_cache()
+    launches = {name: {"width 128 field, library renders (phase 29)": n}
+                for name, n in narrow_field_paths(device, card).items()}
+    wide_launches, wide = wide_candidates(ball_ckpt, device, card)
+    for name, n in wide_launches.items():
+        launches[name] = {f"C {WIDE_C} (phase 29)": n}
+        readings[name] = {f"candidates_{wide[name]['candidates']}": wide[name]}
+    torch.cuda.empty_cache()
+    print(f"[29/29] phase 29 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, readings
+
+
 def main():
     import os
 
@@ -4057,6 +4398,16 @@ def main():
         by["weights round trips (phase 28)"] = trip_launches[name]
         by["psnr_parity (phase 28)"] = parity_launches[name]
         launches[name] += trip_launches[name] + parity_launches[name]
+
+    # ---- 29. the last narrowings: K1 / K4 widths, K3 / K6 above 256 candidates ---------------
+    narrow_launches, narrow = narrowings_phase(ball_ckpt, device, smi)
+    for name, by_path in narrow_launches.items():
+        by = results[name].setdefault("launches_by_path",
+                                      {MAIN_PATH.get(name, "phases 4-28"): launches[name]})
+        by.update(by_path)
+        launches[name] += sum(by_path.values())
+    for name, reading in narrow.items():
+        results[name].update(reading)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -17,7 +17,7 @@ namespace nerf_field {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int W = 256;            // trunk width
+constexpr int W = 256;            // trunk width of K2; the eval fields' default (they take 128-512)
 constexpr int WD = W / 2;         // direction-branch width
 constexpr int TP = 128;           // points per tile
 constexpr int EMB_X = 64;         // 63 xyz-embedding channels + 1 zero column

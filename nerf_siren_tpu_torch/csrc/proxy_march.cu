@@ -47,11 +47,19 @@
 // candidate, the bias and conversion of H hidden units, and the epilogue.
 //
 // Design: one template, three epilogues (OPACITY, SELECT, TOPK).
-// - A persistent CTA (one warpgroup; 4 CTAs per SM, 3 at width 128) walks
-//   blocks of B rays (64 up to C 64, then 32, 16: the block's rows fit in
-//   shared memory at C 256). Its B x C points are rows p = ray C + j,
-//   scored 64 rows at a time; the last tile's rows past the block are
+// - A persistent CTA (one warpgroup) walks blocks of B rays (64 up to C 64,
+//   then 32 up to 128, 16 up to 256). Its B x C points are rows p = ray C +
+//   j, scored 64 rows at a time; the last tile's rows past the block are
 //   padding, scored and dropped.
+// - Above 256 candidates the same code runs as a kernel of its own
+//   (proxy_march_wide_kernel, so the kernels of C <= 256 keep their code)
+//   on blocks of B = max(1, 4096 / C) rays: about 4096 scores a block, down
+//   to one ray a block from C 4096. A block's rows of C scores set its
+//   shared memory (4 bytes a candidate beside ~19 KB of weights at width
+//   128): MAX_CANDIDATES is the largest C whose one-ray block fits the 227
+//   KB a block may use, 53,103. CTAs per SM: as many as both the registers
+//   (4 up to width 96, 3 at 128: min_ctas) and one CTA's shared memory
+//   allow, so 4 / 3 up to C 256 and fewer from some thousands on.
 // - The embedding is built in registers as wgmma's A (m64nNk16, A from
 //   registers, three k16 steps: 33 columns padded to 48). The four threads
 //   of a quad hold the same two rows; thread t holds columns 16 s + 8 h +
@@ -121,9 +129,9 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int FREQS = 5;          // the proxy's embedding frequencies
 constexpr int MAX_HIDDEN = 128;
-constexpr int MAX_CANDIDATES = 256;
 constexpr int K3_MIN_CANDIDATES = 4;  // the march needs two interior candidates
 constexpr int THREADS = 128;  // one warpgroup
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can opt into (227 KB)
 // CTAs per SM the registers must allow: 4 (128 registers a thread) up to
 // width 96, 3 (168) at 128, whose 64 accumulators would spill under 128.
 __host__ __device__ constexpr int min_ctas(int nt) { return nt > 96 ? 3 : 4; }
@@ -134,8 +142,12 @@ constexpr int RANK_P = 4;     // candidates a thread of the top-K ranks at once
 
 enum Epilogue { OPACITY = 0, SELECT = 1, TOPK = 2 };
 
+constexpr int WIDE_FROM = 257;  // the candidates from which the wide kernels run
+
+// Rays a block: up to C 256 64, 32 or 16; the wide kernels' about 4096 candidates.
+template <bool WIDE>
 __host__ __device__ constexpr int rays_per_block(int c) {
-  return c <= 64 ? 64 : c <= 128 ? 32 : 16;
+  return WIDE ? (c < 4096 ? 4096 / c : 1) : (c <= 64 ? 64 : c <= 128 ? 32 : 16);
 }
 __host__ __device__ constexpr int row_ld(int c) { return c | 1; }  // odd row stride
 
@@ -151,9 +163,10 @@ struct Layout {
 
 __host__ __device__ constexpr int w2t_bytes(int nt) { return (nt + 63) / 64 * 1024; }
 
-__host__ __device__ inline Layout layout(int nt, int c) {
-  const int b = rays_per_block(c);
-  Layout l;
+template <bool WIDE>
+__host__ __device__ constexpr Layout layout(int nt, int c) {
+  const int b = rays_per_block<WIDE>(c);
+  Layout l = {};
   l.w2t = nt * W1T_ROW;  // a multiple of 1024: the swizzle's atoms stay aligned
   l.b1 = l.w2t + w2t_bytes(nt);
   l.b2 = l.b1 + nt * 4;
@@ -163,6 +176,27 @@ __host__ __device__ inline Layout layout(int nt, int c) {
   l.bytes = l.rows + b * row_ld(c) * 4;
   return l;
 }
+
+constexpr int block_rays(int c) {
+  return c >= WIDE_FROM ? rays_per_block<true>(c) : rays_per_block<false>(c);
+}
+
+constexpr int shared_bytes(int nt, int c) {
+  return 1024 /* alignment slack */ +
+         (c >= WIDE_FROM ? layout<true>(nt, c) : layout<false>(nt, c)).bytes;
+}
+
+// The largest C whose one-ray block fits SMEM_MAX at the widest hidden
+// width: C = 53,103 (ops/kernels/proxy_march.py::MAX_CANDIDATES mirrors it).
+constexpr int max_candidates() {
+  // one ray a block from C 4096 on: the bytes beside its row, then the floats left for it
+  const int fixed = shared_bytes(MAX_HIDDEN, 4096) - 4 * row_ld(4096);
+  return ((SMEM_MAX - fixed) / 4 - 1) | 1;  // the largest C with row_ld(C) = C | 1 fitting
+}
+constexpr int MAX_CANDIDATES = max_candidates();
+static_assert(shared_bytes(MAX_HIDDEN, MAX_CANDIDATES) <= SMEM_MAX &&
+                  shared_bytes(MAX_HIDDEN, MAX_CANDIDATES + 1) > SMEM_MAX,
+              "MAX_CANDIDATES is the largest C whose one-ray block fits");
 
 struct Args {
   const uint4* w1t;  // (NT, 64) bf16: the pack's k3_w1t
@@ -413,13 +447,14 @@ __device__ __forceinline__ void topk_block(const Args& a, long long r0, const fl
   }
 }
 
-template <int NT, int EPI, bool SCORES>
-__global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(const Args a) {
+// A persistent CTA's blocks (the kernels below).
+template <int NT, int EPI, bool SCORES, bool WIDE>
+__device__ __forceinline__ void march_ctas(const Args& a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int C = a.C, B = rays_per_block(C);
-  const Layout l = layout(NT, C);
+  const int C = a.C, B = rays_per_block<WIDE>(C);
+  const Layout l = layout<WIDE>(NT, C);
   float* b1s = reinterpret_cast<float*>(smem + l.b1);
   float* rays_s = reinterpret_cast<float*>(smem + l.rays);
   float* terms_s = reinterpret_cast<float*>(smem + l.ray_terms);
@@ -470,28 +505,45 @@ __global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(cons
   }
 }
 
+template <int NT, int EPI, bool SCORES>
+__global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_kernel(const Args a) {
+  march_ctas<NT, EPI, SCORES, false>(a);
+}
+
+// C above 256 (WIDE_FROM on): blocks of about 4096 candidates, down to one ray.
+template <int NT, int EPI, bool SCORES>
+__global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_wide_kernel(const Args a) {
+  march_ctas<NT, EPI, SCORES, true>(a);
+}
+
 int hidden_width(int hidden) {
   return hidden <= 16 ? 16 : hidden <= 32 ? 32 : hidden <= 64 ? 64 : hidden <= 96 ? 96 : 128;
 }
 
-int shared_bytes(int nt, int c) { return 1024 /* alignment slack */ + layout(nt, c).bytes; }
-
-// A persistent grid: min_ctas(NT) CTAs on every SM (the registers allow
-// that many, and shared memory stays under 40 KB a CTA up to C 256), or
-// one CTA a block where there are fewer blocks.
+// A persistent grid: on every SM as many CTAs as both the registers
+// (min_ctas(NT)) and the shared memory of one CTA (with the block's
+// reserved share) allow; up to C 256 a CTA takes under 40 KB, so min_ctas.
+// One CTA a block where there are fewer blocks.
 template <int NT, int EPI, bool SCORES>
 int launch_width(const Args& a, void* stream) {
-  auto kernel = proxy_march_kernel<NT, EPI, SCORES>;
+  void (*kernel)(const Args) = a.C >= WIDE_FROM ? proxy_march_wide_kernel<NT, EPI, SCORES>
+                                                : proxy_march_kernel<NT, EPI, SCORES>;
   const int smem = shared_bytes(NT, a.C);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0;
+  int dev = 0, sms = 0, sm_bytes = 0, reserved = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                    dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)) !=
+          cudaSuccess)
     return int(err);
-  const long long n_blocks = (a.n_rays + rays_per_block(a.C) - 1) / rays_per_block(a.C);
-  const long long full = (long long)sms * min_ctas(NT);
+  const int fit = sm_bytes / (smem + reserved);
+  if (fit < 1) return int(cudaErrorInvalidConfiguration);
+  const long long n_blocks = (a.n_rays + block_rays(a.C) - 1) / block_rays(a.C);
+  const long long full = (long long)sms * (fit < min_ctas(NT) ? fit : min_ctas(NT));
   kernel<<<unsigned(n_blocks < full ? n_blocks : full), THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());
@@ -622,5 +674,8 @@ int proxy_march_shared_bytes(int hidden, int n_candidates) {
   if (!valid(hidden, n_candidates, 0, 1)) return -1;
   return shared_bytes(hidden_width(hidden), n_candidates);
 }
+
+// The most candidates a ray the kernels take (one ray a block in 227 KB).
+int proxy_march_max_candidates() { return MAX_CANDIDATES; }
 
 }  // extern "C"

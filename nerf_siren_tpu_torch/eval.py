@@ -16,10 +16,12 @@ pass `--device cpu`). Renderers:
   cached beside the checkpoint as `<ckpt>.proxy.msgpack` keyed by the
   checkpoint's sha256 and the distillation settings: the same file the JAX
   CLI reads and writes.
-On the card K3 takes at most 256 candidates a ray, so `--fast_candidates`
-and `--fast_prepass` above that are refused when the parser sees it would
-launch K3 (`--device cuda`, `--renderer fast` on its kernel route); on the
-CPU the plain march takes any count.
+On the card K3 takes at most 53,103 candidates a ray
+(`proxy_march.MAX_CANDIDATES`: its one-ray block in 227 KB of shared
+memory), so `--fast_candidates` and `--fast_prepass` above that are
+refused when the parser sees it would launch K3 (`--device cuda`,
+`--renderer fast` on its kernel route); on the CPU the plain march takes
+any count.
 
 `--mode d3` (semantic evaluation): the point network of `--semantic_network`
 loads from the checkpoint's 'points' entry (its class count from the

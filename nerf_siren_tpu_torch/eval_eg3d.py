@@ -16,8 +16,9 @@ flags, the proxy distilled once from a generator seeded 7): K3 select
 places `--fast_keep` samples a ray from `--fast_candidates`, in `--chunk`
 tiles; with `--fast_cull auto` the frame renders whole (the culling ranks
 the whole frame) and K3 opacity is its prepass. On the card K3 takes at
-most 256 candidates a ray, so `--fast_candidates` and `--fast_prepass`
-above that are refused at parse time there. `--num_chips N` (0: every
+most 53,103 candidates a ray (`proxy_march.MAX_CANDIDATES`), so
+`--fast_candidates` and `--fast_prepass` above that are refused at parse
+time there. `--num_chips N` (0: every
 visible card; a count above the visible one is refused, naming it)
 renders the exact frames over a mesh of N devices of `--device`
 (`EG3DSystem.render_sharded`: the planes once, one contiguous slab of the

@@ -19,7 +19,8 @@ variant that drops work computes wrong numbers: only its time and its
   240 registers      setmaxnreg 240 for the consumers, 24 for the producer.
 Prints one line per variant: sigma ms at 32768 rays x 64 points, full ms at
 32768 x 192 points (one direction per ray), spill bytes of both
-instantiations, and the card's name and power limit. Needs nvcc and a card.
+instantiations at the field's width (256), and the card's name and power
+limit. Needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import sys
 
 import torch
 
-from nerf_siren_tpu_torch.card_bench import build_variants, card, device_ms, edit
+from nerf_siren_tpu_torch.card_bench import build_variants, card, device_ms, edit, ptxas_props
 from nerf_siren_tpu_torch.config import NeRFConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels import _build
@@ -49,7 +50,7 @@ def variants(src: str) -> dict:
     no_turns = edit(no_turns, "      sm90::named_bar_sync(my_turn, 256);\n", "      wg_sync();\n")
     no_turns = edit(no_turns, "      sm90::named_bar_arrive(other_turn, 256);\n", "")
     no_turns = edit(no_turns, "  if (wg == 0) sm90::named_bar_sync(my_turn, 256);", "")
-    act_epilogue = re.search(r"trunk_epilogue<true, false>\([^;]*;", src).group(0)
+    act_epilogue = re.search(r"trunk_epilogue<true, false, W, BLOCK_BYTES>\([^;]*;", src).group(0)
     return {
         "as built": src,
         "no turns": no_turns,
@@ -58,9 +59,8 @@ def variants(src: str) -> dict:
             src, "      sm90::mbar_arrive_expect_tx(ring.full(), bytes);\n"
                  "      sm90::bulk_copy_g2s(ring.slot(), src, bytes, ring.full());",
             "      sm90::mbar_arrive(ring.full());"),
-        "no products": edit(edit(src, "sm90::wgmma_m64n256k16(acc, da, db, j > 0 || kk > 0);",
-                                 "(void)da;"),
-                            "sm90::wgmma_m64n128k16(acc, da, db, j > 0 || kk > 0);", "(void)db;"),
+        "no products": edit(src, "sm90::wgmma_ss<N>(acc, da, db, j > 0 || kk > 0);",
+                            "(void)da, (void)db;"),
         "240 registers": regs(src, 240, 24),
     }
 
@@ -73,6 +73,7 @@ def main() -> None:
     model = NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(0))
     packed = fm.pack_nerf_params(model, dev)
     weights, emb_mask, table = fm._kernel_args(packed, dev)
+    width = packed["w_sigma"].shape[0]
     ptrs = (ctypes.c_void_p * len(table))(*table)
     gen = torch.Generator(device=dev).manual_seed(1)
     inputs = {}
@@ -85,15 +86,16 @@ def main() -> None:
     def launch(fn, key):
         n, spd, xyz, dirs, out = inputs[key]
         err = fn(weights.data_ptr(), weights.numel(), ptrs, fm._depth(packed), emb_mask,
-                 fm.KERNEL_WIDTH, xyz.data_ptr(), dirs.data_ptr() if spd else None, max(spd, 1),
+                 width, xyz.data_ptr(), dirs.data_ptr() if spd else None, max(spd, 1),
                  out.data_ptr(), n, int(spd > 0), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"nerf_field_forward failed: cudaError {err}")
 
     src = (_build.CSRC_DIR / "fused_mlp.cu").read_text()
     for label, fn, log in build_variants(variants(src), "nerf_field_forward", fm.KERNEL_ARGTYPES):
-        spills = [int(a) + int(b) for a, b in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        props = ptxas_props(log)
+        spills = [next(v[1] for k, v in props.items()
+                       if f"nerf_field_kernelILi{width}ELb{full}E" in k) for full in (0, 1)]
         times = {key: device_ms(lambda: launch(fn, key), REPS) for key in SHAPES}
         print(f"[k1_ablation] {label:18s} sigma {times['sigma']:.3f} ms, full "
               f"{times['full']:.3f} ms; spill bytes (sigma, full) {tuple(spills)}; {smi}",

@@ -1,5 +1,5 @@
-"""K1 and K2 of this tree and another in turns, on one card, through
-`chip_smoke.py`'s own readings.
+"""K1-K4 and K6 of this tree and another in turns, on one card, through
+`chip_smoke.py`'s own readings and the kernels' device times.
 
     python -m nerf_siren_tpu_torch.kernel_turns <other tree> [--rounds 2]
 
@@ -17,8 +17,12 @@ calls, so a call shorter on the card than on the host reads the host's
 launch cost. Each process therefore also takes the same work's device
 time alone (`card_bench.kernel_ms`, the profiler's kernels): the full
 pass at its shape and K2 at the culled shape on inputs made as phase 23
-makes them. Then it reads the card's SM clock, temperature and power
-draw. Prints each turn's ms per reading, the medians per tree, and the
+makes them, and the proxy and int8 kernels at phase 8's shapes on the
+lego frame's rays with a seeded proxy (hidden 96): K3 select at one chunk
+(C 32, K 16), K3 opacity over the frame (C 16), K6 at 65,536 rays (C 64,
+K 16), K4's sigma pass at the chunk's 64 coarse points a ray and its full
+pass at 16 survivors a ray. Then it reads the card's SM clock, temperature
+and power draw. Prints each turn's ms per reading, the medians per tree, and the
 card's name and power limit. Needs a card and nvcc.
 """
 from __future__ import annotations
@@ -33,7 +37,9 @@ from pathlib import Path
 import numpy as np
 
 READINGS = ("fused_nerf_sigma", "fused_nerf_full", "fused_train_fwd", "fused_train_bwd",
-            "device fused_nerf_full", "device fused_train_fwd", "device fused_train_bwd")
+            "device fused_nerf_full", "device fused_train_fwd", "device fused_train_bwd",
+            "device proxy_march_select", "device proxy_opacity", "device proxy_select",
+            "device fused_nerf_sigma_int8", "device fused_nerf_full_int8")
 
 # One process's readings, in the root of the tree it measures; only the
 # smoke's functions that both trees share.
@@ -45,10 +51,15 @@ import chip_smoke as cs
 from nerf_siren_tpu_torch.card_bench import card, kernel_ms
 from nerf_siren_tpu_torch.ops.kernels import _build
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+from nerf_siren_tpu_torch.render.fast import init_proxy
 
-with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    list(pool.map(_build.build, ("fused_mlp", "fused_mlp_train")))
+sources = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8")
+with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    list(pool.map(_build.build, sources))
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 smi = card()
@@ -79,6 +90,22 @@ packs = [k2.pack_train_params(models[k].state_dict()) for k in ("coarse", "fine"
 ms["device fused_train_fwd"] = device(lambda: [k2.fused_train_fwd(p, pts, d, s) for p in packs])
 ms["device fused_train_bwd"] = device(lambda: [k2.fused_train_bwd(p, pts, d, dy, s)
                                                for p in packs])
+pp = k3.pack_proxy_params(init_proxy(96, generator=torch.Generator().manual_seed(1)), dev)
+chunk = rays[torch.randint(0, rays.shape[0], (cs.CHUNK,), generator=gen, device=dev)]
+ms["device proxy_march_select"] = device(
+    lambda: k3.proxy_march_select(pp, chunk, cs.FAST_C, cs.FAST_K, midpoint=True))
+ms["device proxy_opacity"] = device(lambda: k3.proxy_opacity(pp, rays, cs.PREPASS_C))
+ms["device proxy_select"] = device(lambda: k6.proxy_select(pp, rays[:cs.K6_RAYS], cs.K6_C,
+                                                            cs.K6_K))
+p8 = k4.pack_nerf_params_int8(models["fine"])
+z = torch.linspace(cs.NEAR, cs.FAR, cs.N_SAMPLES, device=dev)
+coarse = (chunk[:, None, :3] + chunk[:, None, 3:6] * z[:, None]).reshape(-1, 3)
+z = torch.linspace(cs.NEAR, cs.FAR, cs.FAST_K, device=dev)
+surv = (chunk[:, None, :3] + chunk[:, None, 3:6] * z[:, None]).reshape(-1, 3)
+d = chunk[:, 3:6].contiguous()
+ms["device fused_nerf_sigma_int8"] = device(lambda: k4.fused_nerf_sigma_int8(p8, coarse))
+ms["device fused_nerf_full_int8"] = device(lambda: k4.fused_nerf_full_int8(p8, surv, d,
+                                                                           cs.FAST_K))
 after = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
                         "--format=csv,noheader"], capture_output=True, text=True,
                        timeout=60).stdout.strip()

@@ -14,7 +14,8 @@ module owns everything around it:
   linears), as the JAX pack does (~1e-4 output delta against the unfolded
   MLP). The TPU layout tricks (k-major permuted sin/cos rows, +pi/2 cos
   phase, 128-row heads, the (8, N) lane-major point layout) are not kept.
-- `k1_stream` (a key of the pack at the kernel's width): the weights again,
+- `k1_stream` (a key of the pack at each of the kernel's widths,
+  `KERNEL_WIDTHS`): the weights again,
   as the kernel streams them. One bf16 buffer of 64-input slices in the
   order `k1_schedule` lists (the order the kernel consumes them), each
   slice (rows, 64) in the 128-byte swizzle its wgmma reads: 16-byte chunk
@@ -42,7 +43,7 @@ from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 
 EMB_X = 64        # 63 xyz-embedding channels + 1 zero column
 EMB_D = 32        # 27 direction-embedding channels + 5 zero columns
-KERNEL_WIDTH = 256  # the width csrc/fused_mlp.cu is compiled for
+KERNEL_WIDTHS = (128, 256, 384, 512)   # the widths csrc/fused_mlp.cu is compiled for
 MAX_DEPTH = 16
 SLICE = 64        # inputs per slice of `k1_stream`: one 128-byte swizzle row
 
@@ -83,8 +84,8 @@ def pack_nerf_params(model: NeRF, device=None) -> Packed:
     w["w_rgb"] = f32(model.rgb.weight)
     b["b_rgb"] = f32(model.rgb.bias)
 
-    if width == KERNEL_WIDTH:
-        w["k1_stream"] = _k1_stream(w, cfg.depth)
+    if width in KERNEL_WIDTHS:
+        w["k1_stream"] = _k1_stream(w, cfg.depth, width)
     out = {k: v.to(device, torch.bfloat16).contiguous() for k, v in w.items()}
     out.update({k: v.to(device).contiguous() for k, v in b.items()})
     return out
@@ -103,18 +104,19 @@ def _emb_layers(packed: Packed) -> list:
     return [i for i in range(_depth(packed)) if f"w{i}e" in packed]
 
 
-def k1_schedule(depth: int, emb_layers) -> list:
-    """The slices of `k1_stream`, in the order the kernel consumes them, as
-    (weight key, first input column): per trunk layer its hidden slices
-    (none at layer 0), then its embedding slice if it takes the embedding;
-    then W_comb's slices and W_dir's (zero-padded to SLICE inputs)."""
+def k1_schedule(depth: int, emb_layers, width: int) -> list:
+    """The slices of `k1_stream` of a field of trunk width `width`, in the
+    order the kernel consumes them, as (weight key, first input column): per
+    trunk layer its hidden slices (none at layer 0), then its embedding
+    slice if it takes the embedding; then W_comb's slices and W_dir's
+    (zero-padded to SLICE inputs)."""
     out = []
     for i in range(depth):
         if i:
-            out += [(f"w{i}", c) for c in range(0, KERNEL_WIDTH, SLICE)]
+            out += [(f"w{i}", c) for c in range(0, width, SLICE)]
         if i in emb_layers:
             out.append((f"w{i}e", 0))
-    return out + [("w_comb", c) for c in range(0, KERNEL_WIDTH, SLICE)] + [("w_dir", 0)]
+    return out + [("w_comb", c) for c in range(0, width, SLICE)] + [("w_dir", 0)]
 
 
 _SWIZZLE: Dict[tuple, tuple] = {}   # (rows, device) -> index tensors, made once
@@ -133,33 +135,34 @@ def _swizzle128(s: torch.Tensor) -> torch.Tensor:
     return s.reshape(*s.shape[:-1], 8, 8)[..., r, chunk, :].reshape(s.shape)
 
 
-def _k1_stream(w: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:
+def _k1_stream(w: Dict[str, torch.Tensor], depth: int, width: int) -> torch.Tensor:
     slices = []
-    for k, c in k1_schedule(depth, [i for i in range(depth) if f"w{i}e" in w]):
+    for k, c in k1_schedule(depth, [i for i in range(depth) if f"w{i}e" in w], width):
         s = w[k][:, c: c + SLICE]
         slices.append(_swizzle128(F.pad(s, (0, SLICE - s.shape[1]))).flatten())
     return torch.cat(slices)
 
 
-def _slice_rows(key: str) -> int:
-    return KERNEL_WIDTH // 2 if key in ("w_comb", "w_dir") else KERNEL_WIDTH
+def _slice_rows(key: str, width: int) -> int:
+    return width // 2 if key in ("w_comb", "w_dir") else width
 
 
-def k1_stream_numel(depth: int, emb_layers) -> int:
-    return sum(_slice_rows(k) * SLICE for k, _ in k1_schedule(depth, emb_layers))
+def k1_stream_numel(depth: int, emb_layers, width: int) -> int:
+    return sum(_slice_rows(k, width) * SLICE for k, _ in k1_schedule(depth, emb_layers, width))
 
 
-def unpack_k1_stream(stream: torch.Tensor, depth: int, emb_layers) -> Dict[str, torch.Tensor]:
-    """The weights `k1_stream` holds, rebuilt from it alone (the plain
-    inverse of the pack): {key: (rows, in) in the stream's dtype}; `w_dir`
-    keeps its SLICE zero-padded inputs."""
-    if stream.numel() != k1_stream_numel(depth, emb_layers):
-        raise ValueError(f"k1_stream: {stream.numel()} elements, the schedule holds "
-                         f"{k1_stream_numel(depth, emb_layers)}")
+def unpack_k1_stream(stream: torch.Tensor, depth: int, emb_layers,
+                     width: int) -> Dict[str, torch.Tensor]:
+    """The weights `k1_stream` of a field of trunk width `width` holds,
+    rebuilt from it alone (the plain inverse of the pack): {key: (rows, in)
+    in the stream's dtype}; `w_dir` keeps its SLICE zero-padded inputs."""
+    numel = k1_stream_numel(depth, emb_layers, width)
+    if stream.numel() != numel:
+        raise ValueError(f"k1_stream: {stream.numel()} elements, the schedule holds {numel}")
     parts: Dict[str, Dict[int, torch.Tensor]] = {}
     off = 0
-    for k, c in k1_schedule(depth, emb_layers):
-        rows = _slice_rows(k)
+    for k, c in k1_schedule(depth, emb_layers, width):
+        rows = _slice_rows(k, width)
         parts.setdefault(k, {})[c] = _swizzle128(stream[off: off + rows * SLICE].view(rows, SLICE))
         off += rows * SLICE
     return {k: torch.cat([v[c] for c in sorted(v)], dim=1) for k, v in parts.items()}
@@ -254,8 +257,9 @@ def _width(packed: Packed, what: str) -> int:
     depth, width = _depth(packed), packed["w_sigma"].shape[0]
     if not 1 <= depth <= MAX_DEPTH:
         raise ValueError(f"{what} takes depth 1..{MAX_DEPTH}, got {depth}")
-    if width != KERNEL_WIDTH:
-        raise ValueError(f"{what} is built for width {KERNEL_WIDTH}, got {width}")
+    if width not in KERNEL_WIDTHS:
+        raise ValueError(f"{what} is built for widths {', '.join(map(str, KERNEL_WIDTHS))}, "
+                         f"got width {width}")
     return width
 
 
@@ -284,7 +288,8 @@ def _kernel_args(packed: Packed, device) -> tuple:
     if "k1_stream" not in packed:
         raise ValueError("k1_stream: the pack has no weight stream (pack_nerf_params builds it)")
     stream = packed["k1_stream"]
-    _check(stream, "k1_stream", device, torch.bfloat16, (k1_stream_numel(depth, emb_layers),))
+    _check(stream, "k1_stream", device, torch.bfloat16,
+           (k1_stream_numel(depth, emb_layers, width),))
     for i in range(depth):
         _check(packed[f"b{i}"], f"b{i}", device, torch.float32, (width,))
     emb_mask = sum(1 << i for i in emb_layers)
@@ -313,7 +318,7 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(weights.data_ptr(), weights.numel(), (ctypes.c_void_p * len(table))(*table),
-                 _depth(packed), emb_mask, KERNEL_WIDTH, xyz.data_ptr(),
+                 _depth(packed), emb_mask, packed["w_sigma"].shape[0], xyz.data_ptr(),
                  dirs.data_ptr() if full else None, samples_per_dir, out.data_ptr(), n, int(full),
                  stream)
     if err != 0:

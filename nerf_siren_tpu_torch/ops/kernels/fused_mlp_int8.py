@@ -14,10 +14,11 @@ kernels `_full_kernel_int8` / `_sigma_kernel_int8`). The kernel is
   ``q{i}`` / ``f{i}``. Biases and the bf16 heads are K1's pack
   (`fused_mlp.pack_nerf_params`), the W_comb fold included. The key ``q0x``
   marks an int8 pack (`render.fused.field_kernels` dispatches on it).
-- `k4_stream` (a key of the pack at the kernel's width): the weights the
+- `k4_stream` (a key of the pack at each of K1's widths, `KERNEL_WIDTHS`,
+  which K4 takes too): the weights the
   kernel streams, as one int8 buffer of slices in the order `k4_schedule`
   lists (the order the kernel consumes them): per layer its hidden columns
-  in two 128-input slices, then its sin/cos columns zero-padded to one; then
+  in 128-input slices (W / 128), then its sin/cos columns zero-padded to one; then
   K1's bf16 W_comb / W_dir slices (`fused_mlp.k1_schedule`), as bytes. Each
   slice has rows of 128 bytes in the 128-byte swizzle wgmma reads: 16-byte
   chunk j of row r holds chunk j ^ (r % 8). `unpack_k4_stream` is its plain
@@ -46,7 +47,7 @@ from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp
-from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTH, SLICE, Packed,
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTHS, SLICE, Packed,
                                                         _bf16, _check, _depth, _width,
                                                         full_heads_ref, head_pointers,
                                                         sigma_head_ref)
@@ -83,9 +84,9 @@ def pack_nerf_params_int8(model: NeRF, device=None) -> Packed:
         else:
             q[f"q{i}"], q[f"f{i}"] = _quant_rows(k)
         out[f"b{i}"] = base[f"b{i}"]
-    if cfg.width == KERNEL_WIDTH:
+    if cfg.width in KERNEL_WIDTHS:
         q["k4_stream"] = _k4_stream({**q, "w_comb": base["w_comb"].cpu(),
-                                     "w_dir": base["w_dir"].cpu()}, cfg.depth)
+                                     "w_dir": base["w_dir"].cpu()}, cfg.depth, cfg.width)
     out.update({k: v.to(device).contiguous() for k, v in q.items()})
     return out
 
@@ -99,25 +100,25 @@ def _emb_layers(packed: Packed) -> list:
     return [i for i in range(_depth(packed)) if f"q{i}x" in packed]
 
 
-def k4_schedule(depth: int, emb_layers) -> list:
-    """The slices of `k4_stream`, in the order the kernel consumes them, as
-    (weight key, first input column): per trunk layer its two hidden slices
-    of 128 int8 inputs (none at layer 0), then its sin/cos slice if it takes
-    the embedding; then K1's bf16 slices of W_comb (64 inputs each) and W_dir
-    (zero-padded to 64)."""
+def k4_schedule(depth: int, emb_layers, width: int) -> list:
+    """The slices of `k4_stream` of a field of trunk width `width`, in the
+    order the kernel consumes them, as (weight key, first input column): per
+    trunk layer its hidden slices of 128 int8 inputs (width / 128; none at
+    layer 0), then its sin/cos slice if it takes the embedding; then K1's
+    bf16 slices of W_comb (64 inputs each) and W_dir (zero-padded to 64)."""
     out = []
     for i in range(depth):
         if i:
-            out += [(f"q{i}", c) for c in range(0, KERNEL_WIDTH, ROW_BYTES)]
+            out += [(f"q{i}", c) for c in range(0, width, ROW_BYTES)]
         if i in emb_layers:
             out.append((f"q{i}s", 0))
-    return out + [("w_comb", c) for c in range(0, KERNEL_WIDTH, SLICE)] + [("w_dir", 0)]
+    return out + [("w_comb", c) for c in range(0, width, SLICE)] + [("w_dir", 0)]
 
 
-def _slice_shape(key: str) -> tuple:
+def _slice_shape(key: str, width: int) -> tuple:
     """(rows, inputs) of one slice of `key`: int8 trunk slices hold 128
     inputs of all W outputs, the bf16 direction-branch ones 64 of W / 2."""
-    return (KERNEL_WIDTH // 2, SLICE) if key in ("w_comb", "w_dir") else (KERNEL_WIDTH, ROW_BYTES)
+    return (width // 2, SLICE) if key in ("w_comb", "w_dir") else (width, ROW_BYTES)
 
 
 def _swizzle_bytes(s: torch.Tensor) -> torch.Tensor:
@@ -126,31 +127,34 @@ def _swizzle_bytes(s: torch.Tensor) -> torch.Tensor:
     return fused_mlp._swizzle128(s.view(torch.int16)).view(torch.int8)
 
 
-def _k4_stream(w: Dict[str, torch.Tensor], depth: int) -> torch.Tensor:
+def _k4_stream(w: Dict[str, torch.Tensor], depth: int, width: int) -> torch.Tensor:
     slices = []
-    for k, c in k4_schedule(depth, [i for i in range(depth) if f"q{i}x" in w]):
-        cols = _slice_shape(k)[1]
+    for k, c in k4_schedule(depth, [i for i in range(depth) if f"q{i}x" in w], width):
+        cols = _slice_shape(k, width)[1]
         s = F.pad(w[k][:, c: c + cols], (0, max(0, c + cols - w[k].shape[1])))
         slices.append(_swizzle_bytes(s.contiguous().view(torch.int8)).flatten())
     return torch.cat(slices)
 
 
-def k4_stream_numel(depth: int, emb_layers) -> int:
-    return sum(_slice_shape(k)[0] * ROW_BYTES for k, _ in k4_schedule(depth, emb_layers))
+def k4_stream_numel(depth: int, emb_layers, width: int) -> int:
+    return sum(_slice_shape(k, width)[0] * ROW_BYTES
+               for k, _ in k4_schedule(depth, emb_layers, width))
 
 
-def unpack_k4_stream(stream: torch.Tensor, depth: int, emb_layers) -> Dict[str, torch.Tensor]:
-    """The weights `k4_stream` holds, rebuilt from it alone (the plain
-    inverse of the pack): {key: (rows, in)}, int8 for the trunk's ``q*``
-    keys and bf16 for ``w_comb`` / ``w_dir``; ``q{i}s`` keeps its 128
-    zero-padded inputs and ``w_dir`` its 64."""
-    if stream.numel() != k4_stream_numel(depth, emb_layers):
-        raise ValueError(f"k4_stream: {stream.numel()} bytes, the schedule holds "
-                         f"{k4_stream_numel(depth, emb_layers)}")
+def unpack_k4_stream(stream: torch.Tensor, depth: int, emb_layers,
+                     width: int) -> Dict[str, torch.Tensor]:
+    """The weights `k4_stream` of a field of trunk width `width` holds,
+    rebuilt from it alone (the plain inverse of the pack): {key: (rows,
+    in)}, int8 for the trunk's ``q*`` keys and bf16 for ``w_comb`` /
+    ``w_dir``; ``q{i}s`` keeps its 128 zero-padded inputs and ``w_dir`` its
+    64."""
+    numel = k4_stream_numel(depth, emb_layers, width)
+    if stream.numel() != numel:
+        raise ValueError(f"k4_stream: {stream.numel()} bytes, the schedule holds {numel}")
     parts: Dict[str, Dict[int, torch.Tensor]] = {}
     off = 0
-    for k, c in k4_schedule(depth, emb_layers):
-        rows = _slice_shape(k)[0]
+    for k, c in k4_schedule(depth, emb_layers, width):
+        rows = _slice_shape(k, width)[0]
         s = _swizzle_bytes(stream[off: off + rows * ROW_BYTES].view(rows, ROW_BYTES))
         parts.setdefault(k, {})[c] = s if k[0] == "q" else s.view(torch.bfloat16)
         off += rows * ROW_BYTES
@@ -210,16 +214,18 @@ def fused_full_int8_ref(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
 
 # ---- CUDA kernel ------------------------------------------------------------
 
-def _kernel_fn():
-    """`nerf_field_int8_forward` from the built library (built at first use)."""
+def _lib():
+    """The built library (built at first use), its entry points typed."""
     from nerf_siren_tpu_torch.ops.kernels import _build
 
-    fn = _build.load("fused_mlp_int8").nerf_field_int8_forward
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_longlong, ctypes.POINTER(p), ctypes.c_int, ctypes.c_int, p, p,
-                   ctypes.c_longlong, p, ctypes.c_longlong, ctypes.c_int, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("fused_mlp_int8")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.nerf_field_int8_forward.argtypes = [p, ctypes.c_longlong, ctypes.POINTER(p), i, i, p, p,
+                                            p, ctypes.c_longlong, p, ctypes.c_longlong, i, p, p]
+    lib.nerf_field_int8_consts_floats.argtypes = [i, i, i]
+    for fn in (lib.nerf_field_int8_forward, lib.nerf_field_int8_consts_floats):
+        fn.restype = i
+    return lib
 
 
 def _pointer_table(packed: Packed, device) -> list:
@@ -231,7 +237,7 @@ def _pointer_table(packed: Packed, device) -> list:
         raise ValueError("k4_stream: the pack has no weight stream "
                          "(pack_nerf_params_int8 builds it)")
     _check(packed["k4_stream"], "k4_stream", device, torch.int8,
-           (k4_stream_numel(depth, _emb_layers(packed)),))
+           (k4_stream_numel(depth, _emb_layers(packed), width),))
     i8, f32 = torch.int8, torch.float32
     shapes = {"q0x": (i8, (width, 3))}
     for i in range(depth):
@@ -273,14 +279,19 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
     out = torch.empty((n, 4 if full else 1), dtype=torch.float32, device=xyz.device)
     if n == 0:
         return out
+    depth, width = _depth(packed), packed["w_sigma"].shape[0]
+    lib = _lib()
+    # the split widths' per-column constants table, which the launch fills
+    n_consts = lib.nerf_field_int8_consts_floats(width, depth, len(_emb_layers(packed)))
+    consts = torch.empty(n_consts, dtype=torch.float32, device=xyz.device) if n_consts else None
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
         weights = packed["k4_stream"]
-        err = _kernel_fn()(weights.data_ptr(), weights.numel(),
-                           (ctypes.c_void_p * len(table))(*table), _depth(packed),
-                           KERNEL_WIDTH, xyz.data_ptr(), dirs.data_ptr() if full else None,
-                           samples_per_dir, out.data_ptr(), n, int(full),
-                           None if dump is None else dump.data_ptr(), stream)
+        err = lib.nerf_field_int8_forward(
+            weights.data_ptr(), weights.numel(), (ctypes.c_void_p * len(table))(*table), depth,
+            width, None if consts is None else consts.data_ptr(), xyz.data_ptr(),
+            dirs.data_ptr() if full else None, samples_per_dir, out.data_ptr(), n, int(full),
+            None if dump is None else dump.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nerf_field_int8_forward failed: cudaError {err}")
     return out
@@ -320,7 +331,7 @@ def int8_trunk_inputs(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     plain version's."""
     if xyz.device.type == "cpu":
         return int8_trunk_inputs_ref(packed, xyz)
-    dump = torch.zeros((_depth(packed), xyz.shape[0], KERNEL_WIDTH), dtype=torch.int8,
-                       device=xyz.device)
+    dump = torch.zeros((_depth(packed), xyz.shape[0], packed["w_sigma"].shape[0]),
+                       dtype=torch.int8, device=xyz.device)
     _launch(packed, xyz, None, 1, dump)
     return dump

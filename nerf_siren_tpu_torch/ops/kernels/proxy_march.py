@@ -57,14 +57,40 @@ from nerf_siren_tpu_torch.ops.kernels.fused_mlp import _bf16, _check, _swizzle12
 PROXY_FREQS = 5
 PROXY_IN = 3 * (2 * PROXY_FREQS + 1)   # 33
 MAX_HIDDEN = 128
-MAX_CANDIDATES = 256   # blocks of 16 rays at C 256 keep the scores in shared memory
+SMEM_MAX = 232448      # shared memory one block may use on an H100 (227 KB)
 K3_MIN_CANDIDATES = 4  # the march needs two interior candidates (JAX asserts C >= 4)
 K3_WIDTHS = (16, 32, 64, 96, 128)   # hidden widths of the kernel's wgmma wrappers
 K3_COLUMNS = 48        # embedding columns of the kernel's A: 33, padded to three k16 steps
 K3_ROW = 64            # bf16 per row of `k3_w1t`: one 128-byte swizzle row
-_SCORE_CHUNK = 1 << 20  # points per step of the plain score (bounds its temporaries)
+# points per step of the plain score: bounds its temporaries, and on the CPU
+# keeps a step's (N, H) running sums in cache (3x faster than 2^20 there)
+_SCORE_CHUNK = {"cpu": 1 << 16, "cuda": 1 << 20}
 
 LAUNCHES = {"opacity": 0, "select": 0}
+
+
+def rays_per_block(n_candidates: int) -> int:
+    """Rays of one block of the kernels at C candidates (csrc/proxy_march.cu):
+    64 up to C 64, 32 up to 128, 16 up to 256, then about 4096 scores a
+    block, down to one ray from C 4096."""
+    c = n_candidates
+    return 64 if c <= 64 else 32 if c <= 128 else 16 if c <= 256 else max(1, 4096 // c)
+
+
+def shared_bytes_at(width: int, n_candidates: int) -> int:
+    """One CTA's dynamic shared memory at wgmma width `width` (`k3_width`)
+    and C candidates, as csrc/proxy_march.cu lays it out: the W1^T tile,
+    w2's B, b1, b2, then per ray of the block 8 + 4 floats and a row of C
+    scores at an odd stride; 1024 bytes of alignment slack."""
+    b = rays_per_block(n_candidates)
+    return (1024 + width * 2 * K3_ROW + (width + 63) // 64 * 1024 + 4 * width + 16
+            + b * 48 + 4 * b * (n_candidates | 1))
+
+
+# The most candidates a ray the kernels take: the largest C whose one-ray
+# block (from C 4096 on) fits SMEM_MAX at the widest hidden width, 53,103:
+# the floats left beside the block's other bytes, at the odd row stride C | 1.
+MAX_CANDIDATES = ((SMEM_MAX - shared_bytes_at(MAX_HIDDEN, 4096) + 4 * 4097) // 4 - 1) | 1
 
 Packed = Dict[str, torch.Tensor]
 
@@ -169,8 +195,9 @@ def proxy_scores_ref(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     flat = xyz.reshape(-1, 3)
     w2, b2 = packed["w2"].float(), packed["b2"]
     out = []
-    for i in range(0, flat.shape[0], _SCORE_CHUNK):
-        h = _bf16(torch.relu(_pre_ref(packed, flat[i: i + _SCORE_CHUNK])[1]))
+    step = _SCORE_CHUNK[flat.device.type]
+    for i in range(0, flat.shape[0], step):
+        h = _bf16(torch.relu(_pre_ref(packed, flat[i: i + step])[1]))
         score = torch.zeros(h.shape[0], dtype=torch.float32, device=xyz.device)
         for k in range(w2.shape[0]):
             score = score + h[:, k] * w2[k]
@@ -202,8 +229,9 @@ def proxy_score_bar(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     flat = xyz.reshape(-1, 3)
     w1a, w2 = packed["w1"].float().abs(), packed["w2"].float()
     out = []
-    for i in range(0, flat.shape[0], _SCORE_CHUNK):
-        emb, pre = _pre_ref(packed, flat[i: i + _SCORE_CHUNK])
+    step = _SCORE_CHUNK[flat.device.type]
+    for i in range(0, flat.shape[0], step):
+        emb, pre = _pre_ref(packed, flat[i: i + step])
         h = _bf16(torch.relu(pre))
         d = 2.0 ** -17 * (emb.abs() @ w1a.t())
         dd = d + 2.0 ** -21 * (pre.abs() + d)
@@ -309,20 +337,27 @@ def _lib():
     lib.proxy_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p]
     lib.proxy_select_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p, p]
     lib.proxy_march_shared_bytes.argtypes = [i, i]
+    lib.proxy_march_max_candidates.argtypes = []
     for fn in (lib.proxy_opacity_forward, lib.proxy_march_select_forward,
                lib.proxy_march_scores_forward, lib.proxy_select_forward,
-               lib.proxy_select_scores_forward, lib.proxy_march_shared_bytes):
+               lib.proxy_select_scores_forward, lib.proxy_march_shared_bytes,
+               lib.proxy_march_max_candidates):
         fn.restype = i
     return lib
 
 
 def shared_bytes(hidden: int, n_candidates: int) -> int:
     """Dynamic shared memory of one CTA of the kernels at these sizes, in
-    bytes (the smoke's build report)."""
+    bytes, from the built library (the smoke's build report)."""
     n = _lib().proxy_march_shared_bytes(hidden, n_candidates)
     if n < 0:
         raise ValueError(f"proxy kernels do not take hidden {hidden}, C {n_candidates}")
     return n
+
+
+def kernel_max_candidates() -> int:
+    """The built library's candidate cap (`MAX_CANDIDATES` mirrors it)."""
+    return _lib().proxy_march_max_candidates()
 
 
 def check_range(what: str, name: str, value: int, least: int, most: int) -> None:

@@ -35,6 +35,7 @@ from nerf_siren_tpu.render import triplane as J
 from nerf_siren_tpu.training.checkpoints import save_checkpoint
 from nerf_siren_tpu.training.eg3d_system import EG3DSystem as JEG3DSystem
 from nerf_siren_tpu_torch.convert import eg3d_from_jax
+from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
 from nerf_siren_tpu_torch.render import triplane as T
 from nerf_siren_tpu_torch.training.checkpoints import load_eg3d_ckpt
 from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
@@ -183,9 +184,12 @@ def test_eval_eg3d_cli_matches_jax(tmp_path, scene, jax_frames, sampler):
     # (slice 4 brought its loader), a semantic loader is refused
     pytest.param(["--dataset_name", "replica"], None, id="args2-slice 4"),
     (["--dataset_name", "blender_cls_ib"], "invalid choice: 'blender_cls_ib'"),
-    # K3 takes at most 256 candidates a ray on the card (the default device)
-    (["--renderer", "fast", "--fast_candidates", "300"], "takes at most 256"),
-    (["--renderer", "fast", "--fast_prepass", "300"], "takes at most 256"),
+    # K3 takes at most MAX_CANDIDATES a ray on the card (the default device);
+    # the cap rose from 256 to 53,103: the cases keep their old ids
+    pytest.param(["--renderer", "fast", "--fast_candidates", str(MAX_CANDIDATES + 1)],
+                 f"takes at most {MAX_CANDIDATES} candidates", id="args4-takes at most 256"),
+    pytest.param(["--renderer", "fast", "--fast_prepass", str(MAX_CANDIDATES + 1)],
+                 f"takes at most {MAX_CANDIDATES} candidates", id="args5-takes at most 256"),
 ])
 def test_eval_eg3d_cli_refuses_what_later_slices_bring(args, message, capsys):
     from nerf_siren_tpu_torch.eval_eg3d import get_opts

@@ -76,6 +76,32 @@ def test_full_matches_jax_kernel(field):
     assert got[:, :3].min() >= 0 and got[:, :3].max() <= 1
 
 
+# a width the kernel takes beside 256, at the shortest depth JAX's pack takes
+# with its one topology (the skip at 4)
+WIDE = NeRFConfig(depth=5, width=384)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_width_384_matches_jax_kernel(full):
+    """At width 384 (one of the kernel's split widths), depth 5 with the skip
+    at 4: the port's plain versions against JAX's Pallas kernel in
+    interpret mode."""
+    params = init_nerf(jax.random.PRNGKey(1), WIDE)
+    model = NeRF(WIDE)
+    model.load_state_dict(nerf_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    jpacked, tpacked = jfm.pack_nerf_params(params, WIDE), tfm.pack_nerf_params(model)
+    assert "k1_stream" in tpacked
+    xyz, d = _points(130, 5)
+    if full:
+        ref = jfm.fused_nerf_full(jpacked, jnp.asarray(xyz), jnp.asarray(d), depth=5, skips=(4,))
+        got = tfm.fused_nerf_full(tpacked, torch.from_numpy(xyz), torch.from_numpy(d))
+    else:
+        ref = jfm.fused_nerf_sigma(jpacked, jnp.asarray(xyz), depth=5, skips=(4,))
+        got = tfm.fused_nerf_sigma(tpacked, torch.from_numpy(xyz))
+    assert got.shape == ref.shape == (130, 4 if full else 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 @pytest.mark.parametrize("full", [False, True])
 def test_plain_field_matches_apply_nerf_bf16(field, full):
     """Checks the W_comb fold (sanctioned ~1e-4 delta) against the unfolded
@@ -127,14 +153,25 @@ def test_render_rays_fused_rejects_non_eval_configs(field):
 
 # ---- the kernel's weight stream (k1_stream) ----------------------------------
 
-@pytest.mark.parametrize("depth,skips", [(8, (4,)), (3, (1,))])
-def test_k1_stream_unpacks_to_every_weight(depth, skips):
+STREAM_CASES = [(8, (4,)), (3, (1,))]   # (depth, skips): the reference field, a short one
+
+
+def width_id(width, ident):
+    """A case's id at `width`: the width-256 ids are the ones they had when
+    256 was the kernel's only width."""
+    return ident if width == 256 else f"w{width}-{ident}"
+
+
+@pytest.mark.parametrize("width,depth,skips", [
+    pytest.param(w, d, s, id=width_id(w, f"{d}-skips{i}"))
+    for w in tfm.KERNEL_WIDTHS for i, (d, s) in enumerate(STREAM_CASES)])
+def test_k1_stream_unpacks_to_every_weight(width, depth, skips):
     """The plain inverse rebuilds every streamed weight of the pack exactly;
     W_dir's padding to 64 inputs is zero."""
-    model = NeRF(NeRFConfig(depth=depth, width=256, skips=skips))
+    model = NeRF(NeRFConfig(depth=depth, width=width, skips=skips))
     packed = tfm.pack_nerf_params(model)
     emb_layers = [0, *skips]
-    got = tfm.unpack_k1_stream(packed["k1_stream"], depth, emb_layers)
+    got = tfm.unpack_k1_stream(packed["k1_stream"], depth, emb_layers, width)
     expect = ({f"w{i}" for i in range(1, depth)} | {f"w{i}e" for i in emb_layers}
               | {"w_comb", "w_dir"})
     assert set(got) == expect
@@ -144,22 +181,29 @@ def test_k1_stream_unpacks_to_every_weight(depth, skips):
     assert not got["w_dir"][:, tfm.EMB_D:].any()
 
 
-@pytest.mark.parametrize("depth,skips,n_trunk", [(8, (4,), 30), (3, (1,), 10)])
-def test_k1_stream_order_and_swizzle(depth, skips, n_trunk):
-    """The slice count and order documented in csrc/fused_mlp.cu (the reference
-    field 30 trunk + 5 direction slices, depth 3 with the skip at 1 10 + 5),
-    and each element where the 128-byte swizzle puts it: element (r, c) of a
-    slice at r * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8."""
-    packed = tfm.pack_nerf_params(NeRF(NeRFConfig(depth=depth, width=256, skips=skips)))
-    sched = tfm.k1_schedule(depth, [0, *skips])
+# n_trunk = 1 + (depth - 1) W / 64 + the skips: the reference field 30 trunk
+# slices at width 256, depth 3 with the skip at 1 10 (16 / 6 at width 128,
+# 44 / 14 at 384, 58 / 18 at 512); W / 64 + 1 direction slices
+@pytest.mark.parametrize("width,depth,skips,n_trunk", [
+    pytest.param(w, d, s, n, id=width_id(w, f"{d}-skips{i}-{n}"))
+    for w in tfm.KERNEL_WIDTHS for i, (d, s) in enumerate(STREAM_CASES)
+    for n in [1 + (d - 1) * w // 64 + len(s)]])
+def test_k1_stream_order_and_swizzle(width, depth, skips, n_trunk):
+    """The slice count and order documented in csrc/fused_mlp.cu, and each
+    element where the 128-byte swizzle puts it: element (r, c) of a slice at
+    r * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8."""
+    packed = tfm.pack_nerf_params(NeRF(NeRFConfig(depth=depth, width=width, skips=skips)))
+    sched = tfm.k1_schedule(depth, [0, *skips], width)
     trunk = [("w0e", 0)]
     for i in range(1, depth):
-        trunk += [(f"w{i}", c) for c in (0, 64, 128, 192)] + ([(f"w{i}e", 0)] if i in skips else [])
+        trunk += ([(f"w{i}", c) for c in range(0, width, 64)]
+                  + ([(f"w{i}e", 0)] if i in skips else []))
     assert len(trunk) == n_trunk
-    assert sched == trunk + [("w_comb", c) for c in (0, 64, 128, 192)] + [("w_dir", 0)]
+    n_dir = width // 64 + 1
+    assert sched == trunk + [("w_comb", c) for c in range(0, width, 64)] + [("w_dir", 0)]
     stream = packed["k1_stream"].view(torch.int16).numpy()
-    assert stream.size == n_trunk * 256 * 64 + 5 * 128 * 64
-    r, c = np.meshgrid(np.arange(256), np.arange(64), indexing="ij")
+    assert stream.size == n_trunk * width * 64 + n_dir * (width // 2) * 64
+    r, c = np.meshgrid(np.arange(width), np.arange(64), indexing="ij")
     off = 0
     for k, c0 in sched:
         w = torch.nn.functional.pad(packed[k], (0, max(0, 64 - packed[k].shape[1])))
@@ -169,12 +213,17 @@ def test_k1_stream_order_and_swizzle(depth, skips, n_trunk):
         np.testing.assert_array_equal(stream[off + rr * 64 + ((cc // 8) ^ (rr % 8)) * 8 + cc % 8],
                                       w[:, c0: c0 + 64], err_msg=f"{k}[:, {c0}:]")
         off += rows * 64
+    assert off == stream.size
 
 
 def test_k1_stream_only_in_the_bf16_pack_at_the_kernel_width():
+    """The bf16 pack carries k1_stream at every width the kernel takes
+    (128-512 in steps of 128), none at 640 or 192; the int8 pack never."""
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as tk4
 
-    model = NeRF(NeRFConfig())
-    assert "k1_stream" in tfm.pack_nerf_params(model)
-    assert "k1_stream" not in tk4.pack_nerf_params_int8(model)
-    assert "k1_stream" not in tfm.pack_nerf_params(NeRF(SMALL))
+    assert tfm.KERNEL_WIDTHS == (128, 256, 384, 512)
+    assert "k1_stream" in tfm.pack_nerf_params(NeRF(NeRFConfig()))
+    assert "k1_stream" not in tk4.pack_nerf_params_int8(NeRF(NeRFConfig()))
+    for width in (128, 384, 512, 640, 192):
+        packed = tfm.pack_nerf_params(NeRF(NeRFConfig(depth=2, width=width, skips=())))
+        assert ("k1_stream" in packed) == (width in tfm.KERNEL_WIDTHS), width

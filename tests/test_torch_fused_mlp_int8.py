@@ -32,6 +32,8 @@ from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
 from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
 from nerf_siren_tpu_torch.render import fast
 from nerf_siren_tpu_torch.render.fused import field_kernels, render_rays_fused
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import KERNEL_WIDTHS
+from tests.test_torch_fused_mlp import STREAM_CASES, width_id
 from tests.test_torch_proxy_march import port_proxy, rays_np
 from tests.test_torch_rendering import with_density
 
@@ -97,6 +99,31 @@ def test_full_and_sigma_match_jax(field, n):
     np.testing.assert_array_equal(got_sigma, got[:, 3])
 
 
+@pytest.mark.parametrize("n", [130])
+def test_width_384_matches_jax(n):
+    """At width 384 (one of the kernel's split widths), depth 5 with the skip
+    at 4 (the shortest depth of JAX's one topology): both plain passes
+    against JAX's int8 kernel in interpret mode, within the bars above."""
+    cfg = NeRFConfig(depth=5, width=384)
+    params = with_density(init_nerf(jax.random.PRNGKey(1), cfg))
+    model = NeRF(cfg)
+    model.load_state_dict(nerf_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    jpack, tpack = jk4.pack_nerf_params_int8(params, cfg), k4.pack_nerf_params_int8(model)
+    assert "k4_stream" in tpack
+    xyz, d = _points(n, 7)
+    xyz_t = jfm._pad_lanes(jnp.asarray(xyz).T, jfm.TILE_N)
+    dir_t = jfm._pad_lanes(jnp.asarray(d).T, jfm.TILE_N)
+    want = np.asarray(jk4.fused_full_t_int8(jpack, xyz_t, dir_t, depth=cfg.depth,
+                                            skips=cfg.skips)[:4, :n].T)
+    want_sigma = np.asarray(jk4.fused_sigma_t_int8(jpack, xyz_t, depth=cfg.depth,
+                                                   skips=cfg.skips)[jfm.SIGMA_ROW, :n])
+    got = k4.fused_nerf_full_int8(tpack, torch.from_numpy(xyz), torch.from_numpy(d)).numpy()
+    got_sigma = k4.fused_nerf_sigma_int8(tpack, torch.from_numpy(xyz)).numpy()[:, 0]
+    np.testing.assert_allclose(got[:, :3], want[:, :3], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(got[:, 3], want[:, 3], atol=5e-2, rtol=2e-2)
+    np.testing.assert_allclose(got_sigma, want_sigma, atol=5e-2, rtol=2e-2)
+
+
 def test_trunk_inputs_are_int8_of_the_plain_math(field):
     """`int8_trunk_inputs` on the CPU: slot 0 holds the quantised
     coordinates and sin/cos, every slot is within +-127, and it is what
@@ -156,22 +183,24 @@ def test_fast_renderer_dispatches_the_int8_pack(field):
 
 # ---- the kernel's weight stream (k4_stream) ----------------------------------
 
-def _int8_pack(depth, skips):
+def _int8_pack(depth, skips, width=256):
     from nerf_siren_tpu_torch.config import NeRFConfig as TorchNeRFConfig
 
-    model = NeRF(TorchNeRFConfig(depth=depth, width=256, skips=skips),
+    model = NeRF(TorchNeRFConfig(depth=depth, width=width, skips=skips),
                  generator=torch.Generator().manual_seed(depth))
     return k4.pack_nerf_params_int8(model)
 
 
-@pytest.mark.parametrize("depth,skips", [(8, (4,)), (3, (1,))])
-def test_k4_stream_unpacks_to_every_weight(depth, skips):
+@pytest.mark.parametrize("width,depth,skips", [
+    pytest.param(w, d, s, id=width_id(w, f"{d}-skips{i}"))
+    for w in KERNEL_WIDTHS for i, (d, s) in enumerate(STREAM_CASES)])
+def test_k4_stream_unpacks_to_every_weight(width, depth, skips):
     """The plain inverse rebuilds every streamed weight of the pack exactly:
     each q* int8 weight (the sin/cos columns' padding to 128 inputs zero),
     and K1's bf16 W_comb and W_dir (W_dir's padding to 64 inputs zero)."""
-    packed = _int8_pack(depth, skips)
+    packed = _int8_pack(depth, skips, width)
     emb_layers = [0, *skips]
-    got = k4.unpack_k4_stream(packed["k4_stream"], depth, emb_layers)
+    got = k4.unpack_k4_stream(packed["k4_stream"], depth, emb_layers, width)
     expect = ({f"q{i}" for i in range(1, depth)} | {f"q{i}s" for i in emb_layers}
               | {"w_comb", "w_dir"})
     assert set(got) == expect
@@ -180,28 +209,34 @@ def test_k4_stream_unpacks_to_every_weight(depth, skips):
         assert got[k].dtype == want.dtype, k
         assert torch.equal(got[k][:, :want.shape[1]], want), k
         assert not got[k][:, want.shape[1]:].float().any(), k
-    assert got["q0s"].shape == (256, 128) and got["w_dir"].shape == (128, 64)
+    assert got["q0s"].shape == (width, 128) and got["w_dir"].shape == (width // 2, 64)
 
 
-@pytest.mark.parametrize("depth,skips,n_trunk", [(8, (4,), 16), (3, (1,), 6)])
-def test_k4_stream_order_and_swizzle(depth, skips, n_trunk):
-    """The slice count and order documented in csrc/fused_mlp_int8.cu (the
-    reference field 16 int8 trunk slices + 5 bf16 direction slices; depth 3
-    with the skip at 1 6 + 5), and each byte where the 128-byte swizzle puts
-    it: byte (r, c) of a slice's rows of 128 bytes at
-    r * 128 + ((c // 16) ^ (r % 8)) * 16 + c % 16."""
-    packed = _int8_pack(depth, skips)
-    sched = k4.k4_schedule(depth, [0, *skips])
+# n_trunk = 1 + (depth - 1) W / 128 + the skips: the reference field 16 int8
+# trunk slices at width 256, depth 3 with the skip at 1 6 (9 / 4 at width 128,
+# 23 / 8 at 384, 30 / 10 at 512); W / 64 + 1 bf16 direction slices
+@pytest.mark.parametrize("width,depth,skips,n_trunk", [
+    pytest.param(w, d, s, n, id=width_id(w, f"{d}-skips{i}-{n}"))
+    for w in KERNEL_WIDTHS for i, (d, s) in enumerate(STREAM_CASES)
+    for n in [1 + (d - 1) * w // 128 + len(s)]])
+def test_k4_stream_order_and_swizzle(width, depth, skips, n_trunk):
+    """The slice count and order documented in csrc/fused_mlp_int8.cu, and
+    each byte where the 128-byte swizzle puts it: byte (r, c) of a slice's
+    rows of 128 bytes at r * 128 + ((c // 16) ^ (r % 8)) * 16 + c % 16."""
+    packed = _int8_pack(depth, skips, width)
+    sched = k4.k4_schedule(depth, [0, *skips], width)
     trunk = [("q0s", 0)]
     for i in range(1, depth):
-        trunk += [(f"q{i}", 0), (f"q{i}", 128)] + ([(f"q{i}s", 0)] if i in skips else [])
+        trunk += ([(f"q{i}", c) for c in range(0, width, 128)]
+                  + ([(f"q{i}s", 0)] if i in skips else []))
     assert len(trunk) == n_trunk
-    assert sched == trunk + [("w_comb", c) for c in (0, 64, 128, 192)] + [("w_dir", 0)]
+    n_dir = width // 64 + 1
+    assert sched == trunk + [("w_comb", c) for c in range(0, width, 64)] + [("w_dir", 0)]
     stream = packed["k4_stream"]
     assert stream.dtype == torch.int8
-    assert stream.numel() == n_trunk * 256 * 128 + 5 * 128 * 128
+    assert stream.numel() == n_trunk * width * 128 + n_dir * (width // 2) * 128
     stream = stream.numpy()
-    r, c = np.meshgrid(np.arange(256), np.arange(128), indexing="ij")
+    r, c = np.meshgrid(np.arange(width), np.arange(128), indexing="ij")
     off = 0
     for k, c0 in sched:
         w = packed[k]
@@ -221,12 +256,13 @@ def test_k4_stream_order_and_swizzle(depth, skips, n_trunk):
 
 
 def test_k4_stream_only_at_the_kernel_width():
-    """The int8 pack carries k4_stream at the kernel's width 256 and no
-    k1_stream; at another width it carries neither, and its inverse
-    refuses a stream of the wrong size."""
+    """The int8 pack carries k4_stream at every width the kernel takes
+    (128-512 in steps of 128) and never k1_stream; at 640 or 192 neither,
+    and its inverse refuses a stream of the wrong size."""
+    for width in (128, 256, 384, 512, 640, 192):
+        packed = _int8_pack(3, (1,), width)
+        assert ("k4_stream" in packed) == (width in KERNEL_WIDTHS), width
+        assert "k1_stream" not in packed
     packed = _int8_pack(3, (1,))
-    assert "k4_stream" in packed and "k1_stream" not in packed
-    narrow = k4.pack_nerf_params_int8(NeRF(SMALL))
-    assert "k4_stream" not in narrow and "k1_stream" not in narrow
     with pytest.raises(ValueError, match="k4_stream"):
-        k4.unpack_k4_stream(packed["k4_stream"][:-1], 3, [0, 1])
+        k4.unpack_k4_stream(packed["k4_stream"][:-1], 3, [0, 1], 256)

@@ -38,6 +38,7 @@ from nerf_siren_tpu_torch.config import NeRFConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp_train as k2
+from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
 
 ATOL, RTOL = 2e-3, 1e-2
 SAME_ELEM = 3e-3   # K2 vs the plain gradient chain on the kernel's own activations
@@ -118,6 +119,33 @@ def test_kernel_matches_plain(cuda_device, n, samples_per_dir, depth, skips):
     torch.testing.assert_close(sig, fused_mlp.fused_sigma_ref(packed, xyz), atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(
         full, fused_mlp.fused_full_ref(packed, xyz, d, samples_per_dir), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 384, 512])
+@pytest.mark.parametrize("n,samples_per_dir,depth,skips", [
+    (1, 1, 8, (4,)), (63, 7, 8, (4,)), (129, 192, 8, (4,)), (4099, 7, 8, (4,)),
+    (GRID_EDGE, 16, 8, (4,)), (4099, 192, 3, (1,)), (1000, 1, 1, ())])
+def test_kernel_matches_plain_at_every_width(cuda_device, width, n, samples_per_dir, depth,
+                                             skips):
+    """K1 at the widths beside 256 (128: the same schedule, n128 / n64
+    products; 384 and 512: two warpgroups on a 64-point tile, half the
+    columns each), both passes, at tile and persistent-grid edges."""
+    if n == GRID_EDGE:
+        n = 2 * torch.cuda.get_device_properties(cuda_device).multi_processor_count * 128 + 5
+    packed = _packed(width=width, depth=depth, device=cuda_device, skips=skips)
+    xyz, d = _points(n, -(-n // samples_per_dir))
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    before = dict(fused_mlp.LAUNCHES)
+    sig = fused_mlp.fused_nerf_sigma(packed, xyz)
+    full = fused_mlp.fused_nerf_full(packed, xyz, d, samples_per_dir=samples_per_dir)
+    torch.cuda.synchronize()
+    assert fused_mlp.LAUNCHES == {"sigma": before["sigma"] + 1, "full": before["full"] + 1}
+    assert sig.shape == (n, 1) and full.shape == (n, 4)
+    torch.testing.assert_close(sig, fused_mlp.fused_sigma_ref(packed, xyz), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(
+        full, fused_mlp.fused_full_ref(packed, xyz, d, samples_per_dir), atol=ATOL, rtol=RTOL)
+    assert torch.equal(sig, fused_mlp.fused_nerf_sigma(packed, xyz))   # a fixed summation order
 
 
 @pytest.mark.cuda
@@ -203,8 +231,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         fused_mlp.fused_nerf_sigma(packed, torch.zeros((3, 8), device=cuda_device).t())
     with pytest.raises(ValueError, match="dirs"):
         fused_mlp.fused_nerf_full(packed, xyz, torch.zeros((3, 3), device=cuda_device))
-    with pytest.raises(ValueError, match="width"):
-        fused_mlp.fused_nerf_sigma(_packed(width=128, device=cuda_device), xyz)
+    # the widths it takes are 128-512 in steps of 128 (once 256 only, tested at 128)
+    for width in (640, 192):
+        with pytest.raises(ValueError, match="width"):
+            fused_mlp.fused_nerf_sigma(_packed(width=width, depth=3, skips=(1,),
+                                               device=cuda_device), xyz)
     with pytest.raises(ValueError, match="k1_stream"):
         fused_mlp.fused_nerf_sigma({**packed, "k1_stream": packed["k1_stream"].cpu()}, xyz)
     with pytest.raises(ValueError, match="k1_stream"):
@@ -463,7 +494,9 @@ def test_proxy_and_int8_wrappers_run_plain_versions_on_the_cpu():
 K3_SHAPES = [(1, 16, 8, 48, False), (130, 32, 16, 96, True), (4099, 32, 16, 96, False),
              (2048, 64, 5, 128, True), (77, 5, 4, 96, True), (301, 37, 16, 100, False),
              (65, 256, 16, 1, True), (200, 256, 3, 128, False), (129, 96, 40, 96, True),
-             (70, 64, 300, 48, False)]
+             (70, 64, 300, 48, False),
+             # above 256: 8 rays a block at C 512, one ray a block from C 4096
+             (300, 512, 16, 96, True), (33, 1000, 24, 128, False), (20, 4096, 32, 128, True)]
 
 
 @pytest.mark.cuda
@@ -557,13 +590,37 @@ def test_proxy_march_kernels_take_no_rays(cuda_device):
     assert k3.LAUNCHES == {"opacity": before["opacity"] + 1, "select": before["select"] + 1}
 
 
-# (R, C, K, H): C 1-256, K from 1 to C, every wgmma width (H 1 and 16 -> 16,
+@pytest.mark.cuda
+def test_proxy_opacity_at_the_candidate_cap_and_refused_above_it(cuda_device):
+    """At MAX_CANDIDATES (one ray a block in 227 KB of shared memory; the
+    library's own cap is the same) K3 opacity matches its plain version and
+    the plain march on its own scores bit for bit; one more is refused."""
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+
+    cap = MAX_CANDIDATES
+    assert k3.kernel_max_candidates() == cap >= 16384
+    assert k3.shared_bytes(128, cap) == k3.shared_bytes_at(128, cap) <= k3.SMEM_MAX
+    pp, rays = _proxy_pack(128, cuda_device), _proxy_rays(3).to(cuda_device)
+    opac = k3.proxy_opacity(pp, rays, cap)
+    scores = k3.proxy_march_scores(pp, rays, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(opac, k3.proxy_opacity_ref(pp, rays, cap, scores=scores))
+    e = (opac - k3.proxy_opacity_ref(pp, rays, cap)).abs()
+    assert float(e.max()) < 0.05
+    for fn in (k3.proxy_opacity, k3.proxy_march_scores):
+        with pytest.raises(ValueError, match=f"4..{cap} candidates, got {cap + 1}"):
+            fn(pp, rays, cap + 1)
+    with pytest.raises(ValueError, match=f"4..{cap} candidates"):
+        k3.proxy_march_select(pp, rays, cap + 1, 16)
+
+
+# (R, C, K, H): C 1-256 and 512, 4096, K from 1 to C, every wgmma width (H 1 and 16 -> 16,
 # 48 -> 64, 96, 100 and 128 -> 128); "edge": one ray past the blocks of a
 # full persistent grid at C 64, H 96 (4 CTAs an SM, 64 rays a block)
 K6_SHAPES = [(1, 1, 1, 48), (70, 1, 1, 1), (70, 2, 2, 16), (70, 3, 1, 100), (4099, 3, 3, 96),
              (4099, 8, 8, 128), (4099, 32, 16, 96), (70, 32, 1, 48), (4099, 64, 16, 48),
              ("edge", 64, 16, 96), (1, 64, 64, 100), (257, 256, 3, 128), (70, 256, 256, 16),
-             (301, 37, 5, 1)]
+             (301, 37, 5, 1), (300, 512, 16, 96), (20, 4096, 64, 128)]
 
 
 def _k6_rays(n, device):
@@ -636,8 +693,9 @@ def test_proxy_select_takes_no_rays_and_refuses_what_it_does_not_take(cuda_devic
     assert k6.proxy_select(pp, _proxy_rays(0).to(cuda_device), 32, 16).shape == (0, 16)
     assert k6.LAUNCHES["select"] == before + 1
     rays = _proxy_rays(8).to(cuda_device)
-    with pytest.raises(ValueError, match="1..256 candidates, got 257"):
-        k6.proxy_select(pp, rays, 257, 16)
+    cap = MAX_CANDIDATES
+    with pytest.raises(ValueError, match=f"1..{cap} candidates, got {cap + 1}"):
+        k6.proxy_select(pp, rays, cap + 1, 16)
     with pytest.raises(ValueError, match="n_keep 17 of 16"):
         k6.proxy_select(pp, rays, 16, 17)
     with pytest.raises(ValueError, match="n_keep 0 of 16"):
@@ -698,6 +756,44 @@ def test_int8_kernel_launches_are_bit_identical(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [128, 384, 512])
+@pytest.mark.parametrize("n,samples_per_dir,depth,skips", [
+    (1, 1, 8, (4,)), (63, 7, 8, (4,)), (129, 16, 8, (4,)), (4099, 192, 8, (4,)),
+    (GRID_EDGE, 16, 8, (4,)), (4099, 7, 3, (1,))])
+def test_int8_kernel_matches_plain_at_every_width(cuda_device, width, n, samples_per_dir, depth,
+                                                  skips):
+    """K4 at the widths beside 256 (384 and 512: the point's scale from the
+    row maxima of both warpgroups' halves), both passes, against its plain
+    version within `test_int8_kernel_matches_plain`'s bars; the int8 layer
+    inputs that round apart counted; two launches bit-identical."""
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+
+    if n == GRID_EDGE:
+        n = 2 * torch.cuda.get_device_properties(cuda_device).multi_processor_count * 128 + 5
+    model = NeRF(NeRFConfig(depth=depth, width=width, skips=skips),
+                 generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    p8 = k4.pack_nerf_params_int8(model)
+    xyz, d = _points(n, -(-n // samples_per_dir))
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    before = dict(k4.LAUNCHES)
+    sig = k4.fused_nerf_sigma_int8(p8, xyz)
+    full = k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir)
+    torch.cuda.synchronize()
+    assert k4.LAUNCHES == {"sigma": before["sigma"] + 1, "full": before["full"] + 1}
+    ref = k4.fused_full_int8_ref(p8, xyz, d, samples_per_dir)
+    torch.testing.assert_close(full[:, :3], ref[:, :3], atol=2e-2, rtol=0)
+    torch.testing.assert_close(full[:, 3:], ref[:, 3:], atol=5e-2, rtol=2e-2)
+    torch.testing.assert_close(sig, k4.fused_sigma_int8_ref(p8, xyz), atol=5e-2, rtol=2e-2)
+    got_q, ref_q = k4.int8_trunk_inputs(p8, xyz), k4.int8_trunk_inputs_ref(p8, xyz)
+    assert got_q.shape == ref_q.shape == (depth, n, width)
+    flips = (got_q != ref_q).sum(dim=(1, 2))
+    print(f"\n[width={width} n={n}] int8 inputs rounded apart per layer: {flips.tolist()} of "
+          f"{n * width} each; full max|d| {(full - ref).abs().amax(0).tolist()}")
+    assert int(flips.sum()) <= 1e-3 * got_q.numel() + 1
+    assert torch.equal(full, k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir))
+
+
+@pytest.mark.cuda
 def test_fast_render_on_kernels_matches_plain(cuda_device):
     """render_rays_fast's kernel route on the card (K3 + K1, and K4) against
     the same render on the CPU (plain versions): per output, median |d| <
@@ -740,6 +836,10 @@ def test_proxy_and_int8_kernels_reject_what_they_do_not_take(cuda_device):
         k3.proxy_opacity({**pp, "k3_w1t": pp["k3_w1t"][:16].contiguous()}, rays, 16)
     p8 = k4.pack_nerf_params_int8(NeRF(NeRFConfig()).to(cuda_device))
     xyz = torch.zeros((4, 3), device=cuda_device)
+    for width in (640, 192):   # the widths it takes are 128-512 in steps of 128
+        wide = NeRF(NeRFConfig(depth=3, width=width, skips=(1,))).to(cuda_device)
+        with pytest.raises(ValueError, match="width"):
+            k4.fused_nerf_sigma_int8(k4.pack_nerf_params_int8(wide), xyz)
     with pytest.raises(ValueError, match="q1"):
         k4.fused_nerf_sigma_int8({**p8, "q1": p8["q1"].float()}, xyz)
     before = dict(k4.LAUNCHES)

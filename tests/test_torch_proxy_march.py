@@ -142,21 +142,50 @@ def test_march_density_aux_matches_jax(proxy):
     assert np.median(rel) < 0.05 and np.mean(rel < 0.25) > 0.8
 
 
-def test_march_plain_matches_the_jnp_pdf_path(proxy):
-    """The plain march against render_rays_fast's jnp pdf selection (the
-    JAX function K3 stands in for), at the same bars."""
-    tree, _, tpack = proxy
-    rays = rays_np(512, seed=1)
+def _jnp_march(tree, rays, c):
+    """JAX's jnp march, the function K3 stands in for (render_rays_fast's
+    pdf selection): the proxy's bf16 scores at C uniform candidates, their
+    alphas and transmittance; (z, w_hat, final transmittance)."""
     jr = jnp.asarray(rays)
     near, far = jr[:, 6:7], jr[:, 7:8]
-    t = jnp.linspace(0.0, 1.0, C)
+    t = jnp.linspace(0.0, 1.0, c)
     z = near * (1 - t) + far * t
     score = jfast.apply_proxy(tree, jr[:, None, 0:3] + jr[:, None, 3:6] * z[..., None],
                               jnp.bfloat16)
-    a_hat = 1.0 - jnp.exp(-jnp.expm1(jax.nn.relu(score)) * (far - near) / (C - 1))
+    a_hat = 1.0 - jnp.exp(-jnp.expm1(jax.nn.relu(score)) * (far - near) / (c - 1))
     tr = jnp.cumprod(1.0 - a_hat + 1e-10, axis=-1)
     w_hat = a_hat * jnp.concatenate([jnp.ones_like(tr[:, :1]), tr[:, :-1]], -1)
+    return z, w_hat, tr[:, -1]
+
+
+def test_march_and_opacity_at_512_candidates_match_jax(proxy):
+    """Above the 256 candidates the card once took: K3's plain versions at C
+    512 against JAX's jnp march (the Pallas march unrolls its candidate loop
+    when it traces, which at C 512 takes minutes and gigabytes in interpret
+    mode on the CPU), at the bars above."""
     from nerf_siren_tpu.ops.sample_pdf import sample_pdf
+
+    tree, _, tpack = proxy
+    c, rays = 512, rays_np(64, seed=9)
+    z, w_hat, trans = _jnp_march(tree, rays, c)
+    got = k3.proxy_opacity(tpack, torch.from_numpy(rays), c).numpy()
+    err = np.abs(got - (1.0 - np.asarray(trans)))
+    assert np.median(err) < 2e-3 and err.max() < 0.05
+    z_ref = np.asarray(sample_pdf(0.5 * (z[:, :-1] + z[:, 1:]), w_hat[:, 1:-1], K, rng=None,
+                                  det=True, midpoint=True))
+    got = k3.proxy_march_select(tpack, torch.from_numpy(rays), c, K, True)[0].numpy()
+    err = np.abs(got - z_ref)
+    assert np.median(err) < 0.005 * SPAN and np.percentile(err, 99) < 0.05 * SPAN
+
+
+def test_march_plain_matches_the_jnp_pdf_path(proxy):
+    """The plain march against render_rays_fast's jnp pdf selection (the
+    JAX function K3 stands in for), at the same bars."""
+    from nerf_siren_tpu.ops.sample_pdf import sample_pdf
+
+    tree, _, tpack = proxy
+    rays = rays_np(512, seed=1)
+    z, w_hat, _ = _jnp_march(tree, rays, C)
     z_ref = np.asarray(sample_pdf(0.5 * (z[:, :-1] + z[:, 1:]), w_hat[:, 1:-1], K, rng=None,
                                   det=True, midpoint=True))
     got = k3.proxy_march_select(tpack, torch.from_numpy(rays), C, K, True)[0].numpy()
@@ -270,7 +299,7 @@ def test_proxy_score_bar_holds_a_reordered_sum_and_rejects_b1_in_bf16(hidden):
 
 
 @pytest.mark.parametrize("n,nc,nk", [(70, 32, 8), (64, 64, 16), (5, 1, 1), (9, 2, 2),
-                                     (9, 3, 2)])
+                                     (9, 3, 2), (20, 512, 16)])
 def test_proxy_select_matches_jax(n, nc, nk):
     """K6's plain version against the JAX kernel (tests/test_fast_render.py's
     rays): the same depths per ray, atol 1e-5; JAX's tie order may differ,

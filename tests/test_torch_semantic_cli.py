@@ -42,6 +42,7 @@ from nerf_siren_tpu.ops.pallas import fused_mlp as jfm
 from nerf_siren_tpu.ops.pallas import proxy_march as jpm
 from nerf_siren_tpu.training import checkpoints as jckpt
 from nerf_siren_tpu_torch.convert import points_to_jax, siren_to_jax
+from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
 from nerf_siren_tpu_torch.render import fast
 from tests.datasets_synthetic import make_blender_cls_dataset
 from tests.test_torch_eval import _run
@@ -150,28 +151,46 @@ def test_d3_eval_cli_refuses_a_class_count_off_the_checkpoint(scene_and_ckpt, ca
 def test_k3_candidate_limit_is_refused_at_parse_time_on_the_card(capsys, mode, flag):
     from nerf_siren_tpu_torch.eval import get_opts
 
+    over = MAX_CANDIDATES + 1
     args = ["--root_dir", ".", "--ckpt_path", "x", "--renderer", "fast", "--mode", mode,
-            flag, "300"]
+            flag, str(over)]
     with pytest.raises(SystemExit):
         get_opts(args + ["--device", "cuda"])
     err = capsys.readouterr().err
-    assert f"{flag} 300" in err and "at most 256 candidates" in err and "K3" in err
-    assert getattr(get_opts(args + ["--device", "cpu"]), flag[2:]) == 300
-    assert get_opts(args[:-2] + [flag, "256", "--device", "cuda"])   # the limit itself passes
+    assert (f"{flag} {over}" in err and f"at most {MAX_CANDIDATES} candidates" in err
+            and "K3" in err)
+    assert getattr(get_opts(args + ["--device", "cpu"]), flag[2:]) == over
+    # the limit itself passes
+    assert get_opts(args[:-2] + [flag, str(MAX_CANDIDATES), "--device", "cuda"])
     # off K3's route (topk selection) the card takes any count
     assert get_opts(args + ["--fast_select", "topk", "--device", "cuda"])
 
 
+@pytest.mark.parametrize("cli", ["eval", "eval_eg3d"])
+@pytest.mark.parametrize("flag", ["--fast_candidates", "--fast_prepass"])
+def test_512_candidates_parse_on_the_card(cli, flag):
+    """512 candidates a ray, above the 256 K3 once took, parse on `cuda`
+    for both eval CLIs (the check reads the parsed options: no card needed)."""
+    import importlib
+
+    get_opts = importlib.import_module(f"nerf_siren_tpu_torch.{cli}").get_opts
+    opts = get_opts(["--root_dir", ".", "--ckpt_path", "x", "--renderer", "fast", flag, "512",
+                     "--device", "cuda"])
+    assert getattr(opts, flag[2:]) == 512
+
+
 def test_cpu_fast_cli_renders_300_candidates(tmp_path, scene_and_ckpt):
-    """The plain march on the CPU takes C 300, which the card refuses."""
+    """The plain march on the CPU takes more candidates than the card's
+    cap (MAX_CANDIDATES + 1, on a 2 x 2 image: once 300, above the card's
+    256 of then), which the card refuses."""
     from nerf_siren_tpu_torch.eval import get_opts, main
 
     root, ckpt = scene_and_ckpt
     psnr = _run(main, get_opts, tmp_path, [
-        "--root_dir", root, "--dataset_name", "blender_cls_ib", "--img_wh", "16", "16",
-        "--ckpt_path", ckpt, "--renderer", "fast", "--fast_candidates", "300",
-        "--fast_keep", "8", "--fast_distill_steps", "5", "--fast_distill_batch", "256",
-        "--fast_proxy_path", "none", "--device", "cpu"])
+        "--root_dir", root, "--dataset_name", "blender_cls_ib", "--img_wh", "2", "2",
+        "--ckpt_path", ckpt, "--renderer", "fast", "--fast_candidates",
+        str(MAX_CANDIDATES + 1), "--fast_keep", "8", "--fast_distill_steps", "5",
+        "--fast_distill_batch", "256", "--fast_proxy_path", "none", "--device", "cpu"])
     assert np.isfinite(psnr)
 
 

@@ -294,14 +294,15 @@ def test_eval_eg3d_fast_cli_matches_jax(tmp_path, scene, cli_scene, monkeypatch,
 
 
 def test_eval_eg3d_renders_above_k3s_limit_on_the_cpu(cli_scene, tmp_path):
-    """Above 256 candidates K3 cannot run, so the card refuses them at parse
+    """Above MAX_CANDIDATES K3 cannot run, so the card refuses them at parse
     time (tests/test_torch_eg3d_eval.py); on the CPU the plain version
-    renders them."""
+    renders them (a 2 x 2 image at MAX_CANDIDATES + 1)."""
     from nerf_siren_tpu_torch.eval_eg3d import get_opts, main
+    from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
 
     root, ckpt = cli_scene
     base = ["--root_dir", root, "--ckpt_path", ckpt, "--renderer", "fast"]
-    hp = get_opts(base + ["--img_wh", "16", "16", "--fast_candidates", "300",
+    hp = get_opts(base + ["--img_wh", "2", "2", "--fast_candidates", str(MAX_CANDIDATES + 1),
                           "--fast_distill_steps", "2", "--fast_distill_batch", "256",
                           "--scene_name", "k3", "--device", "cpu"] + TINY_FLAGS)
     assert np.isfinite(_run(main, hp, tmp_path))
