@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card: `python3 chip_smoke.py`.
 
 Run from the repository root. Phases, each printing a line (`[n/28]`, and
-`[29/29]` for the last):
+`[29/29]`, `[30/30]` for the last two):
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
      for matmuls and cuDNN convolutions.
   2. build: compiles the hand-written kernels from csrc/, one nvcc process
@@ -328,6 +328,26 @@ Run from the repository root. Phases, each printing a line (`[n/28]`, and
      bit for bit), K3 select at C 512 over one chunk and K6 at C 512 over
      K6_RAYS rays (its scores within proxy_score_bar, the plain selection
      on them bit for bit), each timed beside its plain version and bound.
+  30. the last caps (~80 s): (a) K1 and K4, both passes, on the wide kernel
+     (csrc/fused_mlp_wide.cu) at 8-layer widths 640, 768 and 1024 over
+     524,288 points and 2048 over 131,072, against their plain versions
+     (KERNEL_TOL; K4's phase 8 bars, its int8 layer inputs that round apart
+     counted), timed in turns beside their bounds, with the wide kernel's
+     registers and spills; (b) the same at depths 2 (the resident kernels)
+     and 24 (the wide kernel) at widths 128 and 256; (c) an 8 x 1024 field
+     pair's exact render of 8,192 rays through `render_rays_fused` on its
+     bf16 and int8 packs against the same render on the plain versions on
+     the card (`plain_field_kernels`, FAST_BARS); (d) on a one-rank NCCL
+     group, `train_step_accum` (n_micro 2) and a `train_scan_importance`
+     group on a CUDA graph (its all-gather of the rays' errors captured),
+     data-parallel against non-distributed, bit for bit (parameters,
+     losses, error buffers); (e) the eval CLI's auto-cull frame at
+     `--fast_prepass 60000` and fast frame at `--fast_candidates 60000` on
+     a 32² frame of the ball (K3 above MAX_CANDIDATES, its rows in a device
+     scratch) against the plain versions, then K3 opacity and select and K6
+     at C 65,536 over 300 rays: the plain march and selection on each
+     kernel's own scores bit for bit, K6's kept sets and their order
+     included, each timed beside its plain version (one run) and bound.
   With `--profile`, one more exact frame, one more training step, one
   more fast frame, one more int8 fast and int8 exact frame and one more
   128² and 800² EG3D frame under `torch.profiler`:
@@ -341,7 +361,10 @@ K3 opacity phase 10, K4 phase 11, K6 phase 13, K5 the 128² frames of
 phase 16, and K1, K3 and K5 again over phase 27's two-slab frames, K1
 over phase 28's round trips and psnr_parity, and phase 29's library renders of the width-128
 field and CLI frames at C 512 (their `launches_by_path`; phase 29's readings of the other
-widths and candidate counts under `widths` and `candidates_<C>`); `timing` says how `ms` was
+widths and candidate counts under `widths` and `candidates_<C>`); the wide kernels
+(`*_wide`) over phase 30's 8 x 1024 renders and the scratch paths (`*_scratch`) over its CLI
+frames and K6 pass, their headline the width-1024 or C 65,536 reading, every phase 30 reading
+under `shapes` and `candidates_<C>`; `timing` says how `ms` was
 taken: "queued" for K5
 and K3 select, "unqueued" for the rest), the nvidia-smi line, and the JSON
 result as the last line. Any failure exits non-zero before the result is
@@ -417,7 +440,15 @@ NARROW_WIDTHS = (128, 384, 512)   # phase 29: K1's and K4's widths beside 256
 WIDTH_POINTS = 524_288  # phase 29(a): points of each width's check (a fast chunk's survivors)
 WIDE_C = 512            # phase 29(c, d): candidates a ray above the 256 K3 once took
 OPACITY_4096_RAYS = 8192   # phase 29(d): rays of K3 opacity at C 4096
-SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "triplane_gather")
+WIDE_WIDTHS = (640, 768, 1024)   # phase 30(a): widths above 512 (8 layers, WIDTH_POINTS)
+W2048_POINTS = 131_072  # phase 30(a): width 2048's points (its scratch leaves L2)
+DEEP_FIELDS = ((128, 2), (128, 24), (256, 2), (256, 24))   # phase 30(b): (width, depth)
+WIDE_RENDER_RAYS = 8192  # phase 30(c): rays of the 8 x 1024 field's exact render
+ACCUM_STEPS, IMPORTANCE_STEPS = 3, 5   # phase 30(d): accumulated steps; one importance group
+HUGE_C, HUGE_RAYS = 65_536, 300   # phase 30(e): candidates above MAX_CANDIDATES; rays
+CLI_HUGE_C, CLI_WH = 60_000, 32   # phase 30(e): the eval CLI's candidates; its frame
+SOURCES = ("fused_mlp", "fused_mlp_train", "proxy_march", "fused_mlp_int8", "triplane_gather",
+           "fused_mlp_wide")
 PALLAS = "nerf_siren_tpu/ops/pallas"
 # K1's times before its redesign (the wmma kernel, at these shapes on an H100 80GB HBM3, 700 W)
 EARLIER_K1_MS = {"fused_nerf_sigma": 20.673, "fused_nerf_full": 68.704}
@@ -462,9 +493,23 @@ KERNELS = {   # wrapper -> (module and source name, launch counter key, TPU kern
     "fused_nerf_sigma_int8": ("fused_mlp_int8", "sigma", f"{PALLAS}/fused_mlp_int8.py:279"),
     "proxy_select": ("proxy_select", "select", f"{PALLAS}/proxy_select.py:55"),
     "triplane_gather": ("triplane_gather", "gather", f"{PALLAS}/triplane_gather.py:76"),
+    # phase 30: the same wrappers on the kernels of the shapes their first kernels refuse
+    "fused_nerf_sigma_wide": ("fused_mlp", "sigma_wide", f"{PALLAS}/fused_mlp.py:262"),
+    "fused_nerf_full_wide": ("fused_mlp", "full_wide", f"{PALLAS}/fused_mlp.py:272"),
+    "fused_nerf_sigma_int8_wide": ("fused_mlp_int8", "sigma_wide",
+                                   f"{PALLAS}/fused_mlp_int8.py:279"),
+    "fused_nerf_full_int8_wide": ("fused_mlp_int8", "full_wide",
+                                  f"{PALLAS}/fused_mlp_int8.py:253"),
+    "proxy_opacity_scratch": ("proxy_march", "opacity_scratch", f"{PALLAS}/proxy_march.py:161"),
+    "proxy_march_select_scratch": ("proxy_march", "select_scratch",
+                                   f"{PALLAS}/proxy_march.py:172"),
+    "proxy_select_scratch": ("proxy_select", "select_scratch", f"{PALLAS}/proxy_select.py:55"),
 }
 # the wrappers whose kernel is in another source than their module's name
-SOURCE_OF = {"proxy_select": "proxy_march"}
+SOURCE_OF = {"proxy_select": "proxy_march", "proxy_select_scratch": "proxy_march",
+             "fused_nerf_sigma_wide": "fused_mlp_wide", "fused_nerf_full_wide": "fused_mlp_wide",
+             "fused_nerf_sigma_int8_wide": "fused_mlp_wide",
+             "fused_nerf_full_int8_wide": "fused_mlp_wide"}
 # the path whose launches a kernel's `launches` counted before phase 27 added its slabs
 MAIN_PATH = {"fused_nerf_sigma": "exact (phase 4)", "fused_nerf_full": "exact (phase 4)",
              "proxy_march_select": "fast (phase 9)", "proxy_opacity": "auto-cull (phase 10)",
@@ -1218,13 +1263,13 @@ def ball_nerf_params(rng, cfg):
             "rgb": lin(noisy(half, 3), np.log(rgb / (1 - rgb)))}
 
 
-def check_outputs(outs, what):
-    """Every output of a whole frame finite, rgb in [0, 1 + 1e-3]."""
+def check_outputs(outs, what, n_rays=H * W):
+    """Every output of a whole frame (of `n_rays` rays) finite, rgb in [0, 1 + 1e-3]."""
     import torch
 
     for out in outs:
         for k, v in out.items():
-            if v.shape[0] != H * W or not torch.isfinite(v).all():
+            if v.shape[0] != n_rays or not torch.isfinite(v).all():
                 fail(f"{what} {k}: shape {tuple(v.shape)} or non-finite values")
         rgb = out["rgb_fine"]
         if rgb.min() < 0 or rgb.max() > 1 + 1e-3:
@@ -4201,6 +4246,423 @@ def narrowings_phase(ball_ckpt, device, card):
     return launches, readings
 
 
+def wide_field_readings(device, card):
+    """Phase 30(a, b): K1 and K4, both passes, on the shapes their resident
+    kernels refuse (the wide kernel, csrc/fused_mlp_wide.cu): 8-layer fields
+    of widths WIDE_WIDTHS at WIDTH_POINTS points and of width 2048 at
+    W2048_POINTS; then DEEP_FIELDS (depth 2 on the resident kernels, depth
+    24 on the wide one) at WIDTH_POINTS. Each against its plain version on
+    the same points (K1 within KERNEL_TOL, K4 within its phase 8 bars and
+    with at most 1e-3 of its int8 layer inputs rounding apart on 4,096
+    points),
+    timed in turns with it, beside its bound. Returns {kernel name:
+    {shape: reading}} (these comparison launches are not a path's)."""
+    import torch
+    from nerf_siren_tpu_torch.config import NeRFConfig
+    from nerf_siren_tpu_torch.convert import nerf_from_jax
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+
+    rng = np.random.default_rng(SEED + 80)
+    readings = {}
+    shapes = ([(w, 8, WIDTH_POINTS) for w in WIDE_WIDTHS] + [(2048, 8, W2048_POINTS)]
+              + [(w, d, WIDTH_POINTS) for w, d in DEEP_FIELDS])
+    for width, depth, n in shapes:
+        xyz = torch.tensor(rng.uniform(-4.0, 4.0, (n, 3)), dtype=torch.float32, device=device)
+        dirs = torch.tensor(rng.normal(size=(n // FAST_K, 3)), dtype=torch.float32,
+                            device=device)
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        model = NeRF(NeRFConfig(width=width, depth=depth))
+        model.load_state_dict(nerf_from_jax(numpy_nerf_params(rng, model.cfg)))
+        model = model.to(device)
+        p16, p8 = fm.pack_nerf_params(model), k4.pack_nerf_params_int8(model)
+        del model
+        wide16, wide8 = not fm.resident(width, depth), not k4.resident(p8, False)
+        q_in = k4.int8_trunk_inputs(p8, xyz[:4096])
+        apart, n_in = int((q_in != k4.int8_trunk_inputs_ref(p8, xyz[:4096])).sum()), q_in.numel()
+        del q_in
+        if apart > 1e-3 * n_in + 1:   # the card tests' bar (tests/test_torch_kernels.py)
+            fail(f"K4 at width {width}, depth {depth}: {apart} of {n_in} int8 layer inputs "
+                 f"round apart from the plain version's (bar 1e-3 of them)")
+        cases = (
+            ("fused_nerf_sigma", wide16, lambda: fm.fused_nerf_sigma(p16, xyz),
+             lambda: fm.fused_sigma_ref(p16, xyz), False, False),
+            ("fused_nerf_full", wide16, lambda: fm.fused_nerf_full(p16, xyz, dirs, FAST_K),
+             lambda: fm.fused_full_ref(p16, xyz, dirs, FAST_K), True, False),
+            ("fused_nerf_sigma_int8", wide8, lambda: k4.fused_nerf_sigma_int8(p8, xyz),
+             lambda: k4.fused_sigma_int8_ref(p8, xyz), False, True),
+            ("fused_nerf_full_int8", wide8,
+             lambda: k4.fused_nerf_full_int8(p8, xyz, dirs, FAST_K),
+             lambda: k4.fused_full_int8_ref(p8, xyz, dirs, FAST_K), True, True))
+        for name, wide, kern, plain, full, int8 in cases:
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"{name} at width {width}, depth {depth}: shape {tuple(got.shape)} or "
+                     f"non-finite output")
+            d = (got - ref).abs()
+            if int8:   # K4's bars (phase 8): rgb atol 2e-2, sigma 5e-2 + 2e-2 |ref|
+                bad = int((d[:, :3] > INT8_RGB_ATOL).sum()) if full else 0
+                bad += int((d[:, -1:] > INT8_SIGMA_TOL[0] + INT8_SIGMA_TOL[1]
+                            * ref[:, -1:].abs()).sum())
+                bars = f"rgb {INT8_RGB_ATOL}, sigma {INT8_SIGMA_TOL[0]} + {INT8_SIGMA_TOL[1]}|ref|"
+                f_bf16, i8 = int8_work_per_point(p8, full)
+                n_bytes = k4_weight_bytes(p8)
+            else:
+                atol, rtol = KERNEL_TOL
+                bad = int((d > atol + rtol * ref.abs()).sum())
+                bars = f"{atol} + {rtol}|ref|"
+                f_bf16, i8 = _flop_per_point(p16, full), 0
+                n_bytes = k1_weight_bytes(p16)
+            del got, ref
+            n_bytes += n * (12 + (16 if full else 4)) + (dirs.numel() * 4 if full else 0)
+            ms, plain_ms, (p1, k1, k2, p2) = timed_pair([kern], [plain], reps=3, plain_reps=1)
+            bound_ms, bound_by = bound(n * f_bf16, n_bytes, n * i8)
+            err = float(d.max())
+            route = "wide kernel" if wide else "resident kernel"
+            print(f"[30/30] {name} at width {width}, depth {depth}, {n} points ({route}): max|d| "
+                  f"vs plain {err:.3e}, {bad} outside {bars}"
+                  + (f", int8 layer inputs rounding apart {apart} of {n_in}"
+                     if int8 else "")
+                  + f"; kernel {ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain {plain_ms:.3f} ms "
+                  f"({p1:.3f}, {p2:.3f}); bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of it; {card}", flush=True)
+            if bad:
+                fail(f"{name} at width {width}, depth {depth} disagrees with its plain version")
+            key = name + ("_wide" if wide else "")
+            readings.setdefault(key, {})[f"width {width}, depth {depth}"] = {
+                "points": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                **({"int8_inputs_apart": apart} if int8 else {})}
+        del p16, p8, xyz, dirs, d
+        torch.cuda.empty_cache()
+    report = ptxas_report("fused_mlp_wide")
+    for sym in sorted(k for k in report if "wide_kernel" in k):
+        regs, spills, stack = report[sym]
+        tag = sym[sym.index("nerf_field"):].split("EEEv")[0]
+        print(f"[30/30] build (-Xptxas -v) {tag}: {regs} registers, {spills} spill bytes, "
+              f"{stack} bytes stack frame", flush=True)
+    return readings
+
+
+class plain_field_kernels:
+    """Within: `render_rays_fused` runs K1's and K4's plain versions on the
+    card in place of the kernels."""
+
+    def __enter__(self):
+        from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+        from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+        from nerf_siren_tpu_torch.render import fused as fused_mod
+
+        self.saved = fused_mod.field_kernels
+        fused_mod.field_kernels = lambda packed: (
+            (k4.fused_sigma_int8_ref, k4.fused_full_int8_ref) if "q0x" in packed
+            else (fm.fused_sigma_ref, fm.fused_full_ref))
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_siren_tpu_torch.render import fused as fused_mod
+
+        fused_mod.field_kernels = self.saved
+
+
+def wide_render(device, card):
+    """Phase 30(c): an 8 x 1024 field pair (numpy-seeded weights) renders
+    WIDE_RENDER_RAYS rays of a lego frame through `render_rays_fused` on its
+    bf16 pack (K1) and its int8 pack (K4): the wide kernel's path. Each
+    render against the same renderer on the plain versions on the card
+    (FAST_BARS per output). Returns the wide kernels' launches of those
+    renders."""
+    import torch
+    from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig
+    from nerf_siren_tpu_torch.convert import nerf_from_jax
+    from nerf_siren_tpu_torch.models.nerf import NeRF
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+    from nerf_siren_tpu_torch.render.fused import render_rays_fused
+
+    rng = np.random.default_rng(SEED + 81)
+    models = {}
+    for key in ("coarse", "fine"):
+        model = NeRF(NeRFConfig(width=1024))
+        model.load_state_dict(nerf_from_jax(numpy_nerf_params(rng, model.cfg)))
+        models[key] = model.to(device)
+    packs = {"bf16": fm.pack_model_params(models), "int8": k4.pack_model_params_int8(models)}
+    del models
+    mid = H * W // 2
+    rays = lego_rays(0, device)[mid - WIDE_RENDER_RAYS // 2: mid + WIDE_RENDER_RAYS // 2]
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    names = ["fused_nerf_sigma_wide", "fused_nerf_full_wide", "fused_nerf_sigma_int8_wide",
+             "fused_nerf_full_int8_wide"]
+    errs, secs = {}, {}
+    reset_counts(names)
+    outs = {}
+    with torch.no_grad():
+        for dtype, packed in packs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[dtype] = render_rays_fused(packed, rays, cfg)
+            torch.cuda.synchronize()
+            secs[dtype] = round(time.perf_counter() - t0, 4)
+    counts = read_counts(names)
+    with torch.no_grad(), plain_field_kernels():
+        for dtype, packed in packs.items():
+            ref = render_rays_fused(packed, rays, cfg)
+            check_outputs([outs[dtype], ref], f"8 x 1024 {dtype} render", rays.shape[0])
+            for k, v in ref.items():
+                d = (outs[dtype][k] - v).abs() / max(1.0, float(v.abs().max()))
+                errs[f"{dtype} {k}"] = (float(d.median()), percentile(d, 0.99))
+    print(f"[30/30] an 8 x 1024 field pair, {rays.shape[0]} rays through render_rays_fused "
+          f"({N_SAMPLES}+{N_IMPORTANCE}) on its bf16 and int8 packs in {secs} s ({card}); "
+          f"launches {counts}; vs the plain versions' render on the card, (median, 99th pct) "
+          f"of |d| / scale {errs} (bars {FAST_BARS})", flush=True)
+    if min(counts.values()) < 1:
+        fail("the 8 x 1024 field's renders did not run on the wide kernels")
+    if any(m >= FAST_BARS[0] or p >= FAST_BARS[1] for m, p in errs.values()):
+        fail("the 8 x 1024 field's renders disagree with their plain re-renders")
+    return counts
+
+
+def dp_caps_phase(pool_rays, pool_rgbs, device, card):
+    """Phase 30(d): on a one-rank NCCL group, ACCUM_STEPS `train_step_accum`
+    steps (n_micro 2, `fused` backend, perturb 1, noise 1) and one group of
+    IMPORTANCE_STEPS `train_scan_importance` steps (a CUDA graph, its
+    all-gather of the rays' errors captured with the all-reduce), each
+    data-parallel against non-distributed from the same weights, seed and
+    rays: every parameter, loss and (importance) the error buffer bit for
+    bit. The group's K2 launches are its capture's."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from nerf_siren_tpu_torch.parallel.shard_train import DataParallel
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        dp = DataParallel()
+        gen = torch.Generator(device=device).manual_seed(SEED + 82)
+        steps_per_epoch = pool_rays.shape[0] // TRAIN_RAYS
+        batches = []
+        for _ in range(ACCUM_STEPS):
+            idx = torch.randint(0, pool_rays.shape[0], (2 * TRAIN_RAYS,), generator=gen,
+                                device=device)
+            batches.append({"rays": pool_rays[idx], "rgbs": pool_rgbs[idx]})
+        base = numpy_models(SEED + 83, device)
+        runs = {}
+        for mode in ("plain", "dp"):
+            system = train_system("fused", 1.0, 1.0, steps_per_epoch, device,
+                                  data_parallel=dp if mode == "dp" else None)
+            state = state_copy(system, base)
+            losses = []
+            for b in batches:
+                state, m = system.train_step_accum(state, b, seed=SEED + 84, n_micro=2)
+                losses.append(torch.stack([m["train/loss"], m["train/psnr"]]))
+            gstate = state_copy(system, base)
+            refused = None
+            try:
+                t0 = time.perf_counter()
+                gstate, _ = system.train_scan_importance(
+                    gstate, pool_rays, pool_rgbs, seed=SEED + 85, n_steps=IMPORTANCE_STEPS,
+                    batch_size=TRAIN_RAYS, alpha=1.0, uniform_frac=0.2)
+                torch.cuda.synchronize()
+                group_s = time.perf_counter() - t0
+            except RuntimeError as e:
+                if mode != "dp" or "refused" not in str(e):
+                    raise
+                refused, group_s = str(e), float("nan")
+            group = system.last_group
+            runs[mode] = (state, torch.stack(losses), gstate, refused,
+                          None if refused else group.steps.clone(),
+                          None if refused else group.buf.clone(), group_s,
+                          None if refused else group.graph is not None)
+        torch.cuda.synchronize()
+        plain, par = runs["plain"], runs["dp"]
+        a_diff, a_loss = n_unequal(plain[0], par[0]), torch.equal(plain[1], par[1])
+        refused = par[3]
+        g_diff = None if refused else n_unequal(plain[2], par[2])
+        g_loss = None if refused else torch.equal(plain[4], par[4])
+        g_buf = None if refused else torch.equal(plain[5], par[5])
+        touched = None if refused else int((par[5] != 1.0).sum())
+        print(f"[30/30] data parallel on a one-rank NCCL group: {ACCUM_STEPS} train_step_accum "
+              f"steps (n_micro 2, {2 * TRAIN_RAYS} rays, fused) vs non-distributed: {a_diff} "
+              f"tensors differ, loss and PSNR bit-equal {a_loss}; one train_scan_importance "
+              f"group of {IMPORTANCE_STEPS} steps on a CUDA graph "
+              + (f"REFUSED: {refused}" if refused else
+                 f"(captured: {par[7]}; the all-gather of its errors inside it): {g_diff} "
+                 f"tensors differ, losses bit-equal {g_loss}, error buffers bit-equal {g_buf} "
+                 f"({touched} of {pool_rays.shape[0]} rays written); first group with its "
+                 f"capture {par[6]:.3f} s (non-distributed {plain[6]:.3f})")
+              + f"; {card}", flush=True)
+        if a_diff or not a_loss or refused or g_diff or not g_loss or not g_buf or not par[7]:
+            fail("data-parallel accumulated or importance steps are not bit-equal to the "
+                 "non-distributed ones, or the importance group was refused")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def huge_candidates(ball_ckpt, device, card):
+    """Phase 30(e): K3 and K6 above MAX_CANDIDATES (their rows of scores in a
+    device scratch): the eval CLI's auto-cull frame at `--fast_prepass
+    CLI_HUGE_C` and fast frame at `--fast_candidates CLI_HUGE_C` on a
+    CLI_WH² frame of the ball field, each against the same renderer on the
+    plain versions (FAST_BARS); then K3 opacity and select and K6 at C
+    HUGE_C over HUGE_RAYS of its rays, the plain march and selection on
+    each kernel's own scores bit for bit (K6's kept sets and their order),
+    each timed beside its plain version and bound. Returns (launches of the
+    CLI frames and of K6's pass, readings)."""
+    from pathlib import Path
+
+    import torch
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.eval import get_opts, make_renderer, setup_fast_proxy
+    from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
+    from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
+
+    if HUGE_C <= k3.MAX_CANDIDATES or CLI_HUGE_C <= k3.MAX_CANDIDATES:
+        fail("phase 30(e)'s candidate counts must lie above MAX_CANDIDATES")
+    models = numpy_models(FIELD_SEED, device, ball_nerf_params)
+    cfg = RenderConfig(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, perturb=0.0,
+                       noise_std=0.0, white_back=True, test_time=True, chunk=CHUNK)
+    bounds = np.array([NEAR, FAR], np.float32)
+    frame = lego_rays(1, device, h=CLI_WH, w=CLI_WH)
+    launches, readings = {}, {}
+    for label, name, extra in (
+            ("auto-cull frame", "proxy_opacity_scratch",
+             ("--fast_cull", "auto", "--fast_prepass", str(CLI_HUGE_C))),
+            ("fast frame", "proxy_march_select_scratch",
+             ("--fast_candidates", str(CLI_HUGE_C)))):
+        hp = get_opts(["--root_dir", str(Path(ball_ckpt).parent), "--ckpt_path", ball_ckpt,
+                       "--renderer", "fast", "--chunk", str(CHUNK), *extra])
+        fast = setup_fast_proxy(models, hp, bounds)   # phase 7's cached proxy
+
+        def renderer():   # a fresh one: an auto-cull renderer's first frame runs the prepass
+            return make_renderer(models, cfg, renderer="fast", fast=fast, hparams=hp,
+                                 img_hw=(CLI_WH, CLI_WH))
+
+        reset_counts([name])
+        (out,), (sec,) = render_frames(renderer(), [frame])
+        launches[name] = read_counts([name])[name]
+        with plain_fast_kernels():
+            (ref,), (ref_sec,) = render_frames(renderer(), [frame])
+        check_outputs([out, ref], label, CLI_WH * CLI_WH)
+        errs = frame_errors(out, ref)
+        print(f"[30/30] CLI {label} at {' '.join(extra)}, {CLI_WH}² ({card}): {sec:.4f} s (on "
+              f"the plain versions {ref_sec:.3f} s); {name} launches {launches[name]}; "
+              f"(median, 99th pct) of |d| / scale vs the plain versions {errs} (bars "
+              f"{FAST_BARS})", flush=True)
+        if launches[name] < 1 or any(m >= FAST_BARS[0] or p >= FAST_BARS[1]
+                                     for m, p in errs.values()):
+            fail(f"the CLI's {label} at C {CLI_HUGE_C} did not run on K3's scratch path or "
+                 f"left its plain version")
+    pp = fast.packed_proxy
+    rays8 = clipped_rays(lego_rays(1, device), fast.aabb)
+    rays = rays8[torch.as_tensor(np.random.default_rng(SEED + 86).permutation(
+        rays8.shape[0])[:HUGE_RAYS], device=device)].contiguous()
+    k3_bytes = sum(t.numel() * t.element_size() for t in pp.values())
+    flop = proxy_flop_per_candidate(pp)
+    r, c = rays.shape[0], HUGE_C
+    bound_ms, bound_by = bound(r * c * flop, r * (32 + 4) + k3_bytes)
+
+    def plain_run(fn):   # one synced run (the plain march is c launches a step), and its ms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    plain_ms = {}
+    scores = k3.proxy_march_scores(pp, rays, c)
+    op = k3.proxy_opacity(pp, rays, c)
+    same_op = torch.equal(op, k3.proxy_opacity_ref(pp, rays, c, scores=scores))
+    op_ref, plain_ms["proxy_opacity_scratch"] = plain_run(
+        lambda: k3.proxy_opacity_ref(pp, rays, c))
+    d_op = float((op - op_ref).abs().max())
+    sel = k3.proxy_march_select(pp, rays, c, FAST_K, midpoint=True, return_density=True)
+    same_sel = all(torch.equal(a, b) for a, b in zip(sel, k3.proxy_march_select_ref(
+        pp, rays, c, FAST_K, midpoint=True, return_density=True, scores=scores)))
+    (rz, _), plain_ms["proxy_march_select_scratch"] = plain_run(
+        lambda: k3.proxy_march_select_ref(pp, rays, c, FAST_K, midpoint=True))
+    dz = (sel[0] - rz).abs() / (rays[:, 7:8] - rays[:, 6:7]).clamp_min(1e-6)
+    del scores
+    reset_counts(["proxy_select_scratch"])
+    z6 = k6.proxy_select(pp, rays, c, K6_K)
+    launches["proxy_select_scratch"] = read_counts(["proxy_select_scratch"])[
+        "proxy_select_scratch"]
+    s6, z6_read = k6.proxy_select_scores(pp, rays, c, K6_K)
+    order = k6.select_order(s6, K6_K)
+    same6 = (torch.equal(z6, z6_read) and torch.equal(
+        z6, k6.proxy_select_ref(pp, rays, c, K6_K, scores=s6))
+        and torch.equal(z6, k6.candidate_depths(rays, c).gather(1, order)))
+    zc = k6.candidate_depths(rays, c)
+    pts = rays[:, None, 0:3] + rays[:, None, 3:6] * zc[..., None]
+    ref_s, bar = k3.proxy_scores_ref(pp, pts), k3.proxy_score_bar(pp, pts)
+    within = bool(((s6 - ref_s).abs() <= bar).all())
+    n_sets, worst = k6.cut_swaps(ref_s, bar, s6, K6_K)
+    z6_ref, plain_ms["proxy_select_scratch"] = plain_run(
+        lambda: k6.proxy_select_ref(pp, rays, c, K6_K))
+    d6 = float((z6 - z6_ref).abs().max())
+    del s6, zc, pts, ref_s, bar
+    for name, kern, err, ok, what in (
+            ("proxy_opacity_scratch", lambda: k3.proxy_opacity(pp, rays, c), d_op, same_op,
+             "the plain march on its own scores"),
+            ("proxy_march_select_scratch",
+             lambda: k3.proxy_march_select(pp, rays, c, FAST_K, midpoint=True),
+             float((sel[0] - rz).abs().max()), same_sel,
+             "the plain march and inverse CDF on its own scores (depths, survivors, "
+             "densities, mass)"),
+            ("proxy_select_scratch", lambda: k6.proxy_select(pp, rays, c, K6_K), d6,
+             same6 and within,
+             "its scores within proxy_score_bar and the plain selection on them (kept sets "
+             "and order)")):
+        ms = cuda_ms(kern, 3)
+        p_ms = plain_ms[name]
+        extra = (f"; depth |d|/(far-near) median {float(dz.median()):.3e}, 99th pct "
+                 f"{percentile(dz, 0.99):.3e} (bars {DEPTH_BARS})"
+                 if name == "proxy_march_select_scratch" else
+                 f"; {n_sets} rays keep another set than the plain scores', worst swap / bars "
+                 f"{worst:.3e}" if name == "proxy_select_scratch" else "")
+        print(f"[30/30] {name} at {r} rays, C {c} ({k3.shared_bytes(pp['w1'].shape[0], c)} "
+              f"bytes of shared memory a CTA, a row of {c | 1} floats of device scratch): {what} "
+              f"{'bit-equal' if ok else 'DIFFERENT'}; max|d| vs plain {err:.3e}{extra}; kernel "
+              f"{ms:.3f} ms, plain {p_ms:.1f} ms (one run); bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / ms:.2f}% of it; {card}", flush=True)
+        if not ok:
+            fail(f"{name} at C {c} disagrees with its plain version")
+        readings[name] = {f"candidates_{c}": {
+            "candidates": c, "rays": r, "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}}
+    if not (float(dz.median()) < DEPTH_BARS[0] and percentile(dz, 0.99) < DEPTH_BARS[1]
+            and worst <= 1.0):
+        fail(f"K3 select or K6 at C {c} leave their plain versions' bars")
+    return launches, readings
+
+
+def last_caps_phase(pool_rays, pool_rgbs, ball_ckpt, device, card):
+    """Phase 30. Returns ({kernel: {path: launches}}, {kernel: readings})."""
+    import torch
+
+    t0 = time.perf_counter()
+    readings = {name: {"shapes": r} for name, r in wide_field_readings(device, card).items()}
+    launches = {name: {"8 x 1024 field, render_rays_fused (phase 30)": n}
+                for name, n in wide_render(device, card).items()}
+    torch.cuda.empty_cache()
+    dp_caps_phase(pool_rays, pool_rgbs, device, card)
+    torch.cuda.empty_cache()
+    huge_launches, huge = huge_candidates(ball_ckpt, device, card)
+    for name, n in huge_launches.items():
+        launches[name] = {f"C above MAX_CANDIDATES (phase 30)": n}
+    for name, reading in huge.items():
+        readings.setdefault(name, {}).update(reading)
+    torch.cuda.empty_cache()
+    print(f"[30/30] phase 30 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, readings
+
+
 def main():
     import os
 
@@ -4360,7 +4822,6 @@ def main():
 
     # ---- 26. data-parallel training on a one-rank NCCL group ------------------------
     dp_launches = data_parallel_phase(pool_rays, pool_rgbs, device, smi)
-    del pool_rays, pool_rgbs
     torch.cuda.empty_cache()
     for name, key in (("fused_train_fwd", "fwd"), ("fused_train_bwd", "bwd")):
         results[name]["launches_by_path"] = {"fused (phase 6)": launches[name],
@@ -4408,6 +4869,20 @@ def main():
         launches[name] += sum(by_path.values())
     for name, reading in narrow.items():
         results[name].update(reading)
+
+    # ---- 30. the last caps: K1 / K4 at any width and depth, K3 / K6 at any C, and
+    # accumulated and importance steps under data parallelism ---------------------------
+    cap_launches, caps = last_caps_phase(pool_rays, pool_rgbs, ball_ckpt, device, smi)
+    del pool_rays, pool_rgbs
+    for name, by_path in cap_launches.items():
+        results.setdefault(name, {})["launches_by_path"] = by_path
+        launches[name] = sum(by_path.values())
+    for name, reading in caps.items():
+        if name in launches and name.endswith(("_wide", "_scratch")):   # the kernel's headline
+            shapes = reading.get("shapes", reading)
+            head = shapes.get("width 1024, depth 8", shapes.get(f"candidates_{HUGE_C}"))
+            results[name].update(head)
+        results.setdefault(name, {}).update(reading)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

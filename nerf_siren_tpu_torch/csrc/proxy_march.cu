@@ -60,6 +60,17 @@
 //   KB a block may use, 53,103. CTAs per SM: as many as both the registers
 //   (4 up to width 96, 3 at 128: min_ctas) and one CTA's shared memory
 //   allow, so 4 / 3 up to C 256 and fewer from some thousands on.
+// - Above MAX_CANDIDATES (proxy_march_huge_kernel) a block is one ray
+//   whose row of C scores lives in device memory: a scratch of C floats
+//   per CTA of the grid (blocks x C, not rays x C), which the wrapper
+//   allocates; the grid is at most as many CTAs as the scratch has rows.
+//   Scoring, the march and its three passes are the same code on that row
+//   (a generic pointer; __syncthreads orders the block's global writes
+//   before its reads). The top-K there is not the rank count (C compares
+//   a candidate, O(C^2) a ray) but K passes of a block-wide arg-max: pass
+//   k takes the best candidate after pass k - 1's in the rank's order (a
+//   lower score, or an equal one at a higher index) by (score, then lowest
+//   index), so it keeps the same candidates in the same order, O(K C).
 // - The embedding is built in registers as wgmma's A (m64nNk16, A from
 //   registers, three k16 steps: 33 columns padded to 48). The four threads
 //   of a quad hold the same two rows; thread t holds columns 16 s + 8 h +
@@ -197,6 +208,16 @@ constexpr int MAX_CANDIDATES = max_candidates();
 static_assert(shared_bytes(MAX_HIDDEN, MAX_CANDIDATES) <= SMEM_MAX &&
                   shared_bytes(MAX_HIDDEN, MAX_CANDIDATES + 1) > SMEM_MAX,
               "MAX_CANDIDATES is the largest C whose one-ray block fits");
+// The most candidates a ray: row offsets (ray C + j, and the rows of a tile)
+// stay within 32 bits.
+constexpr int MAX_C = 1 << 30;
+
+// One CTA's dynamic shared memory as launched: above MAX_CANDIDATES the
+// huge kernel's, whose row of scores is in device memory.
+constexpr int launch_shared_bytes(int nt, int c) {
+  return c > MAX_CANDIDATES ? 1024 /* alignment slack */ + layout<true>(nt, c).rows
+                            : shared_bytes(nt, c);
+}
 
 struct Args {
   const uint4* w1t;  // (NT, 64) bf16: the pack's k3_w1t
@@ -447,6 +468,59 @@ __device__ __forceinline__ void topk_block(const Args& a, long long r0, const fl
   }
 }
 
+// The top-K of one ray above MAX_CANDIDATES, its C scores at `row` in
+// device memory: K passes of a block-wide arg-max, pass k taking the best
+// candidate (the higher score, the lower index among equals) of those after
+// pass k - 1's pick in that order, so pass k picks the candidate of rank k.
+__device__ __forceinline__ void topk_argmax(const Args& a, long long ray, const float* rays_s,
+                                            const float* row, int tid, float* red_s,
+                                            int* red_i) {
+  const int C = a.C, K = a.K, warp = tid >> 5, lane = tid & 31;
+  float prev_s = 0.0f;
+  int prev_i = -1;  // no pick yet: every candidate is after it
+  for (int k = 0; k < K; ++k) {
+    float best_s = 0.0f;
+    int best_i = -1;
+    for (int j = tid; j < C; j += THREADS) {
+      const float v = row[j];
+      const bool after = prev_i < 0 || v < prev_s || (v == prev_s && j > prev_i);
+      if (after && (best_i < 0 || v > best_s)) {  // j rises: an equal score keeps the lower index
+        best_s = v;
+        best_i = j;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float os = __shfl_xor_sync(0xffffffffu, best_s, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+      if (oi >= 0 && (best_i < 0 || os > best_s || (os == best_s && oi < best_i))) {
+        best_s = os;
+        best_i = oi;
+      }
+    }
+    if (lane == 0) {
+      red_s[warp] = best_s;
+      red_i[warp] = best_i;
+    }
+    __syncthreads();
+    best_s = red_s[0];
+    best_i = red_i[0];
+#pragma unroll
+    for (int w = 1; w < THREADS / 32; ++w) {
+      const float os = red_s[w];
+      const int oi = red_i[w];
+      if (oi >= 0 && (best_i < 0 || os > best_s || (os == best_s && oi < best_i))) {
+        best_s = os;
+        best_i = oi;
+      }
+    }
+    __syncthreads();  // every thread has read this pass's partials
+    if (tid == 0) put(a.z + ray * K + k, depth_at(rays_s[6], rays_s[7], best_i, C));
+    prev_s = best_s;
+    prev_i = best_i;
+  }
+}
+
 // A persistent CTA's blocks (the kernels below).
 template <int NT, int EPI, bool SCORES, bool WIDE>
 __device__ __forceinline__ void march_ctas(const Args& a) {
@@ -516,6 +590,63 @@ __global__ void __launch_bounds__(THREADS, min_ctas(NT)) proxy_march_wide_kernel
   march_ctas<NT, EPI, SCORES, true>(a);
 }
 
+// C above MAX_CANDIDATES: one ray a block, its row of scores in the CTA's
+// row of the scratch (a kernel argument of its own, so Args and the other
+// kernels stay as they were); the shared memory holds everything but the
+// row.
+template <int NT, int EPI, bool SCORES>
+__global__ void __launch_bounds__(THREADS, min_ctas(NT))
+    proxy_march_huge_kernel(const Args a, float* __restrict__ scratch) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int C = a.C;
+  const Layout l = layout<true>(NT, C);  // one ray a block: rays, terms, then (not here) the row
+  float* b1s = reinterpret_cast<float*>(smem + l.b1);
+  float* rays_s = reinterpret_cast<float*>(smem + l.rays);
+  float* terms_s = reinterpret_cast<float*>(smem + l.ray_terms);
+  float* row = scratch + (long long)blockIdx.x * row_ld(C);
+  __shared__ float red_s[THREADS / 32];
+  __shared__ int red_i[THREADS / 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < NT * W1T_ROW / 16; i += THREADS)
+    reinterpret_cast<uint4*>(smem)[i] = __ldg(a.w1t + i);
+  unsigned short* w2t = reinterpret_cast<unsigned short*>(smem + l.w2t);
+  for (int e = tid; e < w2t_bytes(NT) / 2; e += THREADS) {
+    const int n = (e % 512) / 64, k = e / 512 * 64 + e % 64;
+    w2t[e] = n == 0 && k < a.hidden ? __bfloat16_as_ushort(a.w2[k]) : 0;
+  }
+  for (int k = tid; k < NT; k += THREADS) b1s[k] = k < a.hidden ? __ldg(a.b1 + k) : 0.0f;
+  sm90::fence_proxy_async();
+  __syncthreads();
+  const float b2 = __ldg(a.b2);
+  const uint32_t w1t_addr = sm90::smem_addr(smem), w2t_addr = w1t_addr + l.w2t;
+
+  for (long long r0 = blockIdx.x; r0 < a.n_rays; r0 += gridDim.x) {
+    if (tid < 8) rays_s[tid] = __ldg(a.rays + r0 * 8 + tid);
+    __syncthreads();
+    if (EPI != TOPK && tid == 0) {
+      const float spacing = __fdiv_rn(__fsub_rn(rays_s[7], rays_s[6]), float(C - 1));
+      const float dn = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(rays_s[3], rays_s[3]),
+                                                 __fmul_rn(rays_s[4], rays_s[4])),
+                                       __fmul_rn(rays_s[5], rays_s[5])));
+      terms_s[0] = spacing;
+      terms_s[1] = __fmul_rn(spacing, dn);
+    }
+    __syncthreads();
+    score_block<NT, EPI, SCORES>(a, r0, rays_s, terms_s, row, 1, w1t_addr, w2t_addr, b1s, b2,
+                                 warp, lane);
+    __syncthreads();
+    if constexpr (EPI == TOPK) {
+      topk_argmax(a, r0, rays_s, row, tid, red_s, red_i);
+    } else {
+      march_block<EPI>(a, r0, rays_s, terms_s, row, 1, tid);
+    }
+    __syncthreads();  // the next ray's rays and row overwrite these
+  }
+}
+
 int hidden_width(int hidden) {
   return hidden <= 16 ? 16 : hidden <= 32 ? 32 : hidden <= 64 ? 64 : hidden <= 96 ? 96 : 128;
 }
@@ -523,40 +654,57 @@ int hidden_width(int hidden) {
 // A persistent grid: on every SM as many CTAs as both the registers
 // (min_ctas(NT)) and the shared memory of one CTA (with the block's
 // reserved share) allow; up to C 256 a CTA takes under 40 KB, so min_ctas.
-// One CTA a block where there are fewer blocks.
-template <int NT, int EPI, bool SCORES>
-int launch_width(const Args& a, void* stream) {
-  void (*kernel)(const Args) = a.C >= WIDE_FROM ? proxy_march_wide_kernel<NT, EPI, SCORES>
-                                                : proxy_march_kernel<NT, EPI, SCORES>;
-  const int smem = shared_bytes(NT, a.C);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
+// One CTA a block where there are fewer blocks. Returns the CTAs, or minus
+// a cudaError_t value.
+long long grid_ctas(int nt, int c, long long n_blocks) {
   int dev = 0, sms = 0, sm_bytes = 0, reserved = 0;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
                                     dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev)) !=
           cudaSuccess)
-    return int(err);
-  const int fit = sm_bytes / (smem + reserved);
-  if (fit < 1) return int(cudaErrorInvalidConfiguration);
-  const long long n_blocks = (a.n_rays + block_rays(a.C) - 1) / block_rays(a.C);
-  const long long full = (long long)sms * (fit < min_ctas(NT) ? fit : min_ctas(NT));
-  kernel<<<unsigned(n_blocks < full ? n_blocks : full), THREADS, smem,
-           static_cast<cudaStream_t>(stream)>>>(a);
+    return -(long long)err;
+  const int fit = sm_bytes / (launch_shared_bytes(nt, c) + reserved);
+  if (fit < 1) return -(long long)cudaErrorInvalidConfiguration;
+  const long long full = (long long)sms * (fit < min_ctas(nt) ? fit : min_ctas(nt));
+  return n_blocks < full ? n_blocks : full;
+}
+
+// Above MAX_CANDIDATES a block is one ray and a CTA holds one row of the
+// scratch (proxy_march_scratch_rows sizes it from the same grid).
+template <int NT, int EPI, bool SCORES>
+int launch_width(const Args& a, float* scratch, long long scratch_rows, void* stream) {
+  const bool huge = a.C > MAX_CANDIDATES;
+  void (*kernel)(const Args) = a.C >= WIDE_FROM ? proxy_march_wide_kernel<NT, EPI, SCORES>
+                                                : proxy_march_kernel<NT, EPI, SCORES>;
+  const void* entry = huge ? reinterpret_cast<const void*>(proxy_march_huge_kernel<NT, EPI, SCORES>)
+                           : reinterpret_cast<const void*>(kernel);
+  const int smem = launch_shared_bytes(NT, a.C);
+  cudaError_t err =
+      cudaFuncSetAttribute(entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  const long long n_blocks = huge ? a.n_rays : (a.n_rays + block_rays(a.C) - 1) / block_rays(a.C);
+  long long grid = grid_ctas(NT, a.C, n_blocks);
+  if (grid < 0) return int(-grid);
+  if (huge && grid > scratch_rows) grid = scratch_rows;  // a CTA a row of the scratch
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (huge)
+    proxy_march_huge_kernel<NT, EPI, SCORES><<<unsigned(grid), THREADS, smem, s>>>(a, scratch);
+  else
+    kernel<<<unsigned(grid), THREADS, smem, s>>>(a);
   return int(cudaGetLastError());
 }
 
 template <int EPI, bool SCORES>
-int launch(const Args& a, void* stream) {
+int launch(const Args& a, float* scratch, long long scratch_rows, void* stream) {
   switch (hidden_width(a.hidden)) {
-    case 16: return launch_width<16, EPI, SCORES>(a, stream);
-    case 32: return launch_width<32, EPI, SCORES>(a, stream);
-    case 64: return launch_width<64, EPI, SCORES>(a, stream);
-    case 96: return launch_width<96, EPI, SCORES>(a, stream);
-    default: return launch_width<128, EPI, SCORES>(a, stream);
+    case 16: return launch_width<16, EPI, SCORES>(a, scratch, scratch_rows, stream);
+    case 32: return launch_width<32, EPI, SCORES>(a, scratch, scratch_rows, stream);
+    case 64: return launch_width<64, EPI, SCORES>(a, scratch, scratch_rows, stream);
+    case 96: return launch_width<96, EPI, SCORES>(a, scratch, scratch_rows, stream);
+    default: return launch_width<128, EPI, SCORES>(a, scratch, scratch_rows, stream);
   }
 }
 
@@ -574,25 +722,31 @@ Args weights(const void* w1t, const void* b1, const void* w2, const void* b2, in
   return a;
 }
 
-// The march takes K3_MIN_CANDIDATES..MAX_CANDIDATES candidates, the top-K
-// 1..MAX_CANDIDATES.
+// The march takes K3_MIN_CANDIDATES..MAX_C candidates, the top-K 1..MAX_C;
+// above MAX_CANDIDATES with a scratch of at least one row of row_ld(C)
+// floats (`scratch_rows` rows) when there are rays.
 bool valid(int hidden, int n_candidates, long long n_rays, int least = K3_MIN_CANDIDATES) {
   return hidden >= 1 && hidden <= MAX_HIDDEN && n_candidates >= least &&
-         n_candidates <= MAX_CANDIDATES && n_rays >= 0;
+         n_candidates <= MAX_C && n_rays >= 0;
+}
+
+bool scratch_ok(int n_candidates, long long n_rays, const float* scratch, long long rows) {
+  return n_candidates <= MAX_CANDIDATES || n_rays == 0 || (scratch != nullptr && rows >= 1);
 }
 
 template <bool SCORES>
 int select_top_k(const void* w1t, const void* b1, const void* w2, const void* b2, int hidden,
                  const float* rays, long long n_rays, int n_candidates, int n_keep,
-                 float* scores, float* z, void* stream) {
-  if (!valid(hidden, n_candidates, n_rays, 1) || n_keep < 1 || n_keep > n_candidates)
+                 float* scores, float* z, float* scratch, long long scratch_rows, void* stream) {
+  if (!valid(hidden, n_candidates, n_rays, 1) || n_keep < 1 || n_keep > n_candidates ||
+      !scratch_ok(n_candidates, n_rays, scratch, scratch_rows))
     return int(cudaErrorInvalidValue);
   if (n_rays == 0) return int(cudaSuccess);
   Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
   a.K = n_keep;
   a.z = z;
   a.scores = scores;
-  return launch<TOPK, SCORES>(a, stream);
+  return launch<TOPK, SCORES>(a, scratch, scratch_rows, stream);
 }
 
 }  // namespace
@@ -601,18 +755,22 @@ extern "C" {
 
 // Weights: w1t (NT, 64) bf16, the pack's k3_w1t (NT = hidden rounded up to
 // 16, 32, 64, 96 or 128), 16-byte aligned; b1 (hidden,) f32, w2 (hidden,)
-// bf16, b2 (1,) f32. rays: (n_rays, 8) f32 [o, d, near, far]. Returns a
-// cudaError_t value.
+// bf16, b2 (1,) f32. rays: (n_rays, 8) f32 [o, d, near, far]. scratch:
+// null up to MAX_CANDIDATES (proxy_march_max_candidates), above it
+// scratch_rows >= 1 rows of (C | 1) f32, one row a CTA of the grid (at most
+// scratch_rows CTAs). Returns a cudaError_t value.
 
 // opacity: (n_rays,) f32.
 int proxy_opacity_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                           int hidden, const float* rays, long long n_rays, int n_candidates,
-                          float* opacity, void* stream) {
-  if (!valid(hidden, n_candidates, n_rays)) return int(cudaErrorInvalidValue);
+                          float* opacity, float* scratch, long long scratch_rows, void* stream) {
+  if (!valid(hidden, n_candidates, n_rays) ||
+      !scratch_ok(n_candidates, n_rays, scratch, scratch_rows))
+    return int(cudaErrorInvalidValue);
   if (n_rays == 0) return int(cudaSuccess);
   Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
   a.opacity = opacity;
-  return launch<OPACITY, false>(a, stream);
+  return launch<OPACITY, false>(a, scratch, scratch_rows, stream);
 }
 
 // z: (n_rays, n_keep) f32, xyz: (n_rays, n_keep, 3) f32; rho (n_rays,
@@ -620,8 +778,10 @@ int proxy_opacity_forward(const void* w1t, const void* b1, const void* w2, const
 int proxy_march_select_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                                int hidden, const float* rays, long long n_rays,
                                int n_candidates, int n_keep, int midpoint, float* z, float* xyz,
-                               float* rho, float* mass, void* stream) {
-  if (!valid(hidden, n_candidates, n_rays) || n_keep < 2 || (rho == nullptr) != (mass == nullptr))
+                               float* rho, float* mass, float* scratch, long long scratch_rows,
+                               void* stream) {
+  if (!valid(hidden, n_candidates, n_rays) || n_keep < 2 || (rho == nullptr) != (mass == nullptr) ||
+      !scratch_ok(n_candidates, n_rays, scratch, scratch_rows))
     return int(cudaErrorInvalidValue);
   if (n_rays == 0) return int(cudaSuccess);
   Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
@@ -631,7 +791,7 @@ int proxy_march_select_forward(const void* w1t, const void* b1, const void* w2, 
   a.xyz = xyz;
   a.rho = rho;
   a.mass = mass;
-  return launch<SELECT, false>(a, stream);
+  return launch<SELECT, false>(a, scratch, scratch_rows, stream);
 }
 
 // The opacity kernel that also stores the scores it marched: scores
@@ -639,22 +799,26 @@ int proxy_march_select_forward(const void* w1t, const void* b1, const void* w2, 
 // tests, not on the renderer's path.
 int proxy_march_scores_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                                int hidden, const float* rays, long long n_rays, int n_candidates,
-                               float* scores, float* opacity, void* stream) {
-  if (!valid(hidden, n_candidates, n_rays)) return int(cudaErrorInvalidValue);
+                               float* scores, float* opacity, float* scratch,
+                               long long scratch_rows, void* stream) {
+  if (!valid(hidden, n_candidates, n_rays) ||
+      !scratch_ok(n_candidates, n_rays, scratch, scratch_rows))
+    return int(cudaErrorInvalidValue);
   if (n_rays == 0) return int(cudaSuccess);
   Args a = weights(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates);
   a.opacity = opacity;
   a.scores = scores;
-  return launch<OPACITY, true>(a, stream);
+  return launch<OPACITY, true>(a, scratch, scratch_rows, stream);
 }
 
 // z: (n_rays, n_keep) f32, the depths of the n_keep highest scores in score
 // order; 1 <= n_keep <= n_candidates.
 int proxy_select_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                          int hidden, const float* rays, long long n_rays, int n_candidates,
-                         int n_keep, float* z, void* stream) {
+                         int n_keep, float* z, float* scratch, long long scratch_rows,
+                         void* stream) {
   return select_top_k<false>(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates, n_keep,
-                             nullptr, z, stream);
+                             nullptr, z, scratch, scratch_rows, stream);
 }
 
 // The top-K kernel that also stores the scores it selected from: scores
@@ -663,19 +827,29 @@ int proxy_select_forward(const void* w1t, const void* b1, const void* w2, const 
 int proxy_select_scores_forward(const void* w1t, const void* b1, const void* w2, const void* b2,
                                 int hidden, const float* rays, long long n_rays,
                                 int n_candidates, int n_keep, float* scores, float* z,
-                                void* stream) {
+                                float* scratch, long long scratch_rows, void* stream) {
   return select_top_k<true>(w1t, b1, w2, b2, hidden, rays, n_rays, n_candidates, n_keep,
-                            scores, z, stream);
+                            scores, z, scratch, scratch_rows, stream);
 }
 
 // The dynamic shared memory of one CTA of any of the kernels at these
 // sizes, in bytes (a reading for the smoke's build report).
 int proxy_march_shared_bytes(int hidden, int n_candidates) {
   if (!valid(hidden, n_candidates, 0, 1)) return -1;
-  return shared_bytes(hidden_width(hidden), n_candidates);
+  return launch_shared_bytes(hidden_width(hidden), n_candidates);
 }
 
-// The most candidates a ray the kernels take (one ray a block in 227 KB).
+// The most candidates a ray whose row of scores stays in shared memory (one
+// ray a block in 227 KB); above it the kernels take a scratch.
 int proxy_march_max_candidates() { return MAX_CANDIDATES; }
+
+// The rows of scratch a launch on n_rays rays at these sizes uses on the
+// current device: 0 up to MAX_CANDIDATES or without rays, else one per CTA
+// of its grid (at most one per ray). Minus a cudaError_t value on failure.
+long long proxy_march_scratch_rows(int hidden, int n_candidates, long long n_rays) {
+  if (!valid(hidden, n_candidates, n_rays, 1)) return -(long long)cudaErrorInvalidValue;
+  if (n_candidates <= MAX_CANDIDATES || n_rays == 0) return 0;
+  return grid_ctas(hidden_width(hidden), n_candidates, n_rays);
+}
 
 }  // extern "C"

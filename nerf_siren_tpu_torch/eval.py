@@ -16,12 +16,9 @@ pass `--device cpu`). Renderers:
   cached beside the checkpoint as `<ckpt>.proxy.msgpack` keyed by the
   checkpoint's sha256 and the distillation settings: the same file the JAX
   CLI reads and writes.
-On the card K3 takes at most 53,103 candidates a ray
-(`proxy_march.MAX_CANDIDATES`: its one-ray block in 227 KB of shared
-memory), so `--fast_candidates` and `--fast_prepass` above that are
-refused when the parser sees it would launch K3 (`--device cuda`,
-`--renderer fast` on its kernel route); on the CPU the plain march takes
-any count.
+K3 takes any `--fast_candidates` and `--fast_prepass` on the card: above
+53,103 a ray (`proxy_march.MAX_CANDIDATES`, its one-ray block in 227 KB of
+shared memory) each block's row of scores lives in a device scratch.
 
 `--mode d3` (semantic evaluation): the point network of `--semantic_network`
 loads from the checkpoint's 'points' entry (its class count from the
@@ -68,7 +65,7 @@ from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import pack_model_params
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp_int8 import pack_model_params_int8
-from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES, pack_proxy_params
+from nerf_siren_tpu_torch.ops.kernels.proxy_march import pack_proxy_params
 from nerf_siren_tpu_torch.render.fast import (Proxy, distill_proxy, estimate_scene_aabb,
                                               make_auto_cull_renderer,
                                               make_edge_refined_renderer, render_rays_fast)
@@ -176,14 +173,6 @@ def get_opts(args=None):
                         help="'cuda' (default; fails when no card is visible) "
                              "or 'cpu'")
     opts = parser.parse_args(args)
-    k3_route = (opts.renderer == 'fast' and opts.fast_select == 'pdf'
-                and opts.fast_keep >= 2)
-    if k3_route and torch.device(opts.device).type == 'cuda':
-        for flag in ('fast_candidates', 'fast_prepass'):
-            if getattr(opts, flag) > MAX_CANDIDATES:
-                parser.error(f"--{flag} {getattr(opts, flag)}: K3, the proxy march kernel "
-                             f"(csrc/proxy_march.cu), takes at most {MAX_CANDIDATES} "
-                             f"candidates a ray on the card")
     if opts.mode == 'd3' and opts.renderer == 'fast' and (
             opts.fast_cull is not None or opts.fast_adaptive is not None):
         parser.error("--mode d3 --renderer fast does not take --fast_cull or "

@@ -15,10 +15,9 @@ proxy-culled fast renderer (`render/triplane_fast.py`, its `--fast_*`
 flags, the proxy distilled once from a generator seeded 7): K3 select
 places `--fast_keep` samples a ray from `--fast_candidates`, in `--chunk`
 tiles; with `--fast_cull auto` the frame renders whole (the culling ranks
-the whole frame) and K3 opacity is its prepass. On the card K3 takes at
-most 53,103 candidates a ray (`proxy_march.MAX_CANDIDATES`), so
-`--fast_candidates` and `--fast_prepass` above that are refused at parse
-time there. `--num_chips N` (0: every
+the whole frame) and K3 opacity is its prepass. K3 takes any candidate
+count on the card (above 53,103, `proxy_march.MAX_CANDIDATES`, from a
+device scratch). `--num_chips N` (0: every
 visible card; a count above the visible one is refused, naming it)
 renders the exact frames over a mesh of N devices of `--device`
 (`EG3DSystem.render_sharded`: the planes once, one contiguous slab of the
@@ -39,7 +38,6 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
 from nerf_siren_tpu_torch.render.rendering import map_chunks
 from nerf_siren_tpu_torch.render.triplane import (EG3DRenderer, RenderingOptions,
                                                   TriPlaneConfig)
@@ -95,14 +93,7 @@ def get_opts(args=None):
     parser.add_argument('--fast_prepass', type=int, default=16)
     parser.add_argument('--device', type=str, default='cuda',
                         help="'cuda' (default; fails when no card is visible) or 'cpu'")
-    opts = parser.parse_args(args)
-    if opts.renderer == 'fast' and torch.device(opts.device).type == 'cuda':
-        for flag in ('fast_candidates', 'fast_prepass'):
-            if getattr(opts, flag) > MAX_CANDIDATES:
-                parser.error(f"--{flag} {getattr(opts, flag)}: K3, the proxy march kernel "
-                             f"(csrc/proxy_march.cu), takes at most {MAX_CANDIDATES} "
-                             f"candidates a ray on the card")
-    return opts
+    return parser.parse_args(args)
 
 
 def triplane_config(hparams, white_back: bool) -> TriPlaneConfig:

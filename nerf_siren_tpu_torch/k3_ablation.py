@@ -63,10 +63,10 @@ FRAME, CHUNK, C, K, HIDDEN = 800, 32768, 32, 16, 96
 SELECT_SYMBOL = "proxy_march_kernelILi96ELi1ELb0E"   # mangled <96, SELECT, false>
 DEPTH_BARS = (5e-3, 5e-2)   # median, 99th percentile of |dz| / (far - near)
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-ARGTYPES = [_p, _p, _p, _p, _i, _p, _ll, _i, _i, _i, _p, _p, _p, _p, _p]
+ARGTYPES = [_p, _p, _p, _p, _i, _p, _ll, _i, _i, _i, _p, _p, _p, _p, _p, _ll, _p]
 K6_RAYS, K6_C, K6_K = 65_536, 64, 16
 TOPK_SYMBOL = "proxy_march_kernelILi96ELi2ELb0E"     # mangled <96, TOPK, false>
-K6_ARGTYPES = [_p, _p, _p, _p, _i, _p, _ll, _i, _i, _p, _p]
+K6_ARGTYPES = [_p, _p, _p, _p, _i, _p, _ll, _i, _i, _p, _p, _ll, _p]
 
 
 def variants(src: str) -> dict:
@@ -81,8 +81,9 @@ def variants(src: str) -> dict:
             "sm90::wgmma_rs<8>(acc2, hfrag[s],",
             "acc2[0] += __uint_as_float(hfrag[s][0] ^ hfrag[s][1] ^ hfrag[s][2] ^ hfrag[s][3]),"
             " (void)(acc2, hfrag[s],"),
-        "no march": edit(edit(src, "= alpha_of(sc, terms_s[ray_t * 4 + 1]);", "= sc;"),
-                         "march_block<EPI>(a, r0, rays_s, terms_s, rows_s, nr, tid);", ""),
+        "no march": edit(edit(edit(src, "= alpha_of(sc, terms_s[ray_t * 4 + 1]);", "= sc;"),
+                              "march_block<EPI>(a, r0, rays_s, terms_s, rows_s, nr, tid);", ""),
+                         "march_block<EPI>(a, r0, rays_s, terms_s, row, 1, tid);", ""),
         "no output stores": edit(src, "void put(float* p, float v) { *p = v; }",
                                  "void put(float* p, float v) { if (v == 1e30f) *p = v; }"),
     }
@@ -138,7 +139,7 @@ def k6_main() -> None:
 
     def launcher(fn):
         def launch():
-            err = fn(*args, rays.data_ptr(), K6_RAYS, K6_C, K6_K, z.data_ptr(), stream)
+            err = fn(*args, rays.data_ptr(), K6_RAYS, K6_C, K6_K, z.data_ptr(), None, 0, stream)
             if err:
                 raise RuntimeError(f"proxy_select_forward failed: cudaError {err}")
         return launch
@@ -189,7 +190,8 @@ def main() -> None:
     def launcher(fn):
         def launch():
             err = fn(*args, rays.data_ptr(), CHUNK, C, K, 1, z.data_ptr(),
-                     xyz.data_ptr(), None, None, torch.cuda.current_stream().cuda_stream)
+                     xyz.data_ptr(), None, None, None, 0,
+                     torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"proxy_march_select_forward failed: cudaError {err}")
         return launch

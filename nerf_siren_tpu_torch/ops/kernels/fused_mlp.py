@@ -14,8 +14,8 @@ module owns everything around it:
   linears), as the JAX pack does (~1e-4 output delta against the unfolded
   MLP). The TPU layout tricks (k-major permuted sin/cos rows, +pi/2 cos
   phase, 128-row heads, the (8, N) lane-major point layout) are not kept.
-- `k1_stream` (a key of the pack at each of the kernel's widths,
-  `KERNEL_WIDTHS`): the weights again,
+- `k1_stream` (a key of the pack at every width the kernels take: any
+  multiple of 128, `takes_width`): the weights again,
   as the kernel streams them. One bf16 buffer of 64-input slices in the
   order `k1_schedule` lists (the order the kernel consumes them), each
   slice (rows, 64) in the 128-byte swizzle its wgmma reads: 16-byte chunk
@@ -26,8 +26,12 @@ module owns everything around it:
   math — bf16 operands (rounded, then multiplied in float32 with TF32 off),
   float32 accumulation, biases and heads.
 - `fused_nerf_sigma` / `fused_nerf_full`: the public wrappers. A CPU tensor
-  goes to the plain version; a CUDA tensor launches the kernel or raises.
-  `LAUNCHES` counts kernel launches per wrapper.
+  goes to the plain version; a CUDA tensor launches the kernel or raises:
+  the resident kernel (`csrc/fused_mlp.cu`) at `KERNEL_WIDTHS` up to
+  `MAX_DEPTH` layers, else the wide kernel (`csrc/fused_mlp_wide.cu`,
+  `wide_launch`, shared with K4) at any width % 128 == 0 and any depth.
+  `LAUNCHES` counts kernel launches per wrapper ('sigma' / 'full' the
+  resident kernel's, 'sigma_wide' / 'full_wide' the wide kernel's).
 """
 from __future__ import annotations
 
@@ -44,10 +48,10 @@ from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 EMB_X = 64        # 63 xyz-embedding channels + 1 zero column
 EMB_D = 32        # 27 direction-embedding channels + 5 zero columns
 KERNEL_WIDTHS = (128, 256, 384, 512)   # the widths csrc/fused_mlp.cu is compiled for
-MAX_DEPTH = 16
+MAX_DEPTH = 16    # the resident kernels' per-layer argument tables; deeper fields run wide
 SLICE = 64        # inputs per slice of `k1_stream`: one 128-byte swizzle row
 
-LAUNCHES = {"sigma": 0, "full": 0}
+LAUNCHES = {"sigma": 0, "full": 0, "sigma_wide": 0, "full_wide": 0}
 
 Packed = Dict[str, torch.Tensor]
 
@@ -84,11 +88,23 @@ def pack_nerf_params(model: NeRF, device=None) -> Packed:
     w["w_rgb"] = f32(model.rgb.weight)
     b["b_rgb"] = f32(model.rgb.bias)
 
-    if width in KERNEL_WIDTHS:
+    if takes_width(width):
         w["k1_stream"] = _k1_stream(w, cfg.depth, width)
     out = {k: v.to(device, torch.bfloat16).contiguous() for k, v in w.items()}
     out.update({k: v.to(device).contiguous() for k, v in b.items()})
     return out
+
+
+def takes_width(width: int) -> bool:
+    """Whether the kernels take a trunk of this width: any multiple of 128
+    (JAX's pack asserts the same)."""
+    return width >= 128 and width % 128 == 0
+
+
+def resident(width: int, depth: int) -> bool:
+    """Whether K1's resident kernel (csrc/fused_mlp.cu) runs this field;
+    else the wide kernel does."""
+    return width in KERNEL_WIDTHS and depth <= MAX_DEPTH
 
 
 def pack_model_params(models: Dict[str, NeRF], device=None) -> Dict[str, Packed]:
@@ -255,11 +271,11 @@ HEAD_KEYS = ("w_sigma", "b_sigma", "w_comb", "w_dir", "b_comb", "w_rgb", "b_rgb"
 
 def _width(packed: Packed, what: str) -> int:
     depth, width = _depth(packed), packed["w_sigma"].shape[0]
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"{what} takes depth 1..{MAX_DEPTH}, got {depth}")
-    if width not in KERNEL_WIDTHS:
-        raise ValueError(f"{what} is built for widths {', '.join(map(str, KERNEL_WIDTHS))}, "
-                         f"got width {width}")
+    if depth < 1:
+        raise ValueError(f"{what} takes depth >= 1, got {depth}")
+    if not takes_width(width):
+        raise ValueError(f"{what} takes trunk widths that are multiples of 128, got width "
+                         f"{width}")
     return width
 
 
@@ -292,27 +308,94 @@ def _kernel_args(packed: Packed, device) -> tuple:
            (k1_stream_numel(depth, emb_layers, width),))
     for i in range(depth):
         _check(packed[f"b{i}"], f"b{i}", device, torch.float32, (width,))
-    emb_mask = sum(1 << i for i in emb_layers)
+    emb_mask = sum(1 << i for i in emb_layers) if resident(width, depth) else 0
     return (stream, emb_mask,
             [packed[f"b{i}"].data_ptr() for i in range(depth)] + head_pointers(packed, device))
 
 
-def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
-            samples_per_dir: int) -> torch.Tensor:
+def check_points(what: str, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
+                 samples_per_dir: int) -> int:
+    """Validate a field call's points (and directions); returns N."""
     if xyz.device.type != "cuda":
-        raise ValueError(f"fused NeRF field: unsupported device {xyz.device}")
+        raise ValueError(f"{what}: unsupported device {xyz.device}")
     n = xyz.shape[0]
-    full = dirs is not None
     if n >= 2 ** 31:
-        raise ValueError(f"fused NeRF field: at most 2^31 - 1 points per call, got {n}")
+        raise ValueError(f"{what}: at most 2^31 - 1 points per call, got {n}")
     _check(xyz, "xyz", xyz.device, torch.float32, (n, 3))
-    if full:
+    if dirs is not None:
         if samples_per_dir < 1:
             raise ValueError(f"samples_per_dir must be >= 1, got {samples_per_dir}")
         _check(dirs, "dirs", xyz.device, torch.float32, (-(-n // samples_per_dir), 3))
+    return n
+
+
+# ---- the wide kernel (csrc/fused_mlp_wide.cu), K1's and K4's ------------------
+
+# nerf_field_wide_forward(int8, stream, stream_bytes, layers, depth, width, n_trunk, heads,
+#                         xyz, dirs, samples_per_dir, out, n_points, full, dump, scratch,
+#                         grid, stream) -> cudaError_t
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+WIDE_ARGTYPES = [_i, _p, _ll, _p, _i, _i, _i, ctypes.POINTER(_p), _p, _p, _ll, _p, _ll, _i, _p,
+                 _p, _i, _p]
+
+
+def _wide_lib():
+    from nerf_siren_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("fused_mlp_wide")
+    lib.nerf_field_wide_forward.argtypes = WIDE_ARGTYPES
+    lib.nerf_field_wide_forward.restype = _i
+    lib.nerf_field_wide_cta_bytes.argtypes = [_i, _i]
+    lib.nerf_field_wide_cta_bytes.restype = _ll
+    return lib
+
+
+def wide_launch(int8: bool, stream_w: torch.Tensor, n_trunk: int, layers: list, depth: int,
+                width: int, heads: list, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
+                samples_per_dir: int, out: torch.Tensor,
+                dump: Optional[torch.Tensor] = None) -> None:
+    """Launch the wide kernel (K1's, or K4's when `int8`) on validated
+    arguments: its per-layer table copied from `layers`, its per-CTA scratch
+    allocated here (one CTA per SM, at most one per 128-point tile)."""
+    n, dev = xyz.shape[0], xyz.device
+    lib = _wide_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(sms, -(-n // 128)))
+    scratch = torch.empty(grid * lib.nerf_field_wide_cta_bytes(int(int8), width),
+                          dtype=torch.uint8, device=dev)
+    # the per-layer table (int64 addresses and flags): an asynchronous copy,
+    # ordered before the launch on the stream, with no wait for the host
+    table = torch.tensor(layers, dtype=torch.int64).to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        err = lib.nerf_field_wide_forward(
+            int(int8), stream_w.data_ptr(), stream_w.numel() * stream_w.element_size(),
+            table.data_ptr(), depth, width,
+            n_trunk, (ctypes.c_void_p * len(heads))(*heads), xyz.data_ptr(),
+            None if dirs is None else dirs.data_ptr(), samples_per_dir, out.data_ptr(), n,
+            int(dirs is not None), None if dump is None else dump.data_ptr(),
+            scratch.data_ptr(), grid, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nerf_field_wide_forward failed: cudaError {err}")
+
+
+def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
+            samples_per_dir: int) -> torch.Tensor:
+    n = check_points("fused NeRF field", xyz, dirs, samples_per_dir)
+    full = dirs is not None
     weights, emb_mask, table = _kernel_args(packed, xyz.device)
     out = torch.empty((n, 4 if full else 1), dtype=torch.float32, device=xyz.device)
     if n == 0:
+        return out
+    depth, width = _depth(packed), packed["w_sigma"].shape[0]
+    if not resident(width, depth):
+        emb = _emb_layers(packed)
+        layers = []
+        for i in range(depth):
+            layers += [table[i], int(i in emb)]
+        n_trunk = sum((width // SLICE if i else 0) + int(i in emb) for i in range(depth))
+        wide_launch(False, weights, n_trunk, layers, depth, width, table[depth:], xyz, dirs,
+                    samples_per_dir, out)
+        count_launch(LAUNCHES, "full_wide" if full else "sigma_wide")
         return out
     fn = _kernel_fn()
     with torch.cuda.device(xyz.device):

@@ -14,8 +14,8 @@ kernels `_full_kernel_int8` / `_sigma_kernel_int8`). The kernel is
   ``q{i}`` / ``f{i}``. Biases and the bf16 heads are K1's pack
   (`fused_mlp.pack_nerf_params`), the W_comb fold included. The key ``q0x``
   marks an int8 pack (`render.fused.field_kernels` dispatches on it).
-- `k4_stream` (a key of the pack at each of K1's widths, `KERNEL_WIDTHS`,
-  which K4 takes too): the weights the
+- `k4_stream` (a key of the pack at every width the kernels take, any
+  multiple of 128: `fused_mlp.takes_width`): the weights the
   kernel streams, as one int8 buffer of slices in the order `k4_schedule`
   lists (the order the kernel consumes them): per layer its hidden columns
   in 128-input slices (W / 128), then its sin/cos columns zero-padded to one; then
@@ -31,14 +31,19 @@ kernels `_full_kernel_int8` / `_sigma_kernel_int8`). The kernel is
   (sum * row scale) * point scale, combined in the TPU kernel's order.
 - `fused_nerf_sigma_int8` / `fused_nerf_full_int8`: the public wrappers. A
   CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-  or raises. `LAUNCHES` counts kernel launches per wrapper.
+  or raises: the resident kernel (`csrc/fused_mlp_int8.cu`) at K1's
+  `KERNEL_WIDTHS` up to `MAX_DEPTH` layers where its per-column constants
+  fit, else the wide kernel (`csrc/fused_mlp_wide.cu`) at any width %
+  128 == 0 and any depth. `LAUNCHES` counts kernel launches per wrapper
+  ('sigma' / 'full' the resident kernel's, 'sigma_wide' / 'full_wide' the
+  wide kernel's).
 - `int8_trunk_inputs`: every layer's int8 input (the kernel's, on the card),
   to count the entries where the kernel and the plain version round apart.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,16 +52,18 @@ from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
 from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp
-from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTHS, SLICE, Packed,
-                                                        _bf16, _check, _depth, _width,
-                                                        full_heads_ref, head_pointers,
-                                                        sigma_head_ref)
+from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTHS, MAX_DEPTH,
+                                                        SLICE, Packed, _bf16, _check, _depth,
+                                                        _width, check_points, full_heads_ref,
+                                                        head_pointers, sigma_head_ref,
+                                                        takes_width, wide_launch)
 
 EMB_Q = 64        # 60 sin/cos columns + 4 zero columns (two int8 k-steps of 32)
 INV127 = 1.0 / 127.0
 ROW_BYTES = 128   # bytes per row of a `k4_stream` slice: one 128-byte swizzle row
 
-LAUNCHES = {"sigma": 0, "full": 0}
+LAUNCHES = {"sigma": 0, "full": 0, "sigma_wide": 0, "full_wide": 0}
+SMEM_MAX = 232448   # dynamic shared memory one block may use on an H100 (227 KB)
 
 
 def _quant_rows(w: torch.Tensor):
@@ -84,7 +91,7 @@ def pack_nerf_params_int8(model: NeRF, device=None) -> Packed:
         else:
             q[f"q{i}"], q[f"f{i}"] = _quant_rows(k)
         out[f"b{i}"] = base[f"b{i}"]
-    if cfg.width in KERNEL_WIDTHS:
+    if takes_width(cfg.width):
         q["k4_stream"] = _k4_stream({**q, "w_comb": base["w_comb"].cpu(),
                                      "w_dir": base["w_dir"].cpu()}, cfg.depth, cfg.width)
     out.update({k: v.to(device).contiguous() for k, v in q.items()})
@@ -223,7 +230,9 @@ def _lib():
     lib.nerf_field_int8_forward.argtypes = [p, ctypes.c_longlong, ctypes.POINTER(p), i, i, p, p,
                                             p, ctypes.c_longlong, p, ctypes.c_longlong, i, p, p]
     lib.nerf_field_int8_consts_floats.argtypes = [i, i, i]
-    for fn in (lib.nerf_field_int8_forward, lib.nerf_field_int8_consts_floats):
+    lib.nerf_field_int8_smem_bytes.argtypes = [i, i, i, i]
+    for fn in (lib.nerf_field_int8_forward, lib.nerf_field_int8_consts_floats,
+               lib.nerf_field_int8_smem_bytes):
         fn.restype = i
     return lib
 
@@ -262,24 +271,39 @@ def _pointer_table(packed: Packed, device) -> list:
     return table + head_pointers(packed, device)
 
 
+def resident(packed: Packed, full: bool) -> bool:
+    """Whether K4's resident kernel (csrc/fused_mlp_int8.cu) runs this pack:
+    one of K1's widths, at most MAX_DEPTH layers, and (widths 128 and 256)
+    its per-column constants fitting shared memory; else the wide kernel."""
+    depth, width = _depth(packed), packed["w_sigma"].shape[0]
+    if width not in KERNEL_WIDTHS or depth > MAX_DEPTH:
+        return False
+    smem = _lib().nerf_field_int8_smem_bytes(width, int(full), depth, len(_emb_layers(packed)))
+    return 0 < smem <= SMEM_MAX
+
+
 def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
-            samples_per_dir: int, dump: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if xyz.device.type != "cuda":
-        raise ValueError(f"int8 NeRF field: unsupported device {xyz.device}")
-    n = xyz.shape[0]
+            samples_per_dir: int, dump: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, str]:
+    """Launch the resident or the wide kernel; returns (out, the
+    `LAUNCHES` key of the pass and kernel)."""
+    n = check_points("int8 NeRF field", xyz, dirs, samples_per_dir)
     full = dirs is not None
-    if n >= 2 ** 31:
-        raise ValueError(f"int8 NeRF field: at most 2^31 - 1 points per call, got {n}")
-    _check(xyz, "xyz", xyz.device, torch.float32, (n, 3))
-    if full:
-        if samples_per_dir < 1:
-            raise ValueError(f"samples_per_dir must be >= 1, got {samples_per_dir}")
-        _check(dirs, "dirs", xyz.device, torch.float32, (-(-n // samples_per_dir), 3))
     table = _pointer_table(packed, xyz.device)
     out = torch.empty((n, 4 if full else 1), dtype=torch.float32, device=xyz.device)
+    key = "full" if full else "sigma"
     if n == 0:
-        return out
+        return out, key
     depth, width = _depth(packed), packed["w_sigma"].shape[0]
+    if not resident(packed, full):
+        layers, n_trunk = [], 0
+        for i in range(depth):
+            q_h, f_h, q_x, f_x, q_s, f_s, b = table[7 * i: 7 * i + 7]
+            layers += [b, f_h, q_x, f_x, f_s, int(q_x != 0)]
+            n_trunk += (width // ROW_BYTES if i else 0) + int(q_x != 0)
+        wide_launch(True, packed["k4_stream"], n_trunk, layers, depth, width, table[7 * depth:],
+                    xyz, dirs, samples_per_dir, out, dump)
+        return out, key + "_wide"
     lib = _lib()
     # the split widths' per-column constants table, which the launch fills
     n_consts = lib.nerf_field_int8_consts_floats(width, depth, len(_emb_layers(packed)))
@@ -294,15 +318,15 @@ def _launch(packed: Packed, xyz: torch.Tensor, dirs: Optional[torch.Tensor],
             None if dump is None else dump.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"nerf_field_int8_forward failed: cudaError {err}")
-    return out
+    return out, key
 
 
 def fused_nerf_sigma_int8(packed: Packed, xyz: torch.Tensor) -> torch.Tensor:
     """Raw sigma (N, 1) f32 for (N, 3) f32 points, int8 trunk."""
     if xyz.device.type == "cpu":
         return fused_sigma_int8_ref(packed, xyz)
-    out = _launch(packed, xyz, None, 1)
-    count_launch(LAUNCHES, "sigma")
+    out, key = _launch(packed, xyz, None, 1)
+    count_launch(LAUNCHES, key)
     return out
 
 
@@ -312,8 +336,8 @@ def fused_nerf_full_int8(packed: Packed, xyz: torch.Tensor, dirs: torch.Tensor,
     takes direction `dirs[p // samples_per_dir]`."""
     if xyz.device.type == "cpu":
         return fused_full_int8_ref(packed, xyz, dirs, samples_per_dir)
-    out = _launch(packed, xyz, dirs, samples_per_dir)
-    count_launch(LAUNCHES, "full")
+    out, key = _launch(packed, xyz, dirs, samples_per_dir)
+    count_launch(LAUNCHES, key)
     return out
 
 

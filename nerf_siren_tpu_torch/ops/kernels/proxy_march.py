@@ -34,7 +34,10 @@ module owns everything around the march and the library's binding:
   ones' bars on depths and opacity.
 - `proxy_opacity` / `proxy_march_select`: the public wrappers. A CPU tensor
   goes to the plain version; a CUDA tensor launches the kernel or raises.
-  `LAUNCHES` counts kernel launches per wrapper. `proxy_march_scores`
+  They take any C >= 4: up to `MAX_CANDIDATES` a block's rows of scores
+  stay in shared memory, above it each CTA's row lives in a device scratch
+  of blocks x C floats (`scratch_for`). `LAUNCHES` counts kernel launches
+  per wrapper (above MAX_CANDIDATES under '*_scratch'). `proxy_march_scores`
   reads the kernel's scores back (a reading for the tests and the smoke,
   not counted).
 
@@ -66,7 +69,9 @@ K3_ROW = 64            # bf16 per row of `k3_w1t`: one 128-byte swizzle row
 # keeps a step's (N, H) running sums in cache (3x faster than 2^20 there)
 _SCORE_CHUNK = {"cpu": 1 << 16, "cuda": 1 << 20}
 
-LAUNCHES = {"opacity": 0, "select": 0}
+# 'opacity' / 'select': the kernels whose rows of scores stay in shared memory;
+# '*_scratch': the kernel above MAX_CANDIDATES, its rows in a device scratch
+LAUNCHES = {"opacity": 0, "select": 0, "opacity_scratch": 0, "select_scratch": 0}
 
 
 def rays_per_block(n_candidates: int) -> int:
@@ -87,10 +92,13 @@ def shared_bytes_at(width: int, n_candidates: int) -> int:
             + b * 48 + 4 * b * (n_candidates | 1))
 
 
-# The most candidates a ray the kernels take: the largest C whose one-ray
-# block (from C 4096 on) fits SMEM_MAX at the widest hidden width, 53,103:
-# the floats left beside the block's other bytes, at the odd row stride C | 1.
+# The most candidates a ray whose row of scores stays in shared memory: the
+# largest C whose one-ray block (from C 4096 on) fits SMEM_MAX at the widest
+# hidden width, 53,103: the floats left beside the block's other bytes, at
+# the odd row stride C | 1. Above it the kernels keep each CTA's row in a
+# scratch of device memory (`scratch_for`), so they take any C up to MAX_C.
 MAX_CANDIDATES = ((SMEM_MAX - shared_bytes_at(MAX_HIDDEN, 4096) + 4 * 4097) // 4 - 1) | 1
+MAX_C = 1 << 30   # row offsets stay within 32 bits
 
 Packed = Dict[str, torch.Tensor]
 
@@ -331,13 +339,16 @@ def _lib():
 
     lib = _build.load("proxy_march")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.proxy_opacity_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p]
-    lib.proxy_march_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, p, p, p]
-    lib.proxy_march_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p, p]
-    lib.proxy_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p]
-    lib.proxy_select_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p, p]
+    lib.proxy_opacity_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p, ll, p]
+    lib.proxy_march_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, i, p, p, p, p, p, ll,
+                                               p]
+    lib.proxy_march_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, p, p, p, ll, p]
+    lib.proxy_select_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p, ll, p]
+    lib.proxy_select_scores_forward.argtypes = [p, p, p, p, i, p, ll, i, i, p, p, p, ll, p]
     lib.proxy_march_shared_bytes.argtypes = [i, i]
     lib.proxy_march_max_candidates.argtypes = []
+    lib.proxy_march_scratch_rows.argtypes = [i, i, ctypes.c_longlong]
+    lib.proxy_march_scratch_rows.restype = ctypes.c_longlong
     for fn in (lib.proxy_opacity_forward, lib.proxy_march_select_forward,
                lib.proxy_march_scores_forward, lib.proxy_select_forward,
                lib.proxy_select_scores_forward, lib.proxy_march_shared_bytes,
@@ -356,8 +367,26 @@ def shared_bytes(hidden: int, n_candidates: int) -> int:
 
 
 def kernel_max_candidates() -> int:
-    """The built library's candidate cap (`MAX_CANDIDATES` mirrors it)."""
+    """The built library's shared-memory row cap (`MAX_CANDIDATES` mirrors it)."""
     return _lib().proxy_march_max_candidates()
+
+
+def scratch_for(hidden: int, n_candidates: int, n_rays: int, device) -> Optional[torch.Tensor]:
+    """The kernels' scratch above MAX_CANDIDATES: (rows, C | 1) float32, one
+    row per CTA of the grid the library will launch (at most one per ray),
+    so blocks x C floats, not rays x C; None at or below it."""
+    if n_candidates <= MAX_CANDIDATES or n_rays == 0:
+        return None
+    with torch.cuda.device(device):
+        rows = _lib().proxy_march_scratch_rows(hidden, n_candidates, n_rays)
+    if rows <= 0:
+        raise RuntimeError(f"proxy_march_scratch_rows failed: cudaError {-rows}")
+    return torch.empty((rows, n_candidates | 1), dtype=torch.float32, device=device)
+
+
+def scratch_args(scratch: Optional[torch.Tensor]) -> tuple:
+    """(pointer, rows) of a `scratch_for` tensor for the kernels' call."""
+    return (None, 0) if scratch is None else (scratch.data_ptr(), scratch.shape[0])
 
 
 def check_range(what: str, name: str, value: int, least: int, most: int) -> None:
@@ -400,14 +429,16 @@ def proxy_opacity(packed: Packed, rays: torch.Tensor, n_candidates: int) -> torc
     prepass. rays: (R, 8) f32 [o, d, near, far]."""
     if rays.device.type == "cpu":
         return proxy_opacity_ref(packed, rays, n_candidates)
-    check_range("proxy_opacity", "candidates", n_candidates, K3_MIN_CANDIDATES, MAX_CANDIDATES)
+    check_range("proxy_opacity", "candidates", n_candidates, K3_MIN_CANDIDATES, MAX_C)
     args = k3_args(packed, rays)
     out = torch.empty(rays.shape[0], dtype=torch.float32, device=rays.device)
+    scratch = scratch_for(args[-1], n_candidates, rays.shape[0], rays.device)
     err = _lib().proxy_opacity_forward(*args, rays.data_ptr(), rays.shape[0], n_candidates,
-                                       out.data_ptr(), current_stream(rays.device))
+                                       out.data_ptr(), *scratch_args(scratch),
+                                       current_stream(rays.device))
     if err != 0:
         raise RuntimeError(f"proxy_opacity_forward failed: cudaError {err}")
-    count_launch(LAUNCHES, "opacity")
+    count_launch(LAUNCHES, "opacity" if n_candidates <= MAX_CANDIDATES else "opacity_scratch")
     return out
 
 
@@ -424,21 +455,22 @@ def proxy_march_select(packed: Packed, rays: torch.Tensor, n_candidates: int, n_
     if rays.device.type == "cpu":
         return proxy_march_select_ref(packed, rays, n_candidates, n_keep, midpoint,
                                       return_density)
-    check_range("proxy_march_select", "candidates", n_candidates, K3_MIN_CANDIDATES,
-                MAX_CANDIDATES)
+    check_range("proxy_march_select", "candidates", n_candidates, K3_MIN_CANDIDATES, MAX_C)
     args = k3_args(packed, rays)
     r, dev = rays.shape[0], rays.device
     z = torch.empty((r, n_keep), dtype=torch.float32, device=dev)
     xyz = torch.empty((r, n_keep, 3), dtype=torch.float32, device=dev)
     rho = torch.empty((r, n_keep), dtype=torch.float32, device=dev) if return_density else None
     mass = torch.empty(r, dtype=torch.float32, device=dev) if return_density else None
+    scratch = scratch_for(args[-1], n_candidates, r, dev)
     err = _lib().proxy_march_select_forward(
         *args, rays.data_ptr(), r, n_candidates, n_keep, int(midpoint), z.data_ptr(),
         xyz.data_ptr(), rho.data_ptr() if return_density else None,
-        mass.data_ptr() if return_density else None, current_stream(dev))
+        mass.data_ptr() if return_density else None, *scratch_args(scratch),
+        current_stream(dev))
     if err != 0:
         raise RuntimeError(f"proxy_march_select_forward failed: cudaError {err}")
-    count_launch(LAUNCHES, "select")
+    count_launch(LAUNCHES, "select" if n_candidates <= MAX_CANDIDATES else "select_scratch")
     return (z, xyz, rho, mass) if return_density else (z, xyz)
 
 
@@ -449,15 +481,15 @@ def proxy_march_scores(packed: Packed, rays: torch.Tensor, n_candidates: int) ->
     LAUNCHES."""
     if rays.device.type == "cpu":
         return proxy_march_scores_ref(packed, rays, n_candidates)
-    check_range("proxy_march_scores", "candidates", n_candidates, K3_MIN_CANDIDATES,
-                MAX_CANDIDATES)
+    check_range("proxy_march_scores", "candidates", n_candidates, K3_MIN_CANDIDATES, MAX_C)
     args = k3_args(packed, rays)
     r, dev = rays.shape[0], rays.device
     scores = torch.empty((r, n_candidates), dtype=torch.float32, device=dev)
     opacity = torch.empty(r, dtype=torch.float32, device=dev)
+    scratch = scratch_for(args[-1], n_candidates, r, dev)
     err = _lib().proxy_march_scores_forward(*args, rays.data_ptr(), r, n_candidates,
                                             scores.data_ptr(), opacity.data_ptr(),
-                                            current_stream(dev))
+                                            *scratch_args(scratch), current_stream(dev))
     if err != 0:
         raise RuntimeError(f"proxy_march_scores_forward failed: cudaError {err}")
     return scores

@@ -9,6 +9,10 @@ and, per ray, scores C uniform candidates z_i = near (1 - t_i) + far t_i,
 t_i = i / (C - 1) (t = 0 at C = 1, as JAX's `linspace(0, 1, 1)`), with
 the density proxy (bf16 operands, float32 sums) and keeps the K highest
 scores, the lower index first among equals, as depths in score order.
+Up to `MAX_CANDIDATES` a ray's scores stay in shared memory and each
+candidate counts its rank; above it they live in a device scratch and K
+passes of a block-wide arg-max take the candidates of rank 0, 1, ...,
+K - 1 in turn (the same sets in the same order, O(K C) instead of O(C^2)).
 
 - `candidate_depths`: the candidates, rounded as the kernel rounds them.
 - `proxy_select_ref`: the plain version (the score of
@@ -36,10 +40,10 @@ import torch
 
 from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import (  # noqa: F401 (re-export)
-    MAX_CANDIDATES, Packed, _div, _lib, check_range, current_stream, k3_args,
-    pack_proxy_params, proxy_scores_ref)
+    MAX_C, MAX_CANDIDATES, Packed, _div, _lib, check_range, current_stream, k3_args,
+    pack_proxy_params, proxy_scores_ref, scratch_args, scratch_for)
 
-LAUNCHES = {"select": 0}
+LAUNCHES = {"select": 0, "select_scratch": 0}   # above MAX_CANDIDATES: 'select_scratch'
 
 
 def candidate_depths(rays: torch.Tensor, n_candidates: int) -> torch.Tensor:
@@ -99,14 +103,15 @@ def cut_swaps(ref_scores: torch.Tensor, bar: torch.Tensor, scores: torch.Tensor,
     the cut is a near tie that the summation order moved."""
     kept, ref_kept = _kept(scores, n_keep), _kept(ref_scores, n_keep)
     rays = (kept != ref_kept).any(1).nonzero()[:, 0]
-    if rays.numel() == 0:
-        return 0, 0.0
-    s, b = ref_scores[rays], bar[rays]
-    only, ref_only = kept[rays] & ~ref_kept[rays], ref_kept[rays] & ~kept[rays]
-    gap = (s[:, :, None] - s[:, None, :]).abs()
-    ratio = torch.where(gap > 0, gap / (b[:, :, None] + b[:, None, :]), torch.zeros_like(gap))
-    swapped = only[:, :, None] & ref_only[:, None, :]
-    return int(rays.numel()), float(torch.where(swapped, ratio, torch.zeros_like(ratio)).max())
+    worst = 0.0
+    for i in rays.tolist():   # pairs of the swapped candidates only: at most K x K a ray
+        a = (kept[i] & ~ref_kept[i]).nonzero()[:, 0]
+        b = (ref_kept[i] & ~kept[i]).nonzero()[:, 0]
+        gap = (ref_scores[i, a][:, None] - ref_scores[i, b][None, :]).abs()
+        ratio = torch.where(gap > 0, gap / (bar[i, a][:, None] + bar[i, b][None, :]),
+                            torch.zeros_like(gap))
+        worst = max(worst, float(ratio.max()))
+    return int(rays.numel()), worst
 
 
 def _check_keep(n_candidates: int, n_keep: int) -> None:
@@ -117,10 +122,11 @@ def _check_keep(n_candidates: int, n_keep: int) -> None:
 
 def _launch(packed: Packed, rays: torch.Tensor, n_candidates: int, n_keep: int,
             scores: torch.Tensor | None) -> torch.Tensor:
-    check_range("proxy_select", "candidates", n_candidates, 1, MAX_CANDIDATES)
+    check_range("proxy_select", "candidates", n_candidates, 1, MAX_C)
     args = k3_args(packed, rays)
     z = torch.empty((rays.shape[0], n_keep), dtype=torch.float32, device=rays.device)
-    tail = (z.data_ptr(), current_stream(rays.device))
+    scratch = scratch_for(args[-1], n_candidates, rays.shape[0], rays.device)
+    tail = (z.data_ptr(), *scratch_args(scratch), current_stream(rays.device))
     if scores is None:
         err = _lib().proxy_select_forward(*args, rays.data_ptr(), rays.shape[0], n_candidates,
                                           n_keep, *tail)
@@ -140,7 +146,7 @@ def proxy_select(packed: Packed, rays: torch.Tensor, n_candidates: int = 64,
     if rays.device.type == "cpu":
         return proxy_select_ref(packed, rays, n_candidates, n_keep)
     z = _launch(packed, rays, n_candidates, n_keep, None)
-    count_launch(LAUNCHES, "select")
+    count_launch(LAUNCHES, "select" if n_candidates <= MAX_CANDIDATES else "select_scratch")
     return z
 
 

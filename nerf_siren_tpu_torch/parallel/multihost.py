@@ -47,7 +47,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Join this process to the group of `num_processes` (a no-op when it
     has joined one already). Each value comes from the argument, else from
     JAX's environment names, else from torchrun's; `device_type` (default:
-    `cuda` when a card is visible) picks the backend, and on a card the
+    `cuda`, which raises when no card is visible) picks the backend, and on a card the
     process takes `local_device()`."""
     if dist.is_initialized():
         return
@@ -65,7 +65,11 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
             "and NERF_TPU_PROCESS_ID (or torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE "
             "and RANK)")
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("initialize_distributed: no CUDA device is visible; pass "
+                           "device_type='cpu' (the CLIs' --device cpu) to join over gloo "
+                           "on the CPU")
     if device_type == "cuda":
         torch.cuda.set_device(local_device("cuda"))
     dist.init_process_group(backend_for(device_type), init_method=init_method(coordinator_address),

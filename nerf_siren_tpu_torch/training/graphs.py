@@ -33,8 +33,16 @@ backends' proxy loss) into row i of the (N, 2 + G) output. With
 'importance' a per-ray error buffer over the pool starts at ones; each
 step draws its rays with probability proportional to (err + 1e-8)^alpha by
 inverse CDF (a cumulative sum and a search over the pool, not JAX's (B, P)
-Gumbel slab) unless the uniform floor takes them, and writes its rays'
-errors back (duplicate indices land in any order, as in JAX).
+Gumbel slab; the sum in fixed point relative to the pool's largest
+weight, exact in any order, where a card's float cumsum is not) unless
+the uniform floor takes them, and writes its rays' errors back; a ray drawn twice in a step keeps the error
+of its last draw (`last_occurrence`: JAX's scatter leaves that order open,
+and a card's would make two runs differ). Under data
+parallelism every rank holds the whole pool and its own copy of the
+buffer: the step's draws are the global batch's, every rank picks the
+global batch's indices and trains on its rows of them, and the rays'
+errors are all-gathered (captured in the graph, as the all-reduce is) so
+that every rank writes the same values in the same order.
 
 On a CUDA device the body is captured once, after one eager forward and
 backward of step 0 on a side stream (it builds K2, sets its kernels'
@@ -67,10 +75,27 @@ def importance_indices(err: torch.Tensor, u_cat: torch.Tensor, idx_uni: torch.Te
     """Pool indices (B,) drawn with probability proportional to (err +
     1e-8)^alpha over the pool's errors `err` (P,), by inverse CDF on the
     uniform draws `u_cat` (B,), except where `take_uni` picks the uniform
-    index `idx_uni` instead."""
-    cdf = torch.cumsum((err + 1e-8) ** alpha, 0)
-    picked = torch.searchsorted(cdf, u_cat * cdf[-1], right=True).clamp_max(err.shape[0] - 1)
+    index `idx_uni` instead. The weights are scaled so that the largest is
+    2^(62 - ceil(log2 P)), rounded and summed as int64, exactly: PyTorch's
+    float cumsum on a CUDA tensor is not deterministic (the same draws could
+    pick other rays in two runs), an integer one is. Only weights below
+    2^-40 or so of the pool's largest round to 0."""
+    n = err.shape[0]
+    w = ((err + 1e-8).double() ** alpha)
+    w = torch.round(w / w.max() * 2.0 ** (62 - (n - 1).bit_length())).long()
+    cdf = torch.cumsum(w, 0)
+    target = (u_cat.double() * cdf[-1].double()).long()
+    picked = torch.searchsorted(cdf, target, right=True).clamp_max(n - 1)
     return torch.where(take_uni, idx_uni, picked)
+
+
+def last_occurrence(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """For each entry of `idx` (B,) into n slots, the position of the last
+    entry with the same index, so that duplicates all write one value
+    whatever order their writes land in (static shapes: a graph takes it)."""
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((n,), -1, dtype=pos.dtype, device=idx.device)
+    return last.scatter_reduce_(0, idx, pos, "amax")[idx]
 
 
 def _step_noise(x: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -92,6 +117,7 @@ class StepGroup:
         self.static: Dict[str, torch.Tensor] = {}
         self.out = None
         self.steps: Optional[torch.Tensor] = None   # the last run's (N, 2 + G) loss, PSNR, ...
+        self.buf: Optional[torch.Tensor] = None     # 'importance': the last run's error buffer
         self.width = 2 + len(system.GROUP_LOSSES)
         self.capture_s: Optional[float] = None      # host seconds of the capture alone
 
@@ -100,11 +126,14 @@ class StepGroup:
         if self.kind == "batches":
             return x["rays"][i], x["rgbs"][i], None
         if self.kind == "pool":
-            idx = x["idx"][i]
-        else:
-            idx = importance_indices(buf, x["u_cat"][i], x["idx_uni"][i], x["take_uni"][i],
-                                     self.alpha)
-        return x["pool_rays"][idx], x["pool_rgbs"][idx], idx
+            idx = rows = x["idx"][i]
+        else:   # the global batch's indices, and this rank's rows of them
+            idx = rows = importance_indices(buf, x["u_cat"][i], x["idx_uni"][i],
+                                            x["take_uni"][i], self.alpha)
+            dp = getattr(self.system, "dp", None)
+            if dp is not None:
+                rows = dp.local_rows(idx, idx.shape[0] // dp.world)
+        return x["pool_rays"][rows], x["pool_rgbs"][rows], idx
 
     def _body(self, x: Dict[str, torch.Tensor], out: torch.Tensor) -> None:
         from nerf_siren_tpu_torch.training.system import parameters
@@ -112,6 +141,7 @@ class StepGroup:
         system, state = self.system, self.state
         params = [p for _, _, p in parameters(state.models)]
         after_update = getattr(system, "after_update", None)
+        dp = getattr(system, "dp", None)
         buf = None
         if self.kind == "importance":
             buf = x["buf"]
@@ -131,7 +161,10 @@ class StepGroup:
             for j, name in enumerate(system.GROUP_LOSSES):
                 out[i, 2 + j] = losses[name].detach()
             if buf is not None:
-                buf[idx] = ((pred - rgbs) ** 2).mean(dim=-1)
+                err = ((pred - rgbs) ** 2).mean(dim=-1)
+                if dp is not None:
+                    err = dp.gather_rows(err)
+                buf[idx] = err[last_occurrence(idx, buf.shape[0])]
 
     def _capture(self, inputs: Dict[str, torch.Tensor]) -> None:
         device = inputs["table"].device
@@ -184,7 +217,7 @@ class StepGroup:
         device = inputs["table"].device
         x = dict(inputs)
         if self.kind == "importance":
-            x["buf"] = torch.ones(inputs["pool_rays"].shape[0], device=device)
+            x["buf"] = self.buf = torch.ones(inputs["pool_rays"].shape[0], device=device)
         self.steps = torch.empty((self.n, self.width), device=device)
         self._body(x, self.steps)
         return self.steps
@@ -203,4 +236,5 @@ class StepGroup:
                 self.static[k].copy_(v)
         self.graph.replay()
         self.steps = self.out.clone()
+        self.buf = self.static.get("buf")
         return self.steps

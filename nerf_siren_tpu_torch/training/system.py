@@ -54,9 +54,15 @@ block of the one-process batches: `epoch_iterator(block=(rank, world))`), it dra
 step's noise at the global shape and keeps its rows (`local_step_draws`),
 and each step's gradients, losses and squared error go through one
 all-reduce (`reduce_step`), eager and inside a `StepGroup`'s graph. So N
-ranks compute the one-process step. `train_scan_importance` keeps a
-per-ray error buffer that would differ between ranks and is refused
-there, as is `train_step_accum`. Without it the step has no collective.
+ranks compute the one-process step. `train_step_accum` takes each rank's
+rows of every micro-batch (JAX's `shard_batched` layout) and makes one
+all-reduce of the accumulated gradients and the micro-batches' losses and
+squared errors before its update. `train_scan_importance` keeps the whole
+pool and one error buffer on every rank: each rank draws the global
+batch's indices, trains on its rows, and an all-gather of the batch's
+per-ray errors (in global row order) writes the same values into every
+rank's buffer, the buffer JAX's scan keeps over its mesh. Without a group
+the step has no collective.
 `render_sharded` renders a frame in contiguous slabs over a
 `parallel/mesh.py::Mesh`, one slab a device, with no collective.
 """
@@ -77,7 +83,7 @@ from nerf_siren_tpu_torch.render.rendering import (StepNoise, draw_noise, render
                                                    render_rays_chunked)
 from nerf_siren_tpu_torch.training.graphs import NOISE, StepGroup
 from nerf_siren_tpu_torch.training.losses import loss_dict
-from nerf_siren_tpu_torch.training.metrics import psnr
+from nerf_siren_tpu_torch.training.metrics import mse, psnr
 from nerf_siren_tpu_torch.training.optimizers import Optimizer
 
 BACKENDS = ("jnp", "fused", "culled", "culled_fused")
@@ -226,10 +232,6 @@ class GroupedSteps:
         `state`: their indices and noise from each step's generator, and the
         optimizer's scalar table (see `training/graphs.py`)."""
         n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0
-        if kind == "importance" and self.dp is not None:
-            raise NotImplementedError(
-                "train_scan_importance under data parallelism: its per-ray error buffer "
-                "would hold each rank's rows only; use train_scan or train_scan_batches")
         world = 1 if self.dp is None else self.dp.world
         draws: Dict[str, list] = {}
 
@@ -242,10 +244,10 @@ class GroupedSteps:
             if kind == "pool":
                 idx = torch.randint(0, n_pool, (b * world,), generator=gen, device=dev)
                 add("idx", idx if self.dp is None else self.dp.local_rows(idx, b))
-            elif kind == "importance":
-                add("u_cat", torch.rand(b, generator=gen, device=dev))
-                add("idx_uni", torch.randint(0, n_pool, (b,), generator=gen, device=dev))
-                add("take_uni", torch.rand(b, generator=gen, device=dev) < uniform_frac)
+            elif kind == "importance":   # the global batch's: every rank picks every ray
+                add("u_cat", torch.rand(b * world, generator=gen, device=dev))
+                add("idx_uni", torch.randint(0, n_pool, (b * world,), generator=gen, device=dev))
+                add("take_uni", torch.rand(b * world, generator=gen, device=dev) < uniform_frac)
             for name, v in self.local_step_draws(gen, b).items():
                 add(NOISE + name, v)
         inputs = dict(inputs, **{k: torch.stack(v) for k, v in draws.items()})
@@ -409,31 +411,44 @@ class NeRFSystem(GroupedSteps):
         `batch` (its rays must divide by n_micro): the gradients are averaged,
         loss and PSNR are micro-batch means. Each micro-batch draws from
         `step_generator(seed, state.step)`, as JAX folds the step into one key
-        for all of them."""
+        for all of them. Under data parallelism `batch` is the global batch
+        and this rank trains on its block of each micro-batch, with its rows
+        of the micro-batch's draws (JAX's `shard_batched`); one all-reduce of
+        one bucket (the accumulated gradients, each micro-batch's loss and
+        squared error) before the update makes them the global batch's."""
         if self.train_backend in CULLED:
             raise NotImplementedError(
                 "train_step_accum supports the jnp/fused backends; use "
                 "train_step or train_scan with the culled backends")
-        if self.dp is not None:
-            raise NotImplementedError("train_step_accum runs on one process; under data "
-                                      "parallelism use train_step or train_scan_batches")
         rays = torch.as_tensor(batch["rays"], dtype=torch.float32, device=self.device)
         rgbs = torch.as_tensor(batch["rgbs"], dtype=torch.float32, device=self.device)
-        if rays.shape[0] % n_micro:
-            raise ValueError(f"batch of {rays.shape[0]} rays does not divide by "
-                             f"n_micro {n_micro}")
+        world = 1 if self.dp is None else self.dp.world
+        if rays.shape[0] % (n_micro * world):
+            raise ValueError(f"batch of {rays.shape[0]} rays does not divide by n_micro "
+                             f"{n_micro} x {world} data shards")
+        n_local = rays.shape[0] // n_micro // world
         params = [p for _, _, p in parameters(state.models)]
         acc = [torch.zeros_like(p) for p in params]
-        loss = torch.zeros((), device=self.device)
-        mpsnr = torch.zeros((), device=self.device)
+        losses_m, mse_m = [], []
         for r, c in zip(rays.chunk(n_micro), rgbs.chunk(n_micro)):
-            gen = step_generator(seed, state.step, self.device)
-            losses, out, grads = self.loss_and_grads(state, r, c, gen)
+            if self.dp is not None:
+                r, c = self.dp.local_rows(r, n_local), self.dp.local_rows(c, n_local)
+            noise = self.local_step_draws(step_generator(seed, state.step, self.device),
+                                          n_local)
+            losses, out, grads = self.loss_and_grads(state, r, c, None, noise=noise)
             acc = [a + g / n_micro for a, g in zip(acc, grads)]
             pred = out["rgb_fine" if "rgb_fine" in out else "rgb_coarse"].detach()
-            loss = loss + losses["sum"].detach() / n_micro
-            mpsnr = mpsnr + psnr(pred, c) / n_micro
-        self.optimizer.step(params, acc, state.opt_state)
+            losses_m.append(losses["sum"].detach())
+            mse_m.append(mse(pred, c))
+        red = acc + [torch.stack(losses_m), torch.stack(mse_m)]
+        if self.dp is not None:
+            red = self.dp.all_reduce_mean(red)
+        loss = torch.zeros((), device=self.device)
+        mpsnr = torch.zeros((), device=self.device)
+        for m in range(n_micro):
+            loss = loss + red[-2][m] / n_micro
+            mpsnr = mpsnr + -10.0 * torch.log10(red[-1][m]) / n_micro
+        self.optimizer.step(params, red[:-2], state.opt_state)
         state.step += 1
         return state, {"train/loss": loss, "train/psnr": mpsnr}
 

@@ -146,7 +146,8 @@ def test_replicas_are_byte_equal(ranks):
     """Every case leaves both ranks' parameters byte-equal (one all-reduce
     result on both), and so their fingerprints."""
     for case in ("nerf_jnp", "nerf_fused", "nerf_culled_fused", "nerf_jax", "explicit",
-                 "eg3d", "d3", "d3_ignored_msenll", "d3_ignored_msece"):
+                 "eg3d", "d3", "d3_ignored_msenll", "d3_ignored_msece", "accum",
+                 "importance_nerf", "importance_eg3d"):
         a, b = ranks[0][case]["params"], ranks[1][case]["params"]
         for k in a:
             assert a[k].tobytes() == b[k].tobytes(), (case, k)
@@ -236,6 +237,65 @@ def test_pool_steps_equal_the_one_process_steps(ranks):
     got = ranks[0]["grouped"]["pool"]
     _close_params(got["params"], one["params"], PARAM_TOL, "pool")
     np.testing.assert_allclose(got["loss"], one["loss"], rtol=METRIC_RTOL)
+
+
+def test_accum_ranks_equal_jax_mesh_accum(ranks):
+    """2 `train_step_accum` updates (n_micro 2, perturb 0, noise 0): the
+    ranks, each on its rows of every micro-batch with one all-reduce before
+    the update, against JAX's accumulated step on a 2-device mesh
+    (`shard_batched`'s layout). Parameters within 1e-5 + 1e-4 |ref|, loss
+    and PSNR within a relative 1e-5."""
+    state, _ = _jax_nerf_start()
+    params = _jax_params(state.models)
+    mesh = make_mesh(devices=jax.devices()[:2])
+    jsys = JNeRFSystem(JRenderConfig(**_rkw()), JTrainConfig(**W.SGD),
+                       JNeRFConfig(**W.NARROW), steps_per_epoch=10, mesh=mesh)
+    jstate = replicate(JTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                                   opt_state=jsys.tx.init(params)), mesh)
+    metrics = []
+    for i in range(2):
+        b = W.rays_batch(W.JAX_BATCH, 600 + i)
+        jstate, m = jsys.train_step_accum(jstate, {"rays": b["rays"], "rgbs": b["rgbs"]},
+                                          jax.random.PRNGKey(0), n_micro=2)
+        metrics.append([float(m["train/loss"]), float(m["train/psnr"])])
+    got = ranks[0]["accum"]
+    _close_params(got["params"], _from_jax(jstate.params, got["params"]), PARAM_TOL, "accum")
+    np.testing.assert_allclose(got["metrics"], metrics, rtol=METRIC_RTOL)
+
+
+@pytest.mark.parametrize("kind", ["nerf", "eg3d"])
+def test_importance_ranks_equal_the_one_process_scan(ranks, kind):
+    """3 `train_scan_importance` steps on a 64-ray pool at perturb 1 (EG3D:
+    its stochastic strata and pdf): two ranks of 8 rays against the one
+    process's scan of 16 at the same seed (jax.random's categorical cannot
+    be replayed, so the port's one-process scan is the reference).
+    Parameters within PARAM_TOL (EG3D LOOSE_TOL), the loss within a relative
+    1e-5 (EG3D 1e-4); both ranks' error buffers byte-equal, and equal to
+    the one process's within the parameter bar."""
+    one = W.importance_steps(None, kind)
+    got = ranks[0][f"importance_{kind}"]
+    tol = PARAM_TOL if kind == "nerf" else LOOSE_TOL
+    _close_params(got["params"], one["params"], tol, f"importance {kind}")
+    np.testing.assert_allclose(got["loss"], one["loss"],
+                               rtol=METRIC_RTOL if kind == "nerf" else 10 * METRIC_RTOL)
+    assert ranks[0][f"importance_{kind}"]["buf"].tobytes() == \
+        ranks[1][f"importance_{kind}"]["buf"].tobytes()
+    np.testing.assert_allclose(got["buf"], one["buf"], atol=tol[0], rtol=tol[1])
+    assert (got["buf"] != 1.0).any()   # the steps wrote errors
+
+
+def test_initialize_distributed_asks_for_a_card_by_default(monkeypatch):
+    """Without `device_type`, `initialize_distributed` asks for CUDA and,
+    where no card is visible (here), raises naming `--device cpu` before
+    it joins anything."""
+    import torch.distributed as dist
+
+    from nerf_siren_tpu_torch.parallel import multihost
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        multihost.initialize_distributed("file:///nonexistent/store", 1, 0)
+    assert not dist.is_initialized()
 
 
 def test_cross_replica_sum(ranks):

@@ -184,19 +184,20 @@ def test_eval_eg3d_cli_matches_jax(tmp_path, scene, jax_frames, sampler):
     # (slice 4 brought its loader), a semantic loader is refused
     pytest.param(["--dataset_name", "replica"], None, id="args2-slice 4"),
     (["--dataset_name", "blender_cls_ib"], "invalid choice: 'blender_cls_ib'"),
-    # K3 takes at most MAX_CANDIDATES a ray on the card (the default device);
-    # the cap rose from 256 to 53,103: the cases keep their old ids
+    # K3 once took at most 256, then MAX_CANDIDATES, a ray on the card (the
+    # default device); it now takes any count (a device scratch above
+    # MAX_CANDIDATES): the cases parse, under their old ids
     pytest.param(["--renderer", "fast", "--fast_candidates", str(MAX_CANDIDATES + 1)],
-                 f"takes at most {MAX_CANDIDATES} candidates", id="args4-takes at most 256"),
+                 None, id="args4-takes at most 256"),
     pytest.param(["--renderer", "fast", "--fast_prepass", str(MAX_CANDIDATES + 1)],
-                 f"takes at most {MAX_CANDIDATES} candidates", id="args5-takes at most 256"),
+                 None, id="args5-takes at most 256"),
 ])
 def test_eval_eg3d_cli_refuses_what_later_slices_bring(args, message, capsys):
     from nerf_siren_tpu_torch.eval_eg3d import get_opts
 
     if message is None:
         opts = get_opts(["--root_dir", ".", "--ckpt_path", "x.msgpack"] + args)
-        assert str(getattr(opts, args[0][2:])) == args[1]
+        assert str(getattr(opts, args[-2][2:])) == args[-1]
         return
     with pytest.raises(SystemExit):
         get_opts(["--root_dir", ".", "--ckpt_path", "x.msgpack"] + args)

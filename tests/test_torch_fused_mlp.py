@@ -217,8 +217,10 @@ def test_k1_stream_order_and_swizzle(width, depth, skips, n_trunk):
 
 
 def test_k1_stream_only_in_the_bf16_pack_at_the_kernel_width():
-    """The bf16 pack carries k1_stream at every width the kernel takes
-    (128-512 in steps of 128), none at 640 or 192; the int8 pack never."""
+    """The bf16 pack carries k1_stream at every width the kernels take: the
+    resident kernel's 128-512 and the wide kernel's every other multiple of
+    128 (640 here, whose stream round-trips through `unpack_k1_stream`);
+    none at 192, which JAX's pack refuses too; the int8 pack never."""
     from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as tk4
 
     assert tfm.KERNEL_WIDTHS == (128, 256, 384, 512)
@@ -226,4 +228,49 @@ def test_k1_stream_only_in_the_bf16_pack_at_the_kernel_width():
     assert "k1_stream" not in tk4.pack_nerf_params_int8(NeRF(NeRFConfig()))
     for width in (128, 384, 512, 640, 192):
         packed = tfm.pack_nerf_params(NeRF(NeRFConfig(depth=2, width=width, skips=())))
-        assert ("k1_stream" in packed) == (width in tfm.KERNEL_WIDTHS), width
+        assert ("k1_stream" in packed) == (width % 128 == 0), width
+        assert tfm.takes_width(width) == (width % 128 == 0)
+        assert tfm.resident(width, 8) == (width in tfm.KERNEL_WIDTHS)
+    packed = tfm.pack_nerf_params(NeRF(NeRFConfig(depth=2, width=640, skips=())))
+    got = tfm.unpack_k1_stream(packed["k1_stream"], 2, [0], 640)
+    for k in ("w0e", "w1", "w_comb"):
+        assert torch.equal(got[k], packed[k]), k
+    assert torch.equal(got["w_dir"][:, :tfm.EMB_D], packed["w_dir"])
+
+
+# the wide kernel's shapes (csrc/fused_mlp_wide.cu): widths above 512 at the
+# reference depth, and depths below and above the resident kernels' 16 layers
+WIDE_CASES = [(640, 8), (1024, 8), (128, 2), (128, 20)]
+
+
+def wide_case(width, depth, seed):
+    """A field of JAX's one topology (the skip at 4) at this width and depth:
+    JAX's params, its pack and the port's pack of the same weights."""
+    cfg = NeRFConfig(depth=depth, width=width)
+    params = init_nerf(jax.random.PRNGKey(seed), cfg)
+    model = NeRF(cfg)
+    model.load_state_dict(nerf_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    return cfg, params, model
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("width,depth", WIDE_CASES, ids=[f"w{w}-d{d}" for w, d in WIDE_CASES])
+def test_wide_shapes_match_jax_kernel(width, depth, full):
+    """The plain versions (the wide kernel's function) at widths 640 and 1024
+    (depth 8) and at depths 2 and 20 (width 128), 130 points, against JAX's
+    Pallas kernel in interpret mode (`fused_sigma_t` / `fused_full_t` under
+    `fused_nerf_sigma` / `fused_nerf_full`), within the module's field bar."""
+    cfg, params, model = wide_case(width, depth, 11)
+    jpacked, tpacked = jfm.pack_nerf_params(params, cfg), tfm.pack_nerf_params(model)
+    assert "k1_stream" in tpacked
+    assert tfm.resident(width, depth) == (width <= 512 and depth <= tfm.MAX_DEPTH)
+    xyz, d = _points(130, 12)
+    if full:
+        ref = jfm.fused_nerf_full(jpacked, jnp.asarray(xyz), jnp.asarray(d), depth=depth,
+                                  skips=cfg.skips)
+        got = tfm.fused_nerf_full(tpacked, torch.from_numpy(xyz), torch.from_numpy(d))
+    else:
+        ref = jfm.fused_nerf_sigma(jpacked, jnp.asarray(xyz), depth=depth, skips=cfg.skips)
+        got = tfm.fused_nerf_sigma(tpacked, torch.from_numpy(xyz))
+    assert got.shape == ref.shape == (130, 4 if full else 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)

@@ -124,6 +124,37 @@ def test_width_384_matches_jax(n):
     np.testing.assert_allclose(got_sigma, want_sigma, atol=5e-2, rtol=2e-2)
 
 
+WIDE_CASES = [(640, 8), (1024, 8), (128, 2), (128, 20)]
+
+
+@pytest.mark.parametrize("width,depth", WIDE_CASES, ids=[f"w{w}-d{d}" for w, d in WIDE_CASES])
+def test_wide_shapes_match_jax(width, depth):
+    """The plain versions at the wide kernel's shapes (csrc/fused_mlp_wide.cu):
+    widths 640 and 1024 at depth 8, depths 2 and 20 at width 128, the skip
+    at 4 (JAX's one topology), 130 points: both passes against JAX's int8
+    kernel in interpret mode (`fused_full_t_int8` / `fused_sigma_t_int8`),
+    within the module's bars."""
+    cfg = NeRFConfig(depth=depth, width=width)
+    params = with_density(init_nerf(jax.random.PRNGKey(3), cfg))
+    model = NeRF(cfg)
+    model.load_state_dict(nerf_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    jpack, tpack = jk4.pack_nerf_params_int8(params, cfg), k4.pack_nerf_params_int8(model)
+    assert "k4_stream" in tpack
+    n = 130
+    xyz, d = _points(n, 13)
+    xyz_t = jfm._pad_lanes(jnp.asarray(xyz).T, jfm.TILE_N)
+    dir_t = jfm._pad_lanes(jnp.asarray(d).T, jfm.TILE_N)
+    want = np.asarray(jk4.fused_full_t_int8(jpack, xyz_t, dir_t, depth=cfg.depth,
+                                            skips=cfg.skips)[:4, :n].T)
+    want_sigma = np.asarray(jk4.fused_sigma_t_int8(jpack, xyz_t, depth=cfg.depth,
+                                                   skips=cfg.skips)[jfm.SIGMA_ROW, :n])
+    got = k4.fused_nerf_full_int8(tpack, torch.from_numpy(xyz), torch.from_numpy(d)).numpy()
+    got_sigma = k4.fused_nerf_sigma_int8(tpack, torch.from_numpy(xyz)).numpy()[:, 0]
+    np.testing.assert_allclose(got[:, :3], want[:, :3], atol=2e-2, rtol=0)
+    np.testing.assert_allclose(got[:, 3], want[:, 3], atol=5e-2, rtol=2e-2)
+    np.testing.assert_allclose(got_sigma, want_sigma, atol=5e-2, rtol=2e-2)
+
+
 def test_trunk_inputs_are_int8_of_the_plain_math(field):
     """`int8_trunk_inputs` on the CPU: slot 0 holds the quantised
     coordinates and sin/cos, every slot is within +-127, and it is what
@@ -256,13 +287,19 @@ def test_k4_stream_order_and_swizzle(width, depth, skips, n_trunk):
 
 
 def test_k4_stream_only_at_the_kernel_width():
-    """The int8 pack carries k4_stream at every width the kernel takes
-    (128-512 in steps of 128) and never k1_stream; at 640 or 192 neither,
-    and its inverse refuses a stream of the wrong size."""
+    """The int8 pack carries k4_stream at every width the kernels take (any
+    multiple of 128: 640 runs on the wide kernel, and its stream
+    round-trips through `unpack_k4_stream`) and never k1_stream; at 192
+    neither, and its inverse refuses a stream of the wrong size."""
     for width in (128, 256, 384, 512, 640, 192):
         packed = _int8_pack(3, (1,), width)
-        assert ("k4_stream" in packed) == (width in KERNEL_WIDTHS), width
+        assert ("k4_stream" in packed) == (width % 128 == 0), width
         assert "k1_stream" not in packed
+    packed = _int8_pack(3, (1,), 640)
+    got = k4.unpack_k4_stream(packed["k4_stream"], 3, [0, 1], 640)
+    for k in ("q1", "q2", "w_comb"):
+        assert torch.equal(got[k], packed[k]), k
+    assert torch.equal(got["q1s"][:, :k4.EMB_Q], packed["q1s"])
     packed = _int8_pack(3, (1,))
     with pytest.raises(ValueError, match="k4_stream"):
         k4.unpack_k4_stream(packed["k4_stream"][:-1], 3, [0, 1], 256)

@@ -387,6 +387,43 @@ def test_importance_sampler_frequencies(alpha):
     assert np.all(np.abs(freq - p) <= 5 * sd), np.max(np.abs(freq - p) / sd)
 
 
+@pytest.mark.parametrize("scale", [1e-4, 1e-6])
+def test_importance_sampler_frequencies_at_small_errors(scale):
+    """Late in training every error is small: at alpha 2 and errors near
+    `scale`, the pick's counts on an even grid of 2^16 draws equal the
+    inverse CDF of (e + 1e-8)^alpha within one draw a ray (no weight rounds
+    to 0; the pool's weights are scaled by its largest one)."""
+    n_pool, b, alpha = 48, 2 ** 16, 2.0
+    rng = np.random.default_rng(3)
+    err = (scale * rng.uniform(0.2, 3.0, n_pool)).astype(np.float32)
+    u_cat = (torch.arange(b, dtype=torch.float32) + 0.5) / b
+    never = torch.zeros(b, dtype=torch.bool)
+    idx = importance_indices(torch.from_numpy(err), u_cat, torch.zeros(b, dtype=torch.long),
+                             never, alpha)
+    counts = np.bincount(idx.numpy(), minlength=n_pool)
+    w = (err.astype(np.float64) + 1e-8) ** alpha
+    want = w / w.sum() * b
+    assert np.all(counts > 0)
+    np.testing.assert_allclose(counts, want, atol=1.0, rtol=0)
+
+
+def test_duplicate_draws_keep_the_error_of_their_last_draw():
+    """`last_occurrence`: every entry of a duplicated index points at its
+    last position, so the error buffer's write is one value per ray
+    whatever order a card lands the writes in (the CPU's sequential
+    index_put, last wins, gives the same buffer)."""
+    from nerf_siren_tpu_torch.training.graphs import last_occurrence
+
+    idx = torch.tensor([3, 0, 3, 5, 0, 3, 7])
+    np.testing.assert_array_equal(last_occurrence(idx, 8).numpy(), [5, 4, 5, 3, 4, 5, 6])
+    err = torch.arange(7, dtype=torch.float32) / 10
+    buf, seq = torch.ones(8), torch.ones(8)
+    buf[idx] = err[last_occurrence(idx, 8)]
+    for i, e in zip(idx.tolist(), err.tolist()):
+        seq[i] = e
+    assert torch.equal(buf, seq)
+
+
 # ---- the train CLI ---------------------------------------------------------------
 
 def test_train_cli_grouped_steps_write_the_eager_checkpoint(tmp_path):

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels against their plain versions: the fused
 NeRF field (K1, csrc/fused_mlp.cu), the fused training field's forward
 and backward (K2, csrc/fused_mlp_train.cu), the proxy march (K3,
-csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu), the
-triplane gather (K5, csrc/triplane_gather.cu) and the proxy top-K (K6,
-the TOPK epilogue of csrc/proxy_march.cu); and on the card, the grouped
+csrc/proxy_march.cu), the int8 field (K4, csrc/fused_mlp_int8.cu), K1's
+and K4's wide kernel (csrc/fused_mlp_wide.cu: widths above 512, depths
+above 16), the triplane gather (K5, csrc/triplane_gather.cu) and the proxy
+top-K (K6, the TOPK epilogue of csrc/proxy_march.cu; K3 and K6 above
+MAX_CANDIDATES on their device-scratch kernel); and on the card, the grouped
 steps' CUDA graphs (the MLP field on K2, SIREN and d3) against eager or
 looped steps, a d3 fast tile on K3 and K1 against their plain versions,
 EG3D's grouped steps on a graph against their loop and a fast EG3D tile
@@ -140,7 +142,8 @@ def test_kernel_matches_plain_at_every_width(cuda_device, width, n, samples_per_
     sig = fused_mlp.fused_nerf_sigma(packed, xyz)
     full = fused_mlp.fused_nerf_full(packed, xyz, d, samples_per_dir=samples_per_dir)
     torch.cuda.synchronize()
-    assert fused_mlp.LAUNCHES == {"sigma": before["sigma"] + 1, "full": before["full"] + 1}
+    assert fused_mlp.LAUNCHES == {**before, "sigma": before["sigma"] + 1,
+                                  "full": before["full"] + 1}
     assert sig.shape == (n, 1) and full.shape == (n, 4)
     torch.testing.assert_close(sig, fused_mlp.fused_sigma_ref(packed, xyz), atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(
@@ -231,11 +234,14 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         fused_mlp.fused_nerf_sigma(packed, torch.zeros((3, 8), device=cuda_device).t())
     with pytest.raises(ValueError, match="dirs"):
         fused_mlp.fused_nerf_full(packed, xyz, torch.zeros((3, 3), device=cuda_device))
-    # the widths it takes are 128-512 in steps of 128 (once 256 only, tested at 128)
-    for width in (640, 192):
-        with pytest.raises(ValueError, match="width"):
-            fused_mlp.fused_nerf_sigma(_packed(width=width, depth=3, skips=(1,),
-                                               device=cuda_device), xyz)
+    # the widths it takes: every multiple of 128 (once 256 only, then 128-512): 640
+    # runs on the wide kernel, 192 is refused, as JAX's pack refuses it
+    with pytest.raises(ValueError, match="width"):
+        fused_mlp.fused_nerf_sigma(_packed(width=192, depth=3, skips=(1,),
+                                           device=cuda_device), xyz)
+    p640 = _packed(width=640, depth=3, skips=(1,), device=cuda_device)
+    torch.testing.assert_close(fused_mlp.fused_nerf_sigma(p640, xyz),
+                               fused_mlp.fused_sigma_ref(p640, xyz), atol=ATOL, rtol=RTOL)
     with pytest.raises(ValueError, match="k1_stream"):
         fused_mlp.fused_nerf_sigma({**packed, "k1_stream": packed["k1_stream"].cpu()}, xyz)
     with pytest.raises(ValueError, match="k1_stream"):
@@ -509,7 +515,8 @@ def test_proxy_march_kernels_match_plain(cuda_device, n, c, k, hidden, midpoint)
     opac = k3.proxy_opacity(pp, rays, c)
     z, xyz, rho, mass = k3.proxy_march_select(pp, rays, c, k, midpoint, True)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES == {"opacity": before["opacity"] + 1, "select": before["select"] + 1}
+    assert k3.LAUNCHES == {**before, "opacity": before["opacity"] + 1,
+                           "select": before["select"] + 1}
     ref_opac = k3.proxy_opacity_ref(pp, rays, c)
     rz, rxyz, rrho, rmass = k3.proxy_march_select_ref(pp, rays, c, k, midpoint, True)
     e = (opac - ref_opac).abs()
@@ -587,31 +594,40 @@ def test_proxy_march_kernels_take_no_rays(cuda_device):
     torch.cuda.synchronize()
     assert (z.shape, xyz.shape, rho.shape, mass.shape) == ((0, 16), (0, 16, 3), (0, 16), (0,))
     assert k3.proxy_march_scores(pp, rays, 32).shape == (0, 32)
-    assert k3.LAUNCHES == {"opacity": before["opacity"] + 1, "select": before["select"] + 1}
+    assert k3.LAUNCHES == {**before, "opacity": before["opacity"] + 1,
+                           "select": before["select"] + 1}
 
 
 @pytest.mark.cuda
 def test_proxy_opacity_at_the_candidate_cap_and_refused_above_it(cuda_device):
     """At MAX_CANDIDATES (one ray a block in 227 KB of shared memory; the
-    library's own cap is the same) K3 opacity matches its plain version and
-    the plain march on its own scores bit for bit; one more is refused."""
+    library's own cap is the same) and above it (once refused; now each
+    CTA's row of scores in a device scratch: `proxy_march_huge_kernel`, at
+    MAX_CANDIDATES + 1 and 65,536) K3 opacity and select match their plain
+    versions, and the plain march on the kernel's own scores equals them
+    bit for bit; launches above the cap count under '*_scratch'."""
     from nerf_siren_tpu_torch.ops.kernels import proxy_march as k3
 
     cap = MAX_CANDIDATES
     assert k3.kernel_max_candidates() == cap >= 16384
     assert k3.shared_bytes(128, cap) == k3.shared_bytes_at(128, cap) <= k3.SMEM_MAX
+    assert k3.shared_bytes(128, cap + 1) < 32768   # the row is not in shared memory
     pp, rays = _proxy_pack(128, cuda_device), _proxy_rays(3).to(cuda_device)
-    opac = k3.proxy_opacity(pp, rays, cap)
-    scores = k3.proxy_march_scores(pp, rays, cap)
-    torch.cuda.synchronize()
-    assert torch.equal(opac, k3.proxy_opacity_ref(pp, rays, cap, scores=scores))
-    e = (opac - k3.proxy_opacity_ref(pp, rays, cap)).abs()
-    assert float(e.max()) < 0.05
-    for fn in (k3.proxy_opacity, k3.proxy_march_scores):
-        with pytest.raises(ValueError, match=f"4..{cap} candidates, got {cap + 1}"):
-            fn(pp, rays, cap + 1)
-    with pytest.raises(ValueError, match=f"4..{cap} candidates"):
-        k3.proxy_march_select(pp, rays, cap + 1, 16)
+    for c in (cap, cap + 1, 65536):
+        before = dict(k3.LAUNCHES)
+        opac = k3.proxy_opacity(pp, rays, c)
+        sel = k3.proxy_march_select(pp, rays, c, 16, True, True)
+        scores = k3.proxy_march_scores(pp, rays, c)
+        torch.cuda.synchronize()
+        key = "" if c <= cap else "_scratch"
+        assert k3.LAUNCHES == {**before, f"opacity{key}": before[f"opacity{key}"] + 1,
+                               f"select{key}": before[f"select{key}"] + 1}
+        assert torch.equal(opac, k3.proxy_opacity_ref(pp, rays, c, scores=scores))
+        for got, want in zip(sel, k3.proxy_march_select_ref(pp, rays, c, 16, True, True,
+                                                           scores=scores)):
+            assert torch.equal(got, want)
+        e = (opac - k3.proxy_opacity_ref(pp, rays, c)).abs()
+        assert float(e.max()) < 0.05
 
 
 # (R, C, K, H): C 1-256 and 512, 4096, K from 1 to C, every wgmma width (H 1 and 16 -> 16,
@@ -620,7 +636,9 @@ def test_proxy_opacity_at_the_candidate_cap_and_refused_above_it(cuda_device):
 K6_SHAPES = [(1, 1, 1, 48), (70, 1, 1, 1), (70, 2, 2, 16), (70, 3, 1, 100), (4099, 3, 3, 96),
              (4099, 8, 8, 128), (4099, 32, 16, 96), (70, 32, 1, 48), (4099, 64, 16, 48),
              ("edge", 64, 16, 96), (1, 64, 64, 100), (257, 256, 3, 128), (70, 256, 256, 16),
-             (301, 37, 5, 1), (300, 512, 16, 96), (20, 4096, 64, 128)]
+             (301, 37, 5, 1), (300, 512, 16, 96), (20, 4096, 64, 128),
+             # above MAX_CANDIDATES: rows in a device scratch, K arg-max passes
+             (20, 65536, 16, 96), (3, 53104, 300, 128), (70, 60000, 1, 16)]
 
 
 def _k6_rays(n, device):
@@ -643,11 +661,12 @@ def test_proxy_select_kernel_matches_plain(cuda_device, n, c, k, hidden):
     from nerf_siren_tpu_torch.ops.kernels import proxy_select as k6
 
     pp, rays = _proxy_pack(hidden, cuda_device, seed=1), _k6_rays(n, cuda_device)
-    before = k6.LAUNCHES["select"]
+    key = "select" if c <= MAX_CANDIDATES else "select_scratch"
+    before = k6.LAUNCHES[key]
     got = k6.proxy_select(pp, rays, c, k)
     scores, z = k6.proxy_select_scores(pp, rays, c, k)
     torch.cuda.synchronize()
-    assert k6.LAUNCHES["select"] == before + 1
+    assert k6.LAUNCHES[key] == before + 1
     assert got.shape == (rays.shape[0], k) and scores.shape == (rays.shape[0], c)
     zc = k6.candidate_depths(rays, c)
     pts = rays[:, None, 0:3] + rays[:, None, 3:6] * zc[..., None]
@@ -694,8 +713,10 @@ def test_proxy_select_takes_no_rays_and_refuses_what_it_does_not_take(cuda_devic
     assert k6.LAUNCHES["select"] == before + 1
     rays = _proxy_rays(8).to(cuda_device)
     cap = MAX_CANDIDATES
-    with pytest.raises(ValueError, match=f"1..{cap} candidates, got {cap + 1}"):
-        k6.proxy_select(pp, rays, cap + 1, 16)
+    # once refused above the cap: now the scratch kernel, the plain selection on its scores
+    scores, z = k6.proxy_select_scores(pp, rays, cap + 1, 16)
+    assert torch.equal(z, k6.proxy_select(pp, rays, cap + 1, 16))
+    assert torch.equal(z, k6.proxy_select_ref(pp, rays, cap + 1, 16, scores=scores))
     with pytest.raises(ValueError, match="n_keep 17 of 16"):
         k6.proxy_select(pp, rays, 16, 17)
     with pytest.raises(ValueError, match="n_keep 0 of 16"):
@@ -729,7 +750,8 @@ def test_int8_kernel_matches_plain(cuda_device, n, samples_per_dir, depth, skips
     sig = k4.fused_nerf_sigma_int8(p8, xyz)
     full = k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir)
     torch.cuda.synchronize()
-    assert k4.LAUNCHES == {"sigma": before["sigma"] + 1, "full": before["full"] + 1}
+    assert k4.LAUNCHES == {**before, "sigma": before["sigma"] + 1,
+                           "full": before["full"] + 1}
     ref = k4.fused_full_int8_ref(p8, xyz, d, samples_per_dir)
     torch.testing.assert_close(full[:, :3], ref[:, :3], atol=2e-2, rtol=0)
     torch.testing.assert_close(full[:, 3:], ref[:, 3:], atol=5e-2, rtol=2e-2)
@@ -779,7 +801,8 @@ def test_int8_kernel_matches_plain_at_every_width(cuda_device, width, n, samples
     sig = k4.fused_nerf_sigma_int8(p8, xyz)
     full = k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir)
     torch.cuda.synchronize()
-    assert k4.LAUNCHES == {"sigma": before["sigma"] + 1, "full": before["full"] + 1}
+    assert k4.LAUNCHES == {**before, "sigma": before["sigma"] + 1,
+                           "full": before["full"] + 1}
     ref = k4.fused_full_int8_ref(p8, xyz, d, samples_per_dir)
     torch.testing.assert_close(full[:, :3], ref[:, :3], atol=2e-2, rtol=0)
     torch.testing.assert_close(full[:, 3:], ref[:, 3:], atol=5e-2, rtol=2e-2)
@@ -791,6 +814,58 @@ def test_int8_kernel_matches_plain_at_every_width(cuda_device, width, n, samples
           f"{n * width} each; full max|d| {(full - ref).abs().amax(0).tolist()}")
     assert int(flips.sum()) <= 1e-3 * got_q.numel() + 1
     assert torch.equal(full, k4.fused_nerf_full_int8(p8, xyz, d, samples_per_dir))
+
+
+# the wide kernel (csrc/fused_mlp_wide.cu): widths above 512, a width whose
+# last column block is 128 (640) and whose direction branch ends in 64 (640)
+# or 192 (896) columns, and depths past the resident kernels' 16 layers
+WIDE_FIELDS = [(640, 8, (4,)), (896, 3, (1,)), (1024, 8, (4,)), (128, 20, (4,)),
+               (256, 24, (4, 13)), (2048, 2, ())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,depth,skips", WIDE_FIELDS)
+@pytest.mark.parametrize("n,samples_per_dir", [(1, 1), (129, 7), (GRID_EDGE, 16)])
+def test_wide_kernel_matches_plain(cuda_device, width, depth, skips, n, samples_per_dir):
+    """K1 and K4 on the wide kernel, both passes, against their plain
+    versions (K1 within ATOL / RTOL, K4 within `test_int8_kernel_matches_plain`'s
+    bars, its int8 layer inputs that round apart at most 1e-3 of them),
+    counted under 'sigma_wide' / 'full_wide'; two launches bit-identical."""
+    from nerf_siren_tpu_torch.ops.kernels import fused_mlp_int8 as k4
+
+    if n == GRID_EDGE:
+        n = 2 * torch.cuda.get_device_properties(cuda_device).multi_processor_count * 128 + 5
+    model = NeRF(NeRFConfig(depth=depth, width=width, skips=skips),
+                 generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    p16, p8 = fused_mlp.pack_nerf_params(model), k4.pack_nerf_params_int8(model)
+    assert not fused_mlp.resident(width, depth) and not k4.resident(p8, True)
+    xyz, d = _points(n, -(-n // samples_per_dir))
+    xyz, d = xyz.to(cuda_device), d.to(cuda_device)
+    for mod, pack, sig_fn, full_fn, sig_ref, full_ref, bars in (
+            (fused_mlp, p16, fused_mlp.fused_nerf_sigma, fused_mlp.fused_nerf_full,
+             fused_mlp.fused_sigma_ref, fused_mlp.fused_full_ref, None),
+            (k4, p8, k4.fused_nerf_sigma_int8, k4.fused_nerf_full_int8,
+             k4.fused_sigma_int8_ref, k4.fused_full_int8_ref, (2e-2, 5e-2, 2e-2))):
+        before = dict(mod.LAUNCHES)
+        sig, full = sig_fn(pack, xyz), full_fn(pack, xyz, d, samples_per_dir)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == {**before, "sigma_wide": before["sigma_wide"] + 1,
+                                "full_wide": before["full_wide"] + 1}
+        ref = full_ref(pack, xyz, d, samples_per_dir)
+        if bars is None:
+            torch.testing.assert_close(sig, sig_ref(pack, xyz), atol=ATOL, rtol=RTOL)
+            torch.testing.assert_close(full, ref, atol=ATOL, rtol=RTOL)
+        else:
+            torch.testing.assert_close(full[:, :3], ref[:, :3], atol=bars[0], rtol=0)
+            torch.testing.assert_close(full[:, 3:], ref[:, 3:], atol=bars[1], rtol=bars[2])
+            torch.testing.assert_close(sig, sig_ref(pack, xyz), atol=bars[1], rtol=bars[2])
+        assert torch.equal(full, full_fn(pack, xyz, d, samples_per_dir))
+    got_q, ref_q = k4.int8_trunk_inputs(p8, xyz), k4.int8_trunk_inputs_ref(p8, xyz)
+    assert got_q.shape == ref_q.shape == (depth, n, width)
+    flips = int((got_q != ref_q).sum())
+    print(f"\n[width={width} depth={depth} n={n}] int8 inputs rounded apart: {flips} of "
+          f"{got_q.numel()}")
+    assert flips <= 1e-3 * got_q.numel() + 1
 
 
 @pytest.mark.cuda
@@ -836,10 +911,14 @@ def test_proxy_and_int8_kernels_reject_what_they_do_not_take(cuda_device):
         k3.proxy_opacity({**pp, "k3_w1t": pp["k3_w1t"][:16].contiguous()}, rays, 16)
     p8 = k4.pack_nerf_params_int8(NeRF(NeRFConfig()).to(cuda_device))
     xyz = torch.zeros((4, 3), device=cuda_device)
-    for width in (640, 192):   # the widths it takes are 128-512 in steps of 128
-        wide = NeRF(NeRFConfig(depth=3, width=width, skips=(1,))).to(cuda_device)
-        with pytest.raises(ValueError, match="width"):
-            k4.fused_nerf_sigma_int8(k4.pack_nerf_params_int8(wide), xyz)
+    # the widths it takes: every multiple of 128 (640 on the wide kernel); 192 refused
+    wide = NeRF(NeRFConfig(depth=3, width=192, skips=(1,))).to(cuda_device)
+    with pytest.raises(ValueError, match="width"):
+        k4.fused_nerf_sigma_int8(k4.pack_nerf_params_int8(wide), xyz)
+    wide = k4.pack_nerf_params_int8(NeRF(NeRFConfig(depth=3, width=640, skips=(1,))).to(
+        cuda_device))
+    torch.testing.assert_close(k4.fused_nerf_sigma_int8(wide, xyz),
+                               k4.fused_sigma_int8_ref(wide, xyz), atol=5e-2, rtol=2e-2)
     with pytest.raises(ValueError, match="q1"):
         k4.fused_nerf_sigma_int8({**p8, "q1": p8["q1"].float()}, xyz)
     before = dict(k4.LAUNCHES)

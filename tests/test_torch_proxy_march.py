@@ -375,6 +375,22 @@ def test_rank_rule_equals_the_stable_descending_sort(tied):
             assert torch.equal(k6.rank_select_ref(s, k), k6.select_order(s, k)), (c, k)
 
 
+def test_candidate_counts_above_the_shared_memory_row_take_a_scratch():
+    """K3 and K6 take any C from 4 (1 for K6) to MAX_C: up to MAX_CANDIDATES
+    no scratch (`scratch_for` None, nothing allocated), above it one row of
+    C | 1 floats per CTA; the wrappers check C against MAX_C, not the
+    shared-memory cap, and run the plain version on the CPU above it."""
+    assert k3.MAX_CANDIDATES == 53103 and k6.MAX_CANDIDATES == k3.MAX_CANDIDATES
+    assert k3.MAX_C == 1 << 30
+    for c in (4, 256, k3.MAX_CANDIDATES):
+        assert k3.scratch_for(64, c, 10, "cpu") is None
+    assert k3.scratch_for(64, k3.MAX_CANDIDATES + 1, 0, "cpu") is None   # no rays: no launch
+    assert k3.scratch_args(None) == (None, 0)
+    k3.check_range("proxy_opacity", "candidates", k3.MAX_CANDIDATES + 1, 4, k3.MAX_C)
+    with pytest.raises(ValueError, match="got 3"):
+        k3.check_range("proxy_opacity", "candidates", 3, 4, k3.MAX_C)
+
+
 def test_cut_swaps_measures_the_swaps_against_their_bars():
     """`cut_swaps` counts the rays whose kept sets differ and gives the
     largest gap between swapped candidates' plain scores over their bars'

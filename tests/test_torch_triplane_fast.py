@@ -294,9 +294,9 @@ def test_eval_eg3d_fast_cli_matches_jax(tmp_path, scene, cli_scene, monkeypatch,
 
 
 def test_eval_eg3d_renders_above_k3s_limit_on_the_cpu(cli_scene, tmp_path):
-    """Above MAX_CANDIDATES K3 cannot run, so the card refuses them at parse
-    time (tests/test_torch_eg3d_eval.py); on the CPU the plain version
-    renders them (a 2 x 2 image at MAX_CANDIDATES + 1)."""
+    """Above MAX_CANDIDATES (the shared-memory row's cap; K3 takes the count
+    on the card from a device scratch) the plain version renders on the CPU
+    (a 2 x 2 image at MAX_CANDIDATES + 1)."""
     from nerf_siren_tpu_torch.eval_eg3d import get_opts, main
     from nerf_siren_tpu_torch.ops.kernels.proxy_march import MAX_CANDIDATES
 

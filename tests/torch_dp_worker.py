@@ -196,6 +196,50 @@ def pool_steps(dp=None):
     return {"params": snapshot(state), "loss": float(m["train/loss"])}
 
 
+def accum_steps(dp=None, n_steps=2):
+    """2 `train_step_accum` updates (n_micro 2) at perturb 0 on JAX_BATCH
+    global batches: each rank takes its rows of both micro-batches."""
+    system = nerf_system("jnp", 0.0, dp)
+    state = with_density_state(system.init_state(SEED))
+    metrics = []
+    for i in range(n_steps):
+        b = rays_batch(JAX_BATCH, 600 + i)
+        state, m = system.train_step_accum(state, {"rays": b["rays"], "rgbs": b["rgbs"]},
+                                           seed=7, n_micro=2)
+        metrics.append([float(m["train/loss"]), float(m["train/psnr"])])
+    return {"params": snapshot(state), "metrics": np.array(metrics)}
+
+
+def eg3d_system(dp=None):
+    from nerf_siren_tpu_torch.render.triplane import RenderingOptions, TriPlaneConfig
+    from nerf_siren_tpu_torch.training.eg3d_system import EG3DSystem
+
+    cfg = TriPlaneConfig(**TINY_TRI, rendering=RenderingOptions(**EG3D_OPTS))
+    return EG3DSystem(cfg, train_cfg=TrainConfig(**SGD), steps_per_epoch=10, device="cpu",
+                      data_parallel=dp)
+
+
+def importance_steps(dp=None, kind="nerf"):
+    """3 `train_scan_importance` steps on a 64-ray pool, BATCH rays a step
+    over all ranks: every rank draws the global batch's indices and keeps
+    the whole error buffer, which the all-gathered errors update."""
+    if kind == "nerf":
+        system = nerf_system("jnp", 1.0, dp)
+        state = with_density_state(system.init_state(SEED))
+    else:
+        system = eg3d_system(dp)
+        state = system.init_state(SEED)
+    pool = rays_batch(64, 700)
+    if kind == "eg3d":
+        pool["rays"][:, :3] += np.array([0.0, 0.0, -4.0], np.float32)
+    world = 1 if dp is None else dp.world
+    state, m = system.train_scan_importance(state, pool["rays"], pool["rgbs"], seed=17,
+                                            n_steps=3, batch_size=BATCH // world,
+                                            alpha=1.0, uniform_frac=0.2)
+    return {"params": snapshot(state), "loss": float(m["train/loss"]),
+            "buf": system.last_group.buf.numpy().copy()}
+
+
 def utilities(dp):
     from nerf_siren_tpu_torch.utils import training_stats
     from nerf_siren_tpu_torch.utils.debug import check_replica_consistency
@@ -257,6 +301,9 @@ def run(rank: int, world: int, store: str, out: str) -> None:
         for loss_type in IGNORE_INDEX:
             res[f"d3_ignored_{loss_type}"] = d3_step(dp, loss_type, ignored=True)
         res["grouped"] = grouped(dp)
+        res["accum"] = accum_steps(dp)
+        for kind in ("nerf", "eg3d"):
+            res[f"importance_{kind}"] = importance_steps(dp, kind)
         res["utilities"] = utilities(dp)
         res["sharded_field"] = sharded_field(dp)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
