@@ -1303,7 +1303,7 @@ def clipped_rays(rays, aabb):
     import torch
     from nerf_siren_tpu_torch.render.fast import _clip_to_aabb
 
-    near, far = _clip_to_aabb(rays[:, :3], rays[:, 3:6], rays[:, 6:7], rays[:, 7:8], aabb)
+    near, far, _ = _clip_to_aabb(rays[:, :3], rays[:, 3:6], rays[:, 6:7], rays[:, 7:8], aabb)
     return torch.cat([rays[:, :6], near, far], 1).contiguous()
 
 

@@ -5,7 +5,8 @@ plain C interface and loaded with `ctypes` (no PyTorch headers, so a build
 takes seconds). Libraries go to `nerf_siren_tpu_torch/_build/`, named by a
 hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so an
 edited source, header or flag rebuilds and an unchanged one is loaded as it
-is. Nothing is built at import time.
+is. Nothing is built at import time. The wrappers count their launches
+in their modules' `LAUNCHES` through `utils/tracing.py::count_launch`.
 """
 from __future__ import annotations
 
@@ -27,14 +28,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
-
-
-def count_launch(counts: Dict[str, int], key: str) -> None:
-    """Add one to a wrapper's launch count: under a lock, since the slabs of
-    a mesh launch from a host thread each."""
-    with _COUNT_LOCK:
-        counts[key] += 1
 
 
 def nvcc_path() -> str:

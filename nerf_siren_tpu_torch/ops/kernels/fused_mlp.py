@@ -31,7 +31,8 @@ module owns everything around it:
   `MAX_DEPTH` layers, else the wide kernel (`csrc/fused_mlp_wide.cu`,
   `wide_launch`, shared with K4) at any width % 128 == 0 and any depth.
   `LAUNCHES` counts kernel launches per wrapper ('sigma' / 'full' the
-  resident kernel's, 'sigma_wide' / 'full_wide' the wide kernel's).
+  resident kernel's, 'sigma_wide' / 'full_wide' the wide kernel's),
+  counted by `utils/tracing.py::count_launch`.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
-from nerf_siren_tpu_torch.ops.kernels._build import count_launch
+from nerf_siren_tpu_torch.utils.tracing import count_launch
 
 EMB_X = 64        # 63 xyz-embedding channels + 1 zero column
 EMB_D = 32        # 27 direction-embedding channels + 5 zero columns

@@ -36,7 +36,7 @@ kernels `_full_kernel_int8` / `_sigma_kernel_int8`). The kernel is
   fit, else the wide kernel (`csrc/fused_mlp_wide.cu`) at any width %
   128 == 0 and any depth. `LAUNCHES` counts kernel launches per wrapper
   ('sigma' / 'full' the resident kernel's, 'sigma_wide' / 'full_wide' the
-  wide kernel's).
+  wide kernel's), counted by `utils/tracing.py::count_launch`.
 - `int8_trunk_inputs`: every layer's int8 input (the kernel's, on the card),
   to count the entries where the kernel and the plain version round apart.
 """
@@ -50,13 +50,13 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
-from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels import fused_mlp
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (HEAD_KEYS, KERNEL_WIDTHS, MAX_DEPTH,
                                                         SLICE, Packed, _bf16, _check, _depth,
                                                         _width, check_points, full_heads_ref,
                                                         head_pointers, sigma_head_ref,
                                                         takes_width, wide_launch)
+from nerf_siren_tpu_torch.utils.tracing import count_launch
 
 EMB_Q = 64        # 60 sin/cos columns + 4 zero columns (two int8 k-steps of 32)
 INV127 = 1.0 / 127.0

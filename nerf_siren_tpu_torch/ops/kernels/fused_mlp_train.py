@@ -39,8 +39,9 @@ everything around them:
 - `fused_train_fwd` / `fused_train_bwd`: the wrappers. A CPU tensor goes to
   the plain version; a CUDA tensor launches the kernels or raises.
   `LAUNCHES` counts wrapper launches ("bwd" counts the three-kernel
-  backward once). `fused_train_bwd_activations` also returns the forward
-  values the backward kernel stashed, for the card tests.
+  backward once; counted by `utils/tracing.py::count_launch`).
+  `fused_train_bwd_activations` also returns the forward values the
+  backward kernel stashed, for the card tests.
 - `fused_field_train` (an autograd Function over one `NeRF`'s parameters;
   no gradient for points or directions) and `make_fused_train_field_fn`,
   the `render_rays` field override of the `fused` training backend.
@@ -55,9 +56,9 @@ import torch.nn.functional as F
 
 from nerf_siren_tpu_torch.config import NeRFConfig
 from nerf_siren_tpu_torch.models.nerf import NeRF
-from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import (EMB_D, EMB_X, SLICE, _bf16, _check,
                                                         _embed, _swizzle128)
+from nerf_siren_tpu_torch.utils.tracing import count_launch
 
 W = 256           # trunk width (reference topology)
 WD = W // 2       # direction-branch width

@@ -37,7 +37,8 @@ module owns everything around the march and the library's binding:
   They take any C >= 4: up to `MAX_CANDIDATES` a block's rows of scores
   stay in shared memory, above it each CTA's row lives in a device scratch
   of blocks x C floats (`scratch_for`). `LAUNCHES` counts kernel launches
-  per wrapper (above MAX_CANDIDATES under '*_scratch'). `proxy_march_scores`
+  per wrapper (above MAX_CANDIDATES under '*_scratch'; counted by
+  `utils/tracing.py::count_launch`). `proxy_march_scores`
   reads the kernel's scores back (a reading for the tests and the smoke,
   not counted).
 
@@ -54,8 +55,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
-from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import _bf16, _check, _swizzle128
+from nerf_siren_tpu_torch.utils.tracing import count_launch
 
 PROXY_FREQS = 5
 PROXY_IN = 3 * (2 * PROXY_FREQS + 1)   # 33

@@ -25,8 +25,9 @@ K - 1 in turn (the same sets in the same order, O(K C) instead of O(C^2)).
   lie, against `proxy_march.proxy_score_bar`.
 - `proxy_select`: the public wrapper. A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises. `LAUNCHES` counts
-  kernel launches. `proxy_select_scores` reads the kernel's scores back
-  with its depths (a reading for the tests and the smoke, not counted).
+  kernel launches (through `utils/tracing.py::count_launch`). `proxy_select_scores`
+  reads the kernel's scores back with its depths (a reading for the tests
+  and the smoke, not counted).
 
 The kernel sums the proxy in the tensor cores' order, so its scores lie
 within `proxy_score_bar` of the plain ones, and given its own scores the
@@ -38,10 +39,10 @@ from typing import Tuple
 
 import torch
 
-from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import (  # noqa: F401 (re-export)
     MAX_C, MAX_CANDIDATES, Packed, _div, _lib, check_range, current_stream, k3_args,
     pack_proxy_params, proxy_scores_ref, scratch_args, scratch_for)
+from nerf_siren_tpu_torch.utils.tracing import count_launch
 
 LAUNCHES = {"select": 0, "select_scratch": 0}   # above MAX_CANDIDATES: 'select_scratch'
 

@@ -17,7 +17,7 @@ of `render/triplane.py::generate_planes`), then `grid_sample_2d_packed`.
 - `triplane_gather`: the public wrapper. A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises. There is no
   backward (as in JAX): inputs that need a gradient are refused.
-  `LAUNCHES` counts kernel launches.
+  `LAUNCHES` counts kernel launches (through `utils/tracing.py::count_launch`).
 - `launch_plan`: the kernel's route and grid for a call (the corner load
   width, threads per point, blocks), a plain function so that the CPU
   tests can check that its threads cover every output once.
@@ -30,9 +30,9 @@ from typing import NamedTuple
 
 import torch
 
-from nerf_siren_tpu_torch.ops.kernels._build import count_launch
 from nerf_siren_tpu_torch.ops.grid_sample import grid_sample_2d_packed
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import current_stream
+from nerf_siren_tpu_torch.utils.tracing import count_launch
 
 PLANE_AXES = ((0, 1), (0, 2), (2, 0))   # the (u, v) world axes of planes 0, 1, 2
 

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerf_siren_tpu_torch.render.rendering import map_chunks
+
 Outputs = Dict[str, torch.Tensor]
 
 
@@ -232,14 +234,9 @@ def sharded_tile_render(tile_fn: Union[Callable, Sequence[Callable]], mesh: Mesh
     n_dev = mesh.shape[axis]
     fns = list(tile_fn) if isinstance(tile_fn, (list, tuple)) else [tile_fn] * n_dev
 
-    def slab_fn(f):
-        def run(slab):
-            outs = [f(slab[i: i + chunk]) for i in range(0, slab.shape[0], chunk)]
-            return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        return run
-
     def render(rays: torch.Tensor) -> Outputs:
-        return render_slabs([slab_fn(f) for f in fns], mesh, rays, chunk, axis)
+        return render_slabs([lambda slab, f=f: map_chunks(f, slab, chunk) for f in fns], mesh,
+                            rays, chunk, axis)
 
     return render
 

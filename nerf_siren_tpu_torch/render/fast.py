@@ -44,6 +44,7 @@ from nerf_siren_tpu_torch.ops.kernels.proxy_march import proxy_march_select, pro
 from nerf_siren_tpu_torch.ops.sample_pdf import sample_pdf
 from nerf_siren_tpu_torch.render.fused import field_kernels, render_rays_fused
 from nerf_siren_tpu_torch.render.rendering import _field, _n_freqs
+from nerf_siren_tpu_torch.utils import tracing
 
 PROXY_FREQS = 5   # 3 * (2 * 5 + 1) = 33 input channels
 TILE_R = 2048     # the auto-cull budget quantum, in rays (the JAX kernel's ray tile)
@@ -147,7 +148,8 @@ def estimate_scene_aabb(sigma_fn: Callable[[torch.Tensor], torch.Tensor], search
 
 def _clip_to_aabb(rays_o, rays_d, near, far, scene_aabb):
     """Tighten each ray's [near, far] to its intersection with the box;
-    rays that miss it keep their bounds."""
+    rays that miss it keep their bounds. Returns (near, far, hits): hits
+    (R, 1) is true where a ray's interval meets the box."""
     lo = torch.tensor(np.asarray(scene_aabb[0], np.float32), device=rays_o.device)
     hi = torch.tensor(np.asarray(scene_aabb[1], np.float32), device=rays_o.device)
     invd = 1.0 / torch.where(rays_d.abs() < 1e-9, torch.full_like(rays_d, 1e-9), rays_d)
@@ -157,7 +159,7 @@ def _clip_to_aabb(rays_o, rays_d, near, far, scene_aabb):
     hits = t_max > torch.clamp_min(t_min, 0.0)
     near = torch.where(hits, torch.minimum(torch.maximum(t_min, near), far), near)
     far = torch.where(hits, torch.minimum(torch.maximum(t_max, near), far), far)
-    return near, far
+    return near, far, hits
 
 
 def _composite(alphas, z, rgb, white_back):
@@ -231,40 +233,50 @@ def render_rays_fast(
     if quadrature == "ratio" and not (select == "pdf" and placement == "mid"):
         raise ValueError("quadrature='ratio' needs equal-mass strata (select='pdf', "
                          "placement='mid')")
-    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
-    near, far = rays[:, 6:7], rays[:, 7:8]
-    dir_norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    kernel_route = select == "pdf" and packed_proxy is not None and packed_params is not None
+    if kernel_route and return_samples and (cull is not None or adaptive is not None):
+        raise ValueError("return_samples is unsupported with cull/adaptive")
+    if kernel_route and cull is not None and adaptive is not None:
+        raise ValueError("cull and adaptive are exclusive")
     r = rays.shape[0]
-    if scene_aabb is not None:
-        near, far = _clip_to_aabb(rays_o, rays_d, near, far, scene_aabb)
+    with tracing.span("fast.clip"):
+        rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+        near, far = rays[:, 6:7], rays[:, 7:8]
+        dir_norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        tracing.count("fast.rays", r)
+        if scene_aabb is not None:
+            near, far, hits = _clip_to_aabb(rays_o, rays_d, near, far, scene_aabb)
+            tracing.count_device("fast.rays_in_box", hits)
+        else:   # no box: every ray's interval is the scene's
+            tracing.count("fast.rays_in_box", r)
+        if kernel_route:
+            rays8 = torch.cat([rays[:, :6], near, far], dim=1).contiguous()
 
-    if select == "pdf" and packed_proxy is not None and packed_params is not None:
-        if return_samples and (cull is not None or adaptive is not None):
-            raise ValueError("return_samples is unsupported with cull/adaptive")
-        if cull is not None and adaptive is not None:
-            raise ValueError("cull and adaptive are exclusive")
+    if kernel_route:
         full_fn = field_kernels(packed_params[model])[1]
         ratio_quad = quadrature == "ratio"
 
         def fused_pdf(rays8, k):
             """K3 march + placement, the field at the survivors, compositing."""
-            sel = proxy_march_select(packed_proxy, rays8, n_candidates, k,
-                                     midpoint=placement == "mid", return_density=ratio_quad)
-            zs, xyz = sel[0], sel[1]
-            raw = full_fn(packed_params[model], xyz.reshape(-1, 3),
-                          rays8[:, 3:6].contiguous(), samples_per_dir=k).view(-1, k, 4)
-            sigmas = torch.relu(raw[..., 3])
-            dirn = torch.linalg.norm(rays8[:, 3:6], dim=-1, keepdim=True)
-            if ratio_quad:
-                alphas = _ratio_alphas(sigmas, dirn, sel[2], sel[3][:, None], k)
-            else:
-                spacing = (rays8[:, 7:8] - rays8[:, 6:7]) / (n_candidates - 1)
-                deltas = torch.cat([zs[:, 1:] - zs[:, :-1], spacing], dim=-1) * dirn
-                alphas = 1.0 - torch.exp(-deltas * sigmas)
-            rgb, depth, opacity, weights = _composite(alphas, zs, raw[..., :3], white_back)
+            with tracing.span("fast.march"):
+                sel = proxy_march_select(packed_proxy, rays8, n_candidates, k,
+                                         midpoint=placement == "mid", return_density=ratio_quad)
+                zs, xyz = sel[0], sel[1]
+            with tracing.span("fast.field"):
+                raw = full_fn(packed_params[model], xyz.reshape(-1, 3),
+                              rays8[:, 3:6].contiguous(), samples_per_dir=k).view(-1, k, 4)
+            with tracing.span("fast.composite"):
+                sigmas = torch.relu(raw[..., 3])
+                dirn = torch.linalg.norm(rays8[:, 3:6], dim=-1, keepdim=True)
+                if ratio_quad:
+                    alphas = _ratio_alphas(sigmas, dirn, sel[2], sel[3][:, None], k)
+                else:
+                    spacing = (rays8[:, 7:8] - rays8[:, 6:7]) / (n_candidates - 1)
+                    deltas = torch.cat([zs[:, 1:] - zs[:, :-1], spacing], dim=-1) * dirn
+                    alphas = 1.0 - torch.exp(-deltas * sigmas)
+                rgb, depth, opacity, weights = _composite(alphas, zs, raw[..., :3], white_back)
             return rgb, depth, opacity, zs, weights, raw[..., :3]
 
-        rays8 = torch.cat([rays[:, :6], near, far], dim=1).contiguous()
         if cull is not None:
             n_act = min(r, max(1, int(cull * r)))
             idx = _descending(proxy_opacity(packed_proxy, rays8, n_candidates))[:n_act]

@@ -21,6 +21,7 @@ import torch
 from nerf_siren_tpu_torch.config import RenderConfig
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.ops.sample_pdf import sample_pdf
+from nerf_siren_tpu_torch.utils import tracing
 
 # One render's random draws by name: 'strat_u' (R, n_samples) uniform,
 # 'sigma_coarse' (R, n_samples) and 'sigma_fine' (R, n_samples +
@@ -272,9 +273,16 @@ def render_rays(
 def map_chunks(render_fn: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
                rays: torch.Tensor, chunk: int) -> Dict[str, torch.Tensor]:
     """Apply `render_fn` to consecutive `chunk`-ray slices of `rays` and
-    concatenate the outputs (the last slice may be shorter)."""
-    outs = [render_fn(rays[i: i + chunk]) for i in range(0, rays.shape[0], chunk)]
-    return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+    concatenate the outputs (the last slice may be shorter). Spans (see
+    `utils/tracing.py`): `render.tiles` around the call, `render.chunk`
+    around each slice, `render.concat` around the concatenation."""
+    with tracing.span("render.tiles"):
+        outs = []
+        for i in range(0, rays.shape[0], chunk):
+            with tracing.span("render.chunk"):
+                outs.append(render_fn(rays[i: i + chunk]))
+        with tracing.span("render.concat"):
+            return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
 
 
 def render_rays_chunked(

@@ -66,6 +66,7 @@ from typing import Dict, Optional
 
 import torch
 
+from nerf_siren_tpu_torch.utils import tracing
 
 NOISE = "noise:"
 
@@ -226,15 +227,17 @@ class StepGroup:
         """The group's N steps on `inputs` (on the state's device): the state
         is updated in place (its counts are the caller's); returns `steps`,
         the (N, 2 + G) losses and PSNRs. On a card: the captured graph, made at
-        the first call."""
-        if inputs["table"].device.type != "cuda":
-            return self.loop(inputs)
-        if self.graph is None:
-            self._capture(inputs)
-        else:
-            for k, v in inputs.items():
-                self.static[k].copy_(v)
-        self.graph.replay()
-        self.steps = self.out.clone()
-        self.buf = self.static.get("buf")
-        return self.steps
+        the first call. The span `group.launch` covers the call (see
+        `utils/tracing.py`); none is opened inside the captured body."""
+        with tracing.span("group.launch"):
+            if inputs["table"].device.type != "cuda":
+                return self.loop(inputs)
+            if self.graph is None:
+                self._capture(inputs)
+            else:
+                for k, v in inputs.items():
+                    self.static[k].copy_(v)
+            self.graph.replay()
+            self.steps = self.out.clone()
+            self.buf = self.static.get("buf")
+            return self.steps

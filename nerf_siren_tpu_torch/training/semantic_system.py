@@ -32,6 +32,7 @@ from nerf_siren_tpu_torch.models.voxel_unet import VoxelUNet
 from nerf_siren_tpu_torch.render.rendering import map_chunks
 from nerf_siren_tpu_torch.render.rendering_3d import render_rays_3d
 from nerf_siren_tpu_torch.training.system import NeRFSystem
+from nerf_siren_tpu_torch.utils import tracing
 
 SEMANTIC_NETWORKS = ("pointnet", "conv3d")
 
@@ -95,13 +96,15 @@ class NeRF3DSystem(NeRFSystem):
         if cls_b is None:
             raise ValueError("the semantic system's steps need class targets (cls_b)")
         n = torch.as_tensor(rays_b).shape[0]
-        rays_b = torch.as_tensor(rays_b, dtype=torch.float32,
-                                 device=self.device).reshape(n, -1, 8)
-        inputs = {"rays": rays_b,
-                  "rgbs": torch.as_tensor(rgbs_b, dtype=torch.float32,
-                                          device=self.device).reshape(n, -1, 3),
-                  "cls": torch.as_tensor(cls_b, device=self.device).reshape(n, -1).long()}
-        return self._grouped(state, "batches", inputs, seed, n, rays_b.shape[1])
+        with tracing.span("group"):
+            with tracing.span("group.h2d"):
+                rays_b = torch.as_tensor(rays_b, dtype=torch.float32,
+                                         device=self.device).reshape(n, -1, 8)
+                inputs = {"rays": rays_b,
+                          "rgbs": torch.as_tensor(rgbs_b, dtype=torch.float32,
+                                                  device=self.device).reshape(n, -1, 3),
+                          "cls": torch.as_tensor(cls_b, device=self.device).reshape(n, -1).long()}
+            return self._grouped(state, "batches", inputs, seed, n, rays_b.shape[1])
 
     def train_scan(self, *args, **kwargs):
         raise NotImplementedError("train_scan draws its rays from a pool without class "

@@ -85,6 +85,7 @@ from nerf_siren_tpu_torch.training.graphs import NOISE, StepGroup
 from nerf_siren_tpu_torch.training.losses import loss_dict
 from nerf_siren_tpu_torch.training.metrics import mse, psnr
 from nerf_siren_tpu_torch.training.optimizers import Optimizer
+from nerf_siren_tpu_torch.utils import tracing
 
 BACKENDS = ("jnp", "fused", "culled", "culled_fused")
 CULLED = ("culled", "culled_fused")
@@ -173,18 +174,21 @@ class GroupedSteps:
         3): exactly the N `train_step`s on those batches with the same seed
         (each step draws from `step_generator(seed, step)`), as one captured
         graph on a card. Returns the state and the last step's metrics."""
-        rays_b = torch.as_tensor(rays_b, dtype=torch.float32, device=self.device)
-        rgbs_b = torch.as_tensor(rgbs_b, dtype=torch.float32, device=self.device)
-        return self._grouped(state, "batches", {"rays": rays_b, "rgbs": rgbs_b}, seed,
-                             rays_b.shape[0], rays_b.shape[1])
+        with tracing.span("group"):
+            with tracing.span("group.h2d"):
+                rays_b = torch.as_tensor(rays_b, dtype=torch.float32, device=self.device)
+                rgbs_b = torch.as_tensor(rgbs_b, dtype=torch.float32, device=self.device)
+            return self._grouped(state, "batches", {"rays": rays_b, "rgbs": rgbs_b}, seed,
+                                 rays_b.shape[0], rays_b.shape[1])
 
     def train_scan(self, state: TrainState, pool_rays, pool_rgbs, seed: int, n_steps: int,
                    batch_size: Optional[int] = None):
         """`n_steps` steps, each on `batch_size` rays drawn uniformly from the
         pool (moved to the device) with the step's generator; the gather runs
         inside the graph. Returns the state and the last step's metrics."""
-        return self._grouped(state, "pool", self._pool(pool_rays, pool_rgbs), seed, n_steps,
-                             batch_size or self.train_cfg.batch_size)
+        with tracing.span("group"):
+            return self._grouped(state, "pool", self._pool(pool_rays, pool_rgbs), seed, n_steps,
+                                 batch_size or self.train_cfg.batch_size)
 
     def train_scan_importance(self, state: TrainState, pool_rays, pool_rgbs, seed: int,
                               n_steps: int, batch_size: Optional[int] = None,
@@ -194,22 +198,28 @@ class GroupedSteps:
         with probability proportional to (err + 1e-8)^alpha, a `uniform_frac`
         share of them uniformly instead, and takes each step's fresh errors
         of its rays. Returns the state and the last step's metrics."""
-        return self._grouped(state, "importance", self._pool(pool_rays, pool_rgbs), seed,
-                             n_steps, batch_size or self.train_cfg.batch_size,
-                             float(alpha), float(uniform_frac))
+        with tracing.span("group"):
+            return self._grouped(state, "importance", self._pool(pool_rays, pool_rgbs), seed,
+                                 n_steps, batch_size or self.train_cfg.batch_size,
+                                 float(alpha), float(uniform_frac))
 
     def _pool(self, pool_rays, pool_rgbs) -> Dict[str, torch.Tensor]:
-        return {"pool_rays": torch.as_tensor(pool_rays, dtype=torch.float32,
-                                             device=self.device),
-                "pool_rgbs": torch.as_tensor(pool_rgbs, dtype=torch.float32,
-                                             device=self.device)}
+        with tracing.span("group.h2d"):
+            return {"pool_rays": torch.as_tensor(pool_rays, dtype=torch.float32,
+                                                 device=self.device),
+                    "pool_rgbs": torch.as_tensor(pool_rgbs, dtype=torch.float32,
+                                                 device=self.device)}
 
     def _grouped(self, state: TrainState, kind: str, inputs: Dict[str, torch.Tensor],
                  seed: int, n: int, b: int, alpha: float = 1.0, uniform_frac: float = 0.0
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """Run the group's `StepGroup` on its inputs (`group_inputs`) and
-        advance the counts by n."""
-        inputs = self.group_inputs(state, kind, inputs, seed, n, b, uniform_frac)
+        advance the counts by n. The public grouped calls open the span
+        `group` around their copy to the device (`group.h2d`) and this call;
+        the draws are `group.draws`, the launch `group.launch`
+        (`StepGroup.run`)."""
+        with tracing.span("group.draws"):
+            inputs = self.group_inputs(state, kind, inputs, seed, n, b, uniform_frac)
         tensors = [p for _, _, p in parameters(state.models)] + [
             t for v in state.opt_state.values() if isinstance(v, list) for t in v]
         n_pool = inputs["pool_rays"].shape[0] if kind != "batches" else 0

@@ -408,7 +408,7 @@ def test_launch_counts_lose_no_update_under_threads():
     lose none, which a lost update would break."""
     import sys
 
-    from nerf_siren_tpu_torch.ops.kernels._build import count_launch
+    from nerf_siren_tpu_torch.utils.tracing import count_launch
 
     counts = {"k": 0}
     old = sys.getswitchinterval()
