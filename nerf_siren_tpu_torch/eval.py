@@ -68,7 +68,8 @@ from nerf_siren_tpu_torch.ops.kernels.fused_mlp_int8 import pack_model_params_in
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import pack_proxy_params
 from nerf_siren_tpu_torch.render.fast import (Proxy, distill_proxy, estimate_scene_aabb,
                                               make_auto_cull_renderer,
-                                              make_edge_refined_renderer, render_rays_fast)
+                                              make_edge_refined_renderer, render_rays_fast,
+                                              scene_box)
 from nerf_siren_tpu_torch.render.fused import render_rays_fused
 from nerf_siren_tpu_torch.render.rendering import map_chunks, render_rays_chunked
 from nerf_siren_tpu_torch.render.rendering_3d import render_rays_3d, semantic_from_weights
@@ -193,9 +194,10 @@ def resolve_device(name: str) -> torch.device:
 @dataclasses.dataclass
 class FastSetup:
     """What the fast renderer needs beside the fields: the field key it
-    renders, the density proxy, the scene box, the field packs of the
-    survivors (bf16 or int8) and the proxy's kernel pack (None off the
-    kernel route)."""
+    renders, the density proxy, the scene box (on the host, as the proxy
+    cache keeps it; the renderers put it on their devices, `fast_box`), the
+    field packs of the survivors (bf16 or int8) and the proxy's kernel pack
+    (None off the kernel route)."""
     model_key: str
     proxy: Proxy
     aabb: Tuple[np.ndarray, np.ndarray]
@@ -303,13 +305,22 @@ def field_packs(models: Dict[str, NeRF], field_dtype: str):
 
 def fast_kwargs(render_cfg: RenderConfig, fast: FastSetup, hparams,
                 compute_dtype: Optional[torch.dtype] = None) -> dict:
-    """The `render_rays_fast` arguments every fast path shares."""
+    """The `render_rays_fast` arguments every fast path shares; not the box,
+    which each renderer puts on its devices once (`fast_box`)."""
     h = hparams
     return dict(n_candidates=h.fast_candidates, n_keep=h.fast_keep, model=fast.model_key,
                 white_back=render_cfg.white_back, compute_dtype=compute_dtype,
-                scene_aabb=fast.aabb, packed_params=fast.packed,
-                packed_proxy=fast.packed_proxy, placement=h.fast_placement,
-                quadrature=h.fast_quadrature)
+                packed_params=fast.packed, packed_proxy=fast.packed_proxy,
+                placement=h.fast_placement, quadrature=h.fast_quadrature)
+
+
+def fast_box(models: Dict[str, torch.nn.Module], fast: FastSetup) -> Optional[torch.Tensor]:
+    """`fast.aabb` as a (2, 3) float32 tensor on the rendered field's device
+    (None without a box): made once per renderer, so that no tile copies
+    the box from the host (a copy that would wait for the device)."""
+    if fast.aabb is None:
+        return None
+    return scene_box(fast.aabb, next(models[fast.model_key].parameters()).device)
 
 
 def eval_mesh(device, num_chips: int):
@@ -354,19 +365,19 @@ def make_fast_renderer(models: Dict[str, NeRF], render_cfg: RenderConfig, fast: 
         eps = h.fast_opacity_eps if h.fast_opacity_eps == 'auto' else float(h.fast_opacity_eps)
         render = make_auto_cull_renderer(models, fast.proxy, margin=h.fast_cull_margin,
                                          opacity_eps=eps, prepass_candidates=h.fast_prepass,
-                                         mesh=mesh, **common)
+                                         scene_aabb=fast.aabb, mesh=mesh, **common)
     else:
         adaptive = None if h.fast_adaptive is None else (float(h.fast_adaptive[0]),
                                                          int(h.fast_adaptive[1]))
         cull = None if h.fast_cull is None else float(h.fast_cull)
 
-        def tile_for(ms, proxy, packed, packed_proxy):
-            kw = dict(common, packed_params=packed, packed_proxy=packed_proxy)
+        def tile_for(ms, proxy, packed, packed_proxy, box):
+            kw = dict(common, packed_params=packed, packed_proxy=packed_proxy, scene_aabb=box)
             return lambda t: render_rays_fast(ms, proxy, t, select=h.fast_select,
                                               adaptive=adaptive, cull=cull, **kw)
 
-        render = tiled(tile_for, (models, fast.proxy, fast.packed, fast.packed_proxy),
-                       render_cfg.chunk, mesh)
+        render = tiled(tile_for, (models, fast.proxy, fast.packed, fast.packed_proxy,
+                                  fast_box(models, fast)), render_cfg.chunk, mesh)
     if h.fast_edge_refine is None:
         return render
     if 'fine' not in models or not render_cfg.test_time:
@@ -433,8 +444,8 @@ def make_semantic_renderer(models: Dict[str, torch.nn.Module], render_cfg: Rende
     if renderer == 'fast':
         common = fast_kwargs(render_cfg, fast, hparams, compute_dtype)
 
-        def tile_for(ms, proxy, packed, packed_proxy):
-            kw = dict(common, packed_params=packed, packed_proxy=packed_proxy)
+        def tile_for(ms, proxy, packed, packed_proxy, box):
+            kw = dict(common, packed_params=packed, packed_proxy=packed_proxy, scene_aabb=box)
 
             def tile(t):
                 out = render_rays_fast(ms, proxy, t, select=hparams.fast_select,
@@ -445,7 +456,7 @@ def make_semantic_renderer(models: Dict[str, torch.nn.Module], render_cfg: Rende
                     threshold=threshold, **sem)
                 return out
             return tile
-        objs = (models, fast.proxy, fast.packed, fast.packed_proxy)
+        objs = (models, fast.proxy, fast.packed, fast.packed_proxy, fast_box(models, fast))
     elif renderer == 'exact':
         def tile_for(ms):
             return lambda t: render_rays_3d(ms, t, render_cfg, None, no_grad_on_nerf=False,

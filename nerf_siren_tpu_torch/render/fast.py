@@ -20,7 +20,8 @@ proxy-shaped `ratio` quadrature).
   dense-frame bypass (single device; the JAX `mesh=` mode is slice 6).
 - `make_edge_refined_renderer`: re-renders the silhouette band of a fast
   frame through `render_rays_fused` at 48 + 16 samples.
-- `estimate_scene_aabb`: the occupied box from a sigma grid.
+- `estimate_scene_aabb`: the occupied box from a sigma grid; `scene_box`
+  puts a box on a device, once per renderer.
 
 The JAX package compiles one program per frame and pads rays to its
 2048-ray tile; here PyTorch runs eagerly and nothing is padded. Selections
@@ -146,12 +147,39 @@ def estimate_scene_aabb(sigma_fn: Callable[[torch.Tensor], torch.Tensor], search
 
 # ---- render_rays_fast --------------------------------------------------------
 
+def scene_box(scene_aabb, device) -> torch.Tensor:
+    """The box ((3,) lo, (3,) hi) as one (2, 3) float32 tensor on `device`
+    (a tensor box already there is returned as it is). A copy from host
+    memory waits for the device, so the frame renderers make the box once,
+    when they are built."""
+    if isinstance(scene_aabb, torch.Tensor):
+        return scene_aabb.to(device, torch.float32)
+    return torch.tensor(np.stack([np.asarray(scene_aabb[0], np.float32),
+                                  np.asarray(scene_aabb[1], np.float32)]), device=device)
+
+
+def _resident(scene_aabb, device) -> bool:
+    """Whether the box is float32 tensors on `device`: a (2, 3) tensor or a
+    pair of (3,) ones."""
+    parts = (scene_aabb,) if isinstance(scene_aabb, torch.Tensor) else scene_aabb[:2]
+    return all(isinstance(b, torch.Tensor) and b.device == device and b.dtype == torch.float32
+               for b in parts)
+
+
 def _clip_to_aabb(rays_o, rays_d, near, far, scene_aabb):
     """Tighten each ray's [near, far] to its intersection with the box;
     rays that miss it keep their bounds. Returns (near, far, hits): hits
-    (R, 1) is true where a ray's interval meets the box."""
-    lo = torch.tensor(np.asarray(scene_aabb[0], np.float32), device=rays_o.device)
-    hi = torch.tensor(np.asarray(scene_aabb[1], np.float32), device=rays_o.device)
+    (R, 1) is true where a ray's interval meets the box. A box of float32
+    tensors on the rays' device is read as it is (counter
+    `fast.box_resident`); any other box is copied there first
+    (`fast.box_copies`: from host memory the copy waits for the device)."""
+    if _resident(scene_aabb, rays_o.device):
+        tracing.count("fast.box_resident", 1)
+        lo, hi = scene_aabb[0], scene_aabb[1]
+    else:
+        tracing.count("fast.box_copies", 1)
+        lo = torch.tensor(np.asarray(scene_aabb[0], np.float32), device=rays_o.device)
+        hi = torch.tensor(np.asarray(scene_aabb[1], np.float32), device=rays_o.device)
     invd = 1.0 / torch.where(rays_d.abs() < 1e-9, torch.full_like(rays_d, 1e-9), rays_d)
     t_lo, t_hi = (lo - rays_o) * invd, (hi - rays_o) * invd
     t_min = torch.minimum(t_lo, t_hi).amax(-1, keepdim=True)
@@ -219,9 +247,11 @@ def render_rays_fast(
 
     The arguments are the JAX function's (its `nerf_cfg` and frequencies are
     the `NeRF` module's own config here). scene_aabb: ((3,), (3,)) box that
-    tightens [near, far]. select: 'topk' keeps the n_keep candidates of
-    highest expected weight; 'pdf' places them by the proxy weights' inverse
-    CDF (placement 'mid' u = (k + .5)/K, or 'edges' u = k/(K-1)).
+    tightens [near, far]; a `scene_box` on the rays' device is read without
+    a copy (a host box is copied each call, which waits for the device).
+    select: 'topk' keeps the n_keep candidates of highest expected weight;
+    'pdf' places them by the proxy weights' inverse CDF (placement 'mid'
+    u = (k + .5)/K, or 'edges' u = k/(K-1)).
     quadrature: 'delta' (consecutive differences, last delta one candidate
     interval) or 'ratio' (needs pdf and mid). packed_params: field packs
     (K1 or K4) for the survivors. packed_proxy (with pdf and packed_params):
@@ -506,7 +536,8 @@ def make_auto_cull_renderer(
     across the shards.
 
     `render.last_active_frac`, `.last_plain` and `.last_eps` (per shard in
-    mesh mode) describe the last frame."""
+    mesh mode) describe the last frame. The box goes to each shard's device
+    once, here (`scene_box`)."""
     from nerf_siren_tpu_torch.parallel.mesh import replicate, shard_rays
 
     prepass_c = prepass_candidates or n_candidates
@@ -515,22 +546,23 @@ def make_auto_cull_renderer(
     blocks_per_tile = TILE_R // block
     n_dev = 1 if mesh is None else mesh.size
     common = dict(n_candidates=n_candidates, n_keep=n_keep, white_back=white_back,
-                  placement=placement, compute_dtype=compute_dtype, scene_aabb=scene_aabb,
-                  select="pdf", model=model, quadrature=quadrature)
-    # per shard: (models, proxy, field packs, proxy pack) on its device
+                  placement=placement, compute_dtype=compute_dtype, select="pdf", model=model,
+                  quadrature=quadrature)
+    box = None if scene_aabb is None else scene_box(scene_aabb, packed_proxy["w1"].device)
+    # per shard: (models, proxy, field packs, proxy pack, box) on its device
     if mesh is None:
-        shards = [(models, proxy, packed_params, packed_proxy)]
+        shards = [(models, proxy, packed_params, packed_proxy, box)]
     else:
         shards = list(zip(*(replicate(x, mesh) for x in (models, proxy, packed_params,
-                                                          packed_proxy))))
+                                                          packed_proxy, box))))
     auto_eps = opacity_eps == "auto"
     bg = 1.0 if white_back else 0.0
     keys = [f"rgb_{model}", f"depth_{model}", f"opacity_{model}"]
 
     def render_tiles(shard, act, chunk_rays):
-        ms, px, pp, ppx = shard
+        ms, px, pp, ppx, bx = shard
         outs = [render_rays_fast(ms, px, act[i: i + chunk_rays], packed_params=pp,
-                                 packed_proxy=ppx, **common)
+                                 packed_proxy=ppx, scene_aabb=bx, **common)
                 for i in range(0, act.shape[0], chunk_rays)]
         return {k: torch.cat([o[k] for o in outs]) for k in keys}
 

@@ -8,7 +8,7 @@ top-K (K6, the TOPK epilogue of csrc/proxy_march.cu; K3 and K6 above
 MAX_CANDIDATES on their device-scratch kernel); and on the card, the grouped
 steps' CUDA graphs (the MLP field on K2, SIREN and d3) against eager or
 looped steps, a d3 fast tile on K3 and K1 against their plain versions,
-EG3D's grouped steps on a graph against their loop and a fast EG3D tile
+a fast frame that makes no host synchronisation, EG3D's grouped steps on a graph against their loop and a fast EG3D tile
 on K3 against K3's plain version.
 
 Imports torch only, so it also runs where JAX is not installed. Tests marked
@@ -1468,6 +1468,66 @@ def test_d3_fast_tile_on_the_kernels_matches_the_plain_versions(cuda_device, mon
     assert not bool((diff & (margin > CLS_MARGIN)).any())
     err = (got["rgb_fine"] - ref["rgb_fine"]).abs()
     assert float(err.median()) < 2e-3 and float(torch.quantile(err.flatten(), .99)) < .05
+
+
+def _box_rays(n, seed):
+    """Rays from radius 4 towards the origin, spread so that about half of
+    them miss a box of half side 0.6 (near 2, far 6)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.normal(size=(n, 3)) * 1.5
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.tensor(np.concatenate([o, d, np.full((n, 2), (2.0, 6.0))], -1),
+                        dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [[], ["--fast_adaptive", "0.1", "32"]],
+                         ids=["defaults", "adaptive"])
+def test_fast_frame_makes_no_host_synchronisation(cuda_device, flags, monkeypatch):
+    """A frame of three 32,768-ray tiles through `eval.make_fast_renderer`
+    at the CLI's defaults (C 32, K 16, K3 and K1), and with
+    `--fast_adaptive`, after a warm-up frame, runs under
+    `torch.cuda.set_sync_debug_mode("error")` (a host sync raises) with
+    tracing on: the box is read on the card in every tile
+    (`fast.box_resident` 3, no `fast.box_copies`), and the frame equals,
+    bit for bit, the one whose tiles are handed the host box."""
+    from nerf_siren_tpu_torch import eval as port_eval
+    from nerf_siren_tpu_torch.config import RenderConfig
+    from nerf_siren_tpu_torch.utils import tracing
+
+    hp = port_eval.get_opts(["--root_dir", ".", "--ckpt_path", "x", "--renderer", "fast",
+                             *flags])
+    models = {"fine": NeRF(NeRFConfig(), generator=torch.Generator().manual_seed(4)).to(
+        cuda_device)}
+    aabb = (np.full(3, -0.6, np.float32), np.full(3, 0.6, np.float32))
+    fast = port_eval.FastSetup("fine", None, aabb,
+                               fused_mlp.pack_model_params(models, cuda_device),
+                               _proxy_pack(96, cuda_device))
+    cfg = RenderConfig(chunk=hp.chunk, test_time=True)
+    rays = _box_rays(2 * hp.chunk + 4321, seed=6).to(cuda_device)
+    render = port_eval.make_fast_renderer(models, cfg, fast, hp)
+    with torch.no_grad():
+        render(rays)   # warm-up: builds and loads the kernels
+        torch.cuda.synchronize()
+        tracing.reset()
+        tracing.enable()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = render(rays)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            tracing.disable()
+        counts = tracing.counters()
+        tracing.reset()
+        monkeypatch.setattr(port_eval, "fast_box", lambda ms, setup: setup.aabb)
+        want = port_eval.make_fast_renderer(models, cfg, fast, hp)(rays)
+    assert counts["fast.box_resident"] == 3 and "fast.box_copies" not in counts
+    assert 0 < counts["fast.rays_in_box"] < rays.shape[0]
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 # ---- EG3D training and the fast EG3D renderer ------------------------------------

@@ -3,8 +3,12 @@ their parent and request, self time, the bounded buffer, on only under a
 profiler or `enable()`, never a profiler event; the spans of a
 `map_chunks` frame of the fast renderer's kernel route (the kernels' plain
 versions) and of the grouped training calls; `fast.rays_in_box` against a
-direct count; the kernels' launch counts; and, off, no clock read and no
-tensor operation that the program would not run without tracing.
+direct count; the scene box on the device (`fast.box_resident`,
+`fast.box_copies`): the clip bit-equal on every form of the box, and each
+of the CLI's fast frame renderers reading its box on the device in every
+tile, bit-equal to tiles handed the host box; the kernels' launch counts;
+and, off, no clock read and no tensor operation that the program would
+not run without tracing.
 """
 import threading
 
@@ -201,7 +205,8 @@ def scene():
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     rays = np.concatenate([o, d, np.full((300, 1), 2.0), np.full((300, 1), 6.0)], -1)
     return {"packed": k1.pack_model_params({"fine": model}),
-            "proxy": k3.pack_proxy_params(proxy), "rays": torch.tensor(rays, dtype=torch.float32)}
+            "proxy": k3.pack_proxy_params(proxy), "rays": torch.tensor(rays, dtype=torch.float32),
+            "models": {"fine": model}, "proxy_module": proxy}
 
 
 def fast_frame(scene, chunk=128):
@@ -239,6 +244,122 @@ def test_rays_in_box_is_a_direct_count(scene, traced):
     assert 0 < hits < 300
     c = tracing.counters()
     assert c["fast.rays_in_box"] == hits and c["fast.rays"] == 300
+
+
+# ---- the scene box: held on the device by the frame renderers ---------------------
+
+BOX_FORMS = {
+    "tuple": lambda: BOX,
+    "numpy": lambda: tuple(np.asarray(b, np.float32) for b in BOX),
+    "tensor": lambda: fast.scene_box(BOX, torch.device("cpu")),
+    "tensor_pair": lambda: tuple(torch.tensor(b, dtype=torch.float32) for b in BOX),
+}
+
+
+@pytest.mark.parametrize("form", list(BOX_FORMS))
+def test_clip_takes_a_device_box_as_it_is_bit_equal_to_the_host_box(scene, form, traced):
+    """`_clip_to_aabb` on every form of the box gives the host box's near,
+    far and hits bit for bit, on rays that hit it and rays that miss it; a
+    box of float32 tensors on the rays' device counts `fast.box_resident`,
+    any other `fast.box_copies`."""
+    rays = scene["rays"]
+    args = rays[:, 0:3], rays[:, 3:6], rays[:, 6:7], rays[:, 7:8]
+    want = fast._clip_to_aabb(*args, BOX)
+    tracing.reset()
+    got = fast._clip_to_aabb(*args, BOX_FORMS[form]())
+    assert 0 < int(want[2].sum()) < rays.shape[0]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    resident = form.startswith("tensor")
+    assert tracing.counters() == {"fast.box_resident" if resident else "fast.box_copies": 1}
+
+
+def test_scene_box_is_the_host_box_in_float32():
+    box = fast.scene_box(([-1.1, 0, 2.0 / 3.0], np.array([1, 2, 3])), torch.device("cpu"))
+    assert box.dtype == torch.float32 and box.shape == (2, 3)
+    assert torch.equal(box, torch.tensor([[-1.1, 0, 2.0 / 3.0], [1, 2, 3]], dtype=torch.float32))
+    assert fast.scene_box(box, torch.device("cpu")) is box
+    assert torch.equal(fast.scene_box(tuple(box.double()), torch.device("cpu")), box)
+
+
+def test_direct_call_with_a_host_box_counts_one_copy(scene, traced):
+    with torch.no_grad():
+        fast.render_rays_fast(None, None, scene["rays"], n_candidates=16, n_keep=8,
+                              select="pdf", scene_aabb=BOX, packed_params=scene["packed"],
+                              packed_proxy=scene["proxy"])
+    c = tracing.counters()
+    assert c["fast.box_copies"] == 1 and "fast.box_resident" not in c
+
+
+FAST_ROUTES = {   # eval CLI options of each fast frame renderer, and whether it runs on a mesh
+    "defaults": ([], False),
+    "adaptive": (["--fast_adaptive", "0.5", "12"], False),
+    "cull": (["--fast_cull", "0.5"], False),
+    "auto_cull": (["--fast_cull", "auto"], False),
+    "mesh": ([], True),
+    "auto_cull_mesh": (["--fast_cull", "auto"], True),
+    "d3": (["--mode", "d3"], False),
+}
+
+
+def route_frames(scene, route, monkeypatch, host_box):
+    """Two 300-ray frames in tiles of 128 through the CLI's fast renderer
+    `route` (as eval.py's `make_fast_renderer` and `make_semantic_renderer`
+    make it for the CLI; the auto-cull quantum TILE_R shrunk to 128 rays,
+    so its frames are tiled too). host_box: every tile is handed the host box instead (`FastSetup.aabb`,
+    copied each call), as before the renderers held it on the device.
+    Returns the outputs, and the tracing counters and `fast.clip` spans of
+    the two frames."""
+    from nerf_siren_tpu_torch import eval as port_eval
+    from nerf_siren_tpu_torch.models.pointnet import PointNetDenseCls
+    from nerf_siren_tpu_torch.parallel.mesh import make_mesh
+
+    flags, on_mesh = FAST_ROUTES[route]
+    hp = port_eval.get_opts(["--root_dir", ".", "--ckpt_path", "x", "--renderer", "fast",
+                             "--fast_candidates", "16", "--fast_keep", "8", "--chunk", "128",
+                             *flags])
+    aabb = tuple(np.asarray(b, np.float32) for b in BOX)
+    setup = port_eval.FastSetup("fine", scene["proxy_module"], aabb, scene["packed"],
+                                scene["proxy"])
+    cfg = RenderConfig(chunk=128, test_time=True)
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2) if on_mesh else None
+    models = dict(scene["models"])
+    with monkeypatch.context() as m:
+        m.setattr(fast, "TILE_R", 128)
+        if host_box:
+            m.setattr(port_eval, "fast_box", lambda models, fast_setup: fast_setup.aabb)
+            m.setattr(fast, "scene_box", lambda box, device: box)
+        if route == "d3":
+            models["points"] = PointNetDenseCls(6, 6, generator=torch.Generator().manual_seed(5))
+            render = port_eval.make_semantic_renderer(
+                models, cfg, renderer="fast", n_classes=6, point_capacity=256,
+                cls_threshold=0.0, fast=setup, hparams=hp)
+        else:
+            render = port_eval.make_fast_renderer(models, cfg, setup, hp, mesh=mesh)
+        tracing.reset()
+        tracing.enable()
+        with torch.no_grad():
+            outs = [render(scene["rays"]) for _ in range(2)]
+        tracing.disable()
+    clips = sum(r.name == "fast.clip" for r in tracing.records())
+    return outs, tracing.counters(), clips
+
+
+@pytest.mark.parametrize("route", list(FAST_ROUTES))
+def test_frame_renderers_hold_the_box_on_the_device(scene, route, monkeypatch):
+    """Each of the CLI's fast frame renderers puts the box on its devices
+    once, when built: every tile reads it there (`fast.box_resident` once a
+    tile, no `fast.box_copies`), and the frame equals, bit for bit, the one
+    whose tiles are handed the host box and copy it each call."""
+    got, counts, clips = route_frames(scene, route, monkeypatch, host_box=False)
+    want, want_counts, want_clips = route_frames(scene, route, monkeypatch, host_box=True)
+    assert clips == want_clips >= 6
+    assert counts["fast.box_resident"] == clips and "fast.box_copies" not in counts
+    assert want_counts["fast.box_copies"] == clips and "fast.box_resident" not in want_counts
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
 
 
 # ---- the grouped training calls --------------------------------------------------
