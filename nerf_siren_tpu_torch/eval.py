@@ -63,6 +63,7 @@ from nerf_siren_tpu_torch.convert import proxy_from_jax, proxy_to_jax
 from nerf_siren_tpu_torch.datasets import dataset_name
 from nerf_siren_tpu_torch.models.embedding import positional_encoding
 from nerf_siren_tpu_torch.models.nerf import NeRF
+from nerf_siren_tpu_torch.opt import add_point_capacity
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp import pack_model_params
 from nerf_siren_tpu_torch.ops.kernels.fused_mlp_int8 import pack_model_params_int8
 from nerf_siren_tpu_torch.ops.kernels.proxy_march import pack_proxy_params
@@ -164,8 +165,7 @@ def get_opts(args=None):
                              "checkpoint's point-network head")
     parser.add_argument('--point_norm', type=str, default='frob', choices=['frob', 'rms'],
                         help="semantic cloud normalization (as in training)")
-    parser.add_argument('--point_capacity', type=int, default=8192,
-                        help="points of a tile's semantic cloud (the top weights)")
+    add_point_capacity(parser)
     parser.add_argument('--cls_threshold', type=float, default=None,
                         help="weight threshold of a valid cloud point; default 0.5 with "
                              "N_importance > 0 (test time), else 0; pass 0.0 for a "

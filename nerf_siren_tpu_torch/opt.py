@@ -1,12 +1,23 @@
 """Training CLI flags of the port: the same flags and defaults as the JAX
-package's root `opt.py`, plus `--device`. Every flag value of the JAX CLI
-is served; `--num_chips` above the visible device count is refused by the
-train CLI, which knows the device."""
+package's root `opt.py`, plus `--device` and `--point_capacity` (the eval
+CLI's flag, defined here once for both: `add_point_capacity`). Every flag
+value of the JAX CLI is served; `--num_chips` above the visible device
+count is refused by the train CLI, which knows the device."""
 from __future__ import annotations
 
 import argparse
 
 from nerf_siren_tpu_torch.datasets import dataset_name
+
+
+def add_point_capacity(parser: argparse.ArgumentParser) -> None:
+    """`--point_capacity`: the points of a semantic cloud (d3 modes), the
+    top compositing weights of each pass (training: of each step's batch;
+    evaluation: of each tile). Rays x samples of a pass keep every sample;
+    the default 8192 is the JAX package's."""
+    parser.add_argument('--point_capacity', type=int, default=8192,
+                        help="points of a pass's semantic cloud (the top weights); rays x "
+                             "samples keeps every sample (d3 modes)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,6 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "valid-point COUNT); 'rms' is the "
                              'count-invariant per-point RMS variant '
                              '(measured by tools/semantic_convergence.py)')
+    add_point_capacity(parser)
     parser.add_argument('--field', type=str, default='mlp',
                         choices=['mlp', 'siren'],
                         help='radiance field: positional-encoding MLP or '

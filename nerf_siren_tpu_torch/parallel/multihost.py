@@ -10,11 +10,19 @@ arguments, then from JAX's environment names (`NERF_TPU_COORDINATOR`,
 `NERF_TPU_NUM_PROCESSES`, `NERF_TPU_PROCESS_ID`), then from torchrun's
 (`MASTER_ADDR` / `MASTER_PORT`, `WORLD_SIZE`, `RANK`; `LOCAL_RANK` picks
 the card). Without a group the queries answer for one process.
+
+`local_group` joins N ranks of one host (`train.py --num_chips N`) through
+a file store made by `rank_store`, and leaves the group when its block
+ends.
 """
 from __future__ import annotations
 
+import contextlib
+import datetime
 import os
-from typing import Optional
+import shutil
+import tempfile
+from typing import Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -95,3 +103,47 @@ def local_device(device_type: str = "cuda") -> torch.device:
     if device_type != "cuda":
         return torch.device(device_type)
     return torch.device("cuda", _env_int("LOCAL_RANK") or 0)
+
+
+def rank_threads(world: int) -> int:
+    """The intra-op threads of each of `world` CPU ranks that share this
+    process's threads."""
+    return max(1, torch.get_num_threads() // world)
+
+
+@contextlib.contextmanager
+def rank_store() -> Iterator[str]:
+    """The path of a file store in a fresh temporary directory, removed
+    when the block ends."""
+    store_dir = tempfile.mkdtemp(prefix="nerf_torch_ranks_")
+    try:
+        yield os.path.join(store_dir, "store")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def local_group(device: torch.device, store: str, world: int, rank: int, threads: int = 1,
+                timeout: Optional[datetime.timedelta] = None):
+    """Join the group of `world` local ranks through the file store `store`
+    as `rank` on `device` (on the CPU with `threads` intra-op threads) and
+    yield its `DataParallel`; leave the group when the block ends, also on
+    an error. A CUDA graph that captured the group's all-reduce holds the
+    communicator, and `destroy_process_group` waits until the graph is
+    freed: the graphs of every system built on the shard go first
+    (`DataParallel.release_graphs`)."""
+    from nerf_siren_tpu_torch.parallel.shard_train import DataParallel
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(threads)
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group(backend_for(device.type), init_method=f"file://{store}",
+                            world_size=world, rank=rank, **kw)
+    dp = DataParallel()
+    try:
+        yield dp
+    finally:
+        dp.release_graphs()
+        dist.destroy_process_group()

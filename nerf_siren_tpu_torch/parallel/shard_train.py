@@ -38,6 +38,7 @@ are means over rays with equal shard sizes, or masked means over
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -85,6 +86,14 @@ class DataParallel:
         self.group = group
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
+        self.systems = weakref.WeakSet()   # the training systems built on this shard
+
+    def release_graphs(self) -> None:
+        """Free the CUDA graphs of every system built on this shard
+        (`GroupedSteps.release_groups`): a graph that captured the
+        all-reduce holds the communicator until it is freed."""
+        for system in list(self.systems):
+            system.release_groups()
 
     # -- rows ---------------------------------------------------------------------
 

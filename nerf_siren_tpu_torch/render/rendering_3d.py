@@ -19,6 +19,11 @@ DataParallel`) the ranks all-gather the per-ray xyz, rgb and weights, so
 every rank builds JAX's one cloud of the global batch (its top-K, its
 norm, the point network's batch norm and max-pool), and each keeps the
 class outputs of its own rays.
+Spans (`utils/tracing.py`, device spans: each also times its stretch of
+the stream on a card): `d3.cloud` (steps 1-2: the sort, the gathers, the
+norm), `d3.points` (step 3's forward) and `d3.scatter` (step 4); counters
+`d3.cloud_valid` (the cloud's valid points, on the device) and
+`d3.cloud_slots` (its K slots, on the host), once a pass.
 With `no_grad_on_nerf` the NeRF runs without autograd and only the point
 network trains (its parameters then get no gradient, which the system
 reads as zeros, as JAX's are).
@@ -32,6 +37,7 @@ from torch import nn
 
 from nerf_siren_tpu_torch.config import RenderConfig
 from nerf_siren_tpu_torch.render.rendering import StepNoise, _field, render_rays
+from nerf_siren_tpu_torch.utils import tracing
 
 
 def semantic_from_weights(points: nn.Module, xyz: torch.Tensor, rgbs: torch.Tensor,
@@ -52,21 +58,26 @@ def semantic_from_weights(points: nn.Module, xyz: torch.Tensor, rgbs: torch.Tens
     r, s, _ = xyz.shape
     n = r * s
     k = min(point_capacity, n)
-    w_flat = weights.reshape(n)
-    idx = torch.sort(-w_flat, stable=True).indices[:k]
-    valid = w_flat[idx] > threshold
-    xyz_sel = xyz.reshape(n, 3)[idx]
-    rgb_sel = rgbs.reshape(n, 3)[idx]
+    with tracing.device_span("d3.cloud", xyz.device):
+        w_flat = weights.reshape(n)
+        idx = torch.sort(-w_flat, stable=True).indices[:k]
+        valid = w_flat[idx] > threshold
+        xyz_sel = xyz.reshape(n, 3)[idx]
+        rgb_sel = rgbs.reshape(n, 3)[idx]
 
-    with torch.no_grad():   # the cloud's scale is a constant, as the reference's
-        sq = (xyz_sel ** 2).sum(-1) * valid
-        norm = torch.sqrt(sq.sum().clamp_min(1e-12))
-        if point_norm == "rms":
-            norm = norm / torch.sqrt(valid.float().sum().clamp_min(1.0))
-    pts = torch.cat([xyz_sel / norm, rgb_sel], dim=-1)                   # (K, 6)
-    preds = torch.where(valid[:, None], points(pts, valid), 0.0)         # (K, C)
-    cls = preds.new_zeros((n, n_classes)).index_copy(0, idx, preds)
-    return (weights[..., None] * cls.reshape(r, s, n_classes)).sum(dim=-2)
+        with torch.no_grad():   # the cloud's scale is a constant, as the reference's
+            sq = (xyz_sel ** 2).sum(-1) * valid
+            norm = torch.sqrt(sq.sum().clamp_min(1e-12))
+            if point_norm == "rms":
+                norm = norm / torch.sqrt(valid.float().sum().clamp_min(1.0))
+        pts = torch.cat([xyz_sel / norm, rgb_sel], dim=-1)               # (K, 6)
+    tracing.count_device("d3.cloud_valid", valid)
+    tracing.count("d3.cloud_slots", k)
+    with tracing.device_span("d3.points", xyz.device):
+        preds = torch.where(valid[:, None], points(pts, valid), 0.0)     # (K, C)
+    with tracing.device_span("d3.scatter", xyz.device):
+        cls = preds.new_zeros((n, n_classes)).index_copy(0, idx, preds)
+        return (weights[..., None] * cls.reshape(r, s, n_classes)).sum(dim=-2)
 
 
 def render_rays_3d(models: Dict[str, nn.Module], rays: torch.Tensor,

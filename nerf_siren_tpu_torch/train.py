@@ -28,8 +28,9 @@ Data-parallel training (`parallel/shard_train.py`), one process per
 device, every backend and mode, eager and grouped:
 - `--num_chips N` (N > 1) spawns N local ranks with `torch.multiprocessing`
   (NCCL between cards, gloo on the CPU, a `file://` store in a temporary
-  directory), rank r on the r-th device; each takes the rows [r B / N,
-  (r + 1) B / N) of the one-process batches (`epoch_iterator(block=)`),
+  directory: `parallel/multihost.py::local_group`), rank r on the r-th
+  device; each takes the rows [r B / N, (r + 1) B / N) of the
+  one-process batches (`epoch_iterator(block=)`),
   so N ranks train the `--num_chips 1` trajectory. 0 means every visible
   card (the CPU counts as one); a count above the visible one is refused,
   naming it. With one device no process group is made.
@@ -58,7 +59,8 @@ from nerf_siren_tpu_torch.opt import get_opts
 def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
                  n_classes: int = 0, data_parallel=None):
     """The system of `--mode`: `NeRFSystem` (normal), `NeRF3DSystem` (d3,
-    d3_ib; `n_classes` from the dataset, else 6) or `EG3DSystem` (eg3d: the
+    d3_ib; `n_classes` from the dataset, else 6; the cloud of
+    `--point_capacity` points) or `EG3DSystem` (eg3d: the
     `--eg3d_*` flags, N_importance floored at 1, the dataset's background)."""
     from nerf_siren_tpu_torch.config import NeRFConfig, RenderConfig, TrainConfig
     from nerf_siren_tpu_torch.training.system import NeRFSystem
@@ -92,6 +94,7 @@ def build_system(hparams, white_back: bool, steps_per_epoch: int, device,
         return NeRF3DSystem(render_cfg, train_cfg, nerf_cfg, steps_per_epoch,
                             semantic_network=hparams.semantic_network,
                             point_norm=hparams.point_norm, n_classes=n_classes or 6,
+                            point_capacity=hparams.point_capacity,
                             device=device, data_parallel=data_parallel)
     return NeRFSystem(render_cfg, train_cfg, nerf_cfg, steps_per_epoch,
                       train_backend=hparams.train_backend, device=device,
@@ -182,46 +185,29 @@ def main(hparams):
 def spawn_ranks(hparams, devices) -> None:
     """Run `train` on len(devices) local ranks, rank r on devices[r], joined
     by a file store in a fresh temporary directory (removed afterwards)."""
-    import shutil
-    import tempfile
-
     import torch.multiprocessing as mp
 
+    from nerf_siren_tpu_torch.parallel.multihost import rank_store, rank_threads
     from nerf_siren_tpu_torch.parallel.shard_train import batch_split_error
 
     err = batch_split_error(hparams.batch_size, len(devices))
     if err:
         raise SystemExit(err)
-    store_dir = tempfile.mkdtemp(prefix="nerf_torch_ranks_")
-    # CPU ranks share this process's intra-op threads
-    threads = max(1, torch.get_num_threads() // len(devices))
-    try:
-        mp.spawn(_rank_main, args=(hparams, [str(d) for d in devices],
-                                   os.path.join(store_dir, "store"), threads),
+    with rank_store() as store:
+        # CPU ranks share this process's intra-op threads
+        mp.spawn(_rank_main, args=(hparams, [str(d) for d in devices], store,
+                                   rank_threads(len(devices))),
                  nprocs=len(devices), join=True)
-    finally:
-        shutil.rmtree(store_dir, ignore_errors=True)
 
 
 def _rank_main(rank: int, hparams, devices, store: str, threads: int) -> None:
     """One spawned rank: join the group, train on devices[rank] (on the CPU
-    with `threads` intra-op threads)."""
-    import torch.distributed as dist
-
-    from nerf_siren_tpu_torch.parallel.multihost import backend_for
-    from nerf_siren_tpu_torch.parallel.shard_train import DataParallel
+    with `threads` intra-op threads), leave the group."""
+    from nerf_siren_tpu_torch.parallel.multihost import local_group
 
     device = torch.device(devices[rank])
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    else:
-        torch.set_num_threads(threads)
-    dist.init_process_group(backend_for(device.type), init_method=f"file://{store}",
-                            world_size=len(devices), rank=rank)
-    try:
-        train(hparams, device, DataParallel())
-    finally:
-        dist.destroy_process_group()
+    with local_group(device, store, len(devices), rank, threads) as dp:
+        train(hparams, device, dp)
 
 
 def train(hparams, device, dp=None, multihost: bool = False):

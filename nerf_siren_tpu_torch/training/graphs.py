@@ -211,6 +211,13 @@ class StepGroup:
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
 
+    def release(self) -> None:
+        """Free the captured graph and its static tensors (captured again at
+        the next call)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph, self.static, self.out = None, {}, None
+
     def loop(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The body as a plain loop over `inputs`, uncaptured: the CPU's
         route, and on a card the plain version a graph is held against.

@@ -146,6 +146,18 @@ class GroupedSteps:
         self._groups: Dict[tuple, StepGroup] = {}
         self.last_group: Optional[StepGroup] = None   # of the last grouped call
         self.dp = data_parallel     # parallel/shard_train.py::DataParallel, or None
+        if data_parallel is not None:
+            data_parallel.systems.add(self)
+
+    def release_groups(self) -> None:
+        """Free the groups' CUDA graphs and drop the groups (built again at
+        the next grouped call), also while an error's traceback keeps a
+        group alive. A graph that captured an all-reduce holds the process
+        group's communicator until it is freed."""
+        for group in self._groups.values():
+            group.release()
+        self._groups.clear()
+        self.last_group = None
 
     def local_draws(self, draws: Dict[str, torch.Tensor], n_local: int
                     ) -> Dict[str, torch.Tensor]:
@@ -374,7 +386,7 @@ class NeRFSystem(GroupedSteps):
                        noise: Optional[StepNoise] = None):
         """The step's losses, outputs and parameter gradients (the
         parameters are not changed); the draws come from `generator` or are
-        `noise`."""
+        `noise`. The backward is the device span `step.backward`."""
         cfg = self.render_cfg.replace(test_time=False)
         params = [p for _, _, p in parameters(state.models)]
         for p in params:
@@ -385,7 +397,8 @@ class NeRFSystem(GroupedSteps):
         if proxy_loss is not None:
             losses = dict(losses, proxy=proxy_loss,
                           sum=losses["sum"] + self.proxy_lambda * proxy_loss)
-        losses["sum"].backward()
+        with tracing.device_span("step.backward", self.device):
+            losses["sum"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p in params:
             p.grad = None

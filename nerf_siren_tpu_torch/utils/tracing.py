@@ -16,17 +16,23 @@
   one per call would add two small kernels to every call, which the
   device trace would show). `counters()` sums what is left and reads them
   all (one synchronisation per device counter).
+- `device_span(name, device)`: a `span`, and on a CUDA device also a pair
+  of timing events recorded on the device's current stream at its entry
+  and exit (none while the stream captures a CUDA graph): the span's
+  stretch of the stream, which `device_times()` reads once the work is
+  done (the traced slice ends in a synchronise). Nothing is recorded,
+  allocated or synchronised while tracing is off.
 - `count_launch(counts, key)`: adds one to a kernel wrapper's `LAUNCHES`
   dict (kept in the kernel's module), whether tracing is on or not (tests
   and `chip_smoke.py` read them).
 
-Spans and the two counters above record only while a `torch.profiler`
-records (`torch.autograd._profiler_enabled()`) or between `enable()` and
-`disable()`. Off, a span costs one check and returns a shared no-op: no
-clock read, no allocation, no device work. Spans are not profiler
-annotations (`record_function`): the benchmark takes every device event of
-a name it does not know for a device operation, and an annotation would
-count as busy time on the card.
+Spans, device spans and the two counters above record only while a
+`torch.profiler` records (`torch.autograd._profiler_enabled()`) or between
+`enable()` and `disable()`. Off, a span costs one check and returns a
+shared no-op: no clock read, no allocation, no device work. Spans are not
+profiler annotations (`record_function`): the benchmark takes every device
+event of a name it does not know for a device operation, and an annotation
+would count as busy time on the card.
 """
 from __future__ import annotations
 
@@ -61,6 +67,8 @@ _host: Dict[str, int] = {}
 _device: Dict[tuple, torch.Tensor] = {}          # (name, device) -> int64 counter
 _pending: Dict[tuple, List[torch.Tensor]] = {}   # (name, device) -> masks not summed yet
 _launch_lock = threading.Lock()
+# (span id, start event, end event) of the device spans on a card
+_timed: "collections.deque[tuple]" = collections.deque(maxlen=MAX_RECORDS)
 
 
 def enable() -> None:
@@ -103,6 +111,29 @@ class _Span:
         return False
 
 
+class _DeviceSpan(_Span):
+    __slots__ = ("device", "begin")
+
+    def __init__(self, name: str, device: torch.device):
+        super().__init__(name)
+        self.device = device
+
+    def __enter__(self):
+        super().__enter__()
+        self.begin = None
+        if self.device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+            self.begin = torch.cuda.Event(enable_timing=True)
+            self.begin.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        if self.begin is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            _timed.append((self.id, self.begin, end))
+        return super().__exit__(*exc)
+
+
 class _Off:
     __slots__ = ()
 
@@ -121,6 +152,25 @@ def span(name: str):
     if _enabled or _profiler_enabled():
         return _Span(name)
     return _OFF
+
+
+def device_span(name: str, device):
+    """`span(name)` that also times its stretch of `device`'s current stream
+    when that is a CUDA device (a no-op while off)."""
+    if _enabled or _profiler_enabled():
+        return _DeviceSpan(name, torch.device(device))
+    return _OFF
+
+
+def device_times() -> Dict[int, float]:
+    """Device milliseconds of each device span on a card, by span id: the
+    time between its two events on the stream (each end event waited for,
+    so read it once the traced work has been synchronised)."""
+    out = {}
+    for span_id, begin, end in list(_timed):
+        end.synchronize()
+        out[span_id] = begin.elapsed_time(end)
+    return out
 
 
 def records() -> List[Record]:
@@ -194,9 +244,11 @@ def counters() -> Dict[str, int]:
 
 
 def reset() -> None:
-    """Clear the spans and the host and device counters."""
+    """Clear the spans, the device spans' events and the host and device
+    counters."""
     with _lock:
         _records.clear()
+        _timed.clear()
         _host.clear()
         _device.clear()
         _pending.clear()

@@ -395,11 +395,16 @@ def grouped_call(kind):
 
 @pytest.mark.parametrize("kind", ["batches", "pool", "importance"])
 def test_grouped_call_spans(kind, traced):
+    """The group's spans; on the CPU the group's two steps run eagerly inside
+    `group.launch`, each backward a `step.backward` (on a card the captured
+    graph's body opens no span)."""
     grouped_call(kind)
     recs = by_start(tracing.records())
-    assert [r.name for r in recs] == ["group", "group.h2d", "group.draws", "group.launch"]
-    group = recs[0]
-    assert all(r.parent == group.id and r.request == group.id for r in recs[1:])
+    assert [r.name for r in recs] == ["group", "group.h2d", "group.draws", "group.launch",
+                                      "step.backward", "step.backward"]
+    group, launch = recs[0], recs[3]
+    assert all(r.parent == group.id and r.request == group.id for r in recs[1:4])
+    assert all(r.parent == launch.id and r.request == group.id for r in recs[4:])
     assert recs[1].end <= recs[2].start and recs[2].end <= recs[3].start
 
 
@@ -452,3 +457,86 @@ def test_off_no_clock_and_no_extra_operations(what, scene, monkeypatch):
         tracing.disable()
     assert on == off
     assert tracing.records()
+
+
+# ---- the semantic step's device spans and cloud counters -------------------------
+
+def d3_step():
+    """One eager `--mode d3` step (PointNet, 32 rays at 8 + 8 samples, every
+    sample in the cloud) on the CPU."""
+    from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
+
+    torch.manual_seed(0)
+    system = NeRF3DSystem(RenderConfig(n_samples=8, n_importance=8, perturb=1.0, noise_std=1.0),
+                          TrainConfig(loss_type="msenll", lr=5e-3, batch_size=32),
+                          NeRFConfig(depth=2, width=32, skips=()), steps_per_epoch=10,
+                          point_capacity=32 * 16, device="cpu")
+    state = system.init_state(0)
+    rays, rgbs = tiny_rays(32)
+    labels = np.random.default_rng(3).integers(0, 6, 32)
+    system.train_step(state, {"rays": rays, "rgbs": rgbs, "cls": labels}, 1)
+
+
+def test_d3_step_spans_and_counters(traced):
+    """Each pass's cloud, point network and scatter, then the backward; the
+    slots are K a pass and the valid points among them; the CPU has no
+    stream to time, so no device span holds events."""
+    d3_step()
+    recs = by_start(tracing.records())
+    assert [r.name for r in recs] == ["d3.cloud", "d3.points", "d3.scatter"] * 2 + \
+        ["step.backward"]
+    counts = tracing.counters()
+    assert counts["d3.cloud_slots"] == 32 * 8 + 32 * 16
+    assert 0 < counts["d3.cloud_valid"] < counts["d3.cloud_slots"]
+    assert tracing.device_times() == {}
+
+
+def test_d3_step_off_records_nothing_and_adds_no_operation(monkeypatch):
+    """Off, the semantic step reads no clock, records nothing and runs the
+    same tensor operations as with every tracing call made a no-op; on, the
+    spans add none either (the device counter, which does, made a no-op)."""
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "time", NoClock)
+        off = op_log(d3_step)
+    assert tracing.records() == [] and tracing.counters() == {}
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "span", lambda name: tracing._OFF)
+        m.setattr(tracing, "device_span", lambda name, device: tracing._OFF)
+        m.setattr(tracing, "count", lambda *a: None)
+        m.setattr(tracing, "count_device", lambda *a: None)
+        without = op_log(d3_step)
+    assert off == without and len(off) > 200
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "count_device", lambda *a: None)
+        tracing.enable()
+        on = op_log(d3_step)
+        tracing.disable()
+    assert on == off and tracing.records()
+
+
+@pytest.mark.cuda
+def test_device_span_times_its_stretch_of_the_stream():
+    """On a card a device span's events bound the work it enqueued; off, and
+    while a stream captures a CUDA graph, it records none."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card visible")
+    dev = torch.device("cuda", 0)
+    x = torch.randn(4096, 4096, device=dev)
+    with tracing.device_span("off", dev):
+        x @ x
+    tracing.enable()
+    with tracing.device_span("mm", dev):
+        for _ in range(8):
+            x = x @ x / 64
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            with tracing.device_span("captured", dev):
+                y = x @ x
+    tracing.disable()
+    torch.cuda.synchronize(dev)
+    times = tracing.device_times()
+    by_name = {r.name: r.id for r in tracing.records()}
+    assert set(times) == {by_name["mm"]} and times[by_name["mm"]] > 0
+    assert "off" not in by_name and y.shape == x.shape
