@@ -10,12 +10,13 @@ inc=6)` of the reference):
   feature broadcast and concatenated with the 64-wide point feature (1088);
 - the dense head 512 / 256 / 128 with BN and ReLU, then k classes and a
   per-point `log_softmax`.
-The cloud has a fixed capacity with a validity mask. BatchNorm uses the
-masked statistics of this call's valid points, in training and in
-evaluation alike, as the JAX function does: `nn.BatchNorm1d`'s running
-statistics would be another function, so BN is `masked_bn`, and its
-parameters are the JAX tree's `scale` and `bias`. A max-pool column with
-no valid point is 0.
+The cloud has a fixed capacity with a validity mask, or no mask when every
+row is a point (the valid prefix of `render/rendering_3d.py`'s eager
+cloud). BatchNorm uses the masked statistics of this call's valid points,
+in training and in evaluation alike, as the JAX function does:
+`nn.BatchNorm1d`'s running statistics would be another function, so BN
+is `masked_bn`, and its parameters are the JAX tree's `scale` and `bias`.
+A max-pool column with no valid point is 0.
 """
 from __future__ import annotations
 

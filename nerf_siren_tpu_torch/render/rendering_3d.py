@@ -9,24 +9,34 @@ Counterpart of `nerf_siren_tpu/render/rendering_3d.py`. The ray march is
    time, 0 in training, or `cls_threshold`);
 2. divides their xyz by the valid cloud's Frobenius norm ('frob'), or by
    its per-point RMS ('rms'), held constant (no gradient);
-3. runs the point network on the (K, 6) [xyz, rgb] cloud with the mask;
+3. runs the point network on the cloud's valid points;
 4. scatters the valid points' log-probabilities back to (R, S, C) (zeros
    elsewhere) and composites cls = sum_s w_s cls_s.
-The count of valid points stays a device tensor: nothing here reads the
-device from the host, so a training step can be captured in a CUDA graph.
+The weights are sorted in descending order, so the valid points are the
+cloud's first m slots. Eager, step 3 reads m on the host (one
+synchronisation a pass) and runs the point network on those (m, 6) rows
+alone, with no mask: its BatchNorm and max-pools over them are the masked
+ones of the K-slot cloud, and an empty cloud runs no network (its outputs
+are the zeros the mask would leave). While the stream is captured into a
+CUDA graph (`_capturing`), which refuses a host read and needs a static
+shape, the network runs on all K slots of the (K, 6) [xyz, rgb] cloud
+with the mask, and the invalid slots' outputs are zeroed.
 Under data parallelism (`data_parallel`, a `parallel/shard_train.py::
 DataParallel`) the ranks all-gather the per-ray xyz, rgb and weights, so
 every rank builds JAX's one cloud of the global batch (its top-K, its
-norm, the point network's batch norm and max-pool), and each keeps the
-class outputs of its own rays.
+norm, its m, the point network's batch norm and max-pool), and each keeps
+the class outputs of its own rays.
 Spans (`utils/tracing.py`, device spans: each also times its stretch of
 the stream on a card): `d3.cloud` (steps 1-2: the sort, the gathers, the
 norm), `d3.points` (step 3's forward) and `d3.scatter` (step 4); counters
-`d3.cloud_valid` (the cloud's valid points, on the device) and
-`d3.cloud_slots` (its K slots, on the host), once a pass.
+`d3.cloud_valid` (the cloud's valid points, on the device),
+`d3.cloud_slots` (its K slots, on the host) and `d3.points_rows` (the rows
+the point network ran on: m, or K under a capture; on the host), once a
+pass.
 With `no_grad_on_nerf` the NeRF runs without autograd and only the point
-network trains (its parameters then get no gradient, which the system
-reads as zeros, as JAX's are).
+network trains (the fields' parameters then get no gradient, nor the
+point network's after empty clouds; the system reads those as zeros, as
+JAX's are).
 """
 from __future__ import annotations
 
@@ -40,14 +50,19 @@ from nerf_siren_tpu_torch.render.rendering import StepNoise, _field, render_rays
 from nerf_siren_tpu_torch.utils import tracing
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether `t`'s device stream is being captured into a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def semantic_from_weights(points: nn.Module, xyz: torch.Tensor, rgbs: torch.Tensor,
                           weights: torch.Tensor, *, n_classes: int, threshold: float,
                           point_capacity: int, point_norm: str = "frob",
                           data_parallel=None) -> torch.Tensor:
     """Steps 1-4 above: xyz, rgbs (R, S, 3), weights (R, S) -> (R, n_classes).
-    `points` maps (K, 6) points and a (K,) mask to (K, n_classes)
-    log-probabilities. With `data_parallel` the cloud is the global batch's
-    and the rows returned this rank's."""
+    `points` maps (P, 6) points and a (P,) mask (None: every point) to
+    (P, n_classes) log-probabilities. With `data_parallel` the cloud is the
+    global batch's and the rows returned this rank's."""
     if data_parallel is not None:
         r_local = xyz.shape[0]
         g = data_parallel.gather_rows
@@ -73,8 +88,14 @@ def semantic_from_weights(points: nn.Module, xyz: torch.Tensor, rgbs: torch.Tens
         pts = torch.cat([xyz_sel / norm, rgb_sel], dim=-1)               # (K, 6)
     tracing.count_device("d3.cloud_valid", valid)
     tracing.count("d3.cloud_slots", k)
+    m = None if _capturing(valid) else int(valid.sum())    # the valid prefix's length
+    tracing.count("d3.points_rows", k if m is None else m)
     with tracing.device_span("d3.points", xyz.device):
-        preds = torch.where(valid[:, None], points(pts, valid), 0.0)     # (K, C)
+        if m is None:
+            preds = torch.where(valid[:, None], points(pts, valid), 0.0)     # (K, C)
+        else:
+            idx = idx[:m]
+            preds = points(pts[:m], None) if m else pts.new_zeros((0, n_classes))  # (m, C)
     with tracing.device_span("d3.scatter", xyz.device):
         cls = preds.new_zeros((n, n_classes)).index_copy(0, idx, preds)
         return (weights[..., None] * cls.reshape(r, s, n_classes)).sum(dim=-2)

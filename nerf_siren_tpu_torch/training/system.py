@@ -386,7 +386,9 @@ class NeRFSystem(GroupedSteps):
                        noise: Optional[StepNoise] = None):
         """The step's losses, outputs and parameter gradients (the
         parameters are not changed); the draws come from `generator` or are
-        `noise`. The backward is the device span `step.backward`."""
+        `noise`. The backward is the device span `step.backward`; a loss
+        that reaches no parameter (d3's frozen fields and clouds with no
+        valid point) has none, and every gradient is zero."""
         cfg = self.render_cfg.replace(test_time=False)
         params = [p for _, _, p in parameters(state.models)]
         for p in params:
@@ -398,7 +400,8 @@ class NeRFSystem(GroupedSteps):
             losses = dict(losses, proxy=proxy_loss,
                           sum=losses["sum"] + self.proxy_lambda * proxy_loss)
         with tracing.device_span("step.backward", self.device):
-            losses["sum"].backward()
+            if losses["sum"].requires_grad:
+                losses["sum"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p in params:
             p.grad = None

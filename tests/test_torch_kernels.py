@@ -6,7 +6,8 @@ and K4's wide kernel (csrc/fused_mlp_wide.cu: widths above 512, depths
 above 16), the triplane gather (K5, csrc/triplane_gather.cu) and the proxy
 top-K (K6, the TOPK epilogue of csrc/proxy_march.cu; K3 and K6 above
 MAX_CANDIDATES on their device-scratch kernel); and on the card, the grouped
-steps' CUDA graphs (the MLP field on K2, SIREN and d3) against eager or
+steps' CUDA graphs (the MLP field on K2, SIREN and d3; d3's graph on its
+masked cloud, its loop on the valid prefix) against eager or
 looped steps, a d3 fast tile on K3 and K1 against their plain versions,
 a fast frame that makes no host synchronisation, EG3D's grouped steps on a graph against their loop and a fast EG3D tile
 on K3 against K3's plain version.
@@ -1417,6 +1418,90 @@ def test_grouped_steps_of_d3_and_siren_on_a_graph_match_their_loop(cuda_device, 
             assert all(s for k, s in zip(keys, same) if k != "points")
             moved = [not s for k, s in zip(keys, same) if k == "points"]
             assert sum(moved) >= len(moved) // 2, moved
+
+
+# d3's grouped steps (the masked cloud) against their loop (the valid prefix):
+# the d3 cell's `loss_gap` limit (benchmark/workloads/d3_pointnet_blender.
+# train.json), whose plain reference runs PointNet on the valid points alone.
+# From the same weights the two paths differ by their sums' order alone;
+# after an update Adam's first step, lr x sign(g) an element, moves the
+# elements whose gradient is round-off by 2 lr (up to 2.9e-6 of the loss
+# over 3 steps on an H100); a capped cloud (capacity 8192, another function)
+# must fail
+D3_LOSS_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+def test_grouped_d3_steps_keep_the_masked_cloud_on_a_graph(cuda_device):
+    """A group of 3 d3 steps whose clouds hold every sample (capacity 1024 x
+    192, so part of each cloud is padding) as one captured CUDA graph: every
+    PointNet call of the capture runs all K slots with the mask (the eager
+    pass's host read of the valid count would break the capture), while
+    the warm-up step and the same body as a plain loop run the valid prefix
+    alone, with no mask. A replay runs under
+    `torch.cuda.set_sync_debug_mode("error")`. The graph's losses against
+    the loop's: the first (same weights) within GROUP_LOSS_RTOL, every one
+    within D3_LOSS_RTOL; the loop of a capped cloud must exceed that."""
+    from nerf_siren_tpu_torch.config import RenderConfig, TrainConfig
+    from nerf_siren_tpu_torch.training.graphs import StepGroup
+    from nerf_siren_tpu_torch.training.semantic_system import NeRF3DSystem
+
+    n, b = 3, 1024
+
+    def d3_system(capacity):
+        return NeRF3DSystem(RenderConfig(n_samples=64, n_importance=128, perturb=1.0,
+                                         noise_std=1.0, white_back=True),
+                            TrainConfig(lr=5e-4, decay_step=(20,), batch_size=b,
+                                        loss_type="msenll"),
+                            NeRFConfig(), 1000, point_capacity=capacity, device=cuda_device)
+
+    system, capped_system = d3_system(b * 192), d3_system(8192)
+    looped = system.init_state(0)
+    grouped, capped = (s.state_for({k: copy.deepcopy(m) for k, m in looped.models.items()})
+                       for s in (system, capped_system))
+    calls = []
+
+    def record(module, args):
+        pts, mask = args
+        calls.append((torch.cuda.is_current_stream_capturing(), pts.shape[0],
+                      None if mask is None else int(mask.shape[0])))
+
+    rays, rgbs = _synthetic_rays((n, b), cuda_device)
+    cls = torch.randint(0, 6, (n, b), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(2))
+    batch = {"rays": rays, "rgbs": rgbs, "cls": cls}
+    inputs = capped_system.group_inputs(capped, "batches", batch, 11, n, b)
+    other = StepGroup(capped_system, capped, "batches", n).loop(inputs)[:, 0].tolist()
+    inputs = system.group_inputs(looped, "batches", batch, 11, n, b)
+    hook = looped.models["points"].register_forward_pre_hook(record)
+    want = StepGroup(system, looped, "batches", n).loop(inputs)[:, 0].tolist()
+    hook.remove()
+    hook = grouped.models["points"].register_forward_pre_hook(record)
+    grouped, _ = system.train_scan_batches(grouped, rays, rgbs, 11, cls_b=cls)
+    hook.remove()
+    got = system.last_group.steps[:, 0].tolist()
+    loop_calls, warm_calls, graph_calls = calls[:2 * n], calls[2 * n:2 * n + 2], calls[2 * n + 2:]
+    slots = [b * 64, b * 192]                 # K of the coarse and the fine cloud
+    assert [c[0] for c in calls] == [False] * (2 * n + 2) + [True] * (2 * n)
+    assert all(mask is None and 0 < rows < k for (_, rows, mask), k
+               in zip(loop_calls + warm_calls, slots * (n + 1)))
+    assert [(rows, mask) for _, rows, mask in graph_calls] == [(k, k) for k in slots * n]
+    inputs = system.group_inputs(grouped, "batches", batch, 11, n, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        system.last_group.run(inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    loss_rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    capped_rel = abs(other[0] - want[0]) / abs(want[0])
+    print(f"d3, every sample in the cloud: graph (masked) vs loop (valid prefix): relative loss "
+          f"difference by step {[f'{v:.3e}' for v in loss_rel]}; a capped cloud's first step "
+          f"{capped_rel:.3e}; the loop's PointNet rows {[c[1] for c in loop_calls]} of {slots}")
+    assert loss_rel[0] <= GROUP_LOSS_RTOL, loss_rel
+    assert max(loss_rel) <= D3_LOSS_RTOL, loss_rel
+    assert capped_rel > D3_LOSS_RTOL, capped_rel
 
 
 # class ids of a d3 fast tile on the kernels must equal the plain versions'
